@@ -1,0 +1,3 @@
+from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig  # noqa: F401
+from deepspeed_tpu_torch.inference.engine import InferenceEngine  # noqa: F401
+from deepspeed_tpu_torch.inference.weights import llama_params_from_numpy  # noqa: F401
