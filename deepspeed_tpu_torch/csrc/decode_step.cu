@@ -17,56 +17,31 @@
 //    guard). Reads never depend on that write landing: the staged chunk takes
 //    row idx[b] from k_new/v_new directly (the TPU kernel's in-register
 //    splice, :314-352).
-//  * The valid prefix 0..min(idx, S-1) is walked in chunks of K and V rows
-//    copied into shared memory with cp.async (16 bytes a copy, no registers
-//    held), double-buffered: the next chunk's copies are in flight while the
-//    block computes on this one, which is what keeps HBM streaming (the TPU
-//    kernel's make_async_copy double buffer). Scores: products of the stored
-//    values summed in f32, then times `scale`; online softmax over (m, l, acc)
-//    in f32; probabilities are rounded to the cache dtype before P.V (:399)
-//    and the output is acc / max(l, 1e-20), cast once (:418-420).
-#include <math_constants.h>
-
-#include "common.cuh"
+//  * The valid prefix 0..min(idx, S-1) is walked by the attention body
+//    shared with the block-pool kernel (decode_attend.cuh): K/V chunks
+//    copied into shared memory with cp.async, double-buffered, so HBM keeps
+//    streaming while the block computes (the TPU kernel's make_async_copy
+//    double buffer). Scores: products of the stored values summed in f32,
+//    then times `scale`; online softmax over (m, l, acc) in f32;
+//    probabilities are rounded to the cache dtype before P.V (:399) and the
+//    output is acc / max(l, 1e-20), cast once (:418-420).
+#include "decode_attend.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxPerThread = 16;  // rep * dh <= kThreads * kMaxPerThread
+using namespace dst::attend;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Start the copies of K and V rows c0..c0+cn-1 of one head into shared
-// memory (row idx from k_new/v_new) as one cp.async group.
+// Rows of one contiguous [S, Dh] cache head.
 template <typename T>
-__device__ __forceinline__ void stage_chunk(T* k_dst, T* v_dst, const T* kh, const T* vh,
-                                            const T* knh, const T* vnh, int c0, int cn,
-                                            int idx, int dh) {
-  constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte copy
-  const int vpr = dh / kVec;
-  for (int i = threadIdx.x; i < cn * vpr; i += kThreads) {
-    const int p = i / vpr, v = (i - p * vpr) * kVec;
-    const int pos = c0 + p;
-    const T* ks = pos == idx ? knh : kh + (size_t)pos * dh;
-    const T* vs = pos == idx ? vnh : vh + (size_t)pos * dh;
-    cp_async16(k_dst + (size_t)p * dh + v, ks + v);
-    cp_async16(v_dst + (size_t)p * dh + v, vs + v);
-  }
-  cp_async_commit();
-}
+struct SlotRows {
+  const T* k;
+  const T* v;
+  int dh;
+  __device__ const T* krow(int pos) const { return k + (size_t)pos * dh; }
+  __device__ const T* vrow(int pos) const { return v + (size_t)pos * dh; }
+  __device__ float kscale(int) const { return 0.f; }  // unquantized
+  __device__ float vscale(int) const { return 0.f; }
+};
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -78,16 +53,6 @@ fused_decode_step_kernel(const T* __restrict__ q, T* kc, T* vc,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int kvh = blockIdx.x, b = blockIdx.y;
   const int rep = hq / hkv;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t buf_elems = (size_t)cs * dh;
-  T* k_sh = reinterpret_cast<T*>(smem_raw);       // [2][cs][dh]
-  T* v_sh = k_sh + 2 * buf_elems;                 // [2][cs][dh]
-  float* q_sh = reinterpret_cast<float*>(v_sh + 2 * buf_elems);  // [rep][dh]
-  float* p_sh = q_sh + rep * dh;                  // [rep][cs] scores, then probs
-  float* m_sh = p_sh + rep * cs;                  // [rep] running max
-  float* l_sh = m_sh + rep;                       // [rep] running sum
-  float* c_sh = l_sh + rep;                       // [rep] this chunk's rescale
-
   const int idx = idx_vec ? idx_vec[b] : idx_scalar;
   const size_t head = (((size_t)layer * nb + b) * hkv + kvh) * (size_t)s_max * dh;
   T* kh = kc + head;
@@ -97,98 +62,16 @@ fused_decode_step_kernel(const T* __restrict__ q, T* kc, T* vc,
 
   // 1. the cache write, dropped past the allocation
   if (idx >= 0 && idx < s_max) {
-    for (int i = tid; i < dh; i += kThreads) {
+    for (int i = threadIdx.x; i < dh; i += kThreads) {
       kh[(size_t)idx * dh + i] = knh[i];
       vh[(size_t)idx * dh + i] = vnh[i];
     }
   }
-  // 2. the first chunk's copies start; this kv head's rep query rows and the
-  // softmax state meanwhile
-  const int n_pos = min(idx, s_max - 1) + 1;  // positions 0..min(idx, S-1)
-  const int n_chunks = n_pos > 0 ? (n_pos + cs - 1) / cs : 0;
-  if (n_chunks > 0) stage_chunk(k_sh, v_sh, kh, vh, knh, vnh, 0, min(cs, n_pos), idx, dh);
-  for (int i = tid; i < rep * dh; i += kThreads)
-    q_sh[i] = dst::to_f32(q[((size_t)b * hq + (size_t)kvh * rep) * dh + i]);
-  if (tid < rep) {
-    m_sh[tid] = -CUDART_INF_F;
-    l_sh[tid] = 0.f;
-  }
-  float acc[kMaxPerThread];
-#pragma unroll
-  for (int j = 0; j < kMaxPerThread; ++j) acc[j] = 0.f;
-
-  for (int c = 0; c < n_chunks; ++c) {
-    const int c0 = c * cs, cn = min(cs, n_pos - c0);
-    const size_t cur = (size_t)(c & 1) * buf_elems, nxt = buf_elems - cur;
-    // 3. the next chunk's copies go out; wait for this one's
-    if (c + 1 < n_chunks) {
-      stage_chunk(k_sh + nxt, v_sh + nxt, kh, vh, knh, vnh, c0 + cs,
-                  min(cs, n_pos - c0 - cs), idx, dh);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // this chunk (and q/state) visible to every thread
-    const T* kb = k_sh + cur;
-    const T* vb = v_sh + cur;
-    // 4. scores, one warp per position
-    for (int p = warp; p < cn; p += kWarps) {
-      const T* krow = kb + (size_t)p * dh;
-      for (int r = 0; r < rep; ++r) {
-        float part = 0.f;
-        for (int i = lane; i < dh; i += 32)
-          part = fmaf(q_sh[r * dh + i], dst::to_f32(krow[i]), part);
-        part = dst::warp_sum(part);
-        if (lane == 0) p_sh[r * cs + p] = part * scale;
-      }
-    }
-    __syncthreads();
-    // 5. online softmax update, one warp per query row
-    for (int r = warp; r < rep; r += kWarps) {
-      float mx = -CUDART_INF_F;
-      for (int p = lane; p < cn; p += 32) mx = fmaxf(mx, p_sh[r * cs + p]);
-      mx = dst::warp_max(mx);
-      const float m_old = m_sh[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int p = lane; p < cn; p += 32) {
-        const float e = expf(p_sh[r * cs + p] - m_new);
-        p_sh[r * cs + p] = e;
-        sum += e;
-      }
-      sum = dst::warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);  // 0 on the first chunk
-        c_sh[r] = corr;
-        l_sh[r] = l_sh[r] * corr + sum;
-        m_sh[r] = m_new;
-      }
-    }
-    __syncthreads();
-    // 6. P.V with p rounded to the cache dtype; each thread owns (row, col)s
-#pragma unroll
-    for (int j = 0; j < kMaxPerThread; ++j) {
-      const int i = tid + j * kThreads;
-      if (i < rep * dh) {
-        const int r = i / dh, col = i % dh;
-        const float* prow = p_sh + r * cs;
-        float a = acc[j] * c_sh[r];
-        for (int p = 0; p < cn; ++p) {
-          const float pb = dst::to_f32(dst::from_f32<T>(prow[p]));
-          a = fmaf(pb, dst::to_f32(vb[(size_t)p * dh + col]), a);
-        }
-        acc[j] = a;
-      }
-    }
-    __syncthreads();  // this buffer is restaged by the next iteration
-  }
-  // 7. normalise and cast once
-  T* orow = out + ((size_t)b * hq + (size_t)kvh * rep) * dh;
-#pragma unroll
-  for (int j = 0; j < kMaxPerThread; ++j) {
-    const int i = tid + j * kThreads;
-    if (i < rep * dh) orow[i] = dst::from_f32<T>(acc[j] / fmaxf(l_sh[i / dh], 1e-20f));
-  }
+  // 2. attend over positions 0..min(idx, S-1)
+  const int n_pos = min(idx, s_max - 1) + 1;
+  const size_t qo = ((size_t)b * hq + (size_t)kvh * rep) * dh;
+  attend<T, T, false>(q + qo, SlotRows<T>{kh, vh, dh}, knh, vnh, 0.f, 0.f, idx,
+                      n_pos, out + qo, rep, dh, cs, scale, smem_raw);
 }
 
 template <typename T>
@@ -196,11 +79,8 @@ cudaError_t launch(const void* q, void* kc, void* vc, const void* kn, const void
                    void* out, const int* idx_vec, int idx_scalar, int layer, int nb,
                    int hq, int hkv, int s_max, int dh, float scale, cudaStream_t st) {
   const int rep = hq / hkv;
-  // chunk rows: one buffer of K + V rows stays within 32 KB (two in flight)
-  int cs = 16384 / (dh * (int)sizeof(T));
-  cs = cs > 64 ? 64 : (cs < 8 ? 8 : cs);
-  const size_t smem = 4 * (size_t)cs * dh * sizeof(T)
-                    + ((size_t)rep * dh + (size_t)rep * cs + 3 * (size_t)rep) * sizeof(float);
+  const int cs = chunk_rows<T>(dh);
+  const size_t smem = smem_bytes<T>(rep, dh, cs, false);
   // raise the dynamic shared-memory cap once per size (before any graph
   // capture: the first call of a shape is never captured)
   static size_t allowed = 48 * 1024;
@@ -229,7 +109,8 @@ extern "C" int dst_fused_decode_step(const void* q, void* k, void* v,
                                      void* out, const void* idx, int idx_scalar,
                                      int layer, int b, int hq, int hkv, int s_max,
                                      int dh, float scale, int dtype, void* stream) {
-  if (hkv <= 0 || hq % hkv != 0 || (hq / hkv) * dh > kThreads * kMaxPerThread)
+  if (hkv <= 0 || hq % hkv != 0 ||
+      (hq / hkv) * dh > dst::attend::kThreads * dst::attend::kMaxPerThread)
     return cudaErrorInvalidValue;
   const int* iv = static_cast<const int*>(idx);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

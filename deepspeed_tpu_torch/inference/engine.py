@@ -1,15 +1,17 @@
-"""Inference engine of the PyTorch port (port of the slot-serving half of
+"""Inference engine of the PyTorch port (port of the serving half of
 deepspeed_tpu/inference/engine.py).
 
 What it owns: the parameters on the device in the serving dtype (random,
 from ``config.seed``, or handed in — e.g. from the weight bridge), optional
 weight-only int8 quantization of the stacked block matmul weights
 (per-layer, per-output-column scales ``[L, 1, E]``, as
-``_quantize_block_weights``), the no-cache forward, and the two programs the
-continuous-batching server drives: the slot-insert prefill and the
-per-slot decode step. JAX ``jit`` programs become plain closures; the
-persistent slot cache is updated in place instead of being donated.
-Selection is greedy (argmax, first index on ties); sampling is not ported.
+``_quantize_block_weights``), the no-cache forward, and the programs the
+continuous-batching server drives: the slot-paged prefill and decode step,
+and their block-paged analogs (suffix prefill, decode through the block
+table, the copy-on-write block copy). JAX ``jit`` programs become plain
+closures; the persistent caches are updated in place instead of being
+donated. Selection is greedy (argmax, first index on ties); sampling is not
+ported.
 """
 
 from __future__ import annotations
@@ -163,3 +165,84 @@ class InferenceEngine:
 
             self._programs[key] = decode
         return self._programs[key]
+
+    # ------------------------------------------ block-paged serving programs
+    def block_prefill_program(self, bucket_len: int, num_slots: int,
+                              max_blocks: int) -> Callable:
+        """Suffix prefill against the block pool: run ONE request's
+        bucket-padded unmatched suffix through the pool with the slot's
+        ``[1, MB]`` table row. The suffix attends over the radix-matched
+        prefix already in the pool (``start`` = matched length) and its K/V
+        scatter through the table; pad positions land in the slot's private
+        blocks or the garbage row, never in a shared block (those lie below
+        ``start``). The slot's length becomes ``start + length``.
+
+        Signature: ``(params, k_pool, v_pool, lengths, ids[1, bucket],
+        table_row[1, MB], slot, start, length) -> (k_pool, v_pool, lengths,
+        first_token[])``; the pools are updated in place."""
+        key = ("blk_pf", bucket_len, num_slots, max_blocks)
+        if key not in self._programs:
+            model = self.module
+
+            @torch.no_grad()
+            def prefill(params, k_pool, v_pool, lengths, ids, table_row, slot,
+                        start, length):
+                idx = torch.full((1,), int(start), dtype=torch.int32,
+                                 device=ids.device)
+                cache = {"k": k_pool, "v": v_pool, "index": idx,
+                         "block_table": table_row}
+                logits, cache = model.forward_with_cache(params, ids, cache)
+                lengths[int(slot)] = int(start) + int(length)
+                last = logits[:, int(length) - 1]                 # [1, V]
+                return cache["k"], cache["v"], lengths, greedy_pick(last)[0]
+
+            self._programs[key] = prefill
+        return self._programs[key]
+
+    def block_decode_program(self, num_slots: int, max_blocks: int, *,
+                             pad_token_id: int = 0) -> Callable:
+        """Block-paged decode step: one token for every slot, K/V addressed
+        through the full ``[B, MB]`` block table (single-token steps on the
+        card run the block decode kernel, ops/decode_step). Inactive slots
+        carry sentinel tables: their writes land in the pool's garbage row.
+
+        Signature: ``(params, k_pool, v_pool, lengths[B], tables[B, MB],
+        tokens[B], active[B] bool) -> (k_pool, v_pool, lengths,
+        next_tokens[B])``."""
+        key = ("blk_dec", num_slots, max_blocks, pad_token_id)
+        if key not in self._programs:
+            model = self.module
+
+            @torch.no_grad()
+            def decode(params, k_pool, v_pool, lengths, tables, tokens,
+                       active):
+                cache = {"k": k_pool, "v": v_pool, "index": lengths,
+                         "block_table": tables}
+                logits, cache = model.forward_with_cache(
+                    params, tokens[:, None].long(), cache)
+                pad = torch.full_like(tokens, pad_token_id)
+                nxt = torch.where(active, greedy_pick(logits[:, -1]), pad)
+                lengths = torch.where(active, lengths + 1, lengths)
+                return cache["k"], cache["v"], lengths, nxt
+
+            self._programs[key] = decode
+        return self._programs[key]
+
+    @staticmethod
+    def block_copy_program() -> Callable:
+        """Copy-on-write fork: duplicate pool block ``src`` into ``dst`` in
+        both pools across every layer, payload and scales of a quantized
+        pool alike, so the fork dequantizes bit-identically to the shared
+        original. A plain tensor copy (the reference has no kernel for it).
+
+        Signature: ``(k_pool, v_pool, src, dst) -> (k_pool, v_pool)``."""
+
+        @torch.no_grad()
+        def copy(k_pool, v_pool, src, dst):
+            for pool in (k_pool, v_pool):
+                leaves = pool.values() if isinstance(pool, dict) else (pool,)
+                for leaf in leaves:
+                    leaf[:, int(dst)].copy_(leaf[:, int(src)])
+            return k_pool, v_pool
+
+        return copy

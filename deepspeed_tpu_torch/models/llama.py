@@ -136,8 +136,9 @@ class LlamaModel:
 
     # ----------------------------------------------------------- forward
     def _block(self, x, blk, cos, sin, cache):
-        """One block; with ``cache=(k_full, v_full, layer, idx)`` attention
-        runs against the stacked KV cache (written in place)."""
+        """One block; with ``cache=(k_full, v_full, layer, idx, block_table)``
+        attention runs against the stacked KV cache, or, with a block table,
+        the block pool (written in place)."""
         c = self.config
         b, t, _ = x.shape
         hq, hkv, dh = c.num_heads, c.num_kv_heads, c.head_dim
@@ -155,8 +156,9 @@ class LlamaModel:
             attn = multihead_attention(q, k, v, causal=True)
             kc = vc = None
         else:
-            kc, vc, layer, idx = cache
-            attn, kc, vc = cached_attention(q, kc, vc, k, v, layer, idx)
+            kc, vc, layer, idx, bt = cache
+            attn, kc, vc = cached_attention(q, kc, vc, k, v, layer, idx,
+                                            block_table=bt)
         x = x + qdot("bte,ed->btd", attn.reshape(b, t, hq * dh), blk["wo"])
         y = rms_norm(x, blk["mlp_norm"], c.eps)
         gate = F.silu(qdot("btd,dm->btm", y, blk["w_gate"]))
@@ -192,16 +194,22 @@ class LlamaModel:
         """Prefill (T > 1) or decode (T == 1) against the KV cache, written in
         place. ``cache["index"]`` is a python int or a per-slot ``[B]`` int32
         tensor (continuous batching): RoPE then rotates each row at its own
-        position and attention masks each row's own prefix."""
+        position and attention masks each row's own prefix. With
+        ``cache["block_table"]`` (int32 ``[B, MB]``) ``k``/``v`` are the block
+        pools (ops/attention.cached_attention), and the table is returned in
+        the cache dict."""
         c = self.config
         t = input_ids.shape[1]
         idx = cache["index"]
+        bt = cache.get("block_table")
         x = params["embed"].to(self.compute_dtype)[input_ids]
         cos, sin = self._rope_tables(x.device)
         kc, vc = cache["k"], cache["v"]
         for layer in range(c.num_layers):
             x, kc, vc = self._block(x, layer_view(params["blocks"], layer),
-                                    cos, sin, (kc, vc, layer, idx))
+                                    cos, sin, (kc, vc, layer, idx, bt))
         hidden = rms_norm(x, params["final_norm"], c.eps)
-        return self.logits(params, hidden), {"k": kc, "v": vc,
-                                             "index": idx + t}
+        out = {"k": kc, "v": vc, "index": idx + t}
+        if bt is not None:
+            out["block_table"] = bt
+        return self.logits(params, hidden), out

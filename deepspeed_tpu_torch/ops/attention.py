@@ -1,12 +1,14 @@
-"""Attention ops of the PyTorch port (the non-block half of
-deepspeed_tpu/ops/attention.py).
+"""Attention ops of the PyTorch port (port of deepspeed_tpu/ops/attention.py:
+the slot-cache and the block-pool paths).
 
-The port always keeps the logical unpacked stacked cache layout
-``[L, B, Hkv, S, Dh]``. Single-token decode on a CUDA tensor routes to the
-fused decode-step kernel (ops/decode_step.py); prefill blocks and CPU
-tensors take the plain path: an in-place cache write plus
-:func:`decode_attention`, as the JAX package leaves them to XLA. Caches are
-updated in place and returned for the reference's call shape.
+The port always keeps the logical unpacked layouts: the stacked slot cache
+``[L, B, Hkv, S, Dh]`` and the block pool ``[L, N+1, Hkv, bs, Dh]`` (or its
+quantized ``{"q", "s"}`` form, serving/kv_quant.py). Single-token decode on
+a CUDA tensor always routes to the fused decode-step kernels
+(ops/decode_step.py), whose wrappers raise on a geometry they do not take;
+prefill blocks and CPU tensors take the plain path: an in-place cache write
+plus :func:`decode_attention`, as the JAX package leaves them to XLA. Caches
+are updated in place and returned for the reference's call shape.
 """
 
 from __future__ import annotations
@@ -15,7 +17,11 @@ from typing import Optional, Union
 
 import torch
 
-from deepspeed_tpu_torch.ops.decode_step import fused_decode_step, supports
+from deepspeed_tpu_torch.ops.decode_step import (fused_block_decode_step,
+                                                 fused_decode_step)
+from deepspeed_tpu_torch.serving.kv_quant import (is_quantized_pool,
+                                                  kv_dequantize, kv_dtype_of,
+                                                  kv_quantize, pool_payload)
 
 _F32_MIN = torch.finfo(torch.float32).min
 
@@ -50,16 +56,28 @@ def cache_seq_len(k_full: torch.Tensor) -> int:
 
 def cached_attention(q, k_full, v_full, k_new, v_new, layer: int,
                      idx: Union[int, torch.Tensor], *,
-                     scale: Optional[float] = None):
+                     scale: Optional[float] = None, block_table=None):
     """One cached-attention layer step: write the new block's K/V at
     ``idx`` (a python int for a uniform batch, or a per-slot ``[B]`` int32
     tensor for continuous batching), attend, return
     ``(attn, k_full, v_full)``. Single-token steps on CUDA go to the fused
-    kernel; everything else takes the write + einsum path."""
-    t = q.shape[1]
-    if (t == 1 and q.device.type == "cuda"
-            and supports(q.shape[2], k_full.shape[2], k_full.shape[3],
-                         q.shape[3], q.element_size())):
+    kernel; everything else takes the write + einsum path.
+
+    ``block_table`` (int32 ``[B, MB]``) switches to the block-paged mode:
+    ``k_full``/``v_full`` are then the block pools (tensors or quantized
+    ``{"q", "s"}`` dicts), ``idx`` is the per-slot ``[B]`` length vector, and
+    logical position ``p`` of row ``b`` lives in pool block
+    ``block_table[b, p // bs]``, row ``p % bs``."""
+    if block_table is not None:
+        return _block_cached_attention(q, k_full, v_full, k_new, v_new,
+                                       layer, idx, block_table, scale=scale)
+    if is_quantized_pool(k_full):
+        raise ValueError(
+            "quantized KV pools are block-paged only: cached_attention got a "
+            "{'q','s'} cache without a block_table (serving must run with "
+            "prefix_cache=True to use kv_dtype)")
+    if q.shape[1] == 1 and q.device.type == "cuda":
+        # the kernel or its wrapper's ValueError, never the plain path
         return fused_decode_step(q, k_full, v_full, k_new, v_new, layer, idx,
                                  scale=scale)
     k_full, v_full, kl, vl = write_kv_cache(k_full, v_full, k_new, v_new,
@@ -101,6 +119,104 @@ def write_slot_prefix(k_full, v_full, k_pref, v_pref, slot: int):
     k_full[:, slot:slot + 1, :, :t_b] = k_pref.to(k_full.dtype)
     v_full[:, slot:slot + 1, :, :t_b] = v_pref.to(v_full.dtype)
     return k_full, v_full
+
+
+def pool_block_size(k_pool) -> int:
+    """Tokens per block of a (possibly quantized) block pool
+    ``[L, N+1, Hkv, bs, Dh]``."""
+    return pool_payload(k_pool).shape[3]
+
+
+def _write_rows(pool_layer: torch.Tensor, pb, wi, rows: torch.Tensor):
+    """``pool_layer[pb, :, wi] = rows`` in place; fp8 payloads are written
+    through their byte view (the same bits)."""
+    if pool_layer.dtype == torch.float8_e4m3fn:
+        pool_layer, rows = pool_layer.view(torch.uint8), rows.view(torch.uint8)
+    pool_layer[pb, :, wi] = rows.to(pool_layer.dtype)
+
+
+def write_kv_blocks(k_pool, v_pool, k_new, v_new, layer: int, idx,
+                    block_table):
+    """Scatter one step's new K/V ``[B, T, Hkv, Dh]`` into the block pools in
+    place through the per-slot block table: row b's token j lands at
+    logical position ``idx[b] + j``, i.e. pool block
+    ``block_table[b, pos // bs]``, row ``pos % bs``. Positions past the table
+    width go to the pool's last (garbage) row, never to a real block.
+
+    A quantized ``{"q", "s"}`` pool is quantized on store: each new token's
+    per-head scale is computed here (serving/kv_quant.kv_quantize) and
+    scatters beside its payload. Returns ``(k_pool, v_pool)``."""
+    payload = pool_payload(k_pool)
+    n_phys, bs = payload.shape[1], payload.shape[3]
+    t = k_new.shape[1]
+    mb = block_table.shape[1]
+    pos = idx.to(torch.long)[:, None] + torch.arange(t, device=idx.device)
+    jb = pos // bs
+    pb = torch.gather(block_table.to(torch.long), 1, jb.clamp(0, mb - 1))
+    pb = torch.where(jb < mb, pb, n_phys - 1)     # overflow -> garbage row
+    wi = pos % bs
+    if is_quantized_pool(k_pool):
+        kv_dtype = kv_dtype_of(payload)
+        for pool, new in ((k_pool, k_new), (v_pool, v_new)):
+            q, s = kv_quantize(new, kv_dtype)     # [B,T,Hkv,Dh], [B,T,Hkv]
+            _write_rows(pool["q"][layer], pb, wi, q)
+            pool["s"][layer][pb, :, wi] = s
+    else:
+        _write_rows(k_pool[layer], pb, wi, k_new)
+        _write_rows(v_pool[layer], pb, wi, v_new)
+    return k_pool, v_pool
+
+
+def gather_block_kv(pool_layer, block_table, out_dtype=None) -> torch.Tensor:
+    """Per-layer slot view of a block pool: gather each row's blocks
+    ``[N+1, Hkv, bs, Dh] -> [B, Hkv, MB * bs, Dh]`` (the shape
+    :func:`decode_attention` expects). Unallocated table entries read the
+    garbage row: finite values, always masked by the per-slot length. A
+    quantized ``{"q", "s"}`` layer gathers payload and scales and
+    dequantizes into ``out_dtype`` (required for it)."""
+    b, mb = block_table.shape
+    tbl = block_table.to(torch.long).clamp(0, pool_payload(pool_layer).shape[0] - 1)
+    if is_quantized_pool(pool_layer):
+        if out_dtype is None:
+            raise ValueError("gather_block_kv on a quantized layer needs out_dtype")
+        ql, sl = pool_layer["q"], pool_layer["s"]    # [N,Hkv,bs,Dh], [N,Hkv,bs]
+        _, hkv, bs, dh = ql.shape
+        kb = ql[tbl].permute(0, 2, 1, 3, 4).reshape(b, hkv, mb * bs, dh)
+        sb = sl[tbl].permute(0, 2, 1, 3).reshape(b, hkv, mb * bs)
+        return kv_dequantize(kb, sb, out_dtype)
+    _, hkv, bs, dh = pool_layer.shape
+    kb = pool_layer[tbl].permute(0, 2, 1, 3, 4).reshape(b, hkv, mb * bs, dh)
+    return kb if out_dtype is None else kb.to(out_dtype)
+
+
+def pool_layer(pool, layer: int):
+    """Layer ``layer`` of a block pool (a view; dicts stay dicts)."""
+    if is_quantized_pool(pool):
+        return {"q": pool["q"][layer], "s": pool["s"][layer]}
+    return pool[layer]
+
+
+def _block_cached_attention(q, k_pool, v_pool, k_new, v_new, layer: int,
+                            idx, block_table, *, scale: Optional[float] = None):
+    """Block-paged cached attention (see :func:`cached_attention`): write
+    the new tokens' K/V through the block table, then attend each row over
+    its own gathered blocks. Single-token decode on CUDA routes to the
+    block decode kernel, which reads each slot's valid blocks straight from
+    the pool; everything else (suffix prefill, CPU) takes the write +
+    gather + :func:`decode_attention` path. Both attend over the
+    quantize-dequantize image of the new token, the value later steps
+    read."""
+    if not (isinstance(idx, torch.Tensor) and idx.ndim == 1):
+        raise ValueError("block-paged attention needs the per-slot [B] "
+                         "length tensor")
+    if q.shape[1] == 1 and q.device.type == "cuda":
+        return fused_block_decode_step(q, k_pool, v_pool, k_new, v_new, layer,
+                                       idx, block_table, scale=scale)
+    k_pool, v_pool = write_kv_blocks(k_pool, v_pool, k_new, v_new, layer, idx,
+                                     block_table)
+    kl = gather_block_kv(pool_layer(k_pool, layer), block_table, q.dtype)
+    vl = gather_block_kv(pool_layer(v_pool, layer), block_table, q.dtype)
+    return decode_attention(q, kl, vl, idx, scale=scale), k_pool, v_pool
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

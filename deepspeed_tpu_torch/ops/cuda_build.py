@@ -123,6 +123,13 @@ def kernels() -> ctypes.CDLL:
             i32, i32, i32, i32, i32,     # b, hq, hkv, s_max, dh
             f32, i32, vp]                # scale, dtype code, stream
         lib.dst_fused_decode_step.restype = i32
+        lib.dst_fused_block_decode_step.argtypes = [
+            vp, vp, vp, vp, vp,          # q, k pool, v pool, k scales, v scales
+            vp, vp, vp, vp, vp,          # k_new, v_new, out, idx, table
+            i32, i32, i32, i32,          # layer, b, hq, hkv
+            i32, i32, i32, i32,          # n_phys, bs, mb, dh
+            f32, i32, i32, vp]           # scale, dtype code, kv code, stream
+        lib.dst_fused_block_decode_step.restype = i32
         lib.dst_error_string.argtypes = [i32]
         lib.dst_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,16 +1,26 @@
-"""Fused single-token decode step (port of deepspeed_tpu/ops/decode_step.py
-``supports`` / ``fused_decode_step``).
+"""Fused single-token decode steps (port of deepspeed_tpu/ops/decode_step.py
+``supports`` / ``fused_decode_step`` and ``supports_block`` /
+``fused_block_decode_step``).
 
-One call per layer per decode step: write the new token's K/V into the
-stacked ``[L, B, Hkv, S, Dh]`` cache in place (dropped for a slot whose
-index is past the allocation), then attend each slot over its own valid
-prefix. On CUDA tensors it launches the hand-written kernel in
-``csrc/decode_step.cu`` (the replacement of the TPU kernel
-``ops/decode_step.py:_kernel``; its source note says what bounds it and how
-the design answers that). On CPU tensors it runs
-:func:`fused_decode_step_plain`. The port keeps the logical unpacked cache
-layout: the TPU's token-pair packing for Dh < 128 is an HBM-tiling device
-with no counterpart here.
+One call per layer per decode step: write the new token's K/V in place,
+then attend each slot over its own valid prefix.
+
+* ``fused_decode_step``: the stacked slot cache ``[L, B, Hkv, S, Dh]``; the
+  write is dropped for a slot whose index is past the allocation. CUDA
+  tensors launch ``csrc/decode_step.cu`` (replaces the TPU kernel
+  ``ops/decode_step.py:_kernel``).
+* ``fused_block_decode_step``: the block pool ``[L, N+1, Hkv, bs, Dh]``
+  addressed through a ``[B, MB]`` block table, in the compute dtype or
+  quantized (``{"q", "s"}`` int8/fp8 payload + bf16 scales, quantized on
+  store). A position past the table width is written to the garbage row
+  ``N``. CUDA tensors launch ``csrc/block_decode_step.cu`` (replaces
+  ``ops/decode_step.py:_block_kernel``).
+
+Both kernels share their attention body (``csrc/decode_attend.cuh``); the
+source notes say what bounds them and how the design answers that. CPU
+tensors run the plain versions beside them. The port keeps the logical
+unpacked layouts: the TPU's token-pair packing for Dh < 128 and its
+pair-grouped scales are tiling devices with no counterpart here.
 """
 
 from __future__ import annotations
@@ -21,7 +31,9 @@ import torch
 
 from deepspeed_tpu_torch.ops import cuda_build
 
-_THREADS, _MAX_PER_THREAD = 128, 16   # csrc/decode_step.cu block shape
+_THREADS, _MAX_PER_THREAD = 128, 16   # csrc/decode_attend.cuh block shape
+# pool storage code of csrc/block_decode_step.cu
+_KV_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 
 
 def supports(hq: int, hkv: int, s_max: int, dh: int, itemsize: int = 2) -> bool:
@@ -45,8 +57,7 @@ def fused_decode_step_plain(q, k_full, v_full, k_new, v_new, layer: int, idx,
     values, probabilities rounded to the cache dtype before P.V, output
     divided by max(l, 1e-20) and cast once)."""
     b, t, hq, dh = q.shape
-    _, _, hkv, s_max, _ = k_full.shape
-    rep = hq // hkv
+    s_max = k_full.shape[3]
     sc = float(scale) if scale is not None else dh ** -0.5
     iv = _idx_vector(idx, b, q.device)
     kl, vl = k_full[layer], v_full[layer]              # views [B, Hkv, S, Dh]
@@ -58,15 +69,35 @@ def fused_decode_step_plain(q, k_full, v_full, k_new, v_new, layer: int, idx,
                                    kl[rows, :, pos])
     vl[rows, :, pos] = torch.where(keep, v_new[:, 0].to(v_full.dtype),
                                    vl[rows, :, pos])
-    qg = q.reshape(b, hkv, rep, dh).float()
+    return _attend_plain(q, kl, vl, iv, sc), k_full, v_full
+
+
+def _attend_plain(q, kl, vl, iv, sc: float) -> torch.Tensor:
+    """The kernels' attention with their rounding points: q ``[B, 1, Hq,
+    Dh]`` against ``kl``/``vl`` ``[B, Hkv, S, Dh]`` (the stored values, in
+    the compute dtype) over positions ``<= iv[b]``; scores in f32 times
+    ``sc``, probabilities rounded to the K/V dtype before P.V, the output
+    divided by max(l, 1e-20) and cast once."""
+    b, _, hq, dh = q.shape
+    hkv, s_max = kl.shape[1], kl.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, dh).float()
     s = torch.einsum("bkrd,bksd->bkrs", qg, kl.float()) * sc
     valid = torch.arange(s_max, device=q.device)[None, :] <= iv[:, None]
     s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
     p = torch.exp(s - s.amax(-1, keepdim=True))
     l = p.sum(-1)
-    pv = torch.einsum("bkrs,bksd->bkrd", p.to(v_full.dtype).float(), vl.float())
+    pv = torch.einsum("bkrs,bksd->bkrd", p.to(vl.dtype).float(), vl.float())
     out = (pv / l.clamp_min(1e-20)[..., None]).to(q.dtype)
-    return out.reshape(b, 1, hq, dh), k_full, v_full
+    return out.reshape(b, 1, hq, dh)
+
+
+def _check_tensor(what: str, name: str, tns: torch.Tensor, dtype, device):
+    if tns.device != device or tns.dtype != dtype:
+        raise ValueError(f"{what}: {name} must be {dtype} on {device}, got "
+                         f"{tns.dtype} on {tns.device}")
+    if not tns.is_contiguous() or tns.data_ptr() % 16:
+        raise ValueError(f"{what}: {name} must be contiguous and 16-byte "
+                         "aligned")
 
 
 def fused_decode_step(q: torch.Tensor, k_full: torch.Tensor,
@@ -108,11 +139,7 @@ def fused_decode_step(q: torch.Tensor, k_full: torch.Tensor,
         raise ValueError(f"layer {layer} outside [0, {nl})")
     for name, tns in (("q", q), ("k_full", k_full), ("v_full", v_full),
                       ("k_new", k_new), ("v_new", v_new)):
-        if tns.device != q.device or tns.dtype != dtype:
-            raise ValueError(f"fused_decode_step: {name} must be {dtype} on {q.device}")
-        if not tns.is_contiguous() or tns.data_ptr() % 16:
-            raise ValueError(f"fused_decode_step: {name} must be contiguous "
-                             "and 16-byte aligned")
+        _check_tensor("fused_decode_step", name, tns, dtype, q.device)
     if isinstance(idx, torch.Tensor):
         if (idx.device != q.device or idx.dtype != torch.int32
                 or idx.shape != (b,) or not idx.is_contiguous()):
@@ -136,3 +163,133 @@ def fused_decode_step(q: torch.Tensor, k_full: torch.Tensor,
 
 
 fused_decode_step.launches = 0
+
+
+def supports_block(hq: int, hkv: int, block_size: int, dh: int,
+                   itemsize: int = 2) -> bool:
+    """Shapes the block decode kernel takes: whole GQA groups, pool rows of
+    a multiple of 16 bytes (``itemsize`` is the pool's storage element
+    size: 1 for int8/fp8 payloads), and a kv head's query group within one
+    block's registers."""
+    return (hkv > 0 and hq % hkv == 0 and block_size > 0
+            and (dh * itemsize) % 16 == 0
+            and (hq // hkv) * dh <= _THREADS * _MAX_PER_THREAD)
+
+
+def fused_block_decode_step_plain(q, k_pool, v_pool, k_new, v_new,
+                                  layer: int, idx, block_table, *,
+                                  scale: Optional[float] = None):
+    """Plain version of :func:`fused_block_decode_step`: the write through
+    the table (overflow to the garbage row, quantize on store), the gather
+    (dequantizing), then the attention with the kernel's rounding points
+    over positions ``<= idx[b]`` (the new token is read back as its stored,
+    dequantized image)."""
+    from deepspeed_tpu_torch.ops.attention import (gather_block_kv,
+                                                   pool_layer,
+                                                   write_kv_blocks)
+
+    b, _, _, dh = q.shape
+    sc = float(scale) if scale is not None else dh ** -0.5
+    iv = idx.to(device=q.device, dtype=torch.long).reshape(b)
+    k_pool, v_pool = write_kv_blocks(k_pool, v_pool, k_new, v_new, layer, iv,
+                                     block_table)
+    kl = gather_block_kv(pool_layer(k_pool, layer), block_table, q.dtype)
+    vl = gather_block_kv(pool_layer(v_pool, layer), block_table, q.dtype)
+    return _attend_plain(q, kl, vl, iv, sc), k_pool, v_pool
+
+
+def fused_block_decode_step(q: torch.Tensor, k_pool, v_pool,
+                            k_new: torch.Tensor, v_new: torch.Tensor,
+                            layer: int, idx: torch.Tensor,
+                            block_table: torch.Tensor, *,
+                            scale: Optional[float] = None):
+    """One decode layer-step against the block pool.
+
+    q:             [B, 1, Hq, Dh]   the new token's queries
+    k_pool/v_pool: [L, N+1, Hkv, bs, Dh] pools in the compute dtype (row N
+                   is the garbage row), or ``{"q": payload, "s": scales}``
+                   dicts with an int8/fp8 payload of that shape and bf16
+                   scales ``[L, N+1, Hkv, bs]``; updated in place
+    k_new/v_new:   [B, 1, Hkv, Dh]  the new token's K/V (not yet written)
+    layer:         python int
+    idx:           int32 [B] per-slot write positions / valid lengths
+    block_table:   int32 [B, MB]; both are read by the kernel, never by the
+                   host.
+
+    Returns ``(attn [B, 1, Hq, Dh], k_pool, v_pool)``; the returned pools
+    are the inputs, written in place."""
+    if q.device.type == "cpu":
+        return fused_block_decode_step_plain(q, k_pool, v_pool, k_new, v_new,
+                                             layer, idx, block_table,
+                                             scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_block_decode_step: unsupported device {q.device}")
+    what = "fused_block_decode_step"
+    b, t, hq, dh = q.shape
+    if t != 1:
+        raise ValueError(f"{what} is the single-token path")
+    quant = isinstance(k_pool, dict)
+    if quant != isinstance(v_pool, dict):
+        raise ValueError(f"{what}: k_pool and v_pool must both be quantized "
+                         "or both not")
+    kq, vq = (k_pool["q"], v_pool["q"]) if quant else (k_pool, v_pool)
+    nl, n_phys, hkv, bs, dh2 = kq.shape
+    if dh2 != dh or vq.shape != kq.shape:
+        raise ValueError(f"{what}: pools {tuple(kq.shape)} / {tuple(vq.shape)} "
+                         f"vs q {tuple(q.shape)}")
+    if k_new.shape != (b, 1, hkv, dh) or v_new.shape != k_new.shape:
+        raise ValueError(f"{what}: k_new/v_new {tuple(k_new.shape)} != "
+                         f"{(b, 1, hkv, dh)}")
+    dtype = q.dtype
+    store = kq.dtype
+    if quant and store not in _KV_CODES:
+        raise ValueError(f"{what}: quantized payload must be int8 or "
+                         f"float8_e4m3fn, got {store}")
+    if not quant and store != dtype:
+        raise ValueError(f"{what}: pool dtype {store} != compute dtype {dtype}")
+    if not supports_block(hq, hkv, bs, dh, kq.element_size()):
+        raise ValueError(f"{what}: unsupported geometry hq={hq} hkv={hkv} "
+                         f"bs={bs} dh={dh} pool {store}")
+    if not 0 <= int(layer) < nl:
+        raise ValueError(f"layer {layer} outside [0, {nl})")
+    for name, tns in (("q", q), ("k_new", k_new), ("v_new", v_new)):
+        _check_tensor(what, name, tns, dtype, q.device)
+    _check_tensor(what, "k_pool", kq, store, q.device)
+    _check_tensor(what, "v_pool", vq, store, q.device)
+    ks_ptr = vs_ptr = None
+    if quant:
+        for name, sc_t in (("k_pool['s']", k_pool["s"]),
+                           ("v_pool['s']", v_pool["s"])):
+            if sc_t.shape != kq.shape[:4]:
+                raise ValueError(f"{what}: {name} {tuple(sc_t.shape)} != "
+                                 f"{tuple(kq.shape[:4])}")
+            _check_tensor(what, name, sc_t, torch.bfloat16, q.device)
+        ks_ptr, vs_ptr = k_pool["s"].data_ptr(), v_pool["s"].data_ptr()
+    if (idx.device != q.device or idx.dtype != torch.int32
+            or idx.shape != (b,) or not idx.is_contiguous()):
+        raise ValueError(f"{what}: idx must be an int32 [{b}] tensor on "
+                         f"{q.device}, got {idx.dtype} {tuple(idx.shape)} on "
+                         f"{idx.device}")
+    if (block_table.device != q.device or block_table.dtype != torch.int32
+            or block_table.ndim != 2 or block_table.shape[0] != b
+            or not block_table.is_contiguous()):
+        raise ValueError(f"{what}: block_table must be a contiguous int32 "
+                         f"[{b}, MB] tensor on {q.device}, got "
+                         f"{block_table.dtype} {tuple(block_table.shape)} on "
+                         f"{block_table.device}")
+    mb = block_table.shape[1]
+    sc = float(scale) if scale is not None else dh ** -0.5
+    lib = cuda_build.kernels()
+    out = torch.empty((b, 1, hq, dh), dtype=dtype, device=q.device)
+    err = lib.dst_fused_block_decode_step(
+        q.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks_ptr, vs_ptr,
+        k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), idx.data_ptr(),
+        block_table.data_ptr(), int(layer), b, hq, hkv, n_phys, bs, mb, dh,
+        sc, cuda_build.dtype_code(dtype), _KV_CODES[store] if quant else 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_build.check(lib, err, what)
+    fused_block_decode_step.launches += 1
+    return out, k_pool, v_pool
+
+
+fused_block_decode_step.launches = 0

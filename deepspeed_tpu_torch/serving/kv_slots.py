@@ -14,6 +14,7 @@ from typing import Tuple
 
 import torch
 
+from deepspeed_tpu_torch.ops.decode_step import supports
 from deepspeed_tpu_torch.serving.errors import EngineConfigError
 
 
@@ -41,6 +42,30 @@ class SlotKVCache:
     def update(self, k, v, lengths) -> None:
         """Adopt a serving program's returned tensors."""
         self.k, self.v, self.lengths = k, v, lengths
+
+    # ---------------------------------------------------------- programs
+    def prefill_program(self, engine, bucket: int):
+        return engine.slot_prefill_program(bucket, self.num_slots,
+                                           self.max_len)
+
+    def decode_program(self, engine, pad_token_id: int):
+        return engine.slot_decode_program(self.num_slots, self.max_len,
+                                          pad_token_id=pad_token_id)
+
+    def prefill_args(self, slot: int, start: int, n: int) -> Tuple:
+        """The prefill program's addressing operands after the ids: the slot
+        and its new length (``start`` is 0: nothing is shared)."""
+        return slot, start + n
+
+    def decode_args(self) -> Tuple:
+        """The decode program's addressing operands: none beyond the carry."""
+        return ()
+
+    def decode_kernel_supports(self, num_heads: int) -> bool:
+        """Whether the fused decode kernel takes this cache for a model with
+        ``num_heads`` query heads."""
+        _, _, hkv, s_max, dh = self.k.shape
+        return supports(num_heads, hkv, s_max, dh, self.k.element_size())
 
     def capacity_for(self, prompt_len: int, max_new_tokens: int) -> bool:
         """Whether one slot holds the request end to end (the last decode

@@ -1,6 +1,7 @@
 """Iteration-level (continuous-batching) request scheduler (port of
 deepspeed_tpu/serving/scheduler.py: ``Request``, ``RequestResult``,
-``pick_bucket``, ``SlotScheduler``, ``poisson_trace``).
+``pick_bucket``, ``SlotScheduler``, ``poisson_trace``,
+``shared_prefix_trace``).
 
 Orca-style: the unit of scheduling is one decode iteration. Between decode
 steps waiting requests are admitted into free slots, so a drained slot is
@@ -124,17 +125,24 @@ class SlotScheduler:
                 best = (key, q, seq, req)
         return best[1:] if best is not None else None
 
-    def admit(self, now: float,
+    def admit(self, now: float, fits: Optional[Callable[[Request], bool]] = None,
               limit: Optional[int] = None) -> List[Tuple[Request, int]]:
         """Pop (request, slot) pairs: arrived requests into free slots,
         best effective priority first, FIFO within a class; ``limit`` caps
-        the admissions of one call."""
+        the admissions of one call.
+
+        ``fits(request)`` gates admission on a resource the scheduler does
+        not own (the block-paged engine's free pool blocks). A best head
+        that does not fit blocks everything behind it, so no later arrival
+        jumps the queue on block luck."""
         out: List[Tuple[Request, int]] = []
         while self._free and (limit is None or len(out) < limit):
             head = self._best_head(now)
             if head is None:
                 break
             q, _seq, req = head
+            if fits is not None and not fits(req):
+                break
             q.popleft()
             if not q:
                 del self._queues[req.priority]
@@ -164,5 +172,32 @@ def poisson_trace(rng, n_requests: int, *, rate: float,
             prompt=rng.randint(0, vocab_size, size=plen).astype("int32")
                       .tolist(),
             max_new_tokens=int(rng.choice(list(max_new_choices))),
+            arrival_time=t))
+    return reqs
+
+
+def shared_prefix_trace(rng, n_requests: int, *, rate: float,
+                        prefix_len: int, suffix_lens: Sequence[int],
+                        max_new_tokens: int, vocab_size: int,
+                        n_prefixes: int = 2,
+                        start_rid: int = 0) -> List[Request]:
+    """Shared-prefix trace for prefix caching: every prompt is one of
+    ``n_prefixes`` shared system prompts of ``prefix_len`` tokens (drawn per
+    request) followed by a unique suffix whose length is drawn from
+    ``suffix_lens``. Poisson arrivals like :func:`poisson_trace`; the same
+    numpy RandomState draws as the JAX package's, so a seed gives both the
+    same trace."""
+    prefixes = [rng.randint(0, vocab_size, size=prefix_len).tolist()
+                for _ in range(max(n_prefixes, 1))]
+    reqs: List[Request] = []
+    t = 0.0
+    for i in range(n_requests):
+        t += float(rng.exponential(1.0 / rate)) if rate > 0 else 0.0
+        slen = int(rng.choice(list(suffix_lens)))
+        suffix = rng.randint(0, vocab_size, size=slen).tolist()
+        reqs.append(Request(
+            rid=start_rid + i,
+            prompt=prefixes[int(rng.randint(len(prefixes)))] + suffix,
+            max_new_tokens=max_new_tokens,
             arrival_time=t))
     return reqs

@@ -11,11 +11,15 @@ Coverage beyond chip_smoke.py's full-width checks: every element type the
 kernels take, ragged shapes (S not a multiple of the chunk, E not a
 multiple of the column tile, odd N), the scalar and per-slot index forms,
 the dropped write at idx == S, row independence (a slot's or a row's result
-does not depend on its neighbours), and the wrappers' input checks.
+does not depend on its neighbours), and the wrappers' input checks. The
+block decode step: bf16/f16/f32 compute over pools in the compute type,
+int8 and fp8 (payload and scales), a permuted table, block edges, the
+overflow write to the garbage row, an inactive slot on a sentinel table.
 
-Tolerances: caches bit-identical; decode outputs within 2e-2 (bf16),
-4e-3 (f16), 1e-5 (f32) absolute on O(1) values — the kernel's online
-softmax rounds its probabilities at chunk-local maxima; int8 matmul
+Tolerances: caches bit-identical (block pools: every row but the garbage
+row, which several inactive slots may write at once); decode outputs within
+2e-2 (bf16), 4e-3 (f16), 1e-5 (f32) absolute on O(1) values — the kernel's
+online softmax rounds its probabilities at chunk-local maxima; int8 matmul
 outputs within one ulp of the output type (rtol 8e-3 bf16, 1e-3 f16,
 1e-5 f32) plus 1e-3 absolute.
 """
@@ -23,10 +27,15 @@ outputs within one ulp of the output type (rtol 8e-3 bf16, 1e-3 f16,
 import pytest
 import torch
 
-from deepspeed_tpu_torch.ops.decode_step import (fused_decode_step,
+from deepspeed_tpu_torch.ops.decode_step import (fused_block_decode_step,
+                                                 fused_block_decode_step_plain,
+                                                 fused_decode_step,
                                                  fused_decode_step_plain)
 from deepspeed_tpu_torch.ops.int8_matmul import (int8_matmul_dma,
                                                  int8_matmul_plain)
+from deepspeed_tpu_torch.ops.kernel_check import (block_step_inputs,
+                                                  clone_pool,
+                                                  real_rows_equal)
 
 pytestmark = pytest.mark.cuda
 
@@ -97,6 +106,70 @@ def test_decode_step_counts_launches_and_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):     # layer out of range
         fused_decode_step(q, kf, vf, kn, vn, 2, 5)
     assert fused_decode_step.launches == n0 + 1
+
+
+@pytest.mark.parametrize("dtype,kv", [
+    (torch.bfloat16, None), (torch.float16, None), (torch.float32, None),
+    (torch.bfloat16, "int8"), (torch.bfloat16, "fp8"),
+    (torch.float32, "int8"), (torch.float32, "fp8")])
+@pytest.mark.parametrize("b,hq,hkv,bs,mb,dh", [
+    (5, 4, 4, 16, 8, 128),     # MHA
+    (4, 8, 2, 16, 6, 64),      # GQA rep 4, Dh 64
+    (3, 4, 1, 32, 4, 128),     # rep 4, wider blocks
+])
+def test_block_decode_step_matches_plain(cuda, dtype, kv, b, hq, hkv, bs, mb,
+                                         dh):
+    nblk = (b - 1) * mb + 3
+    _, q, kp, vp, kn, vn, table = block_step_inputs(cuda, dtype, kv, b, hq,
+                                                    hkv, nblk, bs, mb, dh)
+    s = mb * bs
+    # position 0, a block edge, the table's last row, a mid position, and
+    # the last slot (sentinel table) past the table width: the garbage row
+    idx = [0, bs, s - 1, bs + 3][:b - 1] + [s]
+    iv = torch.tensor(idx, dtype=torch.int32, device=cuda)
+    k1, v1 = clone_pool(kp), clone_pool(vp)
+    k2, v2 = clone_pool(kp), clone_pool(vp)
+    out, _, _ = fused_block_decode_step(q, k1, v1, kn, vn, 1, iv, table)
+    ref, _, _ = fused_block_decode_step_plain(q, k2, v2, kn, vn, 1, iv, table)
+    torch.cuda.synchronize()
+    assert real_rows_equal(k1, k2) and real_rows_equal(v1, v2)
+    assert not real_rows_equal(k1, kp)          # the writes landed
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= DECODE_TOL[dtype], err
+
+
+def test_block_decode_step_rows_are_independent(cuda):
+    _, q, kp, vp, kn, vn, table = block_step_inputs(
+        cuda, torch.bfloat16, "int8", 3, 8, 8, 40, 16, 8, 128)
+    idx = torch.tensor([100, 7, 30], dtype=torch.int32, device=cuda)
+    out, _, _ = fused_block_decode_step(q, clone_pool(kp), clone_pool(vp), kn, vn, 0,
+                                        idx, table)
+    idx2 = idx.clone()
+    idx2[1:] = torch.tensor([3, 120], dtype=torch.int32, device=cuda)
+    table2 = table.clone()
+    table2[1:] = table2[1:].flip(1)
+    out2, _, _ = fused_block_decode_step(q, clone_pool(kp), clone_pool(vp), kn, vn, 0,
+                                         idx2, table2)
+    assert torch.equal(out[0], out2[0])
+
+
+def test_block_decode_step_counts_launches_and_rejects_bad_inputs(cuda):
+    _, q, kp, vp, kn, vn, table = block_step_inputs(
+        cuda, torch.bfloat16, "fp8", 2, 4, 4, 8, 16, 4, 64)
+    iv = torch.tensor([5, 9], dtype=torch.int32, device=cuda)
+    n0 = fused_block_decode_step.launches
+    fused_block_decode_step(q, kp, vp, kn, vn, 0, iv, table)
+    assert fused_block_decode_step.launches == n0 + 1
+    with pytest.raises(ValueError):     # int64 table
+        fused_block_decode_step(q, kp, vp, kn, vn, 0, iv, table.long())
+    with pytest.raises(ValueError):     # one pool quantized, one not
+        fused_block_decode_step(q, kp, vp["q"], kn, vn, 0, iv, table)
+    with pytest.raises(ValueError):     # f32 scales
+        fused_block_decode_step(q, {"q": kp["q"], "s": kp["s"].float()}, vp,
+                                kn, vn, 0, iv, table)
+    with pytest.raises(ValueError):     # layer out of range
+        fused_block_decode_step(q, kp, vp, kn, vn, 2, iv, table)
+    assert fused_block_decode_step.launches == n0 + 1
 
 
 def _mm_inputs(dev, dtype, n, d, e, layers=2, seed=0):

@@ -148,10 +148,12 @@ def test_teacher_forced_logits_and_margin_safe_tokens_match_jax(dtype):
 def test_unported_options_and_bad_requests_raise_typed_errors():
     teng = deepspeed_tpu_torch.init_inference(
         LlamaModel(LlamaConfig.tiny()), dtype="fp32", device="cpu")
-    for kw in ({"prefix_cache": True}, {"speculative": "ngram"},
-               {"preemption": "swap"}, {"prefill_token_budget": 64},
-               {"kv_dtype": "int8"}, {"do_sample": True}, {"tracer": object()},
-               {"slo": object()}, {"tenants": True}):
+    # kv_dtype needs prefix_cache: quantized KV lives in the block pool
+    for kw in ({"speculative": "ngram"}, {"preemption": "swap"},
+               {"prefill_token_budget": 64}, {"kv_dtype": "int8"},
+               {"prefix_cache": True, "kv_dtype": "int4"},
+               {"do_sample": True}, {"tracer": object()}, {"slo": object()},
+               {"tenants": True}):
         with pytest.raises(EngineConfigError):
             ServingEngine(teng, num_slots=2, max_len=64, buckets=(16,), **kw)
     srv = ServingEngine(teng, num_slots=2, max_len=64, buckets=(16,))
@@ -161,3 +163,30 @@ def test_unported_options_and_bad_requests_raise_typed_errors():
         srv.submit(Request(rid=1, prompt=[1] * 16, max_new_tokens=49))
     with pytest.raises(EngineConfigError):
         ServingEngine(teng, num_slots=2, max_len=256)   # > max_seq_len 128
+
+
+def test_decode_kernel_geometry_is_checked_per_cache():
+    """On the card every decode step runs the kernel, so ServingEngine asks
+    its cache whether the kernel takes it (and refuses at construction when
+    not): 16-byte rows, whole GQA groups."""
+    from deepspeed_tpu_torch.serving import BlockKVPool
+    from deepspeed_tpu_torch.serving.kv_slots import SlotKVCache
+
+    tiny = LlamaModel(LlamaConfig.tiny())                    # Dh 16, rep 2
+    narrow = LlamaModel(LlamaConfig(vocab_size=64, max_seq_len=64,
+                                    num_layers=1, hidden_size=16,
+                                    num_heads=4, num_kv_heads=2,
+                                    intermediate_size=32))   # Dh 4
+    for model, dtype, want in ((tiny, torch.bfloat16, True),
+                               (narrow, torch.float32, True),
+                               (narrow, torch.bfloat16, False)):
+        hq = model.config.num_heads
+        slot = SlotKVCache(model, 2, 32, dtype=dtype, device="cpu")
+        assert slot.decode_kernel_supports(hq) == want, (dtype, hq)
+        pool = BlockKVPool(model, 2, 32, block_size=16, dtype=dtype,
+                           device="cpu")
+        assert pool.decode_kernel_supports(hq) == want, (dtype, hq)
+    for model, want in ((tiny, True), (narrow, False)):     # 1-byte payloads
+        pool = BlockKVPool(model, 2, 32, block_size=16, dtype=torch.float32,
+                           kv_dtype="int8", device="cpu")
+        assert pool.decode_kernel_supports(model.config.num_heads) == want
