@@ -56,6 +56,42 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                probe, template + suffix B, warm (a suffix-only prefill over
                shared blocks plus a fork), held the same way.
 
+Training (phases added after ``reference``, before the serving phases):
+
+   kernels (flash) — the FlashAttention-2 kernels (forward; backward dQ;
+               backward dK/dV) against their plain versions: bf16 at the
+               GPT-2 774M training shape (B 8, H 20, T 1024, Dh 64) and at
+               Dh 128 (B 4, H 16, T 2048), causal and not, and f32 at a
+               small ragged shape. O and lse, then dQ/dK/dV from a fixed dO
+               (each row within 2e-2 of its own max |x| in bf16, 1e-4 in
+               f32: kernel_check.rel_err; lse within 1e-4 absolute);
+               dQ/dK/dV bit-identical across two launches. Kernel, plain
+               and SDPA (forward, backward, forward+backward) times, each
+               captured in a CUDA graph.
+   reference_train — a small fp32 GPT-2 (2 layers, hidden 256, 4 heads of
+               Dh 64, vocab 2048, T 128, attn_impl="flash",
+               compute_dtype=float32) trained 4 steps (gas 2, AdamW,
+               clipping, WarmupLR) by initialize() on the CPU (plain
+               versions) and on the card (kernels) from one init and the
+               same batches: loss and grad norm per step within 1e-4
+               relative, parameters within 2 x lr x steps with at most 0.1%
+               of elements off by more than 1e-5; each flash kernel
+               launches layers x micro-steps = 16 times on the card, none
+               on the CPU.
+   train_774m — GPT-2 774M at full width and depth (random init, seed 0),
+               attn_impl="flash", through initialize() with bench.py's
+               774M config dict (bf16, AdamW lr 1e-4 wd 0.01, clipping 1.0,
+               ZeRO 0, grad_accum_dtype bf16), micro-batch 8 x gas 2 x T
+               1024 of arithmetic sequences: 2 warm-up and 8 measured steps.
+               The loss is finite and falls; each flash kernel launches
+               36 x 2 x 8 times in the measured steps; the first batch's
+               loss through attn_impl="dense" on the same parameters
+               agrees within 1e-3 (the model's flash route at full width).
+               Tokens/s, ms per step, achieved TFLOP/s (6N + 12 L h T per
+               token, GPT2Model.flops_per_token(T)), peak memory, and a
+               profile of one step (device busy share, top kernels, the
+               flash kernels' ms per step).
+
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -80,16 +116,26 @@ from deepspeed_tpu_torch.ops.decode_step import (fused_block_decode_step,
                                                  fused_block_decode_step_plain,
                                                  fused_decode_step,
                                                  fused_decode_step_plain)
+from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+from deepspeed_tpu_torch.ops.flash_attention import (flash_bwd_dkv,
+                                                     flash_bwd_dkv_plain,
+                                                     flash_bwd_dq,
+                                                     flash_bwd_dq_plain,
+                                                     flash_fwd_parts,
+                                                     flash_fwd_parts_plain)
 from deepspeed_tpu_torch.ops.int8_matmul import (int8_matmul_dma,
                                                  int8_matmul_plain)
 from deepspeed_tpu_torch.ops.kernel_check import (block_step_inputs,
-                                                  clone_pool, random_pool,
-                                                  real_rows_equal)
+                                                  clone_pool, flash_delta,
+                                                  flash_inputs, random_pool,
+                                                  real_rows_equal, rel_err)
+from deepspeed_tpu_torch.utils.tree import tree_leaves
 from deepspeed_tpu_torch.serving import (BlockKVPool, Request, ServingEngine,
                                          poisson_trace, shared_prefix_trace)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12      # dense bf16 tensor-core peak
+F32_FLOP_PER_S = 67e12        # f32 outside the tensor cores
 L2_BYTES = 50 * 2 ** 20
 DECODE_TOL = 2e-2             # bf16 attention outputs, |kernel - plain|
 MATMUL_RTOL = 8e-3            # one bf16 ulp of |out|, plus 1e-3 absolute
@@ -110,10 +156,31 @@ KERNELS = {
     "fused_block_decode_step": {
         "source": "deepspeed_tpu_torch/csrc/block_decode_step.cu",
         "replaces": "deepspeed_tpu/ops/decode_step.py:473 (_block_kernel)"},
+    "flash_fwd": {
+        "source": "deepspeed_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "deepspeed_tpu/ops/flash_attention.py:80 (_fwd_kernel)"},
+    "flash_bwd_dq": {
+        "source": "deepspeed_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "deepspeed_tpu/ops/flash_attention.py:121 (_bwd_dq_kernel)"},
+    "flash_bwd_dkv": {
+        "source": "deepspeed_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "deepspeed_tpu/ops/flash_attention.py:154 (_bwd_dkv_kernel)"},
 }
 WRAPPERS = {"fused_decode_step": fused_decode_step,
             "int8_matmul_dma": int8_matmul_dma,
-            "fused_block_decode_step": fused_block_decode_step}
+            "fused_block_decode_step": fused_block_decode_step,
+            "flash_fwd": flash_fwd_parts,
+            "flash_bwd_dq": flash_bwd_dq,
+            "flash_bwd_dkv": flash_bwd_dkv}
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# flash outputs, per row: |kernel - plain| as a share of the row's max |x|
+# (kernel_check.rel_err). bf16: about two ulps (2^-7 each) of the row's
+# largest element; the H100 readings are at most one ulp (0.0073-0.0078).
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+LSE_TOL = 1e-4                                              # absolute
+# GPT-2 774M first-batch loss through flash vs dense attention, absolute
+# (the reading is 9.4e-5 at a loss of 11.1)
+FLASH_DENSE_LOSS_TOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -129,20 +196,23 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-def time_ms(fn, n_inputs: int, per: int = 20, reps: int = 20) -> float:
+def time_ms(fn, n_inputs: int, per: int = 20, reps: int = 20,
+            stream=None) -> float:
     """Device time of one fn(i) call: ``per`` calls, ``i`` rotating through
     ``n_inputs`` input sets, are captured into one CUDA graph (so the
     host's launch cost, which exceeds a short kernel's run, is not timed),
     the graph is replayed ``reps`` times between CUDA events, and the
-    median replay time is divided by ``per``."""
-    side = torch.cuda.Stream()
+    median replay time is divided by ``per``. Warm-up and capture run on
+    ``stream`` (default a new one): an autograd backward must be captured
+    on the stream its forward ran on."""
+    side = stream if stream is not None else torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):              # warm-up off the capture
         for i in range(3):
             fn(i % n_inputs)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for i in range(per):
             fn(i % n_inputs)
     graph.replay()
@@ -360,6 +430,124 @@ def check_block_decode_step(b, hq, hkv, dh, bs, mb, kv, idx, seed=0):
             **_bytes_bound(nbytes, 4 * hq * dh * sum(n_pos))}
 
 
+def attn_pairs(tq: int, tk: int, causal: bool) -> int:
+    """(query, key) pairs attended: all of them, or under top-left causal
+    masking min(i + 1, tk) for query row i."""
+    if not causal:
+        return tq * tk
+    if tk >= tq:
+        return tq * (tq + 1) // 2
+    return tk * (tk + 1) // 2 + (tq - tk) * tk
+
+
+def _bound(nbytes, flops, flop_rate):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
+    return {"bytes": nbytes, "flops": flops,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def check_flash(dtype, b, h, t, dh, causal, seed=0):
+    """The three flash kernels against their plain versions at one shape
+    (flat [B*H, T, Dh] operands), then their times. The backward is fed the
+    plain version's lse and delta (so each kernel is held alone), from a
+    fixed dO; its outputs must be bit-identical across two launches."""
+    dev = "cuda"
+    bh = b * h
+    sets = [flash_inputs(dev, dtype, bh, t, dh, seed=seed + i) for i in range(2)]
+    q, k, v, do = sets[0]
+    out, lse = flash_fwd_parts(q, k, v, causal=causal)
+    ref, ref_lse = flash_fwd_parts_plain(q, k, v, causal=causal)
+    delta = flash_delta(do, ref)
+    grads = (flash_bwd_dq(q, k, v, do, ref_lse, delta, causal=causal),
+             *flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal=causal))
+    again = (flash_bwd_dq(q, k, v, do, ref_lse, delta, causal=causal),
+             *flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal=causal))
+    plain = (flash_bwd_dq_plain(q, k, v, do, ref_lse, delta, causal=causal),
+             *flash_bwd_dkv_plain(q, k, v, do, ref_lse, delta, causal=causal))
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]
+    errs = {}
+    for name, got, want in (("out", out, ref), ("dq", grads[0], plain[0]),
+                            ("dk", grads[1], plain[1]),
+                            ("dv", grads[2], plain[2])):
+        assert torch.isfinite(got.float()).all(), name
+        errs[name] = {"max_abs_err": (got.float() - want.float()).abs().max().item(),
+                      "rel_err": rel_err(got, want)}
+        assert errs[name]["rel_err"] <= tol, (name, dtype, b, h, t, dh, causal,
+                                              errs[name])
+    lse_err = (lse - ref_lse).abs().max().item()
+    assert lse_err <= LSE_TOL, ("lse", lse_err)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again)), \
+        "flash backward not bit-identical across launches"
+    del out, ref, grads, again, plain
+
+    # times, rotating two input sets (> 50 MB of operands at the main shapes)
+    lses, deltas = [], []
+    for qq, kk, vv, dd in sets:
+        o, l_ = flash_fwd_parts_plain(qq, kk, vv, causal=causal)
+        lses.append(l_)
+        deltas.append(flash_delta(dd, o))
+    fwd = time_ms(lambda i: flash_fwd_parts(*sets[i][:3], causal=causal), 2)
+    dq = time_ms(lambda i: flash_bwd_dq(*sets[i], lses[i], deltas[i],
+                                        causal=causal), 2)
+    dkv = time_ms(lambda i: flash_bwd_dkv(*sets[i], lses[i], deltas[i],
+                                          causal=causal), 2)
+    p_fwd = time_ms(lambda i: flash_fwd_parts_plain(*sets[i][:3], causal=causal),
+                    2, per=4, reps=7)
+    p_dq = time_ms(lambda i: flash_bwd_dq_plain(*sets[i], lses[i], deltas[i],
+                                                causal=causal), 2, per=4, reps=7)
+    p_dkv = time_ms(lambda i: flash_bwd_dkv_plain(*sets[i], lses[i], deltas[i],
+                                                  causal=causal), 2, per=4, reps=7)
+    # yardstick: SDPA on [B, H, T, Dh] views of the same values
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    views = [[x.view(b, h, t, dh) for x in st] for st in sets]
+    lib_fwd = time_ms(lambda i: sdpa(*views[i][:3], is_causal=causal), 2)
+
+    def leaves(i):
+        return [x.detach().requires_grad_() for x in views[i][:3]]
+
+    def fwd_bwd(i):
+        qq, kk, vv = leaves(i)
+        torch.autograd.grad(sdpa(qq, kk, vv, is_causal=causal), (qq, kk, vv),
+                            views[i][3])
+
+    lib_fb = time_ms(fwd_bwd, 2, per=4, reps=10)
+    # the backward alone, from forwards kept on the stream it is captured on
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graphs = [(sdpa(*lv, is_causal=causal), lv)
+                  for lv in (leaves(0), leaves(1))]
+    lib_bwd = time_ms(
+        lambda i: torch.autograd.grad(graphs[i][0], graphs[i][1], views[i][3],
+                                      retain_graph=True), 2, per=4, reps=10,
+        stream=side)
+    del graphs
+    pairs = attn_pairs(t, t, causal)
+    esz = q.element_size()
+    rate = BF16_FLOP_PER_S if dtype != torch.float32 else F32_FLOP_PER_S
+    big = bh * t * dh * esz                  # one [BH, T, Dh] operand
+    rows = bh * t * 4                        # one f32 row vector
+    return {"dtype": str(dtype).split(".")[-1], "b": b, "h": h, "t": t,
+            "dh": dh, "causal": causal, "tol_rel": tol, "lse_max_abs_err": lse_err,
+            "lse_tol": LSE_TOL, "errors": errs, "bwd_bit_identical": True,
+            "attended_pairs": pairs,
+            "fwd": {"kernel_ms": fwd, "plain_ms": p_fwd, "library_ms": lib_fwd,
+                    "max_abs_err": max(errs["out"]["max_abs_err"], lse_err),
+                    **_bound(4 * big + rows, 4 * bh * dh * pairs, rate)},
+            "dq": {"kernel_ms": dq, "plain_ms": p_dq, "library_ms": lib_bwd,
+                   "max_abs_err": errs["dq"]["max_abs_err"],
+                   **_bound(5 * big + 2 * rows, 6 * bh * dh * pairs, rate)},
+            "dkv": {"kernel_ms": dkv, "plain_ms": p_dkv, "library_ms": lib_bwd,
+                    "max_abs_err": max(errs["dk"]["max_abs_err"],
+                                       errs["dv"]["max_abs_err"]),
+                    **_bound(6 * big + 2 * rows, 8 * bh * dh * pairs, rate)},
+            "library": "scaled_dot_product_attention: forward (fwd), backward "
+                       "of dQ, dK and dV together (dq, dkv rows)",
+            "sdpa_fwd_bwd_ms": lib_fb}
+
+
 LLAMA7B_MATMULS = [("wq", 4096, 4096), ("wk", 4096, 4096),
                    ("wv", 4096, 4096), ("wo", 4096, 4096),
                    ("w_gate", 4096, 11008), ("w_up", 4096, 11008),
@@ -383,10 +571,18 @@ def phase_kernels() -> dict:
         for n in (1, 8, 32):
             matmul.append(check_int8_matmul(n, d, e))
             torch.cuda.empty_cache()
+    flash = [check_flash(torch.bfloat16, 8, 20, 1024, 64, True),
+             check_flash(torch.bfloat16, 8, 20, 1024, 64, False),
+             check_flash(torch.bfloat16, 4, 16, 2048, 128, True),
+             check_flash(torch.bfloat16, 4, 16, 2048, 128, False),
+             check_flash(torch.float32, 2, 4, 200, 64, True),
+             check_flash(torch.float32, 2, 2, 136, 128, False)]
+    torch.cuda.empty_cache()
     emit({"phase": "kernels", "fused_decode_step": decode,
-          "fused_block_decode_step": block, "int8_matmul_dma": matmul})
+          "fused_block_decode_step": block, "int8_matmul_dma": matmul,
+          "flash_attention": flash})
     return {"fused_decode_step": decode, "fused_block_decode_step": block,
-            "int8_matmul_dma": matmul}
+            "int8_matmul_dma": matmul, "flash_attention": flash}
 
 
 def kernel_summary(kern: dict, launches: dict) -> list:
@@ -431,7 +627,18 @@ def kernel_summary(kern: dict, launches: dict) -> list:
              ms=blk["kernel_ms"], plain_ms=blk["plain_ms"],
              bound_ms=blk["bound_ms"], bound_by=blk["bound_by"],
              library_ms=blk["library_ms"]),
-    ]
+    ] + [
+        # the flash kernels at the GPT-2 774M training shape (bf16, causal)
+        dict(name=name, route="cuda", **KERNELS[name],
+             launches=launches[name],
+             max_abs_err=max(r[key]["max_abs_err"]
+                             for r in kern["flash_attention"]),
+             ms=kern["flash_attention"][0][key]["kernel_ms"],
+             plain_ms=kern["flash_attention"][0][key]["plain_ms"],
+             bound_ms=kern["flash_attention"][0][key]["bound_ms"],
+             bound_by=kern["flash_attention"][0][key]["bound_by"],
+             library_ms=kern["flash_attention"][0][key]["library_ms"])
+        for name, key in zip(FLASH, ("fwd", "dq", "dkv"))]
 
 
 # --------------------------------------------------------------- phase 3
@@ -865,6 +1072,194 @@ def phase_probe_fp32() -> dict:
     return info
 
 
+# ------------------------------------------------------------ training
+# bench.py's GPT-2 774M training config (bench.py:173-183), at micro-batch 8
+BENCH_774M_CONFIG = {
+    "train_batch_size": 8 * 2,
+    "gradient_accumulation_steps": 2,
+    "bf16": {"enabled": True},
+    "optimizer": {"type": "AdamW",
+                  "params": {"lr": 1e-4, "weight_decay": 0.01}},
+    "gradient_clipping": 1.0,
+    "steps_per_print": 0,
+    "zero_optimization": {"stage": 0},
+    "data_types": {"grad_accum_dtype": "bf16"},
+}
+
+
+def lm_batches(rng, n, gas, micro, t, vocab, start_span=None):
+    """``n`` stacked ``[gas, micro, t]`` batches of arithmetic sequences mod
+    ``vocab`` (learnable, unlike random tokens, which sit at ln V), starting
+    below ``start_span`` (default ``vocab``)."""
+    out = []
+    for _ in range(n):
+        start = rng.randint(0, start_span or vocab, size=(gas, micro, 1))
+        step = rng.randint(1, 8, size=(gas, micro, 1))
+        ids = ((start + step * np.arange(t + 1)) % vocab).astype(np.int32)
+        out.append({"input_ids": ids[..., :-1], "labels": ids[..., 1:]})
+    return out
+
+
+def phase_reference_train() -> dict:
+    """A small fp32 GPT-2 trained 4 steps through initialize() on the CPU
+    (plain versions) and on the card (kernels), from one init and the same
+    batches."""
+    cfg = GPT2Config(vocab_size=2048, max_seq_len=128, num_layers=2,
+                     hidden_size=256, num_heads=4)
+    ds = {"train_batch_size": 8, "gradient_accumulation_steps": 2,
+          "optimizer": {"type": "AdamW",
+                        "params": {"lr": 1e-3, "weight_decay": 0.01}},
+          "scheduler": {"type": "WarmupLR",
+                        "params": {"warmup_min_lr": 1e-4, "warmup_max_lr": 1e-3,
+                                   "warmup_num_steps": 3}},
+          "gradient_clipping": 1.0, "steps_per_print": 0}
+    params = GPT2Model(cfg).init(torch.Generator().manual_seed(5))
+    batches = lm_batches(np.random.RandomState(21), 4, 2, 4, 128, 2048)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=GPT2Model(cfg, compute_dtype=torch.float32, attn_impl="flash"),
+            config=ds, device=device, params=params)
+        reset_counts()
+        rows = [(float(eng.train_batch_from_stacked(b)),
+                 eng.get_global_grad_norm()) for b in batches]
+        runs[device] = (rows, read_counts(),
+                        [p.float().cpu() for p in tree_leaves(eng.state.params)])
+    micro_steps = 4 * 2
+    assert all(n == 0 for n in runs["cpu"][1].values()), runs["cpu"][1]
+    for name, n in runs["cuda"][1].items():
+        want = cfg.num_layers * micro_steps if name in FLASH else 0
+        assert n == want, (name, n, want)
+    worst_loss = worst_norm = 0.0
+    for (cl, cn), (gl, gn) in zip(runs["cpu"][0], runs["cuda"][0]):
+        worst_loss = max(worst_loss, abs(gl - cl) / abs(cl))
+        worst_norm = max(worst_norm, abs(gn - cn) / abs(cn))
+    assert worst_loss <= 1e-4 and worst_norm <= 1e-4, runs
+    lr_bound = 2 * 1e-3 * len(batches)
+    diff_max, off, total = 0.0, 0, 0
+    for a, b in zip(runs["cpu"][2], runs["cuda"][2]):
+        d = (a - b).abs()
+        diff_max = max(diff_max, d.max().item())
+        off += int((d > 1e-5).sum())
+        total += d.numel()
+    assert diff_max <= lr_bound and off <= 1e-3 * total, (diff_max, off, total)
+    losses = [r[0] for r in runs["cuda"][0]]
+    info = {"phase": "reference_train",
+            "model": "gpt2 2 layers, hidden 256, 4 heads (Dh 64), vocab 2048, "
+                     "T 128, fp32, attn flash",
+            "steps": len(batches), "gas": 2, "micro_batch": 4,
+            "card_losses": losses, "cpu_losses": [r[0] for r in runs["cpu"][0]],
+            "loss_max_rel_diff": worst_loss, "grad_norm_max_rel_diff": worst_norm,
+            "param_max_abs_diff": diff_max, "params_off_by_1e-5": off,
+            "params_total": total, "card_launches": runs["cuda"][1]}
+    emit(info)
+    return info
+
+
+def profile_train_step(eng, batch) -> dict:
+    """Device time of one training step against its wall time, by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+        t0 = time.perf_counter()
+        eng.train_batch_from_stacked(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for ev in pr.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[ev.name] = (kernels.get(ev.name, 0.0)
+                                + ev.time_range.elapsed_us())
+    busy_us = sum(kernels.values())
+    assert busy_us > 0, "the profiler saw no device time"
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    flash = {}
+    for name in ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc"):
+        flash[name] = sum(us for k, us in kernels.items() if name in k) / 1e3
+    return {"host_ms": 1e3 * wall, "device_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "flash_kernels_ms": flash,
+            "top_kernels_ms": {k[:120]: v / 1e3 for k, v in top}}
+
+
+def phase_train_774m(smi: str) -> dict:
+    """GPT-2 774M at full width and depth through initialize() with the
+    bench's config: 2 warm-up and 8 measured steps of micro-batch 8 x gas 2
+    x T 1024, the launch counters zeroed just before the measured steps."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = GPT2Config.gpt2_774m()
+    gas, micro, t, warm, steps = 2, 8, 1024, 2, 8
+    model = GPT2Model(cfg, attn_impl="flash")
+    t0 = time.perf_counter()
+    eng, *_ = deepspeed_tpu_torch.initialize(model=model,
+                                             config=BENCH_774M_CONFIG)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(eng.state.params))
+    # starts below 1000 and steps of 1-7 keep the tokens under ~8.2k of the
+    # 50k vocab: the loss can fall within ten steps at lr 1e-4
+    batches = lm_batches(np.random.RandomState(0), warm + steps + 1, gas,
+                         micro, t, cfg.vocab_size, start_span=1000)
+    # the first micro-batch through flash and through dense attention, on
+    # the same (initial) parameters: a check of the model's flash route at
+    # full width (layouts, scale, causal alignment), not of the kernels'
+    # arithmetic, which at init barely moves the loss (the kernels phase
+    # and reference_train hold that)
+    first = {k: v[0] for k, v in batches[0].items()}
+    flash_loss = float(eng.eval_batch(first))
+    dense = GPT2Model(cfg, attn_impl="dense")
+    with torch.no_grad():
+        cp = eng._cast_for_compute(eng.state.params)
+        tb = {k: torch.as_tensor(v).long().to(eng.device) for k, v in first.items()}
+        dense_loss = float(dense.apply(cp, tb)[0])
+        del cp, tb
+    assert abs(flash_loss - dense_loss) <= FLASH_DENSE_LOSS_TOL, \
+        (flash_loss, dense_loss)
+
+    losses = [eng.train_batch_from_stacked(b) for b in batches[:warm]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                       # the main path starts here
+    t0 = time.perf_counter()
+    for b in batches[warm:warm + steps]:
+        losses.append(eng.train_batch_from_stacked(b))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], losses
+    for name, n in launches.items():
+        want = cfg.num_layers * gas * steps if name in FLASH else 0
+        assert n == want, (name, n, want)
+    prof = profile_train_step(eng, batches[-1])
+    tokens = gas * micro * t * steps
+    flops_tok = model.flops_per_token(t)
+    info = {"phase": "train_774m", "card": smi,
+            "model": "gpt2_774m (36 layers, hidden 1280, 20 heads, vocab "
+                     "50257), random init seed 1234, attn flash, no remat, "
+                     "no loss_chunk",
+            "config": BENCH_774M_CONFIG, "n_params": n_params,
+            "micro_batch": micro, "gas": gas, "seq_len": t,
+            "warmup_steps": warm, "measured_steps": steps,
+            "first_batch_loss_flash": flash_loss,
+            "first_batch_loss_dense": dense_loss,
+            "flash_dense_loss_tol": FLASH_DENSE_LOSS_TOL, "losses": losses,
+            "launches": launches, "init_s": init_s, "wall_s": wall,
+            "ms_per_step": 1e3 * wall / steps, "tokens_per_s": tokens / wall,
+            "flop_per_token": flops_tok,
+            "achieved_tflops": tokens / wall * flops_tok / 1e12,
+            "peak_mem_gb": peak / 1e9, "profile_one_step": prof}
+    emit(info)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -875,7 +1270,11 @@ def main() -> int:
     dev = phase_device()
     kern = phase_kernels()
     phase_reference()
+    phase_reference_train()
+    train = phase_train_774m(dev["nvidia_smi"])
     launches = dict.fromkeys(WRAPPERS, 0)
+    for k in FLASH:
+        launches[k] = train["launches"][k]
     for dtype in ("bf16", "int8"):
         info, eng = phase_serve(dtype, dev["nvidia_smi"])
         runs = [info]
@@ -885,7 +1284,8 @@ def main() -> int:
                                             baseline=bf16_tokens)[0]]
         for run in runs:
             for k in launches:
-                launches[k] += run["launches"][k]
+                if k not in FLASH:
+                    launches[k] += run["launches"][k]
         del eng
         gc.collect()                     # free this engine before the next
         torch.cuda.empty_cache()

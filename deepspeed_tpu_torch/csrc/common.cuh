@@ -42,6 +42,29 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// 16-byte global -> shared copies that hold no registers (cp.async, sm_80+),
+// committed and waited on in groups.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+
+// As cp_async16, but writes 16 zero bytes (and reads nothing) when !ok.
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool ok) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 enum DType { kF32 = 0, kF16 = 1, kBF16 = 2 };
 
 }  // namespace dst

@@ -35,20 +35,6 @@ constexpr int kMaxPerThread = 16;  // rep * dh <= kThreads * kMaxPerThread
 
 using fp8_t = __nv_fp8_storage_t;  // e4m3 bytes
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // A stored element as the f32 value of the compute type T.
 template <typename T, typename S>
 struct Load;

@@ -8,6 +8,10 @@ Weight-only int8 leaves ``{"__q__", "__scale__"}`` are carried as they are
 (int8 values, f32 scales), so both engines can serve the identical
 quantized weights.
 
+``gpt2_params_from_numpy`` / ``numpy_from_params``: a JAX ``GPT2Model``
+parameter tree (the same layout in both packages) to the port and back, so
+tests can start both from one init and compare parameters after training.
+
 ``kv_pool_from_numpy``: a JAX block pool (possibly token-pair packed,
 possibly a quantized ``{"q", "s"}`` pool with pair-grouped scales) in the
 port's logical layout, so tests can hand both packages the same pool.
@@ -50,6 +54,22 @@ def llama_params_from_numpy(tree, device, dtype):
         return _to_tensor(node, device, dtype)
 
     return walk(tree)
+
+
+def gpt2_params_from_numpy(tree, device, dtype=torch.float32):
+    """Copy a JAX GPT-2 params tree (numpy leaves) to ``device`` in
+    ``dtype`` (float32: the training engine's master parameters)."""
+    if isinstance(tree, dict):
+        return {k: gpt2_params_from_numpy(v, device, dtype)
+                for k, v in tree.items()}
+    return _to_tensor(tree, device, dtype)
+
+
+def numpy_from_params(tree):
+    """The way back: every leaf as a float32 numpy array on the host."""
+    if isinstance(tree, dict):
+        return {k: numpy_from_params(v) for k, v in tree.items()}
+    return tree.detach().float().cpu().numpy()
 
 
 def kv_pool_from_numpy(pool, head_dim: int, device):

@@ -1,5 +1,6 @@
 """Shared model layers of the PyTorch port (port of
-deepspeed_tpu/models/base.py, the layers the serving path uses).
+deepspeed_tpu/models/base.py: the layers of the serving and training paths,
+and the attention dispatch ``sp_attention``).
 
 Weights may be weight-only int8 dicts ``{"__q__": int8, "__scale__": f32}``
 exactly as in the JAX package. A layer-stacked int8 weight stays whole
@@ -14,7 +15,26 @@ import math
 import torch
 import torch.nn.functional as F
 
+from deepspeed_tpu_torch.errors import NotPortedError
 from deepspeed_tpu_torch.ops.int8_matmul import MAX_ROWS, int8_matmul_dma
+
+ATTN_IMPLS = ("dense", "flash", "ring", "ring_flash", "ulysses")
+SEQUENCE_PARALLEL_IMPLS = ("ring", "ring_flash", "ulysses")
+
+
+def sp_attention(attn_impl: str, q, k, v, *, causal: bool = True):
+    """Dispatch to the non-dense attention ops: ``"flash"`` is the flash
+    attention kernels (ops/flash_attention.py); the sequence-parallel forms
+    are not ported yet."""
+    if attn_impl == "flash":
+        from deepspeed_tpu_torch.ops.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, causal)
+    if attn_impl in SEQUENCE_PARALLEL_IMPLS:
+        raise NotPortedError(f"attn_impl={attn_impl!r} (sequence-parallel "
+                             "attention) is not ported to the PyTorch "
+                             "package yet")
+    raise ValueError(f"unknown attn_impl {attn_impl!r}")
 
 
 def layer_norm(x, scale, bias, eps: float = 1e-5):
@@ -113,6 +133,17 @@ def layer_view(blocks, i: int):
     return out
 
 
+def unbind_layers(blocks):
+    """The layers of a layer-stacked block dict of tensors, as a list of
+    per-layer dicts made by one ``unbind`` per weight. Autograd then stacks
+    each weight's gradient once, where per-layer indexing
+    (:func:`layer_view`) materializes and adds a full-size gradient for
+    every layer (L full-size passes per weight per backward)."""
+    names = list(blocks)
+    return [dict(zip(names, ws))
+            for ws in zip(*(blocks[n].unbind(0) for n in names))]
+
+
 def cross_entropy_loss(logits, labels, ignore_index: int = -100):
     """Token-level CE in f32 with masking; returns (mean_loss, n_valid)."""
     logits = logits.float()
@@ -123,3 +154,8 @@ def cross_entropy_loss(logits, labels, ignore_index: int = -100):
     nll = (logz - ll) * valid.float()
     n = valid.sum().clamp_min(1)
     return nll.sum() / n, n
+
+
+def make_causal_lm_batch(input_ids):
+    """inputs/labels from one token stream: predict token t+1 from <=t."""
+    return {"input_ids": input_ids[:, :-1], "labels": input_ids[:, 1:]}

@@ -28,9 +28,16 @@ _F32_MIN = torch.finfo(torch.float32).min
 
 def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True,
-                        scale: Optional[float] = None) -> torch.Tensor:
+                        scale: Optional[float] = None,
+                        dropout_rate: float = 0.0,
+                        dropout_rng: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
     """q [B, T, H, Dh], k/v [B, S, H, Dh]; logits in the input dtype, then
-    softmax in f32, probabilities cast back before P.V (the JAX rounding)."""
+    softmax in f32, probabilities cast back before P.V (the JAX rounding).
+    Causal masking aligns bottom-right (query t sees keys <= t + S - T).
+    ``dropout_rate`` with a ``dropout_rng`` generator (on q's device) drops
+    probabilities and rescales the kept ones by 1 / (1 - rate), as the
+    reference; the random bits are torch's, not JAX's."""
     t, dh = q.shape[1], q.shape[3]
     s = k.shape[1]
     scale = scale if scale is not None else dh ** -0.5
@@ -38,8 +45,13 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if causal:
         mask = torch.ones((t, s), dtype=torch.bool, device=q.device).tril(s - t)
         logits = logits.masked_fill(~mask, _F32_MIN)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.einsum("bhts,bshd->bthd", probs, v)
+    probs = torch.softmax(logits, dim=-1)
+    if dropout_rate > 0.0 and dropout_rng is not None:
+        keep = torch.rand(probs.shape, generator=dropout_rng,
+                          device=probs.device) < 1.0 - dropout_rate
+        probs = torch.where(keep, probs / (1.0 - dropout_rate),
+                            torch.zeros_like(probs))
+    return torch.einsum("bhts,bshd->bthd", probs.to(v.dtype), v)
 
 
 def alloc_kv_cache(num_layers: int, batch: int, num_kv_heads: int,

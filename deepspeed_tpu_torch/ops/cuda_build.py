@@ -130,6 +130,22 @@ def kernels() -> ctypes.CDLL:
             i32, i32, i32, i32,          # n_phys, bs, mb, dh
             f32, i32, i32, vp]           # scale, dtype code, kv code, stream
         lib.dst_fused_block_decode_step.restype = i32
+        lib.dst_flash_fwd.argtypes = [
+            vp, vp, vp, vp, vp,          # q, k, v, out, lse
+            i32, i32, i32, i32, i32,     # bh, tq, tk, dh, causal
+            f32, i32, vp]                # scale, dtype code, stream
+        lib.dst_flash_fwd.restype = i32
+        lib.dst_flash_bwd_dq.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp,  # q, k, v, dout, lse, delta, dq
+            i32, i32, i32, i32, i32,     # bh, tq, tk, dh, causal
+            f32, i32, vp]                # scale, dtype code, stream
+        lib.dst_flash_bwd_dq.restype = i32
+        lib.dst_flash_bwd_dkv.argtypes = [
+            vp, vp, vp, vp, vp, vp,      # q, k, v, dout, lse, delta
+            vp, vp,                      # dk, dv
+            i32, i32, i32, i32, i32,     # bh, tq, tk, dh, causal
+            f32, i32, vp]                # scale, dtype code, stream
+        lib.dst_flash_bwd_dkv.restype = i32
         lib.dst_error_string.argtypes = [i32]
         lib.dst_error_string.restype = ctypes.c_char_p
         _lib = lib

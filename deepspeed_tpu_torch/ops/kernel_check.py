@@ -1,11 +1,15 @@
-"""Inputs and comparisons for holding the block decode kernel against its
-plain version (ops/decode_step.py), shared by ``chip_smoke.py`` and the
-card tests (tests/test_torch_cuda_kernels.py).
+"""Inputs and comparisons for holding kernels against their plain versions,
+shared by ``chip_smoke.py`` and the card tests
+(tests/test_torch_cuda_kernels.py): the block decode kernel
+(ops/decode_step.py) and the flash attention kernels
+(ops/flash_attention.py).
 
 Pools are ``[L, N+1, Hkv, bs, Dh]`` in the compute type, or ``{"q", "s"}``
 int8/fp8 pools quantized from random values (serving/kv_quant.py). Row
 ``N`` is the garbage row: inactive slots on sentinel tables may all write
 it at once, in no fixed order, so comparisons leave it out.
+
+Flash outputs are compared row by row (:func:`rel_err`).
 """
 
 from __future__ import annotations
@@ -62,3 +66,41 @@ def real_rows_equal(a, b) -> bool:
     view = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[a.element_size()]
     return torch.equal(a[:, :-1].contiguous().view(view),
                        b[:, :-1].contiguous().view(view))
+
+
+def flash_inputs(dev, dtype, bh: int, tq: int, dh: int, tk=None, seed: int = 0):
+    """``(q, k, v, dout)`` flat ``[BH, T, Dh]`` operands from a seeded
+    generator: q and dout over ``tq`` rows, k and v over ``tk`` (default
+    ``tq``)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(t):
+        return torch.randn((bh, t, dh), generator=g, device=dev).to(dtype)
+
+    return rnd(tq), rnd(tk or tq), rnd(tk or tq), rnd(tq)
+
+
+def flash_delta(dout, out):
+    """rowsum(dO * O) in f32, ``[BH, T, 1]`` (the backward's plain input)."""
+    return (dout.float() * out.float()).sum(-1, keepdim=True)
+
+
+def rel_err(out, ref) -> float:
+    """The worst row's error as a share of that row's own scale, in f32: the
+    max over rows (the last dim: a query row of O and dQ, a key row of dK
+    and dV) of ``max |out - ref| / max(max |ref|, rms(ref))``, where rms is
+    over the whole tensor.
+
+    Normalising per row keeps the bound tight where attention outputs are
+    small: under causal masking row i of O averages about i + 1 values, so
+    late rows are many times smaller than row 0 (a copy of v[0]), and one
+    bound relative to the tensor's max would pass a late tile wrong by its
+    own typical size. The rms floor is the scale below which a row is held
+    to an absolute bound: a row that is zero up to f32 rounding (dQ of row 0
+    under causal masking, whose one dS entry is p (dp - delta) with p = 1
+    and dp = delta) must not turn that rounding into a large share, at the
+    f32 kernels' 1e-4 as at bf16's 2e-2."""
+    ref = ref.float()
+    err = (out.float() - ref).abs().amax(-1)
+    floor = ref.square().mean().sqrt().clamp_min(1e-30)
+    return (err / ref.abs().amax(-1).clamp_min(floor)).max().item()

@@ -15,9 +15,18 @@ does not depend on its neighbours), and the wrappers' input checks. The
 block decode step: bf16/f16/f32 compute over pools in the compute type,
 int8 and fp8 (payload and scales), a permuted table, block edges, the
 overflow write to the garbage row, an inactive slot on a sentinel table.
+The flash attention kernels (forward, backward dQ, backward dK/dV): bf16,
+f16 and f32 at Dh 64 and 128, T a multiple of the tile and ragged, causal
+and not, Tk != Tq (top-left causal), run-to-run bit identity of the
+backward, and the wrappers' input checks.
 
 Tolerances: caches bit-identical (block pools: every row but the garbage
-row, which several inactive slots may write at once); decode outputs within
+row, which several inactive slots may write at once); flash outputs and
+grads, row by row, within 2e-2 (bf16), 4e-3 (f16), 1e-4 (f32) of the row's
+own max |ref| (``kernel_check.rel_err``: about two ulps of the row's
+largest element; p and dS are rounded at the same points in kernel and
+plain version, but the forward's p at tile-local maxima, and sums run in
+another order), lse within 1e-4 absolute; decode outputs within
 2e-2 (bf16), 4e-3 (f16), 1e-5 (f32) absolute on O(1) values — the kernel's
 online softmax rounds its probabilities at chunk-local maxima; int8 matmul
 outputs within one ulp of the output type (rtol 8e-3 bf16, 1e-3 f16,
@@ -31,16 +40,25 @@ from deepspeed_tpu_torch.ops.decode_step import (fused_block_decode_step,
                                                  fused_block_decode_step_plain,
                                                  fused_decode_step,
                                                  fused_decode_step_plain)
+from deepspeed_tpu_torch.ops.flash_attention import (flash_attention,
+                                                     flash_bwd_dkv,
+                                                     flash_bwd_dkv_plain,
+                                                     flash_bwd_dq,
+                                                     flash_bwd_dq_plain,
+                                                     flash_fwd_parts,
+                                                     flash_fwd_parts_plain)
 from deepspeed_tpu_torch.ops.int8_matmul import (int8_matmul_dma,
                                                  int8_matmul_plain)
 from deepspeed_tpu_torch.ops.kernel_check import (block_step_inputs,
-                                                  clone_pool,
-                                                  real_rows_equal)
+                                                  clone_pool, flash_delta,
+                                                  flash_inputs,
+                                                  real_rows_equal, rel_err)
 
 pytestmark = pytest.mark.cuda
 
 DECODE_TOL = {torch.bfloat16: 2e-2, torch.float16: 4e-3, torch.float32: 1e-5}
 MATMUL_RTOL = {torch.bfloat16: 8e-3, torch.float16: 1e-3, torch.float32: 1e-5}
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float16: 4e-3, torch.float32: 1e-4}
 
 
 @pytest.fixture
@@ -216,3 +234,70 @@ def test_int8_matmul_rejects_bad_inputs(cuda):
     with pytest.raises(TypeError):      # bf16 scales
         int8_matmul_dma(x[:4].contiguous(), q, s.to(torch.bfloat16), 0)
     assert int8_matmul_dma.launches == n0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("tq,tk", [(128, 128), (48, 48), (200, 200),
+                                   (96, 160), (160, 96)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_match_plain(cuda, dtype, dh, tq, tk, causal):
+    q, k, v, do = flash_inputs(cuda, dtype, 6, tq, dh, tk=tk, seed=tq + dh)
+    out, lse = flash_fwd_parts(q, k, v, causal=causal)
+    ref, ref_lse = flash_fwd_parts_plain(q, k, v, causal=causal)
+    assert rel_err(out, ref) <= FLASH_TOL[dtype]
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    delta = flash_delta(do, ref)
+    dq = flash_bwd_dq(q, k, v, do, ref_lse, delta, causal=causal)
+    dk, dv = flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal=causal)
+    rdq = flash_bwd_dq_plain(q, k, v, do, ref_lse, delta, causal=causal)
+    rdk, rdv = flash_bwd_dkv_plain(q, k, v, do, ref_lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        assert torch.isfinite(got.float()).all()
+        assert rel_err(got, want) <= FLASH_TOL[dtype]
+
+
+def test_flash_backward_is_bit_identical_run_to_run(cuda):
+    q, k, v, do = flash_inputs(cuda, torch.bfloat16, 8, 300, 64)
+    out, lse = flash_fwd_parts(q, k, v, causal=True)
+    delta = flash_delta(do, out)
+    first = (flash_bwd_dq(q, k, v, do, lse, delta, causal=True),
+             *flash_bwd_dkv(q, k, v, do, lse, delta, causal=True))
+    again = (flash_bwd_dq(q, k, v, do, lse, delta, causal=True),
+             *flash_bwd_dkv(q, k, v, do, lse, delta, causal=True))
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_flash_attention_autograd_runs_the_kernels(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((2, 130, 4, 64), generator=g, device=cuda)
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    n = (flash_fwd_parts.launches, flash_bwd_dq.launches,
+         flash_bwd_dkv.launches)
+    out = flash_attention(q, k, v, True)
+    out.float().square().sum().backward()
+    assert (flash_fwd_parts.launches, flash_bwd_dq.launches,
+            flash_bwd_dkv.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    for t in (q, k, v):
+        assert t.grad.shape == t.shape and torch.isfinite(t.grad.float()).all()
+
+
+def test_flash_wrappers_reject_bad_inputs(cuda, monkeypatch):
+    q, k, v, do = flash_inputs(cuda, torch.bfloat16, 2, 64, 64)
+    n0 = flash_fwd_parts.launches
+    with pytest.raises(ValueError):     # Dh 96
+        flash_fwd_parts(*flash_inputs(cuda, torch.bfloat16, 2, 64, 96)[:3],
+                        causal=True)
+    with pytest.raises(ValueError):     # float64
+        flash_fwd_parts(q.double(), k.double(), v.double(), causal=True)
+    with pytest.raises(ValueError):     # non-contiguous
+        flash_fwd_parts(q.transpose(1, 2).contiguous().transpose(1, 2), k,
+                        v, causal=True)
+    with pytest.raises(ValueError):     # mixed dtypes
+        flash_fwd_parts(q, k.half(), v, causal=True)
+    monkeypatch.setenv("DSTPU_FLASH_F32_PRECISE", "1")
+    with pytest.raises(ValueError):     # f32 p/dS operands not in the kernel
+        flash_fwd_parts(q, k, v, causal=True)
+    assert flash_fwd_parts.launches == n0

@@ -3,8 +3,11 @@
 * No module of deepspeed_tpu_torch/ and not chip_smoke.py imports ``jax`` or
   the JAX package (an AST scan of every import statement), and importing
   the port leaves ``jax`` out of ``sys.modules`` (a fresh interpreter).
+* The model, op, serving and inference layers import nothing of the
+  training runtime (their shared errors live in ``errors.py``).
 * Entry points default to the CUDA card: with no card, ``init_inference()``
-  without a device raises instead of carrying on on the CPU.
+  and ``initialize()`` without a device raise instead of carrying on on the
+  CPU.
 """
 
 import ast
@@ -46,9 +49,20 @@ def test_no_jax_or_reference_package_imports(path):
         assert root not in FORBIDDEN, f"{path.name} imports {name}"
 
 
+@pytest.mark.parametrize("layer", ["models", "ops", "serving", "inference"])
+def test_lower_layers_do_not_import_the_training_runtime(layer):
+    for path in sorted((ROOT / "deepspeed_tpu_torch" / layer).rglob("*.py")):
+        for name in _imported_roots(path):
+            assert not name.startswith("deepspeed_tpu_torch.runtime"), \
+                f"{path.relative_to(ROOT)} imports {name}"
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, deepspeed_tpu_torch, deepspeed_tpu_torch.serving, "
-            "deepspeed_tpu_torch.inference; "
+            "deepspeed_tpu_torch.inference, deepspeed_tpu_torch.runtime.engine, "
+            "deepspeed_tpu_torch.runtime.dataloader, "
+            "deepspeed_tpu_torch.models.gpt2, deepspeed_tpu_torch.ops.adam, "
+            "deepspeed_tpu_torch.ops.flash_attention; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -61,6 +75,10 @@ def test_default_device_is_the_card():
         return
     with pytest.raises(DeviceUnavailableError):
         deepspeed_tpu_torch.init_inference(LlamaModel(LlamaConfig.tiny()))
+    with pytest.raises(DeviceUnavailableError):
+        deepspeed_tpu_torch.initialize(
+            model=deepspeed_tpu_torch.GPT2Model(deepspeed_tpu_torch.GPT2Config.tiny()),
+            config={"train_batch_size": 2})
     with pytest.raises(DeviceUnavailableError):
         get_accelerator("cuda")
     assert get_accelerator("cpu").device().type == "cpu"
