@@ -92,6 +92,49 @@ Training (phases added after ``reference``, before the serving phases):
                profile of one step (device busy share, top kernels, the
                flash kernels' ms per step).
 
+Generate (phases added after ``reference`` and after ``probe_fp32``):
+
+   kernels (flash-decode) — the flash-decode kernel against its plain
+               version, row by row (2e-2 bf16, 1e-5 f32: kernel_check.
+               rel_err): CodeLlama-34B decode (B 1 and B 4, Hq 64 / Hkv 8,
+               Dh 128, S 640, bf16, idx 0, 127, 128, 639), the rep-1
+               variant at LLaMA-7B's shape (B 8, H 32, S 1024) and an f32
+               case; each idx as a python int and as a device tensor (the
+               same bits), values past idx set to 1e4 (the output must not
+               change), a second launch (bit-identical). Kernel, plain and
+               SDPA-over-the-valid-prefix times at the largest idx, on cache
+               copies rotated past the L2. Kernel B gets rows at rep 8
+               (34B, B 4) and at Dh 64 MHA (GPT-2 774M, B 4, S 256).
+   reference_generate — generate() of a small fp32 LLaMA (2 layers,
+               hidden 2048, 16/2 heads: rep 8 at Dh 128, vocab 32000) on the
+               CPU (plain versions) and the card (kernels): identical greedy
+               tokens at batch 1 (flash-decode: layers x (new - 1) launches,
+               no fused step) and batch 2 (the fused step), greedy and with
+               EOS; a seeded sampled generate repeats on the card; a small
+               fp32 GPT-2 at batch 2 the same way (the fused step). The CPU
+               launches none.
+   generate_gpt2 — GPT-2 774M in bf16 (random init): batch 4, a 128-token
+               prompt, 64 new tokens; 36 x 63 fused-step launches; the
+               probe (row 0 replayed at batch 1 from its prompt through a
+               cache padded as generate pads it; over the last 32 steps the
+               replay's logits and the no-cache forward's agree within
+               GENERATE_LOGIT_TOL of max |logit|, and tokens agree with the
+               no-cache argmax on margin-safe steps); a profile of 5 decode
+               steps.
+   generate_34b — CodeLlama-34B at full width and depth in bf16 (random
+               weights from a seeded torch.Generator; 67.5 GB), after
+               asserting that the earlier phases freed the card: greedy at
+               batch 1, a 512-token prompt and 128 new tokens (cache 640:
+               48 x 127 flash-decode launches, no fused step), the probe
+               (as generate_gpt2's; the batch-1 replay is generate's own
+               computation, so it reproduces every generated token),
+               prefill ms, host ms per decode token, a profile of 5 decode
+               steps (busy share, flash-decode ms per token, top kernels);
+               the same prompt at batch 4 (48 x 127 fused-step launches at
+               rep 8), with its profile; a sampled
+               generate (top-k 50, top-p 0.9, temperature 0.8, seed 1) twice
+               at batch 1, identical.
+
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -117,6 +160,9 @@ from deepspeed_tpu_torch.ops.decode_step import (fused_block_decode_step,
                                                  fused_decode_step,
                                                  fused_decode_step_plain)
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+from deepspeed_tpu_torch.ops.flash_decode import (flash_decode,
+                                                  flash_decode_mha,
+                                                  flash_decode_plain)
 from deepspeed_tpu_torch.ops.flash_attention import (flash_bwd_dkv,
                                                      flash_bwd_dkv_plain,
                                                      flash_bwd_dq,
@@ -146,6 +192,11 @@ MATMUL_RTOL = 8e-3            # one bf16 ulp of |out|, plus 1e-3 absolute
 # layers amplify that; the bound only catches a gross error (a wrong
 # position or head moves logits by their own size).
 LOGIT_TOL = {"fp32": 1e-3, "bf16": 0.15, "int8": 0.15}
+# The same check through generate() at CodeLlama-34B's depth: 48 random
+# layers amplify that rounding further (LLaMA-7B's probes read 0.07-0.10 of
+# max |logit|, CodeLlama-34B's 0.149); the bound keeps the 7B bound's
+# factor of about two over its readings and still catches a gross error.
+GENERATE_LOGIT_TOL = 0.3
 KERNELS = {
     "fused_decode_step": {
         "source": "deepspeed_tpu_torch/csrc/decode_step.cu",
@@ -165,13 +216,21 @@ KERNELS = {
     "flash_bwd_dkv": {
         "source": "deepspeed_tpu_torch/csrc/flash_attention.cu",
         "replaces": "deepspeed_tpu/ops/flash_attention.py:154 (_bwd_dkv_kernel)"},
+    "flash_decode": {
+        "source": "deepspeed_tpu_torch/csrc/flash_decode.cu",
+        "replaces": "deepspeed_tpu/ops/flash_decode.py:51 (_kernel)"},
+    "flash_decode_mha": {
+        "source": "deepspeed_tpu_torch/csrc/flash_decode.cu",
+        "replaces": "deepspeed_tpu/ops/flash_decode.py:91 (_mha_kernel)"},
 }
 WRAPPERS = {"fused_decode_step": fused_decode_step,
             "int8_matmul_dma": int8_matmul_dma,
             "fused_block_decode_step": fused_block_decode_step,
             "flash_fwd": flash_fwd_parts,
             "flash_bwd_dq": flash_bwd_dq,
-            "flash_bwd_dkv": flash_bwd_dkv}
+            "flash_bwd_dkv": flash_bwd_dkv,
+            "flash_decode": flash_decode,
+            "flash_decode_mha": flash_decode_mha}
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # flash outputs, per row: |kernel - plain| as a share of the row's max |x|
 # (kernel_check.rel_err). bf16: about two ulps (2^-7 each) of the row's
@@ -181,6 +240,15 @@ LSE_TOL = 1e-4                                              # absolute
 # GPT-2 774M first-batch loss through flash vs dense attention, absolute
 # (the reading is 9.4e-5 at a loss of 11.1)
 FLASH_DENSE_LOSS_TOL = 1e-3
+# flash-decode outputs, per row (kernel_check.rel_err): bf16 about two ulps
+# of the row's largest element (the kernel rounds p at warp-local running
+# maxima, the plain version at the row maximum); f32 summation order only
+FLASH_DECODE_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+# CodeLlama-34B, codellama/CodeLlama-34b-hf config.json: every field a
+# LlamaConfig field (GQA rep 8 at Dh 128, rope_theta 1e6, untied)
+CODELLAMA_34B = dict(vocab_size=32000, max_seq_len=16384, num_layers=48,
+                     hidden_size=8192, num_heads=64, num_kv_heads=8,
+                     intermediate_size=22016, rope_theta=1e6, eps=1e-5)
 
 
 def emit(obj) -> None:
@@ -548,6 +616,75 @@ def check_flash(dtype, b, h, t, dh, causal, seed=0):
             "sdpa_fwd_bwd_ms": lib_fb}
 
 
+def check_flash_decode(dtype, b, hq, hkv, s, dh, idxs, seed=0):
+    """The flash-decode kernel (rep >= 2) or its rep-1 variant against
+    :func:`flash_decode_plain` at one geometry: each ``idx`` as a python int
+    and as a device tensor, row by row (kernel_check.rel_err); values past
+    idx set to 1e4 must leave the output bit for bit unchanged, and a second
+    launch must repeat it bit for bit. Then the times at the largest idx,
+    on copies of the cache rotated through more than the L2 holds: the
+    kernel, the plain version, and SDPA over the valid prefix."""
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    q, k, v = rnd(b, 1, hq, dh), rnd(b, hkv, s, dh), rnd(b, hkv, s, dh)
+    tol = FLASH_DECODE_TOL[dtype]
+    errs = []
+    for idx in idxs:
+        out = flash_decode(q, k, v, idx)
+        ref = flash_decode_plain(q, k, v, idx)
+        dev_idx = torch.tensor(idx, dtype=torch.int32, device=dev)
+        k2, v2 = k.clone(), v.clone()
+        k2[:, :, idx + 1:] = 1e4
+        v2[:, :, idx + 1:] = 1e4
+        torch.cuda.synchronize()
+        assert torch.isfinite(out.float()).all()
+        err = rel_err(out, ref)
+        assert err <= tol, ("flash_decode", dtype, b, hq, hkv, s, idx, err)
+        assert torch.equal(flash_decode(q, k2, v2, idx), out), \
+            f"flash_decode reads past idx {idx}"
+        assert torch.equal(flash_decode(q, k, v, idx), out), \
+            "flash_decode not bit-identical run to run"
+        assert torch.equal(flash_decode(q, k, v, dev_idx), out), \
+            "device-tensor idx differs from the python int"
+        errs.append({"idx": idx, "rel_err": err,
+                     "max_abs_err": (out.float() - ref.float()).abs().max().item()})
+        del k2, v2
+    idx = max(idxs)
+    n_pos = idx + 1
+    esz = q.element_size()
+    cache_bytes = 2 * b * hkv * s * dh * esz
+    n_t = max(2, math.ceil(1.5 * L2_BYTES / cache_bytes))
+    ks = [k] + [rnd(b, hkv, s, dh) for _ in range(n_t - 1)]
+    vs = [v] + [rnd(b, hkv, s, dh) for _ in range(n_t - 1)]
+    kernel_ms = time_ms(lambda i: flash_decode(q, ks[i], vs[i], idx), n_t)
+    plain_ms = time_ms(lambda i: flash_decode_plain(q, ks[i], vs[i], idx), n_t)
+    qs = q.transpose(1, 2)                      # [B, Hq, 1, Dh]
+    gqa = {"enable_gqa": True} if hq != hkv else {}
+    library_ms = time_ms(
+        lambda i: torch.nn.functional.scaled_dot_product_attention(
+            qs, ks[i][:, :, :n_pos], vs[i][:, :, :n_pos], **gqa), n_t)
+    del ks, vs
+    nbytes = (2 * b * hq * dh * esz                      # q in, out
+              + 2 * b * hkv * n_pos * dh * esz)          # K, V valid prefix
+    flops = 4 * b * hq * dh * n_pos                      # QK^T and P.V
+    rate = BF16_FLOP_PER_S if dtype != torch.float32 else F32_FLOP_PER_S
+    return {"variant": "mha (rep 1)" if hq == hkv else "gqa",
+            "dtype": str(dtype).split(".")[-1], "b": b, "hq": hq, "hkv": hkv,
+            "s": s, "dh": dh, "idx": list(idxs), "errors": errs,
+            "max_abs_err": max(e["max_abs_err"] for e in errs),
+            "tol_rel": tol, "past_idx_unchanged": True,
+            "bit_identical_run_to_run": True, "timed_idx": idx,
+            "timing_copies": n_t, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "scaled_dot_product_attention over the valid prefix"
+                       + (" (enable_gqa)" if gqa else ""),
+            **_bound(nbytes, flops, rate)}
+
+
 LLAMA7B_MATMULS = [("wq", 4096, 4096), ("wk", 4096, 4096),
                    ("wv", 4096, 4096), ("wo", 4096, 4096),
                    ("w_gate", 4096, 11008), ("w_up", 4096, 11008),
@@ -578,11 +715,28 @@ def phase_kernels() -> dict:
              check_flash(torch.float32, 2, 4, 200, 64, True),
              check_flash(torch.float32, 2, 2, 136, 128, False)]
     torch.cuda.empty_cache()
+    # flash-decode: (a) CodeLlama-34B decode at batch 1 (generate's route),
+    # (b) batch 4, (c) the rep-1 variant at LLaMA-7B's shape, (d) f32
+    fidx = [0, 127, 128, 639]
+    fdec = [check_flash_decode(torch.bfloat16, 1, 64, 8, 640, 128, fidx),
+            check_flash_decode(torch.bfloat16, 4, 64, 8, 640, 128, fidx, seed=1),
+            check_flash_decode(torch.bfloat16, 8, 32, 32, 1024, 128,
+                               [0, 511, 1023], seed=2),
+            check_flash_decode(torch.float32, 1, 64, 8, 640, 128, fidx, seed=3)]
+    torch.cuda.empty_cache()
+    # kernel B on generate's routes: rep 8 (CodeLlama-34B, batch 4) and
+    # Dh 64 MHA (GPT-2 774M, batch 4); enough layers to rotate past the L2
+    decode += [check_decode_step(4, 64, 8, 640, 128, [0, 127, 128, 639],
+                                 layers=8, seed=3),
+               check_decode_step(4, 20, 20, 256, 64, [0, 127, 128, 255],
+                                 layers=16, seed=4)]
+    torch.cuda.empty_cache()
     emit({"phase": "kernels", "fused_decode_step": decode,
           "fused_block_decode_step": block, "int8_matmul_dma": matmul,
-          "flash_attention": flash})
+          "flash_attention": flash, "flash_decode": fdec})
     return {"fused_decode_step": decode, "fused_block_decode_step": block,
-            "int8_matmul_dma": matmul, "flash_attention": flash}
+            "int8_matmul_dma": matmul, "flash_attention": flash,
+            "flash_decode": fdec}
 
 
 def kernel_summary(kern: dict, launches: dict) -> list:
@@ -638,7 +792,18 @@ def kernel_summary(kern: dict, launches: dict) -> list:
              bound_ms=kern["flash_attention"][0][key]["bound_ms"],
              bound_by=kern["flash_attention"][0][key]["bound_by"],
              library_ms=kern["flash_attention"][0][key]["library_ms"])
-        for name, key in zip(FLASH, ("fwd", "dq", "dkv"))]
+        for name, key in zip(FLASH, ("fwd", "dq", "dkv"))] + [
+        # flash-decode at CodeLlama-34B's batch-1 decode (idx 639); its rep-1
+        # variant at LLaMA-7B's (B 8, idx 1023), unrouted on the main path
+        dict(name=name, route="cuda", **KERNELS[name],
+             launches=launches[name],
+             max_abs_err=max(r["max_abs_err"] for r in kern["flash_decode"]
+                             if (r["hq"] == r["hkv"]) == (name != "flash_decode")),
+             ms=row["kernel_ms"], plain_ms=row["plain_ms"],
+             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+             library_ms=row["library_ms"])
+        for name, row in (("flash_decode", kern["flash_decode"][0]),
+                          ("flash_decode_mha", kern["flash_decode"][2]))]
 
 
 # --------------------------------------------------------------- phase 3
@@ -775,15 +940,17 @@ def check_probe(eng, probe, served, tol: float, block_kv="slot") -> dict:
             "tol": tol, "margin_safe_tokens_checked": int(sum(safe))}
 
 
-def _replay(eng, seq, plen: int, block_kv="slot") -> torch.Tensor:
+def _replay(eng, seq, plen: int, block_kv="slot",
+            cache_len=None) -> torch.Tensor:
     """f32 logits ``[T - plen + 1, V]`` of a batch-1 cached replay of
     ``seq``: a plain prefill of its first ``plen`` tokens, then one decode
-    step per token (see :func:`check_probe` for ``block_kv``)."""
+    step per token (see :func:`check_probe` for ``block_kv``; a slot cache
+    holds ``cache_len`` positions, default ``T``)."""
     model, params = eng.module, eng.params
     with torch.no_grad():
         if block_kv == "slot":
-            cache = model.init_cache(1, seq.shape[1], dtype=eng.dtype,
-                                     device=eng.device)
+            cache = model.init_cache(1, cache_len or seq.shape[1],
+                                     dtype=eng.dtype, device=eng.device)
         else:
             span = -(-seq.shape[1] // 16) * 16
             pool = BlockKVPool(model, 1, span, block_size=16, dtype=eng.dtype,
@@ -1072,6 +1239,299 @@ def phase_probe_fp32() -> dict:
     return info
 
 
+# ------------------------------------------------------------ generate
+def _generate_pair(eng_cpu, eng_gpu, prompt, max_new, **kw):
+    """generate() on the CPU engine (plain versions) and on the card engine
+    (kernels) from the same prompt; the tokens and each side's launches."""
+    out = {}
+    for name, eng in (("cpu", eng_cpu), ("cuda", eng_gpu)):
+        reset_counts()
+        toks = eng.generate(prompt, max_new_tokens=max_new, **kw)
+        out[name] = (toks, read_counts())
+    assert torch.equal(out["cpu"][0], out["cuda"][0]), (kw, out)
+    assert all(n == 0 for n in out["cpu"][1].values()), out["cpu"][1]
+    return out["cuda"]
+
+
+def phase_reference_generate() -> dict:
+    """generate() on the CPU (plain versions) and on the card (kernels) with
+    the same weights, in fp32: a small LLaMA at GQA rep 8 and Dh 128 at
+    batch 1 (the flash-decode route: a thin cache, a scalar index) and batch
+    2 (the fused step), greedy and with EOS; a seeded sampled generate that
+    repeats itself on the card; a small GPT-2 at batch 2."""
+    cfg = LlamaConfig(vocab_size=32000, max_seq_len=512, num_layers=2,
+                      hidden_size=2048, num_heads=16, num_kv_heads=2)
+    engs = {}
+    for device in ("cpu", "cuda"):
+        engs[device] = deepspeed_tpu_torch.init_inference(
+            LlamaModel(cfg), dtype="fp32", device=device, seed=3,
+            params=None if device == "cpu" else _tree_to(engs["cpu"].params,
+                                                         device))
+    rng = np.random.RandomState(17)
+    max_new, layers = 12, cfg.num_layers
+    steps = layers * (max_new - 1)
+    res = {"model": "llama 2 layers, hidden 2048, 16/2 heads (rep 8, Dh "
+                    "128), vocab 32000, fp32", "max_new_tokens": max_new}
+    for b, route in ((1, "flash_decode"), (2, "fused_decode_step")):
+        prompt = rng.randint(0, 32000, size=(b, 40))
+        toks, launches = _generate_pair(engs["cpu"], engs["cuda"], prompt,
+                                        max_new)
+        other = "fused_decode_step" if route == "flash_decode" else "flash_decode"
+        assert launches[route] == steps and launches[other] == 0, launches
+        eos = int(toks[0, 40 + 3])
+        first = int((toks[0, 40:] == eos).nonzero()[0, 0])
+        etoks, _ = _generate_pair(engs["cpu"], engs["cuda"], prompt, max_new,
+                                  eos_token_id=eos, pad_token_id=0)
+        assert torch.equal(etoks[0, :41 + first], toks[0, :41 + first])
+        assert (etoks[0, 41 + first:] == 0).all(), etoks
+        res[f"b{b}"] = {"route": route, "launches": launches[route],
+                        "tokens_compared": int(toks[:, 40:].numel()),
+                        "eos": eos, "eos_tokens": etoks[:, 40:].tolist()}
+    kw = dict(max_new_tokens=max_new, do_sample=True, top_k=50, top_p=0.9,
+              temperature=0.8, seed=1)
+    prompt = rng.randint(0, 32000, size=(1, 40))
+    a = engs["cuda"].generate(prompt, **kw)
+    assert torch.equal(a, engs["cuda"].generate(prompt, **kw)), "sampling"
+    res["sampled_repeats"] = True
+    del engs
+    gcfg = GPT2Config(vocab_size=2048, max_seq_len=256, num_layers=2,
+                      hidden_size=256, num_heads=4)
+    g_cpu = deepspeed_tpu_torch.init_inference(GPT2Model(gcfg), dtype="fp32",
+                                               device="cpu", seed=4)
+    g_gpu = deepspeed_tpu_torch.init_inference(
+        GPT2Model(gcfg), dtype="fp32", params=_tree_to(g_cpu.params, "cuda"))
+    prompt = rng.randint(0, 2048, size=(2, 30))
+    toks, launches = _generate_pair(g_cpu, g_gpu, prompt, max_new)
+    assert launches["fused_decode_step"] == steps, launches
+    assert launches["flash_decode"] == 0, launches
+    eos = int(toks[0, 30 + 3])
+    etoks, _ = _generate_pair(g_cpu, g_gpu, prompt, max_new,
+                              eos_token_id=eos, pad_token_id=0)
+    a = g_gpu.generate(prompt, **kw)
+    assert torch.equal(a, g_gpu.generate(prompt, **kw)), "sampling"
+    res["gpt2_b2"] = {"model": "gpt2 2 layers, hidden 256, 4 heads (Dh 64), "
+                               "vocab 2048, fp32",
+                      "launches": launches["fused_decode_step"],
+                      "tokens_compared": int(toks[:, 30:].numel()),
+                      "eos": eos, "eos_tokens": etoks[:, 30:].tolist(),
+                      "sampled_repeats": True}
+    info = {"phase": "reference_generate", "identical": True, **res}
+    emit(info)
+    return info
+
+
+def check_generate_probe(eng, tokens, plen: int, tol: float, exact: bool,
+                         last: int = 32) -> dict:
+    """Row 0 of a generate() output recomputed on the card two ways: a
+    batch-1 cached replay (a prefill of its ``plen`` prompt tokens into a
+    cache padded to a multiple of 128 as generate pads it, so decode takes
+    generate's route, then one decode step per generated token) and the
+    plain no-cache forward. With ``exact`` (a batch-1 generate: the replay
+    is generate's own computation) the replay's argmax is every generated
+    token. Over the ``last`` steps the two agree within ``tol`` of max
+    |logit|, and every generated token whose no-cache top-2 margin exceeds
+    twice the measured difference is the no-cache argmax."""
+    seq = tokens[:1, :-1].to(eng.device)
+    cache_len = -(-tokens.shape[1] // 128) * 128
+    replay = _replay(eng, seq, plen, cache_len=cache_len)
+    served = tokens[0, plen:].tolist()
+    same = sum(int(a == b) for a, b in zip(replay.argmax(-1).tolist(), served))
+    assert not exact or same == len(served), \
+        f"replay reproduced {same} of {len(served)} generated tokens"
+    with torch.no_grad():
+        ref = eng.forward(seq)[0, -last:].float()
+    tail = replay[-last:]
+    assert torch.isfinite(ref).all() and torch.isfinite(tail).all()
+    err = (tail - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    assert err <= tol * scale, f"cached replay vs no-cache: {err} / {scale}"
+    top2 = ref.topk(2, dim=-1).values
+    safe = ((top2[:, 0] - top2[:, 1]) > 2 * err).tolist()
+    for step, (ok, want, got) in enumerate(zip(safe, ref.argmax(-1).tolist(),
+                                               served[-last:])):
+        assert not ok or want == got, f"generated token {step}: {got} != {want}"
+    return {"replayed_steps": len(served), "cache_len": cache_len,
+            "replay_tokens_equal": same, "compared_steps": last,
+            "logit_max_abs_err": err, "logit_max_abs": scale, "tol": tol,
+            "margin_safe_tokens_checked": int(sum(safe))}
+
+
+def profile_generate(eng, b: int, prompt_len: int, steps: int = 5) -> dict:
+    """Device time of ``steps`` decode steps of generate's decode program
+    against their host wall time (the prefill runs before the window), by
+    kernel, with the flash-decode kernels' share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prefill, decode = eng.programs(b, prompt_len, steps + 1)
+    ids = torch.randint(0, eng.module.config.vocab_size, (b, prompt_len),
+                        generator=torch.Generator().manual_seed(5))
+    gen = torch.Generator(device=eng.device).manual_seed(0)
+    tok, cache = prefill(eng.params, ids.to(eng.device), 1.0, gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+        t0 = time.perf_counter()
+        decode(eng.params, tok, cache, 1.0, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for ev in pr.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[ev.name] = (kernels.get(ev.name, 0.0)
+                                + ev.time_range.elapsed_us())
+    busy_us = sum(kernels.values())
+    assert busy_us > 0, "the profiler saw no device time"
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    flash_us = sum(us for k, us in kernels.items() if "flash_decode" in k)
+    fused_us = sum(us for k, us in kernels.items()
+                   if "fused_decode_step" in k)
+    return {"steps": steps, "host_ms_per_token": 1e3 * wall / steps,
+            "device_ms_per_token": busy_us / 1e3 / steps,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "flash_decode_ms_per_token": flash_us / 1e3 / steps,
+            "fused_decode_step_ms_per_token": fused_us / 1e3 / steps,
+            "top_kernels_ms_per_token": {k[:60]: v / 1e3 / steps
+                                         for k, v in top}}
+
+
+def _timed_generate(eng, prompt, max_new: int) -> dict:
+    """generate() through the public entry point with the launch counters
+    zeroed just before it, then generate's own prefill program alone, so
+    the decode share of the wall time can be split off."""
+    b, t = prompt.shape
+    torch.cuda.synchronize()
+    reset_counts()                       # the main path starts here
+    t0 = time.perf_counter()
+    toks = eng.generate(prompt, max_new_tokens=max_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    prefill, _ = eng.programs(b, t, max_new)
+    gen = torch.Generator(device=eng.device).manual_seed(0)
+    ids = torch.as_tensor(prompt).long().to(eng.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill(eng.params, ids, 1.0, gen)
+    torch.cuda.synchronize()
+    pf = time.perf_counter() - t0
+    vocab = eng.module.config.vocab_size
+    assert toks.shape == (b, t + max_new)
+    assert ((toks >= 0) & (toks < vocab)).all()
+    assert torch.equal(toks[:, :t], torch.as_tensor(prompt).long())
+    decode_s = wall - pf
+    return {"tokens": toks, "launches": launches, "wall_s": wall,
+            "prefill_ms": 1e3 * pf,
+            "host_ms_per_decode_token": 1e3 * decode_s / (max_new - 1),
+            "decode_tokens_per_s": b * (max_new - 1) / decode_s,
+            "tokens_per_s": b * max_new / wall}
+
+
+def _free_card(what: str) -> int:
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()   # one per stream the timings made
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"{what}: torch.cuda.memory_allocated() = {held}", flush=True)
+    return held
+
+
+def phase_generate_34b(smi: str) -> dict:
+    """CodeLlama-34B at full width and depth in bf16 (random weights from a
+    seeded torch.Generator) through generate(): greedy at batch 1 (512-token
+    prompt, 128 new tokens, cache 640: the flash-decode route), its probe
+    and a decode profile; greedy at batch 4 (the fused step at rep 8); a
+    seeded sampled generate twice at batch 1."""
+    held = _free_card("before generate_34b")
+    assert held < 2 ** 30, f"earlier phases still hold {held} bytes"
+    torch.cuda.reset_peak_memory_stats()
+    cfg = LlamaConfig(**CODELLAMA_34B)
+    t0 = time.perf_counter()
+    eng = deepspeed_tpu_torch.init_inference(LlamaModel(cfg), dtype="bf16",
+                                             seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(eng.params))
+    weights_gb = n_params * 2 / 1e9
+    rng = np.random.RandomState(34)
+    prompt1 = rng.randint(0, cfg.vocab_size, size=(1, 512))
+    eng.generate(prompt1[:, :64], max_new_tokens=4)         # warm-up
+    layers, max_new = cfg.num_layers, 128
+    steps = layers * (max_new - 1)
+
+    b1 = _timed_generate(eng, prompt1, max_new)
+    assert b1["launches"]["flash_decode"] == steps, b1["launches"]
+    assert b1["launches"]["fused_decode_step"] == 0, b1["launches"]
+    probe = check_generate_probe(eng, b1["tokens"], 512, GENERATE_LOGIT_TOL,
+                                 exact=True)
+    prof1 = profile_generate(eng, 1, 512)
+    peak_b1 = torch.cuda.max_memory_allocated()
+
+    prompt4 = np.repeat(prompt1, 4, axis=0)          # the same prompt, B 4
+    b4 = _timed_generate(eng, prompt4, max_new)
+    assert b4["launches"]["fused_decode_step"] == steps, b4["launches"]
+    assert b4["launches"]["flash_decode"] == 0, b4["launches"]
+    prof4 = profile_generate(eng, 4, 512)
+
+    kw = dict(max_new_tokens=32, do_sample=True, top_k=50, top_p=0.9,
+              temperature=0.8, seed=1)
+    s1 = eng.generate(prompt1, **kw)
+    s2 = eng.generate(prompt1, **kw)
+    assert torch.equal(s1, s2), "sampled generate did not repeat"
+    weight_bound_ms = 1e3 * n_params * 2 / HBM_BYTES_PER_S
+    info = {"phase": "generate_34b", "card": smi,
+            "model": "codellama_34b (48 layers, hidden 8192, 64/8 heads, "
+                     "Dh 128, intermediate 22016, vocab 32000, rope_theta "
+                     "1e6), bf16, random weights seed 0",
+            "n_params": n_params, "weights_gb": weights_gb,
+            "memory_before_init": held, "init_s": init_s,
+            "b1": {k: v for k, v in b1.items() if k != "tokens"},
+            "b1_probe": probe, "b1_profile": prof1,
+            "b1_peak_mem_gb": peak_b1 / 1e9,
+            "b4": {k: v for k, v in b4.items() if k != "tokens"},
+            # not asserted: batch 4 runs other GEMM shapes than batch 1
+            "b4_rows_equal_to_b1": [torch.equal(row, b1["tokens"][0])
+                                    for row in b4["tokens"]],
+            "b4_profile": prof4,
+            "weight_stream_bound_ms_per_token": weight_bound_ms,
+            "sampled_repeats": True,
+            "sampled_tokens": s1[0, 512:].tolist(),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(info)
+    del eng
+    _free_card("after generate_34b")
+    return info
+
+
+def phase_generate_gpt2(smi: str) -> dict:
+    """GPT-2 774M in bf16 (random init) through generate(): batch 4, a
+    128-token prompt, 64 new tokens (the fused step at Dh 64), and the probe
+    on row 0."""
+    _free_card("before generate_gpt2")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = GPT2Config.gpt2_774m()
+    eng = deepspeed_tpu_torch.init_inference(GPT2Model(cfg), dtype="bf16",
+                                             seed=0)
+    rng = np.random.RandomState(774)
+    prompt = rng.randint(0, cfg.vocab_size, size=(4, 128))
+    eng.generate(prompt[:, :16], max_new_tokens=4)          # warm-up
+    max_new = 64
+    run = _timed_generate(eng, prompt, max_new)
+    steps = cfg.num_layers * (max_new - 1)
+    assert run["launches"]["fused_decode_step"] == steps, run["launches"]
+    assert run["launches"]["flash_decode"] == 0, run["launches"]
+    probe = check_generate_probe(eng, run["tokens"], 128, GENERATE_LOGIT_TOL,
+                                 exact=False)
+    prof = profile_generate(eng, 4, 128)
+    info = {"phase": "generate_gpt2", "card": smi,
+            "model": "gpt2_774m (36 layers, hidden 1280, 20 heads of Dh 64, "
+                     "vocab 50257), bf16, random init seed 0",
+            **{k: v for k, v in run.items() if k != "tokens"},
+            "probe": probe, "decode_profile": prof,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(info)
+    del eng
+    return info
+
+
 # ------------------------------------------------------------ training
 # bench.py's GPT-2 774M training config (bench.py:173-183), at micro-batch 8
 BENCH_774M_CONFIG = {
@@ -1270,6 +1730,7 @@ def main() -> int:
     dev = phase_device()
     kern = phase_kernels()
     phase_reference()
+    phase_reference_generate()
     phase_reference_train()
     train = phase_train_774m(dev["nvidia_smi"])
     launches = dict.fromkeys(WRAPPERS, 0)
@@ -1290,6 +1751,12 @@ def main() -> int:
         gc.collect()                     # free this engine before the next
         torch.cuda.empty_cache()
     phase_probe_fp32()
+    gpt2 = phase_generate_gpt2(dev["nvidia_smi"])
+    big = phase_generate_34b(dev["nvidia_smi"])
+    for run in (gpt2["launches"], big["b1"]["launches"],
+                big["b4"]["launches"]):
+        for k in ("fused_decode_step", "flash_decode", "flash_decode_mha"):
+            launches[k] += run[k]
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": kernel_summary(kern, launches)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],

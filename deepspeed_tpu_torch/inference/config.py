@@ -1,7 +1,9 @@
 """Inference configuration of the PyTorch port: a dataclass taking the keys
-of deepspeed_tpu's ``DeepSpeedInferenceConfig`` that the serving path
-reads (``dtype``, ``seed``, ``quant``, ``max_tokens`` / ``max_out_tokens``,
-``tensor_parallel.tp_size`` / ``tp`` — only 1 for now)."""
+of deepspeed_tpu's ``DeepSpeedInferenceConfig`` that the serving path and
+``generate`` read (``dtype``, ``seed``, ``quant`` with
+``quantize_embedding``, ``max_tokens`` / ``max_out_tokens``,
+``min_out_tokens`` / ``min_tokens``, ``tensor_parallel.tp_size`` / ``tp``
+— only 1 for now)."""
 
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ _DTYPES = {
     "int8": torch.int8,
 }
 
-_ALIASES = {"tp": "tensor_parallel", "max_out_tokens": "max_tokens"}
+_ALIASES = {"tp": "tensor_parallel", "max_out_tokens": "max_tokens",
+            "min_tokens": "min_out_tokens"}
 
 
 @dataclasses.dataclass
@@ -31,6 +34,9 @@ class QuantizationConfig:
     enabled: bool = False
     bits: int = 8
     group_size: int = 64
+    # also quantize a tied embedding / LM head (one int8 scale per vocab
+    # row, serving both the gather and the logits)
+    quantize_embedding: bool = False
 
 
 @dataclasses.dataclass
@@ -41,6 +47,7 @@ class DeepSpeedInferenceConfig:
     quant: Union[QuantizationConfig, Dict] = dataclasses.field(
         default_factory=QuantizationConfig)
     max_tokens: int = 1024
+    min_out_tokens: int = 1
     seed: int = 0
 
     def __post_init__(self):

@@ -1,5 +1,5 @@
 """GPT-2 model family (port of deepspeed_tpu/models/gpt2.py: the training
-path).
+path and the cached inference path).
 
 Parameters are an explicit dict in the JAX package's layout — stacked
 ``blocks/* [L, in, out]``, ``wte [V, D]``, ``wpe [S, D]`` — so a JAX
@@ -9,28 +9,35 @@ engine's precision: the reference's default too), layer-norm statistics,
 softmax and the loss in f32. Attention is the dense op
 (ops/attention.multihead_attention, with attention dropout when training)
 or, with ``attn_impl="flash"``, the flash attention kernels.
+``forward_with_cache`` runs prefill and decode against a stacked KV cache
+``[L, B, H, S, Dh]`` (or a block pool) through ops/attention.cached_attention,
+in the logical unpacked layout: the reference's token-pair packing for Dh <
+128 is a TPU tiling device with no counterpart here.
 
 Not ported yet, and refused rather than ignored: ``remat``, ``loss_chunk``,
-progressive layer drop (``pld_theta``), random-LTD (``ltd_keep``), the
-sequence-parallel attention forms, and the cached inference path
-(``forward_with_cache``, which comes with ``generate()``).
+progressive layer drop (``pld_theta``), random-LTD (``ltd_keep``) and the
+sequence-parallel attention forms.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
+from deepspeed_tpu_torch.compression.quantize import quantize_int8
 from deepspeed_tpu_torch.errors import NotPortedError
 from deepspeed_tpu_torch.models.base import (ATTN_IMPLS, SEQUENCE_PARALLEL_IMPLS,
+                                             cache_positions,
                                              cross_entropy_loss, embed_tokens,
-                                             gelu, layer_norm, qdot,
-                                             sp_attention, tied_logits,
+                                             gelu, layer_norm, layer_view,
+                                             qdot, sp_attention, tied_logits,
                                              unbind_layers)
-from deepspeed_tpu_torch.ops.attention import multihead_attention
+from deepspeed_tpu_torch.ops.attention import (alloc_kv_cache,
+                                               cached_attention,
+                                               multihead_attention)
 
 
 @dataclasses.dataclass
@@ -82,6 +89,11 @@ class GPT2Config:
 class GPT2Model:
     """Causal-LM model spec. batch = {"input_ids": [B, T] int, "labels": [B, T]}."""
 
+    supports_weight_quant = True     # block matmuls go through base.qdot
+    # the tied table goes through base.embed_tokens / base.tied_logits, so
+    # it may be int8 with per-vocab-row scales (quant.quantize_embedding)
+    supports_embedding_quant = True
+
     def __init__(self, config: GPT2Config, compute_dtype=torch.bfloat16,
                  remat: bool = False, remat_policy: Optional[str] = None,
                  attn_impl: str = "dense"):
@@ -108,11 +120,14 @@ class GPT2Model:
 
     # ------------------------------------------------------------------ init
     def init(self, generator: torch.Generator, *, device=None,
-             dtype=torch.float32):
+             dtype=torch.float32,
+             quantize: Optional[Callable[[tuple], bool]] = None):
         """Random parameters from ``generator``: normal(0.02) weights, the
         two residual-output projections scaled by 1 / sqrt(2L), zero biases,
         unit layer-norm scales (the reference's distributions; torch's
-        random numbers, not JAX's)."""
+        random numbers, not JAX's). A stacked block weight for which
+        ``quantize(shape)`` is true becomes an int8 dict with per-layer,
+        per-output-column scales (the inference engine's weight-only int8)."""
         c = self.config
         d, l, m, v = c.hidden_size, c.num_layers, c.mlp_dim, c.vocab_size
         device = generator.device if device is None else device
@@ -145,17 +160,33 @@ class GPT2Model:
         }
         if not c.tie_embeddings:
             params["lm_head"] = normal((d, v))
+        if quantize is not None:
+            blocks = params["blocks"]
+            for name, w in list(blocks.items()):
+                if quantize(tuple(w.shape)):
+                    q, s = quantize_int8(w, reduce_dims=(1,))
+                    blocks[name] = {"__q__": q, "__scale__": s}
         return params
 
     # ---------------------------------------------------------------- layers
-    def _block(self, x, blk, dropout_rng, train: bool):
+    def _block_impl(self, x, blk, dropout_rng, train: bool, cache):
+        """One block; with ``cache=(k_full, v_full, layer, idx,
+        block_table)`` attention runs against the stacked KV cache (or the
+        block pool), written in place. Returns ``(x, k_full, v_full)``."""
         c = self.config
         b, t, d = x.shape
         h, dh = c.num_heads, c.head_dim
         y = layer_norm(x, blk["ln1_scale"], blk["ln1_bias"], c.eps)
         qkv = qdot("btd,de->bte", y, blk["qkv_w"]) + blk["qkv_b"].to(y.dtype)
         q, k, v = (z.reshape(b, t, h, dh) for z in torch.split(qkv, d, dim=-1))
-        if self.attn_impl != "dense":
+        kc = vc = None
+        if cache is not None:
+            kc, vc, layer, idx, bt = cache
+            # the decode kernels take contiguous rows, not views of qkv
+            attn, kc, vc = cached_attention(q.contiguous(), kc, vc,
+                                            k.contiguous(), v.contiguous(),
+                                            layer, idx, block_table=bt)
+        elif self.attn_impl != "dense":
             attn = sp_attention(self.attn_impl, q, k, v)
         else:
             rate = c.dropout if train else 0.0
@@ -167,8 +198,12 @@ class GPT2Model:
         y = layer_norm(x, blk["ln2_scale"], blk["ln2_bias"], c.eps)
         hmid = gelu(qdot("btd,dm->btm", y, blk["mlp_fc_w"]) +
                     blk["mlp_fc_b"].to(y.dtype))
-        return x + qdot("btm,md->btd", hmid, blk["mlp_out_w"]) + \
+        x = x + qdot("btm,md->btd", hmid, blk["mlp_out_w"]) + \
             blk["mlp_out_b"].to(x.dtype)
+        return x, kc, vc
+
+    def _block(self, x, blk, dropout_rng, train: bool):
+        return self._block_impl(x, blk, dropout_rng, train, None)[0]
 
     def forward_hidden(self, params, input_ids, *, rngs=None,
                        train: bool = False, pld_theta=None, ltd_keep=None):
@@ -183,7 +218,13 @@ class GPT2Model:
         gen = rngs.get("dropout") if isinstance(rngs, dict) else rngs
         x = embed_tokens(params["wte"], input_ids, self.compute_dtype)
         x = x + params["wpe"][:t].to(self.compute_dtype)[None]
-        for blk in unbind_layers(params["blocks"]):
+        blocks = params["blocks"]
+        if any(isinstance(w, dict) for w in blocks.values()):
+            # int8 weights (inference): per-layer views keep them whole
+            layers = [layer_view(blocks, i) for i in range(c.num_layers)]
+        else:
+            layers = unbind_layers(blocks)
+        for blk in layers:
             x = self._block(x, blk, gen, train)
         return layer_norm(x, params["ln_f_scale"], params["ln_f_bias"], c.eps)
 
@@ -202,9 +243,44 @@ class GPT2Model:
                                      batch["labels"])
         return loss, {"loss": loss, "ntokens": n}
 
+    # ------------------------------------------------------ inference path
+    def init_cache(self, batch_size: int, max_len: int, dtype=None,
+                   device=None):
+        """Stacked KV cache ``[L, B, H, S, Dh]`` (K and V) plus the scalar
+        index 0."""
+        c = self.config
+        dtype = dtype or self.compute_dtype
+        shape = (c.num_layers, batch_size, c.num_heads, max_len, c.head_dim)
+        return {"k": alloc_kv_cache(*shape, dtype, device),
+                "v": alloc_kv_cache(*shape, dtype, device),
+                "index": 0}
+
     def forward_with_cache(self, params, input_ids, cache):
-        raise NotPortedError("GPT2Model.forward_with_cache (cached inference) "
-                             "is not ported yet")
+        """Prefill (T > 1) or decode (T == 1) against the KV cache, written in
+        place. ``cache["index"]`` is a python int or a per-slot ``[B]`` int32
+        tensor (models/base.cache_positions: each row then takes its own
+        position embedding and attends over its own prefix); with
+        ``cache["block_table"]`` the caches are block pools. Returns
+        ``(logits [B, T, V], cache)``; positions past the table read its
+        last row, as the reference's clamping gather."""
+        c = self.config
+        t = input_ids.shape[1]
+        idx = cache["index"]
+        bt = cache.get("block_table")
+        x = embed_tokens(params["wte"], input_ids, self.compute_dtype)
+        pos = cache_positions(idx, t, device=x.device).clamp(0, c.max_seq_len - 1)
+        pe = params["wpe"][pos].to(self.compute_dtype)
+        x = x + (pe if pos.ndim == 2 else pe[None])
+        kc, vc = cache["k"], cache["v"]
+        for layer in range(c.num_layers):
+            x, kc, vc = self._block_impl(
+                x, layer_view(params["blocks"], layer), None, False,
+                (kc, vc, layer, idx, bt))
+        hidden = layer_norm(x, params["ln_f_scale"], params["ln_f_bias"], c.eps)
+        out = {"k": kc, "v": vc, "index": idx + t}
+        if bt is not None:
+            out["block_table"] = bt
+        return self.logits(params, hidden), out
 
     # ------------------------------------------------------------------ cost
     def flops_per_token(self, seq_len: Optional[int] = None) -> float:

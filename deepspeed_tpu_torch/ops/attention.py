@@ -3,12 +3,17 @@ the slot-cache and the block-pool paths).
 
 The port always keeps the logical unpacked layouts: the stacked slot cache
 ``[L, B, Hkv, S, Dh]`` and the block pool ``[L, N+1, Hkv, bs, Dh]`` (or its
-quantized ``{"q", "s"}`` form, serving/kv_quant.py). Single-token decode on
-a CUDA tensor always routes to the fused decode-step kernels
-(ops/decode_step.py), whose wrappers raise on a geometry they do not take;
-prefill blocks and CPU tensors take the plain path: an in-place cache write
-plus :func:`decode_attention`, as the JAX package leaves them to XLA. Caches
-are updated in place and returned for the reference's call shape.
+quantized ``{"q", "s"}`` form, serving/kv_quant.py). A single-token step
+over the slot cache takes the route :func:`decode_route` names, the
+reference's two gates: the wide-GQA flash-decode kernel
+(ops/flash_decode.py) for a scalar index at batch 1 with a thin cache, else
+the fused decode-step kernel (ops/decode_step.py). On a CUDA tensor that is
+the kernel, whose wrapper raises on a geometry it does not take; on a CPU
+tensor its plain version. Block-pool decode goes to the block decode-step
+kernel the same way. Prefill blocks take the plain path on both devices:
+an in-place cache write plus :func:`decode_attention`, as the JAX package
+leaves them to XLA. Caches are updated in place and returned for the
+reference's call shape.
 """
 
 from __future__ import annotations
@@ -19,11 +24,57 @@ import torch
 
 from deepspeed_tpu_torch.ops.decode_step import (fused_block_decode_step,
                                                  fused_decode_step)
+from deepspeed_tpu_torch.ops.flash_decode import flash_decode
 from deepspeed_tpu_torch.serving.kv_quant import (is_quantized_pool,
                                                   kv_dequantize, kv_dtype_of,
                                                   kv_quantize, pool_payload)
 
 _F32_MIN = torch.finfo(torch.float32).min
+
+# The reference's batch-1 gate (deepspeed_tpu/ops/attention.py:30-31) in the
+# same unit: bytes of ONE layer's K cache at its full allocated length. A
+# batch-1 step over a thinner cache leaves the fused step; the JAX package
+# reads an environment override, the port keeps the constant.
+_B1_FUSED_MIN_BYTES = 2 * 1024 * 1024
+
+
+def _kv_pack_factor(dh: int) -> int:
+    """The reference's token-pair packing factor (attention.py:69-78)."""
+    return 1 if dh >= 128 or 128 % dh else 128 // dh
+
+
+def decode_route(b: int, t: int, hq: int, hkv: int, s: int, dh: int,
+                 itemsize: int, scalar_idx: bool) -> str:
+    """Which kernel takes a step of ``t`` query tokens over a ``[L, B, Hkv,
+    S, Dh]`` slot cache of ``itemsize``-byte elements: ``"prefill"`` (t > 1,
+    the plain write + :func:`decode_attention`), ``"flash_decode"`` or
+    ``"fused"``. The reference's two gates, in its order:
+
+    * the fused step (cached_attention, attention.py:154-171) needs the
+      allocation the reference makes for it (token-pair packing for Dh <
+      128, which it skips at batch 1 or an S not a multiple of 128), at
+      batch 1 a K cache of at least ``_B1_FUSED_MIN_BYTES`` per layer, and
+      its kernel's tiling (decode_step.supports: S % 128 == 0, Dh | 128 or
+      128 | Dh);
+    * otherwise flash-decode (decode_attention, :535-550) takes a scalar
+      index, S % 128 == 0 and GQA rep >= 8.
+
+    Where the reference would run its einsum (neither gate), the port runs
+    the fused step (ROADMAP queue 3): the fused kernel takes those shapes,
+    and a plain path on the card would be a second implementation to keep.
+    """
+    if t != 1:
+        return "prefill"
+    pack = _kv_pack_factor(dh)
+    pair = pack if (b >= 2 and s % 128 == 0) else 1
+    tiles = (hq % hkv == 0 and s % 128 == 0
+             and (dh % 128 == 0 if dh >= 128 else 128 % dh == 0))
+    if (pair == pack and tiles
+            and (b >= 2 or hkv * s * dh * itemsize >= _B1_FUSED_MIN_BYTES)):
+        return "fused"
+    if scalar_idx and s % 128 == 0 and hq // hkv >= 8:
+        return "flash_decode"
+    return "fused"
 
 
 def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -72,8 +123,9 @@ def cached_attention(q, k_full, v_full, k_new, v_new, layer: int,
     """One cached-attention layer step: write the new block's K/V at
     ``idx`` (a python int for a uniform batch, or a per-slot ``[B]`` int32
     tensor for continuous batching), attend, return
-    ``(attn, k_full, v_full)``. Single-token steps on CUDA go to the fused
-    kernel; everything else takes the write + einsum path.
+    ``(attn, k_full, v_full)``. Single-token steps take the kernel
+    :func:`decode_route` names (its plain version on the CPU); prefill
+    blocks take the write + einsum path.
 
     ``block_table`` (int32 ``[B, MB]``) switches to the block-paged mode:
     ``k_full``/``v_full`` are then the block pools (tensors or quantized
@@ -88,12 +140,19 @@ def cached_attention(q, k_full, v_full, k_new, v_new, layer: int,
             "quantized KV pools are block-paged only: cached_attention got a "
             "{'q','s'} cache without a block_table (serving must run with "
             "prefix_cache=True to use kv_dtype)")
-    if q.shape[1] == 1 and q.device.type == "cuda":
-        # the kernel or its wrapper's ValueError, never the plain path
+    b, t, hq, dh = q.shape
+    _, _, hkv, s_max, _ = k_full.shape
+    route = decode_route(b, t, hq, hkv, s_max, dh, k_full.element_size(),
+                         not isinstance(idx, torch.Tensor))
+    if route == "fused":
+        # the kernel (or its wrapper's ValueError) on CUDA, its plain
+        # version on the CPU
         return fused_decode_step(q, k_full, v_full, k_new, v_new, layer, idx,
                                  scale=scale)
     k_full, v_full, kl, vl = write_kv_cache(k_full, v_full, k_new, v_new,
                                             layer, idx)
+    if route == "flash_decode":
+        return (flash_decode(q, kl, vl, idx, scale=scale), k_full, v_full)
     return decode_attention(q, kl, vl, idx, scale=scale), k_full, v_full
 
 

@@ -146,6 +146,12 @@ def kernels() -> ctypes.CDLL:
             i32, i32, i32, i32, i32,     # bh, tq, tk, dh, causal
             f32, i32, vp]                # scale, dtype code, stream
         lib.dst_flash_bwd_dkv.restype = i32
+        lib.dst_flash_decode.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp,  # q, k, v, out, ml, acc, idx
+            i32, i32, i32, i32, i32,     # idx scalar, b, hq, hkv, s_max
+            i32, i32, i32,               # dh, chunk, n_splits
+            f32, i32, i32, vp]           # scale, dtype code, mha, stream
+        lib.dst_flash_decode.restype = i32
         lib.dst_error_string.argtypes = [i32]
         lib.dst_error_string.restype = ctypes.c_char_p
         _lib = lib

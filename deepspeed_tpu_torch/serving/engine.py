@@ -23,8 +23,8 @@ Two KV stores:
 
 Options the JAX engine has and this port does not yet (speculative
 decoding, preemption, chunked prefill, tracing, SLO control, tenants,
-sampling) raise :class:`EngineConfigError`; the ``telemetry`` argument is
-accepted and ignored.
+sampling in the serving programs) raise :class:`EngineConfigError`; the
+``telemetry`` argument is accepted and ignored.
 """
 
 from __future__ import annotations
@@ -101,10 +101,13 @@ class ServingEngine:
                      "tenants": tenants, "do_sample": do_sample}
         for name in _NOT_PORTED:
             if requested[name]:
+                what = ("sampling in the serving programs (InferenceEngine."
+                        "generate samples; the slot and block programs pick "
+                        "greedily)" if name == "do_sample" else
+                        "greedy slot-paged and block-paged serving only")
                 raise EngineConfigError(
                     f"ServingEngine option {name}={requested[name]!r} is not "
-                    "ported to the PyTorch engine yet (greedy slot-paged and "
-                    "block-paged serving only)")
+                    f"ported to the PyTorch engine yet ({what})")
         self.engine = engine
         mcfg = engine.module.config
         if max_len > mcfg.max_seq_len:

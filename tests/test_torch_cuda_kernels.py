@@ -18,7 +18,14 @@ overflow write to the garbage row, an inactive slot on a sentinel table.
 The flash attention kernels (forward, backward dQ, backward dK/dV): bf16,
 f16 and f32 at Dh 64 and 128, T a multiple of the tile and ragged, causal
 and not, Tk != Tq (top-left causal), run-to-run bit identity of the
-backward, and the wrappers' input checks.
+backward, and the wrappers' input checks. Flash-decode (both computations:
+GQA rep >= 2 with p rounded, rep 1 in f32): bf16/f16/f32 at Dh 64, 128 and
+256, the CodeLlama-34B decode shape (B 1 and 4, Hq 64 / Hkv 8, S 640), an
+odd S, a rep that is not a multiple of the kernel's 8 rows, idx at 0, a
+split edge and S - 1, the index as a python int and as a device tensor
+(the same bits), values past idx that must not change the output (the
+kernel never reads them), run-to-run bit identity, and the wrapper's input
+checks.
 
 Tolerances: caches bit-identical (block pools: every row but the garbage
 row, which several inactive slots may write at once); flash outputs and
@@ -40,6 +47,9 @@ from deepspeed_tpu_torch.ops.decode_step import (fused_block_decode_step,
                                                  fused_block_decode_step_plain,
                                                  fused_decode_step,
                                                  fused_decode_step_plain)
+from deepspeed_tpu_torch.ops.flash_decode import (flash_decode,
+                                                  flash_decode_mha,
+                                                  flash_decode_plain)
 from deepspeed_tpu_torch.ops.flash_attention import (flash_attention,
                                                      flash_bwd_dkv,
                                                      flash_bwd_dkv_plain,
@@ -301,3 +311,77 @@ def test_flash_wrappers_reject_bad_inputs(cuda, monkeypatch):
     with pytest.raises(ValueError):     # f32 p/dS operands not in the kernel
         flash_fwd_parts(q, k, v, causal=True)
     assert flash_fwd_parts.launches == n0
+
+
+# flash-decode outputs, row by row (kernel_check.rel_err): the kernel rounds
+# p at warp-local running maxima, the plain version at the row maximum
+FLASH_DECODE_TOL = {torch.bfloat16: 2e-2, torch.float16: 4e-3,
+                    torch.float32: 1e-5}
+
+
+def _flash_decode_inputs(dev, dtype, b, hq, hkv, s, dh, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    return rnd(b, 1, hq, dh), rnd(b, hkv, s, dh), rnd(b, hkv, s, dh)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("b,hq,hkv,s,dh", [
+    (1, 64, 8, 640, 128),    # CodeLlama-34B decode, batch 1
+    (4, 64, 8, 640, 128),    # ... batch 4
+    (2, 12, 1, 300, 64),     # rep 12 (two row groups), odd S
+    (2, 8, 2, 129, 256),     # Dh 256
+    (3, 4, 4, 200, 128),     # rep 1: the f32 variant
+])
+def test_flash_decode_matches_plain(cuda, dtype, b, hq, hkv, s, dh):
+    q, k, v = _flash_decode_inputs(cuda, dtype, b, hq, hkv, s, dh)
+    for idx in (0, 31, 32, 127, s // 2, s - 1):
+        for form in (idx, torch.tensor(idx, dtype=torch.int32, device=cuda)):
+            out = flash_decode(q, k, v, form)
+            ref = flash_decode_plain(q, k, v, idx)
+            torch.cuda.synchronize()
+            assert torch.isfinite(out.float()).all()
+            err = rel_err(out, ref)
+            assert err <= FLASH_DECODE_TOL[dtype], (idx, err)
+
+
+def test_flash_decode_ignores_values_past_idx_and_repeats_bits(cuda):
+    for hq, hkv in ((64, 8), (8, 8)):
+        q, k, v = _flash_decode_inputs(cuda, torch.bfloat16, 2, hq, hkv, 640,
+                                       128, seed=1)
+        for idx in (0, 127, 128, 500):
+            out = flash_decode(q, k, v, idx)
+            k2, v2 = k.clone(), v.clone()
+            k2[:, :, idx + 1:] = 1e4
+            v2[:, :, idx + 1:] = 1e4
+            assert torch.equal(flash_decode(q, k2, v2, idx), out)
+            assert torch.equal(flash_decode(q, k, v, idx), out)
+            dev_idx = torch.tensor(idx, dtype=torch.int32, device=cuda)
+            assert torch.equal(flash_decode(q, k, v, dev_idx), out)
+
+
+def test_flash_decode_counts_launches_and_rejects_bad_inputs(cuda):
+    q, k, v = _flash_decode_inputs(cuda, torch.bfloat16, 1, 16, 2, 256, 128)
+    n0, m0 = flash_decode.launches, flash_decode_mha.launches
+    flash_decode(q, k, v, 7)
+    assert flash_decode.launches == n0 + 1
+    flash_decode(q[:, :, :2], k, v, 7)                # rep 1: the f32 variant
+    assert (flash_decode.launches, flash_decode_mha.launches) == (n0 + 1,
+                                                                  m0 + 1)
+    with pytest.raises(ValueError):     # Dh 96
+        flash_decode(*_flash_decode_inputs(cuda, torch.bfloat16, 1, 16, 2,
+                                           64, 96), 3)
+    with pytest.raises(ValueError):     # int64 index tensor
+        flash_decode(q, k, v, torch.tensor(3, device=cuda))
+    with pytest.raises(ValueError):     # non-contiguous cache
+        flash_decode(q, k.transpose(2, 3).contiguous().transpose(2, 3), v, 3)
+    with pytest.raises(ValueError):     # mixed dtypes
+        flash_decode(q, k.half(), v, 3)
+    with pytest.raises(ValueError):     # the rep-1 wrapper at rep 8
+        flash_decode_mha(q, k, v, 3)
+    assert (flash_decode.launches, flash_decode_mha.launches) == (n0 + 1,
+                                                                  m0 + 1)

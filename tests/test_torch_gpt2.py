@@ -17,6 +17,12 @@ norm output is rounded to bf16 and the two libraries round at slightly
 different points (one bf16 ulp is 2^-8 = 4e-3 relative, and the backward
 chains a few dozen such roundings; measured 1.3e-5 and 2.2e-2).
 
+The cached inference path (``init_cache`` / ``forward_with_cache``): a
+prefill and single-token decode steps at a scalar index, and a decode step
+at a per-slot index, give the JAX package's logits within 1e-5 of max
+|logit| in fp32 (the JAX cache is token-pair packed for Dh < 128 at batch
+>= 2; only logits are compared, never cache layouts).
+
 ``init`` is checked by its statistics, since torch's generator does not
 give JAX's numbers: shapes equal the JAX tree's, weights have std 0.02
 within 3%, the residual output projections std 0.02 / sqrt(2L), biases
@@ -162,7 +168,7 @@ def test_options_not_ported_raise():
     with pytest.raises(NotPortedError):
         m.forward_hidden(params, ids, pld_theta=0.5)
     with pytest.raises(NotPortedError):
-        m.forward_with_cache(params, ids, {})
+        m.forward_hidden(params, ids, ltd_keep=4)
 
 
 @pytest.mark.parametrize("preset", ["tiny", "gpt2_774m", "gpt2_1b3"])
@@ -174,3 +180,35 @@ def test_flops_per_token_matches_jax(preset):
     # at T tokens per sequence only the attention term moves
     assert (tm.flops_per_token(c.max_seq_len // 2) - tm.flops_per_token()
             == -12 * c.num_layers * c.hidden_size * (c.max_seq_len // 2))
+
+
+def test_cached_prefill_and_decode_logits_match_jax():
+    jm, jparams, tm, tparams = _pair("dense", "float32")
+    rng = np.random.RandomState(4)
+    b, t, steps, max_len = 2, 10, 3, 128
+    ids = rng.randint(0, 512, (b, t + steps)).astype(np.int32)
+    jfwd = jax.jit(jm.forward_with_cache)
+    jcache = jm.init_cache(b, max_len, dtype=jnp.float32)
+    tcache = tm.init_cache(b, max_len, dtype=torch.float32)
+
+    def close(tlog, jlog):
+        want = np.asarray(jlog, np.float32)
+        err = np.abs(tlog.numpy() - want).max()
+        assert err <= 1e-5 * np.abs(want).max(), err
+
+    with torch.no_grad():
+        for lo, hi in [(0, t)] + [(t + i, t + i + 1) for i in range(steps)]:
+            jlog, jcache = jfwd(jparams, jnp.asarray(ids[:, lo:hi]), jcache)
+            tlog, tcache = tm.forward_with_cache(
+                tparams, torch.from_numpy(ids[:, lo:hi]).long(), tcache)
+            close(tlog, jlog)
+            assert int(jcache["index"]) == tcache["index"] == hi
+        # one more step at a per-slot index: row 1 rewinds two positions
+        lens = np.array([t + steps, t + steps - 2], np.int32)
+        nxt = rng.randint(0, 512, (b, 1)).astype(np.int32)
+        jlog, _ = jfwd(jparams, jnp.asarray(nxt),
+                       dict(jcache, index=jnp.asarray(lens)))
+        tlog, _ = tm.forward_with_cache(
+            tparams, torch.from_numpy(nxt).long(),
+            dict(tcache, index=torch.from_numpy(lens)))
+        close(tlog, jlog)
