@@ -135,6 +135,35 @@ Generate (phases added after ``reference`` and after ``probe_fp32``):
                generate (top-k 50, top-p 0.9, temperature 0.8, seed 1) twice
                at batch 1, identical.
 
+Sparse attention (a phase added after ``kernels``, before ``reference``):
+
+   kernels (gridded int8) — the gridded int8 matmul (int8_matmul, unrouted
+               as in the reference) beside every int8_matmul_dma row: held
+               to the same plain version and bound, its time printed beside
+               kernel 2's.
+   sparse_attention — block-sparse attention through the op registry
+               (get_op_builder("sparse_attn")().load().SparseSelfAttention),
+               forward and then backward of a seeded dO, each row's launches
+               counted (one forward, one dQ and one dK/dV launch per row):
+               (a) FixedSparsityConfig (4 local, 1 global, unidirectional,
+               block 16) at LLaMA-7B's attention width, 32 heads x Dh 128,
+               bf16, B 1, T 8192; (b) BigBirdSparsityConfig (block 16) at
+               BERT-large's, 16 heads x Dh 64, bf16, B 4, T 4096; (c) small
+               rows: f32 (Longformer), bf16 at block 32 (Fixed) and 64
+               (BigBird), and a hand-made layout whose rows of one block see
+               no key under causal. Each kernel against its plain version on
+               the same operands, row by row (kernel_check.rel_err: 1.6e-2
+               bf16, 1e-5 f32; lse 1e-4 absolute), a second launch bit for
+               bit, the main path's output equal to the kernel's; at (b) and
+               (c) the dense oracle (block_sparse_attention_reference:
+               outputs to the same bound, f32 gradients to 1e-4, bf16
+               gradients reported, since its autograd rounds them at other
+               points). At
+               (a) and (b): kernel, plain and SDPA-over-the-dense-mask times
+               (forward, backward), each captured in a CUDA graph, and
+               bounds from the active-block work; the layouts' density, LUT
+               width and longest row and column.
+
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -169,12 +198,20 @@ from deepspeed_tpu_torch.ops.flash_attention import (flash_bwd_dkv,
                                                      flash_bwd_dq_plain,
                                                      flash_fwd_parts,
                                                      flash_fwd_parts_plain)
-from deepspeed_tpu_torch.ops.int8_matmul import (int8_matmul_dma,
+from deepspeed_tpu_torch.ops import get_op_builder
+from deepspeed_tpu_torch.ops.int8_matmul import (int8_matmul, int8_matmul_dma,
                                                  int8_matmul_plain)
 from deepspeed_tpu_torch.ops.kernel_check import (block_step_inputs,
                                                   clone_pool, flash_delta,
-                                                  flash_inputs, random_pool,
+                                                  flash_inputs,
+                                                  masked_row_layout,
+                                                  random_pool,
                                                   real_rows_equal, rel_err)
+from deepspeed_tpu_torch.ops.sparse_attention.block_sparse import (
+    block_sparse_attention_reference, block_sparse_bwd_dkv,
+    block_sparse_bwd_dkv_plain, block_sparse_bwd_dq, block_sparse_bwd_dq_plain,
+    block_sparse_delta, block_sparse_fwd, block_sparse_fwd_plain,
+    layout_to_dense_mask, sparse_luts)
 from deepspeed_tpu_torch.utils.tree import tree_leaves
 from deepspeed_tpu_torch.serving import (BlockKVPool, Request, ServingEngine,
                                          poisson_trace, shared_prefix_trace)
@@ -222,6 +259,21 @@ KERNELS = {
     "flash_decode_mha": {
         "source": "deepspeed_tpu_torch/csrc/flash_decode.cu",
         "replaces": "deepspeed_tpu/ops/flash_decode.py:91 (_mha_kernel)"},
+    "block_sparse_fwd": {
+        "source": "deepspeed_tpu_torch/csrc/block_sparse.cu",
+        "replaces": "deepspeed_tpu/ops/sparse_attention/block_sparse.py:84 "
+                    "(_fwd_kernel)"},
+    "block_sparse_bwd_dq": {
+        "source": "deepspeed_tpu_torch/csrc/block_sparse.cu",
+        "replaces": "deepspeed_tpu/ops/sparse_attention/block_sparse.py:130 "
+                    "(_bwd_dq_kernel)"},
+    "block_sparse_bwd_dkv": {
+        "source": "deepspeed_tpu_torch/csrc/block_sparse.cu",
+        "replaces": "deepspeed_tpu/ops/sparse_attention/block_sparse.py:168 "
+                    "(_bwd_dkv_kernel)"},
+    "int8_matmul": {
+        "source": "deepspeed_tpu_torch/csrc/int8_matmul.cu",
+        "replaces": "deepspeed_tpu/ops/int8_matmul.py:44 (_kernel)"},
 }
 WRAPPERS = {"fused_decode_step": fused_decode_step,
             "int8_matmul_dma": int8_matmul_dma,
@@ -230,8 +282,13 @@ WRAPPERS = {"fused_decode_step": fused_decode_step,
             "flash_bwd_dq": flash_bwd_dq,
             "flash_bwd_dkv": flash_bwd_dkv,
             "flash_decode": flash_decode,
-            "flash_decode_mha": flash_decode_mha}
+            "flash_decode_mha": flash_decode_mha,
+            "block_sparse_fwd": block_sparse_fwd,
+            "block_sparse_bwd_dq": block_sparse_bwd_dq,
+            "block_sparse_bwd_dkv": block_sparse_bwd_dkv,
+            "int8_matmul": int8_matmul}
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+SPARSE = ("block_sparse_fwd", "block_sparse_bwd_dq", "block_sparse_bwd_dkv")
 # flash outputs, per row: |kernel - plain| as a share of the row's max |x|
 # (kernel_check.rel_err). bf16: about two ulps (2^-7 each) of the row's
 # largest element; the H100 readings are at most one ulp (0.0073-0.0078).
@@ -244,6 +301,14 @@ FLASH_DENSE_LOSS_TOL = 1e-3
 # of the row's largest element (the kernel rounds p at warp-local running
 # maxima, the plain version at the row maximum); f32 summation order only
 FLASH_DECODE_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+# block-sparse outputs and grads against their plain versions and the dense
+# oracle, per row (kernel_check.rel_err): both sides compute in f32 and
+# round once, so bf16 is held to two ulps of the row's largest element and
+# f32 to summation order; lse within LSE_TOL absolute
+SPARSE_TOL = {torch.bfloat16: 1.6e-2, torch.float32: 1e-5}
+# f32 gradients against autograd of the dense oracle (softmax's backward in
+# another form and order)
+SPARSE_ORACLE_GRAD_TOL = 1e-4
 # CodeLlama-34B, codellama/CodeLlama-34b-hf config.json: every field a
 # LlamaConfig field (GQA rep 8 at Dh 128, rope_theta 1e6, untied)
 CODELLAMA_34B = dict(vocab_size=32000, max_seq_len=16384, num_layers=48,
@@ -401,7 +466,16 @@ def check_int8_matmul(n, d, e, seed=0):
     bound = MATMUL_RTOL * ref.float().abs() + 1e-3
     assert torch.isfinite(out.float()).all()
     assert (err <= bound).all(), f"int8_matmul_dma {n}x{d}x{e} err {err.max()}"
+    # the gridded form (unrouted) on the same layer's [D, E] view and [1, E]
+    # scales: the same function, so the same plain version and bound
+    grid = int8_matmul(x, q[layers - 1], s[layers - 1])
+    torch.cuda.synchronize()
+    grid_err = (grid.float() - ref.float()).abs()
+    assert torch.isfinite(grid.float()).all()
+    assert (grid_err <= bound).all(), \
+        f"int8_matmul (gridded) {n}x{d}x{e} err {grid_err.max()}"
     kernel_ms = time_ms(lambda i: int8_matmul_dma(x, q, s, i), layers)
+    grid_ms = time_ms(lambda i: int8_matmul(x, q[i], s[i]), layers)
     plain_ms = time_ms(lambda i: int8_matmul_plain(x, q, s, i), layers)
     # yardstick only: PyTorch's weight-only int8 matmul takes the weight as
     # [E, D] and bf16 scales, so it gets its own copies of the same values
@@ -415,6 +489,8 @@ def check_int8_matmul(n, d, e, seed=0):
     return {"n": n, "d": d, "e": e, "max_abs_err": err.max().item(),
             "tol": f"rtol {MATMUL_RTOL} + atol 1e-3",
             "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "grid": {"kernel_ms": grid_ms, "dma_kernel_ms": kernel_ms,
+                     "max_abs_err": grid_err.max().item()},
             "library_ms": library_ms, "library": "torch._weight_int8pack_mm",
             "bytes": nbytes,
             "flops": flops,
@@ -739,10 +815,12 @@ def phase_kernels() -> dict:
             "flash_decode": fdec}
 
 
-def kernel_summary(kern: dict, launches: dict) -> list:
+def kernel_summary(kern: dict, launches: dict, sparse: dict) -> list:
     """One entry per kernel at the main path's shapes: the MHA decode step at
-    8 slots, the MHA block decode step over a bf16 pool at 8 slots, and one
-    decode layer's seven int8 matmuls at N = 8 (summed)."""
+    8 slots, the MHA block decode step over a bf16 pool at 8 slots, one
+    decode layer's seven int8 matmuls at N = 8 (summed; the gridded form on
+    the same shapes), and the block-sparse kernels at row (a) of the
+    sparse_attention phase."""
     dec = kern["fused_decode_step"][0]
     blk = kern["fused_block_decode_step"][0]
     by_shape = {(r["n"], r["d"], r["e"]): r for r in kern["int8_matmul_dma"]}
@@ -803,7 +881,267 @@ def kernel_summary(kern: dict, launches: dict) -> list:
              bound_ms=row["bound_ms"], bound_by=row["bound_by"],
              library_ms=row["library_ms"])
         for name, row in (("flash_decode", kern["flash_decode"][0]),
-                          ("flash_decode_mha", kern["flash_decode"][2]))]
+                          ("flash_decode_mha", kern["flash_decode"][2]))] + [
+        # the block-sparse kernels at row (a); errors over every row
+        dict(name=name, route="cuda", **KERNELS[name], launches=launches[name],
+             max_abs_err=max(max(r["errors"][o]["max_abs_err"] for o in outs)
+                             for r in sparse["rows"]),
+             ms=sparse["rows"][0][key]["kernel_ms"],
+             plain_ms=sparse["rows"][0][key]["plain_ms"],
+             bound_ms=sparse["rows"][0][key]["bound_ms"],
+             bound_by=sparse["rows"][0][key]["bound_by"],
+             library_ms=sparse["rows"][0][key]["library_ms"])
+        for name, key, outs in zip(SPARSE, ("fwd", "dq", "dkv"),
+                                   (("out",), ("dq",), ("dk", "dv")))] + [
+        # the gridded int8 matmul (unrouted) on kernel 2's layer at N = 8
+        dict(name="int8_matmul", route="cuda", **KERNELS["int8_matmul"],
+             launches=launches["int8_matmul"],
+             max_abs_err=max(r["grid"]["max_abs_err"]
+                             for r in kern["int8_matmul_dma"]),
+             ms=sum(r["grid"]["kernel_ms"] for r in layer_rows),
+             plain_ms=total("plain_ms"),
+             bound_ms=1e3 * max(mm_bytes / HBM_BYTES_PER_S,
+                                mm_flops / BF16_FLOP_PER_S),
+             bound_by=("bytes" if mm_bytes / HBM_BYTES_PER_S
+                       >= mm_flops / BF16_FLOP_PER_S else "operations"),
+             library_ms=total("library_ms"))]
+
+
+# ------------------------------------------------------- sparse attention
+def _sparse_configs(sa) -> list:
+    """Rows of the sparse_attention phase: (name, sparsity config or a
+    hand-made layout, B, T, H, Dh, dtype, causal or None for the config's
+    default, timed, held against the dense oracle)."""
+    return [
+        # (a) GPT-style causal at LLaMA-7B's attention width (32 x Dh 128)
+        ("a_fixed_causal_llama7b",
+         sa.FixedSparsityConfig(num_heads=32, block=16, num_local_blocks=4,
+                                num_global_blocks=1,
+                                attention="unidirectional"),
+         1, 8192, 32, 128, torch.bfloat16, None, True, False),
+        # (b) BERT-style bidirectional at BERT-large's width (16 x Dh 64)
+        ("b_bigbird_bertlarge", sa.BigBirdSparsityConfig(num_heads=16, block=16),
+         4, 4096, 16, 64, torch.bfloat16, None, True, True),
+        # (c) small check rows: f32, blocks 32 and 64, a row with no key
+        ("c_f32_longformer", sa.BSLongformerSparsityConfig(
+            num_heads=4, block=16, global_block_indices=[0, 7]),
+         2, 512, 4, 128, torch.float32, None, False, True),
+        ("c_block32_fixed", sa.FixedSparsityConfig(
+            num_heads=8, block=32, num_local_blocks=4,
+            attention="unidirectional"),
+         2, 1024, 8, 64, torch.bfloat16, None, False, True),
+        ("c_block64_bigbird", sa.BigBirdSparsityConfig(
+            num_heads=4, block=64, different_layout_per_head=True, seed=2),
+         2, 1024, 4, 128, torch.bfloat16, None, False, True),
+        ("c_masked_row", masked_row_layout(4, 16),
+         2, 256, 4, 64, torch.bfloat16, True, False, True),
+    ]
+
+
+def _layout_stats(layout: np.ndarray) -> dict:
+    rows, cols = layout.sum(2), layout.sum(1)
+    return {"active_blocks": int(layout.sum()),
+            "density": float(layout.mean()), "lut_width": int(rows.max()),
+            "longest_row": int(rows.max()), "longest_col": int(cols.max()),
+            "mean_row": float(rows.mean())}
+
+
+def check_sparse_row(sa, name, cfg, b, t, h, dh, dtype, causal, timed, oracle,
+                     dev="cuda", seed=0) -> dict:
+    """One row of the sparse_attention phase: the main path (forward, then
+    backward of a seeded dO, through SparseSelfAttention from the op
+    registry) with launches counted; then each kernel against its plain
+    version on the same flat operands (the backward kernels fed the plain
+    lse and delta), a second launch bit for bit, the dense oracle, and at
+    the main shapes the times of kernel, plain version and SDPA over the
+    dense element mask."""
+    if isinstance(cfg, np.ndarray):
+        layout, block = cfg, t // cfg.shape[1]
+        mod = None
+    else:
+        mod = sa.SparseSelfAttention(cfg)
+        layout, block = mod.get_layout(t), cfg.block
+        causal = (cfg.attention == "unidirectional") if causal is None else causal
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    q, k, v, do = (rnd(b, t, h, dh) for _ in range(4))
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    # the main path
+    reset_counts()
+    if mod is not None:
+        out = mod(*leaves)
+    else:
+        out = sa.block_sparse_attention(*leaves, layout, block, causal)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    for kname, n in launches.items():
+        want = 1 if kname in SPARSE else 0
+        assert n == want, (name, kname, n, want)
+    out = out.detach()
+    # each kernel against its plain version on flat [B*H, T, Dh] operands
+    flat = [x.permute(0, 2, 1, 3).reshape(b * h, t, dh).contiguous()
+            for x in (q, k, v, do)]
+    qf, kf, vf, dof = flat
+    luts = sparse_luts(layout, dev)
+    kw = dict(block=block, causal=causal)
+    ref, ref_lse = block_sparse_fwd_plain(qf, kf, vf, luts, **kw)
+    delta = block_sparse_delta(dof, ref)
+
+    def kernels():
+        o, lse = block_sparse_fwd(qf, kf, vf, luts, **kw)
+        return (o, lse, block_sparse_bwd_dq(qf, kf, vf, dof, ref_lse, delta,
+                                            luts, **kw),
+                *block_sparse_bwd_dkv(qf, kf, vf, dof, ref_lse, delta, luts,
+                                      **kw))
+
+    got = kernels()
+    again = kernels()
+    plain = (ref, ref_lse,
+             block_sparse_bwd_dq_plain(qf, kf, vf, dof, ref_lse, delta, luts, **kw),
+             *block_sparse_bwd_dkv_plain(qf, kf, vf, dof, ref_lse, delta, luts,
+                                         **kw))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again)), \
+        f"{name}: block-sparse kernels not bit-identical across launches"
+
+    def to_flat(x):
+        return x.permute(0, 2, 1, 3).reshape(b * h, t, dh)
+
+    assert torch.equal(to_flat(out), got[0]), f"{name}: main path out differs"
+    tol = SPARSE_TOL[dtype]
+    errs = {}
+    for key, a, r in (("out", got[0], plain[0]), ("dq", got[2], plain[2]),
+                      ("dk", got[3], plain[3]), ("dv", got[4], plain[4])):
+        assert torch.isfinite(a.float()).all(), (name, key)
+        errs[key] = {"rel_err": rel_err(a, r),
+                     "max_abs_err": (a.float() - r.float()).abs().max().item()}
+        assert errs[key]["rel_err"] <= tol, (name, key, errs[key])
+    lse_err = (got[1] - plain[1]).abs().max().item()
+    assert lse_err <= LSE_TOL, (name, "lse", lse_err)
+    # the main path's gradients (from the kernel's own lse and delta)
+    main_errs = {key: rel_err(to_flat(gr), p)
+                 for key, gr, p in zip(("dq", "dk", "dv"), grads, plain[2:])}
+    assert max(main_errs.values()) <= tol, (name, "main path grads", main_errs)
+    row = {"row": name, "dtype": str(dtype).split(".")[-1], "b": b, "t": t,
+           "h": h, "dh": dh, "block": block, "causal": causal,
+           "config": type(cfg).__name__ if mod is not None else "hand-made",
+           **_layout_stats(layout),
+           "launches": {k: launches[k] for k in SPARSE},
+           "tol_rel": tol, "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL,
+           "errors": errs, "main_path_grad_rel_err": main_errs,
+           "bit_identical_run_to_run": True}
+    if name == "c_masked_row":
+        rows = slice(block, 2 * block)
+        assert (out[:, rows] == 0).all() and (grads[0][:, rows] == 0).all()
+        assert (got[1].view(b, h, t)[..., rows] <= -1e30).all()
+        row["masked_rows_zero"] = True
+    del got, again, plain, ref, delta
+    if oracle:
+        leaves_o = [x.detach().requires_grad_() for x in (q, k, v)]
+        o_ref = block_sparse_attention_reference(*leaves_o, layout, block, causal)
+        g_ref = torch.autograd.grad(o_ref, leaves_o, do)
+        row["oracle_rel_err"] = {"out": rel_err(out, o_ref), **{
+            key: rel_err(gr, gr_ref)
+            for key, gr, gr_ref in zip(("dq", "dk", "dv"), grads, g_ref)}}
+        assert row["oracle_rel_err"]["out"] <= tol, (name, row["oracle_rel_err"])
+        if dtype == torch.float32:
+            assert max(row["oracle_rel_err"].values()) <= SPARSE_ORACLE_GRAD_TOL, \
+                (name, row["oracle_rel_err"])
+        del leaves_o, o_ref, g_ref
+    del leaves, grads, out
+    if timed:
+        row.update(_time_sparse(qf, kf, vf, dof, luts, layout, kw, b, h, t, dh,
+                                dtype, seed))
+    return row
+
+
+def _time_sparse(qf, kf, vf, dof, luts, layout, kw, b, h, t, dh, dtype, seed):
+    """Times on two input sets (> 50 MB of operands at the main shapes):
+    kernels, plain versions, and SDPA over the dense element mask (the
+    layout's blocks, and the causal triangle where it applies), forward and
+    backward, each captured in a CUDA graph. Bounds from the active-block
+    work and the bytes each kernel must move."""
+    g = torch.Generator(device=qf.device).manual_seed(seed + 1)
+    second = [torch.randn(x.shape, generator=g, device=qf.device).to(dtype)
+              for x in (qf, kf, vf, dof)]
+    sets = [(qf, kf, vf, dof), tuple(second)]
+    rows = []
+    for qq, kk, vv, dd in sets:
+        o, l_ = block_sparse_fwd_plain(qq, kk, vv, luts, **kw)
+        rows.append((l_, block_sparse_delta(dd, o)))
+        del o
+    fwd = time_ms(lambda i: block_sparse_fwd(*sets[i][:3], luts, **kw), 2,
+                  per=5, reps=5)
+    dq = time_ms(lambda i: block_sparse_bwd_dq(*sets[i], *rows[i], luts, **kw),
+                 2, per=5, reps=5)
+    dkv = time_ms(lambda i: block_sparse_bwd_dkv(*sets[i], *rows[i], luts, **kw),
+                  2, per=5, reps=5)
+    p_fwd = time_ms(lambda i: block_sparse_fwd_plain(*sets[i][:3], luts, **kw),
+                    2, per=1, reps=3)
+    p_dq = time_ms(lambda i: block_sparse_bwd_dq_plain(*sets[i], *rows[i], luts,
+                                                       **kw), 2, per=1, reps=3)
+    p_dkv = time_ms(lambda i: block_sparse_bwd_dkv_plain(*sets[i], *rows[i],
+                                                         luts, **kw),
+                    2, per=1, reps=3)
+    # yardstick: SDPA on [B, H, T, Dh] views over the dense element mask
+    mask = torch.from_numpy(layout_to_dense_mask(layout, kw["block"])).to(qf.device)
+    if kw["causal"]:
+        mask &= torch.ones((t, t), dtype=torch.bool, device=qf.device).tril()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    views = [[x.view(b, h, t, dh) for x in st] for st in sets]
+    lib_fwd = time_ms(lambda i: sdpa(*views[i][:3], attn_mask=mask), 2,
+                      per=5, reps=5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graphs = []
+        for i in range(2):
+            lv = [x.detach().requires_grad_() for x in views[i][:3]]
+            graphs.append((sdpa(*lv, attn_mask=mask), lv))
+    lib_bwd = time_ms(
+        lambda i: torch.autograd.grad(graphs[i][0], graphs[i][1], views[i][3],
+                                      retain_graph=True), 2, per=5, reps=5,
+        stream=side)
+    del graphs, mask, second, sets, rows
+    active = int(np.asarray(layout).sum()) * b          # active block tiles
+    tile = kw["block"] ** 2 * dh
+    esz = qf.element_size()
+    big = b * h * t * dh * esz                          # one [BH, T, Dh]
+    vec = b * h * t * 4                                 # one f32 row vector
+    lut = sum(x.numel() * 4 for x in luts[:2])          # fwd / dq table
+    lut_t = sum(x.numel() * 4 for x in luts[2:])        # dk/dv table
+    rate = BF16_FLOP_PER_S if dtype != torch.float32 else F32_FLOP_PER_S
+    return {
+        "fwd": {"kernel_ms": fwd, "plain_ms": p_fwd, "library_ms": lib_fwd,
+                **_bound(4 * big + vec + lut, 4 * tile * active, rate)},
+        "dq": {"kernel_ms": dq, "plain_ms": p_dq, "library_ms": lib_bwd,
+               **_bound(5 * big + 2 * vec + lut, 6 * tile * active, rate)},
+        "dkv": {"kernel_ms": dkv, "plain_ms": p_dkv, "library_ms": lib_bwd,
+                **_bound(6 * big + 2 * vec + lut_t, 8 * tile * active, rate)},
+        "library": "scaled_dot_product_attention over the dense element "
+                   "mask: forward (fwd), backward of dQ, dK and dV together "
+                   "(dq, dkv rows)",
+        "dense_attention_flops_fwd": 4 * b * h * dh * attn_pairs(
+            t, t, kw["causal"])}
+
+
+def phase_sparse_attention(dev: str = "cuda") -> dict:
+    """Block-sparse attention through the op registry, at full width: rows
+    (a) and (b) at the main shapes, timed; (c) small check rows."""
+    sa = get_op_builder("sparse_attn")().load()
+    rows = []
+    for spec in _sparse_configs(sa):
+        rows.append(check_sparse_row(sa, *spec, dev=dev))
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = {k: sum(r["launches"][k] for r in rows) for k in SPARSE}
+    info = {"phase": "sparse_attention", "rows": rows, "launches": launches}
+    emit(info)
+    return info
 
 
 # --------------------------------------------------------------- phase 3
@@ -1729,6 +2067,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = phase_device()
     kern = phase_kernels()
+    sparse = phase_sparse_attention()
     phase_reference()
     phase_reference_generate()
     phase_reference_train()
@@ -1736,6 +2075,8 @@ def main() -> int:
     launches = dict.fromkeys(WRAPPERS, 0)
     for k in FLASH:
         launches[k] = train["launches"][k]
+    for k in SPARSE:
+        launches[k] = sparse["launches"][k]
     for dtype in ("bf16", "int8"):
         info, eng = phase_serve(dtype, dev["nvidia_smi"])
         runs = [info]
@@ -1758,7 +2099,7 @@ def main() -> int:
         for k in ("fused_decode_step", "flash_decode", "flash_decode_mha"):
             launches[k] += run[k]
     print(dev["nvidia_smi"], flush=True)
-    emit({"kernels": kernel_summary(kern, launches)})
+    emit({"kernels": kernel_summary(kern, launches, sparse)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
                                  "count": dev["count"]}})
     return 0

@@ -152,6 +152,27 @@ def kernels() -> ctypes.CDLL:
             i32, i32, i32,               # dh, chunk, n_splits
             f32, i32, i32, vp]           # scale, dtype code, mha, stream
         lib.dst_flash_decode.restype = i32
+        lib.dst_int8_matmul_grid.argtypes = [
+            vp, vp, vp, vp,              # x, w, s, out
+            i32, i32, i32, i32, vp]      # n, d, e, dtype code, stream
+        lib.dst_int8_matmul_grid.restype = i32
+        lib.dst_block_sparse_fwd.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp,  # q, k, v, out, lse, lut, count
+            i32, i32, i32, i32, i32,     # bh, h, t, dh, block
+            i32, i32, f32, i32, vp]      # lut width, causal, scale, dtype, stream
+        lib.dst_block_sparse_fwd.restype = i32
+        lib.dst_block_sparse_bwd_dq.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp,  # q, k, v, dout, lse, delta, dq
+            vp, vp,                      # lut, count
+            i32, i32, i32, i32, i32,     # bh, h, t, dh, block
+            i32, i32, f32, i32, vp]      # lut width, causal, scale, dtype, stream
+        lib.dst_block_sparse_bwd_dq.restype = i32
+        lib.dst_block_sparse_bwd_dkv.argtypes = [
+            vp, vp, vp, vp, vp, vp,      # q, k, v, dout, lse, delta
+            vp, vp, vp, vp,              # dk, dv, transposed lut, count
+            i32, i32, i32, i32, i32,     # bh, h, t, dh, block
+            i32, i32, f32, i32, vp]      # lut width, causal, scale, dtype, stream
+        lib.dst_block_sparse_bwd_dkv.restype = i32
         lib.dst_error_string.argtypes = [i32]
         lib.dst_error_string.restype = ctypes.c_char_p
         _lib = lib

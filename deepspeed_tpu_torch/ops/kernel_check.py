@@ -1,19 +1,21 @@
 """Inputs and comparisons for holding kernels against their plain versions,
 shared by ``chip_smoke.py`` and the card tests
 (tests/test_torch_cuda_kernels.py): the block decode kernel
-(ops/decode_step.py) and the flash attention kernels
-(ops/flash_attention.py).
+(ops/decode_step.py), the flash attention kernels
+(ops/flash_attention.py) and the block-sparse attention kernels
+(ops/sparse_attention/block_sparse.py).
 
 Pools are ``[L, N+1, Hkv, bs, Dh]`` in the compute type, or ``{"q", "s"}``
 int8/fp8 pools quantized from random values (serving/kv_quant.py). Row
 ``N`` is the garbage row: inactive slots on sentinel tables may all write
 it at once, in no fixed order, so comparisons leave it out.
 
-Flash outputs are compared row by row (:func:`rel_err`).
+Flash and block-sparse outputs are compared row by row (:func:`rel_err`).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from deepspeed_tpu_torch.serving.kv_quant import kv_quantize
@@ -83,6 +85,17 @@ def flash_inputs(dev, dtype, bh: int, tq: int, dh: int, tk=None, seed: int = 0):
 def flash_delta(dout, out):
     """rowsum(dO * O) in f32, ``[BH, T, 1]`` (the backward's plain input)."""
     return (dout.float() * out.float()).sum(-1, keepdim=True)
+
+
+def masked_row_layout(h: int, nb: int):
+    """A bidirectional ``[h, nb, nb]`` layout whose query block 1 sees only
+    key block 2: under ``causal=True`` its rows see no key at all (output
+    0, lse -1e30). Every other block sees key block 0 and itself."""
+    layout = np.eye(nb, dtype=bool)[None].repeat(h, 0)
+    layout[:, :, 0] = True
+    layout[:, 1, :] = False
+    layout[:, 1, 2] = True
+    return layout
 
 
 def rel_err(out, ref) -> float:

@@ -25,7 +25,15 @@ odd S, a rep that is not a multiple of the kernel's 8 rows, idx at 0, a
 split edge and S - 1, the index as a python int and as a device tensor
 (the same bits), values past idx that must not change the output (the
 kernel never reads them), run-to-run bit identity, and the wrapper's input
-checks.
+checks. Block-sparse attention (forward, backward dQ, backward dK/dV):
+bf16 and f32 at block 16, 32 and 64 and Dh 64 and 128, causal and not,
+over Fixed, BigBird and Longformer layouts (global rows much longer than
+the others) and a hand-made layout whose rows of one block see no key under
+causal (zeros, lse -1e30), held row by row against the plain versions and
+bit for bit across two launches; the autograd path's launch counts; the
+dense oracle. The gridded int8 matmul against its plain version at ragged
+shapes, and the wrappers' input checks (a shape the kernels do not take
+raises and launches nothing: there is no fallback).
 
 Tolerances: caches bit-identical (block pools: every row but the garbage
 row, which several inactive slots may write at once); flash outputs and
@@ -37,7 +45,10 @@ another order), lse within 1e-4 absolute; decode outputs within
 2e-2 (bf16), 4e-3 (f16), 1e-5 (f32) absolute on O(1) values — the kernel's
 online softmax rounds its probabilities at chunk-local maxima; int8 matmul
 outputs within one ulp of the output type (rtol 8e-3 bf16, 1e-3 f16,
-1e-5 f32) plus 1e-3 absolute.
+1e-5 f32) plus 1e-3 absolute. Block-sparse outputs and grads, row by row,
+within 1.6e-2 (bf16: two ulps of the row's largest element; kernel and
+plain version both compute in f32 and round once, so they differ by at most
+one) and 1e-5 (f32: summation order only); lse within 1e-4 absolute.
 """
 
 import pytest
@@ -57,12 +68,21 @@ from deepspeed_tpu_torch.ops.flash_attention import (flash_attention,
                                                      flash_bwd_dq_plain,
                                                      flash_fwd_parts,
                                                      flash_fwd_parts_plain)
-from deepspeed_tpu_torch.ops.int8_matmul import (int8_matmul_dma,
+from deepspeed_tpu_torch.ops.int8_matmul import (int8_matmul,
+                                                 int8_matmul_dma,
                                                  int8_matmul_plain)
 from deepspeed_tpu_torch.ops.kernel_check import (block_step_inputs,
                                                   clone_pool, flash_delta,
                                                   flash_inputs,
+                                                  masked_row_layout,
                                                   real_rows_equal, rel_err)
+from deepspeed_tpu_torch.ops.sparse_attention import (
+    BigBirdSparsityConfig, BSLongformerSparsityConfig, FixedSparsityConfig)
+from deepspeed_tpu_torch.ops.sparse_attention.block_sparse import (
+    block_sparse_attention, block_sparse_attention_reference,
+    block_sparse_bwd_dkv, block_sparse_bwd_dkv_plain, block_sparse_bwd_dq,
+    block_sparse_bwd_dq_plain, block_sparse_delta, block_sparse_fwd,
+    block_sparse_fwd_plain, sparse_luts)
 
 pytestmark = pytest.mark.cuda
 
@@ -385,3 +405,148 @@ def test_flash_decode_counts_launches_and_rejects_bad_inputs(cuda):
         flash_decode_mha(q, k, v, 3)
     assert (flash_decode.launches, flash_decode_mha.launches) == (n0 + 1,
                                                                   m0 + 1)
+
+
+SPARSE_TOL = {torch.bfloat16: 1.6e-2, torch.float32: 1e-5}
+
+
+def _sparse_layout(kind, h, nb, block):
+    t = nb * block
+    if kind == "fixed":
+        return FixedSparsityConfig(num_heads=h, block=block, num_local_blocks=4,
+                                   num_global_blocks=1,
+                                   attention="unidirectional").make_layout(t)
+    if kind == "bigbird":
+        return BigBirdSparsityConfig(num_heads=h, block=block, seed=1,
+                                     different_layout_per_head=True).make_layout(t)
+    if kind == "longformer":
+        return BSLongformerSparsityConfig(num_heads=h, block=block,
+                                          global_block_indices=[0, 5]).make_layout(t)
+    return masked_row_layout(h, nb)
+
+
+def _sparse_run(cuda, dtype, b, h, nb, block, dh, kind, causal, seed=0):
+    """Kernels and plain versions on one input set: returns (kernel
+    outputs, plain outputs), each (out, lse, dq, dk, dv)."""
+    luts = sparse_luts(_sparse_layout(kind, h, nb, block), cuda)
+    q, k, v, do = flash_inputs(cuda, dtype, b * h, nb * block, dh, seed=seed)
+    kw = dict(block=block, causal=causal)
+    out, lse = block_sparse_fwd(q, k, v, luts, **kw)
+    ref, ref_lse = block_sparse_fwd_plain(q, k, v, luts, **kw)
+    delta = block_sparse_delta(do, ref)
+    got = (out, lse, block_sparse_bwd_dq(q, k, v, do, ref_lse, delta, luts, **kw),
+           *block_sparse_bwd_dkv(q, k, v, do, ref_lse, delta, luts, **kw))
+    want = (ref, ref_lse,
+            block_sparse_bwd_dq_plain(q, k, v, do, ref_lse, delta, luts, **kw),
+            *block_sparse_bwd_dkv_plain(q, k, v, do, ref_lse, delta, luts, **kw))
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("block", [16, 32, 64])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("kind,causal", [("fixed", True), ("bigbird", False),
+                                         ("longformer", True), ("masked", True)])
+def test_block_sparse_kernels_match_plain(cuda, dtype, block, dh, kind, causal):
+    got, want = _sparse_run(cuda, dtype, 2, 3, 10, block, dh, kind, causal,
+                            seed=block + dh)
+    assert (got[1] - want[1]).abs().max().item() <= 1e-4
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got[:1] + got[2:],
+                          want[:1] + want[2:]):
+        assert torch.isfinite(a.float()).all(), name
+        assert rel_err(a, b) <= SPARSE_TOL[dtype], (name, rel_err(a, b))
+    if kind == "masked":          # query block 1 sees no key under causal
+        rows = slice(block, 2 * block)
+        assert (got[0][:, rows] == 0).all() and (got[2][:, rows] == 0).all()
+        assert (got[1][:, rows] <= -1e30).all()
+
+
+def test_block_sparse_kernels_repeat_bit_for_bit(cuda):
+    first, _ = _sparse_run(cuda, torch.bfloat16, 2, 4, 16, 16, 128, "bigbird",
+                           False, seed=5)
+    again, _ = _sparse_run(cuda, torch.bfloat16, 2, 4, 16, 16, 128, "bigbird",
+                           False, seed=5)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_block_sparse_autograd_runs_the_kernels(cuda):
+    h, block, t = 4, 16, 256
+    layout = _sparse_layout("bigbird", h, t // block, block)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((2, t, h, 64), generator=g, device=cuda)
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    n = (block_sparse_fwd.launches, block_sparse_bwd_dq.launches,
+         block_sparse_bwd_dkv.launches)
+    out = block_sparse_attention(q, k, v, layout, block, True)
+    out.float().square().sum().backward()
+    assert (block_sparse_fwd.launches, block_sparse_bwd_dq.launches,
+            block_sparse_bwd_dkv.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    ref = block_sparse_attention_reference(q, k, v, layout, block, True)
+    assert rel_err(out, ref) <= SPARSE_TOL[torch.bfloat16]
+    for x in (q, k, v):
+        assert x.grad.shape == x.shape and torch.isfinite(x.grad.float()).all()
+
+
+def test_block_sparse_wrappers_reject_bad_inputs(cuda):
+    luts = sparse_luts(_sparse_layout("bigbird", 2, 8, 16), cuda)
+    q, k, v, do = flash_inputs(cuda, torch.bfloat16, 4, 128, 64)
+    n0 = (block_sparse_fwd.launches, block_sparse_bwd_dq.launches,
+          block_sparse_bwd_dkv.launches)
+    with pytest.raises(ValueError, match="block=8"):    # the CPU tests' block
+        block_sparse_fwd(q, k, v, sparse_luts(_sparse_layout(
+            "bigbird", 2, 16, 8), cuda), block=8, causal=False)
+    with pytest.raises(ValueError, match="Dh=96"):
+        block_sparse_fwd(*flash_inputs(cuda, torch.bfloat16, 4, 128, 96)[:3],
+                         luts, block=16, causal=False)
+    with pytest.raises(ValueError):                      # f16
+        block_sparse_fwd(q.half(), k.half(), v.half(), luts, block=16,
+                         causal=False)
+    with pytest.raises(ValueError):                      # T != nb * block
+        block_sparse_fwd(*flash_inputs(cuda, torch.bfloat16, 4, 144, 64)[:3],
+                         luts, block=16, causal=False)
+    with pytest.raises(ValueError):                      # tables on the CPU
+        block_sparse_fwd(q, k, v, sparse_luts(_sparse_layout(
+            "bigbird", 2, 8, 16), "cpu"), block=16, causal=False)
+    out, lse = block_sparse_fwd_plain(q, k, v, luts, block=16, causal=False)
+    delta = block_sparse_delta(do, out)
+    with pytest.raises(ValueError):                      # non-contiguous dO
+        block_sparse_bwd_dq(q, k, v, do.transpose(1, 2).contiguous()
+                            .transpose(1, 2), lse, delta, luts, block=16,
+                            causal=False)
+    with pytest.raises(ValueError):                      # lse with a unit dim
+        block_sparse_bwd_dkv(q, k, v, do, lse[..., None], delta, luts,
+                             block=16, causal=False)
+    assert (block_sparse_fwd.launches, block_sparse_bwd_dq.launches,
+            block_sparse_bwd_dkv.launches) == n0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("n,d,e", [(1, 256, 512), (2, 384, 640),
+                                   (8, 4096, 4096), (17, 384, 2048),
+                                   (32, 1000, 11008)])
+def test_gridded_int8_matmul_matches_plain(cuda, dtype, n, d, e):
+    x, q, s = _mm_inputs(cuda, dtype, n, d, e, layers=1)
+    q, s = q[0], s[0]                                    # s [1, E]
+    out = int8_matmul(x, q, s)
+    ref = int8_matmul_plain(x, q, s)
+    err = (out.float() - ref.float()).abs()
+    assert (err <= MATMUL_RTOL[dtype] * ref.float().abs() + 1e-3).all(), \
+        err.max().item()
+    assert torch.equal(int8_matmul(x, q, s), out)
+
+
+def test_gridded_int8_matmul_rejects_bad_inputs(cuda):
+    x, q, s = _mm_inputs(cuda, torch.bfloat16, 33, 256, 512, layers=1)
+    n0 = int8_matmul.launches
+    with pytest.raises(ValueError):     # > 32 rows
+        int8_matmul(x, q[0], s[0])
+    with pytest.raises(ValueError):     # stacked weight: the DMA form's
+        int8_matmul(x[:4].contiguous(), q, s)
+    with pytest.raises(ValueError):     # E % 16
+        int8_matmul(x[:4].contiguous(), q[0, :, :504].contiguous(),
+                    s[0, :, :504].contiguous())
+    with pytest.raises(TypeError):      # bf16 scales
+        int8_matmul(x[:4].contiguous(), q[0], s[0].to(torch.bfloat16))
+    assert int8_matmul.launches == n0

@@ -2,7 +2,8 @@
 (deepspeed_tpu_torch/ops/int8_matmul, compression/quantize, models/base.qdot)
 with the JAX package's.
 
-On the CPU the port's ``int8_matmul_dma`` runs its plain version
+On the CPU the port's ``int8_matmul_dma`` and its gridded form
+``int8_matmul`` run their one plain version
 (``(x.float() @ q.float()) * s`` cast once); the JAX side runs its Pallas
 kernel in interpret mode. Inputs come from one numpy seed.
 
@@ -22,10 +23,12 @@ import torch
 
 from deepspeed_tpu.compression.quantize import quantize_int8 as jax_quantize_int8
 from deepspeed_tpu.models.base import qdot as jax_qdot
+from deepspeed_tpu.ops.int8_matmul import int8_matmul as jax_int8_matmul
 from deepspeed_tpu.ops.int8_matmul import int8_matmul_dma as jax_int8_matmul_dma
 from deepspeed_tpu_torch.compression.quantize import dequantize_int8, quantize_int8
 from deepspeed_tpu_torch.models.base import layer_view, qdot
-from deepspeed_tpu_torch.ops.int8_matmul import int8_matmul_dma, k_splits
+from deepspeed_tpu_torch.ops.int8_matmul import (int8_matmul, int8_matmul_dma,
+                                                 k_splits)
 
 
 def _mk(n, d, e, l=None, seed=0):
@@ -67,6 +70,20 @@ def test_int8_matmul_dma_stacked_layer_matches_jax_kernel(layer):
                               interpret=True)
     out = int8_matmul_dma(_bf16(x), torch.from_numpy(q), torch.from_numpy(s),
                           layer)
+    _close(out, ref, rtol=8e-3)
+
+
+# the reference test's shapes (tests/unit/ops/test_int8_matmul.py), the
+# non-divisible (2, 384, 640) among them; scales carry a leading unit dim
+@pytest.mark.parametrize("n,d,e", [(1, 256, 512), (8, 768, 2304),
+                                   (2, 1024, 768), (2, 384, 640)])
+def test_gridded_int8_matmul_matches_jax_kernel(n, d, e):
+    x, q, s = _mk(n, d, e, seed=d)
+    s = s.reshape(1, e)
+    ref = jax_int8_matmul(jnp.asarray(x, jnp.bfloat16), jnp.asarray(q),
+                          jnp.asarray(s), interpret=True)
+    out = int8_matmul(_bf16(x), torch.from_numpy(q), torch.from_numpy(s))
+    assert out.dtype == torch.bfloat16 and out.shape == (n, e)
     _close(out, ref, rtol=8e-3)
 
 

@@ -62,7 +62,9 @@ def test_importing_the_port_loads_no_jax():
             "deepspeed_tpu_torch.inference, deepspeed_tpu_torch.runtime.engine, "
             "deepspeed_tpu_torch.runtime.dataloader, "
             "deepspeed_tpu_torch.models.gpt2, deepspeed_tpu_torch.ops.adam, "
-            "deepspeed_tpu_torch.ops.flash_attention; "
+            "deepspeed_tpu_torch.ops.flash_attention, "
+            "deepspeed_tpu_torch.ops.sparse_attention, "
+            "deepspeed_tpu_torch.ops.registry; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,

@@ -1,0 +1,337 @@
+"""Parity of the port's block-sparse attention
+(deepspeed_tpu_torch/ops/sparse_attention, its plain versions on the CPU)
+with the JAX package's, whose Pallas kernels run in interpret mode as the
+JAX package's own tests (tests/unit/ops/test_sparse_attention.py) run them,
+at that file's sizes: H 2, block 8, T 64.
+
+Inputs come from numpy with a seed and go to both packages. Cases:
+
+* layouts of all seven config classes bit-identical (BigBird's and
+  Variable's seeds, ``different_layout_per_head``,
+  ``num_different_global_patterns``), the same validation errors, and equal
+  look-up tables;
+* forward out and lse against JAX ``_sparse_attention_fwd`` within the
+  reference test's own f32 bounds (rtol 2e-4, atol 2e-5) over its seven
+  config/causal cases; both sides compute in f32 and differ only in
+  summation order;
+* dQ, dK and dV through the port's autograd against ``jax.grad`` of
+  ``block_sparse_attention`` within the reference test's 5e-4 / 5e-5;
+* a row with no visible key (``causal=True`` over a bidirectional layout):
+  zeros on both sides, forward and gradients;
+* bf16 operands: the port's output within 8e-3 relative + 1e-2 absolute of
+  JAX's. Both read bf16, compute in f32 and round the output once, so they
+  differ by at most one bf16 ulp (2^-8 relative) of O(1) values;
+* ``SparseSelfAttention``: the causal default from the config, the layout
+  cache per sequence length, ``pad_to_block_size`` and
+  ``unpad_sequence_output``;
+* the op registry: the same names as the JAX package's, ``sparse_attn``
+  loads the port's module, an op that is not ported raises
+  ``NotPortedError``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import deepspeed_tpu.ops.sparse_attention as jsa
+from deepspeed_tpu.ops import all_ops as jax_all_ops
+from deepspeed_tpu.ops.sparse_attention import block_sparse as jbs
+from deepspeed_tpu_torch.accelerator import get_accelerator
+from deepspeed_tpu_torch.errors import NotPortedError
+from deepspeed_tpu_torch.ops import all_ops, get_op_builder
+from deepspeed_tpu_torch.ops.kernel_check import masked_row_layout
+from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as tbs
+import deepspeed_tpu_torch.ops.sparse_attention as tsa
+
+H, BLK, T = 2, 8, 64  # 8 blocks
+
+# (class name, constructor kwargs): every class, BigBird's and Variable's
+# seeds, per-head layouts and different global patterns
+LAYOUT_CASES = [
+    ("DenseSparsityConfig", {}),
+    ("FixedSparsityConfig", dict(num_local_blocks=2, num_global_blocks=1)),
+    ("FixedSparsityConfig", dict(num_local_blocks=4, num_global_blocks=1,
+                                 attention="unidirectional")),
+    ("FixedSparsityConfig", dict(num_local_blocks=4, num_global_blocks=1,
+                                 horizontal_global_attention=True)),
+    ("FixedSparsityConfig", dict(num_local_blocks=4, num_global_blocks=2,
+                                 different_layout_per_head=True,
+                                 num_different_global_patterns=2)),
+    ("VariableSparsityConfig", dict(num_random_blocks=2,
+                                    local_window_blocks=[1, 2, 3],
+                                    global_block_indices=[0, 5],
+                                    global_block_end_indices=[2, 7],
+                                    horizontal_global_attention=True,
+                                    different_layout_per_head=True, seed=4)),
+    ("VariableSparsityConfig", dict(local_window_blocks=[2],
+                                    attention="unidirectional")),
+    ("BigBirdSparsityConfig", dict(seed=0)),
+    ("BigBirdSparsityConfig", dict(num_random_blocks=2, seed=7,
+                                   different_layout_per_head=True)),
+    ("BigBirdSparsityConfig", dict(attention="unidirectional", seed=3)),
+    ("BSLongformerSparsityConfig", dict(global_block_indices=[1, 5],
+                                        global_block_end_indices=[3, 6])),
+    ("BSLongformerSparsityConfig", dict(num_sliding_window_blocks=5,
+                                        attention="unidirectional")),
+    ("LocalSlidingWindowSparsityConfig", {}),
+    ("LocalSlidingWindowSparsityConfig", dict(num_sliding_window_blocks=4,
+                                              attention="bidirectional")),
+]
+
+
+@pytest.mark.parametrize("cls,kw", LAYOUT_CASES,
+                         ids=[f"{c}-{i}" for i, (c, _) in enumerate(LAYOUT_CASES)])
+def test_layouts_bit_identical_and_luts_equal(cls, kw):
+    heads = 4 if kw.get("different_layout_per_head") else H
+    ref = getattr(jsa, cls)(num_heads=heads, block=BLK, **kw).make_layout(T)
+    got = getattr(tsa, cls)(num_heads=heads, block=BLK, **kw).make_layout(T)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+    for a, b in zip(tbs._build_luts(got), jbs._build_luts(ref)):
+        np.testing.assert_array_equal(a, b)
+    luts = tbs.sparse_luts(got, "cpu")
+    np.testing.assert_array_equal(luts.lut_q.numpy(), jbs._build_luts(ref)[0])
+    np.testing.assert_array_equal(luts.cnt_q.numpy(), ref.sum(2))
+    np.testing.assert_array_equal(luts.cnt_k.numpy(), ref.sum(1))
+
+
+@pytest.mark.parametrize("cls,kw", [
+    ("FixedSparsityConfig", dict(num_local_blocks=3, num_global_blocks=2)),
+    ("FixedSparsityConfig", dict(attention="sideways")),
+    ("FixedSparsityConfig", dict(attention="unidirectional",
+                                 horizontal_global_attention=True)),
+    ("FixedSparsityConfig", dict(num_different_global_patterns=2)),
+    ("FixedSparsityConfig", dict(num_local_blocks=4, num_global_blocks=2,
+                                 different_layout_per_head=True,
+                                 num_different_global_patterns=3)),
+    ("VariableSparsityConfig", dict(global_block_indices=[0, 2],
+                                    global_block_end_indices=[1])),
+])
+def test_validation_errors_match(cls, kw):
+    with pytest.raises(ValueError) as ref:
+        getattr(jsa, cls)(num_heads=H, block=BLK, **kw)
+    with pytest.raises(ValueError) as got:
+        getattr(tsa, cls)(num_heads=H, block=BLK, **kw)
+    assert str(got.value) == str(ref.value)
+
+
+def test_bad_seq_len_raises_the_same_error():
+    with pytest.raises(ValueError) as ref:
+        jsa.FixedSparsityConfig(num_heads=H, block=BLK).make_layout(T + 3)
+    with pytest.raises(ValueError) as got:
+        tsa.FixedSparsityConfig(num_heads=H, block=BLK).make_layout(T + 3)
+    assert str(got.value) == str(ref.value)
+
+
+def test_first_head_layout_propagates():
+    cfg = tsa.BigBirdSparsityConfig(num_heads=4, block=BLK, seed=3)
+    lo = cfg.make_layout(T)
+    assert (lo[0] == lo[1]).all() and (lo[0] == lo[3]).all()
+    per_head = tsa.BigBirdSparsityConfig(num_heads=4, block=BLK, seed=3,
+                                         different_layout_per_head=True)
+    assert not (per_head.make_layout(T)[0] == per_head.make_layout(T)[1]).all()
+
+
+# the reference test's seven config/causal cases
+CONFIGS = [
+    ("dense", "DenseSparsityConfig", {}, False),
+    ("fixed", "FixedSparsityConfig", dict(num_local_blocks=2,
+                                          num_global_blocks=1), False),
+    ("fixed_causal", "FixedSparsityConfig",
+     dict(num_local_blocks=2, attention="unidirectional"), True),
+    ("bigbird", "BigBirdSparsityConfig", dict(num_random_blocks=1,
+                                              num_sliding_window_blocks=3), False),
+    ("longformer", "BSLongformerSparsityConfig",
+     dict(num_sliding_window_blocks=3), False),
+    ("sliding", "LocalSlidingWindowSparsityConfig",
+     dict(num_sliding_window_blocks=3), True),
+    ("variable", "VariableSparsityConfig",
+     dict(local_window_blocks=[1, 2], global_block_indices=[0]), False),
+]
+
+
+def _layout(cls, kw, heads=H):
+    return getattr(jsa, cls)(num_heads=heads, block=BLK, **kw).make_layout(T)
+
+
+def _qkv(b=2, t=T, h=H, dh=16, seed=0):
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(b, t, h, dh) * 0.3).astype(np.float32) for _ in range(3)]
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("name,cls,kw,causal", CONFIGS,
+                         ids=[c[0] for c in CONFIGS])
+def test_forward_and_lse_match_jax_kernel(name, cls, kw, causal):
+    q, k, v = _qkv()
+    layout = _layout(cls, kw)
+    jout, (_, _, _, _, jlse, _) = jbs._sparse_attention_fwd(
+        *map(jnp.asarray, (q, k, v)), layout, BLK, causal, None, True)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    out = tbs.block_sparse_attention(tq, tk, tv, layout, BLK, causal)
+    np.testing.assert_allclose(_np(out), _np(jout), rtol=2e-4, atol=2e-5)
+    flat = [tbs._reshape_bh(x) for x in (tq, tk, tv)]
+    _, lse = tbs.block_sparse_fwd(*flat, tbs.sparse_luts(layout, "cpu"),
+                                  block=BLK, causal=causal)
+    np.testing.assert_allclose(_np(lse), _np(jlse)[..., 0], rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("name,cls,kw,causal", CONFIGS,
+                         ids=[c[0] for c in CONFIGS])
+def test_gradients_match_jax_kernel(name, cls, kw, causal):
+    q, k, v = _qkv(b=1, dh=8, seed=1)
+    layout = _layout(cls, kw)
+
+    def jloss(q, k, v):
+        return jnp.sum(jbs.block_sparse_attention(q, k, v, layout, BLK,
+                                                  causal) ** 2)
+
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    tbs.block_sparse_attention(tq, tk, tv, layout, BLK, causal).square().sum().backward()
+    for n, a, b in zip("qkv", (tq.grad, tk.grad, tv.grad), jg):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=5e-4, atol=5e-5,
+                                   err_msg=f"d{n}")
+
+
+def test_oracle_matches_jax_oracle():
+    q, k, v = _qkv(seed=2)
+    layout = _layout("BigBirdSparsityConfig", {})
+    for causal in (False, True):
+        ref = jbs.block_sparse_attention_reference(
+            *map(jnp.asarray, (q, k, v)), layout, BLK, causal)
+        got = tbs.block_sparse_attention_reference(
+            *map(torch.from_numpy, (q, k, v)), layout, BLK, causal)
+        np.testing.assert_allclose(_np(got), _np(ref), rtol=2e-5, atol=2e-6)
+
+
+def test_row_with_no_visible_key_is_zero_on_both_sides():
+    """Query block 1 sees only key block 2: causal masks all of it (its keys
+    lie after its rows), so block 1 sees nothing."""
+    layout = masked_row_layout(H, T // BLK)
+    q, k, v = _qkv(b=1, dh=8, seed=3)
+    jout, (_, _, _, _, jlse, _) = jbs._sparse_attention_fwd(
+        *map(jnp.asarray, (q, k, v)), layout, BLK, True, None, True)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = tbs.block_sparse_attention(tq, tk, tv, layout, BLK, True)
+    rows = slice(BLK, 2 * BLK)
+    assert (_np(out)[:, rows] == 0).all() and (_np(jout)[:, rows] == 0).all()
+    np.testing.assert_allclose(_np(out), _np(jout), rtol=2e-4, atol=2e-5)
+    flat = [tbs._reshape_bh(x.detach()) for x in (tq, tk, tv)]
+    _, lse = tbs.block_sparse_fwd(*flat, tbs.sparse_luts(layout, "cpu"),
+                                  block=BLK, causal=True)
+    assert (_np(lse)[:, rows] == _np(jlse)[:, rows, 0]).all()
+    assert (_np(lse)[:, rows] <= -1e30).all()
+    out.square().sum().backward()
+    jg = jax.grad(lambda q, k, v: jnp.sum(jbs.block_sparse_attention(
+        q, k, v, layout, BLK, True) ** 2), argnums=(0, 1, 2))(
+            *map(jnp.asarray, (q, k, v)))
+    assert (_np(tq.grad)[:, rows] == 0).all() and (_np(jg[0])[:, rows] == 0).all()
+    for a, b in zip((tq.grad, tk.grad, tv.grad), jg):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=5e-4, atol=5e-5)
+
+
+def test_bf16_forward_within_one_ulp_of_jax():
+    q, k, v = _qkv(seed=4)
+    layout = _layout("FixedSparsityConfig", dict(num_local_blocks=2,
+                                                  attention="unidirectional"))
+    jout = jbs.block_sparse_attention(*(jnp.asarray(x, jnp.bfloat16)
+                                        for x in (q, k, v)), layout, BLK, True)
+    out = tbs.block_sparse_attention(*(torch.from_numpy(x).to(torch.bfloat16)
+                                       for x in (q, k, v)), layout, BLK, True)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(out), _np(jout), rtol=8e-3, atol=1e-2)
+
+
+def test_plain_versions_walk_only_table_columns():
+    """The plain backward kernels agree with autograd of the dense oracle
+    at block 16 and Dh 64 (a shape the CUDA kernels take), causal."""
+    t, h, blk = 96, 2, 16
+    cfg = tsa.FixedSparsityConfig(num_heads=h, block=blk, num_local_blocks=2,
+                                  attention="unidirectional")
+    layout = cfg.make_layout(t)
+    rng = np.random.RandomState(5)
+    q, k, v, do = (torch.from_numpy(rng.randn(2, t, h, 64).astype(np.float32)
+                                    ).requires_grad_() for _ in range(4))
+    out = tbs.block_sparse_attention(q, k, v, layout, blk, True)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    ref = tbs.block_sparse_attention_reference(q, k, v, layout, blk, True)
+    rgrads = torch.autograd.grad(ref, (q, k, v), do)
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    for a, b in zip(grads, rgrads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+class TestSparseSelfAttention:
+    def test_causal_default_from_config(self):
+        q, k, v = _qkv()
+        cfg = dict(num_local_blocks=2, attention="unidirectional")
+        mod = tsa.SparseSelfAttention(tsa.FixedSparsityConfig(
+            num_heads=H, block=BLK, **cfg))
+        jmod = jsa.SparseSelfAttention(jsa.FixedSparsityConfig(
+            num_heads=H, block=BLK, **cfg))
+        assert isinstance(mod, torch.nn.Module) and not list(mod.parameters())
+        out = mod(*map(torch.from_numpy, (q, k, v)))
+        jout = jmod(*map(jnp.asarray, (q, k, v)))
+        np.testing.assert_allclose(_np(out), _np(jout), rtol=2e-4, atol=2e-5)
+        causal = tbs.block_sparse_attention_reference(
+            *map(torch.from_numpy, (q, k, v)), mod.get_layout(T), BLK, True)
+        torch.testing.assert_close(out, causal, rtol=2e-4, atol=2e-5)
+        bidir = mod(*map(torch.from_numpy, (q, k, v)), causal=False)
+        assert not torch.allclose(bidir, out)
+
+    def test_layout_cached_per_seq_len(self):
+        mod = tsa.SparseSelfAttention(tsa.BigBirdSparsityConfig(num_heads=H,
+                                                                block=BLK))
+        l1 = mod.get_layout(T)
+        assert mod.get_layout(T) is l1
+        assert mod.get_layout(2 * T).shape == (H, 2 * T // BLK, 2 * T // BLK)
+        assert mod.get_layout(T) is l1
+
+    def test_pad_to_block_size(self):
+        ids = torch.ones((2, 30), dtype=torch.int32)
+        mask = torch.ones((2, 30), dtype=torch.int32)
+        pad, padded, pmask = tsa.SparseSelfAttention.pad_to_block_size(
+            16, ids, 7, mask)
+        assert pad == 2 and padded.shape == (2, 32) and pmask.shape == (2, 32)
+        assert (padded[:, 30:] == 7).all() and (pmask[:, 30:] == 0).all()
+        assert tsa.SparseSelfAttention.pad_to_block_size(16, padded, 0)[0] == 0
+        out = tsa.SparseSelfAttention.unpad_sequence_output(
+            pad, torch.ones((2, 32, 4)))
+        assert out.shape == (2, 30, 4)
+
+
+class TestRegistry:
+    def test_same_op_names_as_the_jax_package(self):
+        assert sorted(all_ops()) == sorted(jax_all_ops())
+
+    def test_sparse_attn_loads_the_port(self):
+        builder = get_op_builder("sparse_attn")(get_accelerator("cpu"))
+        assert builder.is_compatible() and not builder.has_fast_path()
+        assert builder.load() is tsa
+        assert builder.load().SparseSelfAttention is tsa.SparseSelfAttention
+
+    @pytest.mark.parametrize("name", ["cpu_adam", "cpu_adagrad",
+                                      "ring_attention", "async_io", "onebit",
+                                      "cpu_adam_native"])
+    def test_unported_op_raises(self, name):
+        builder = get_op_builder(name)(get_accelerator("cpu"))
+        assert not builder.is_compatible()
+        with pytest.raises(NotPortedError):
+            builder.load()
+
+    @pytest.mark.parametrize("name", ["fused_adam", "fused_lamb", "attention",
+                                      "flash_attention"])
+    def test_ported_ops_load(self, name):
+        assert get_op_builder(name)(get_accelerator("cpu")).load() is not None
+
+    def test_unknown_op_raises(self):
+        with pytest.raises(KeyError):
+            get_op_builder("no_such_op")
