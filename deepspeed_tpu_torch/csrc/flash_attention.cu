@@ -11,16 +11,19 @@
 // card's ~295 FLOP/byte bf16 ridge (bytes bound it by a hair; 512 FLOP/byte
 // without the mask); the backward kernels do 307 (dQ) and 341 (dK/dV),
 // bound by operations. So the bf16/fp16 path runs its products on the
-// tensor cores (mma.sync m16n8k16, f32 accumulation) and keeps every score,
-// probability and dS tile in registers; only Q/K/V/dO tiles go through
-// shared memory. A simple form that is right comes first: no wgmma, no TMA,
-// no warp specialisation yet.
+// tensor cores with f32 accumulation and keeps every score, probability and
+// dS tile in registers.
 //
 // Design:
-//  * One block of 4 warps per (bh, 64-row tile); each warp owns 16 rows.
-//    The walk over the other operand's tiles is a loop inside the block (the
-//    TPU grid's sequential dimension), with the next K/V (or Q/dO) tile
-//    copied into shared memory with cp.async while this one is computed.
+//  * Forward (kernel D, flash_fwd_wgmma): Hopper's own route to the tensor
+//    cores, wgmma fed by TMA: a producer warp streams K/V tiles into a
+//    ring of mbarrier-guarded stages while a consumer warpgroup computes;
+//    see the note above the kernel.
+//  * Backward (kernels E and F): mma.sync m16n8k16 with one block of 4 warps
+//    per 64-row tile, each warp owning 16 rows. The walk over the other
+//    operand's tiles is a loop inside the block (the TPU grid's sequential
+//    dimension), with the next tile copied into shared memory with cp.async
+//    while this one is computed.
 //  * Causal masking is top-left aligned (query row i sees key columns
 //    <= i, the reference's _causal_mask): whole tiles past the diagonal are
 //    skipped, the diagonal tile is masked element by element. Rows past T
@@ -30,7 +33,8 @@
 //    and accumulate in f32; p (forward, dQ and dK/dV) and dS are rounded to
 //    the storage dtype as the A operand of the second-stage products (P.V,
 //    dS.K, P^T.dO, dS^T.Q). The score tile's C fragment is re-read as that A
-//    fragment in registers (the m16n8k16 C and A layouts line up).
+//    fragment in registers (the m16n8k16 C and A layouts line up, and so do
+//    wgmma's accumulator and register-A layouts).
 //  * Forward: online softmax with running max m (init -1e30) and sum l in
 //    f32, per-thread partial l reduced once at the end; O = acc /
 //    max(l, 1e-20) in the storage dtype, lse = m + log(max(l, 1e-20)) in f32.
@@ -43,7 +47,10 @@
 //    row, each owning a quarter of Dh, dot products reduced by shuffles).
 #include <math_constants.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -51,6 +58,8 @@ using namespace dst;
 
 constexpr int kThreads = 128;       // 4 warps
 constexpr float kMInit = -1e30f;    // the reference's _NEG_INF, the initial m
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // ------------------------------------------------------------ tensor cores
 template <typename T>
@@ -155,6 +164,14 @@ __device__ __forceinline__ void store2<__half>(__half* p, float a, float b) {
   *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
 }
 
+// 2^x on the special-function unit (flushes denormal results to 0: p below
+// 2^-126 of the row's max adds nothing at f32)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -170,131 +187,256 @@ __device__ __forceinline__ bool live(int row, int col, int tq, int tk, bool caus
 }
 
 // ---------------------------------------------------------------- forward
+// Kernel D on Hopper: one block per (bh, 64-row Q tile) of one consumer
+// warpgroup (warps 0-3, 16 rows each) and one producer warp (warp 4).
+//  * The producer's lane 0 loads the Q tile once, then the walk's K and V
+//    tiles by TMA into two rings of mbarrier-guarded stages: a stage's
+//    `full` barrier completes on its bytes, its `empty` barrier on the 128
+//    consumer threads' release. K and V have rings of their own because a K
+//    tile is done with as soon as its scores are in, a V tile only after
+//    P.V: K's stages turn over early, and the loads run further ahead.
+//  * S = Q K^T is wgmma m64n64k16 from shared memory (both K-major, 128-byte
+//    swizzle); P stays in registers: the f32 accumulator of S is rounded to
+//    T and becomes the A operand of O += P V (wgmma from registers, V
+//    MN-major through the transpose mode).
+//  * Each tile's softmax overlaps the previous tile's P.V: S(kt+1) and
+//    P(kt).V(kt) are issued back to back, the softmax of S(kt+1) runs on
+//    the CUDA cores while P.V finishes on the tensor cores.
+//  * Softmax in the log2 domain: ex2 with log2(e) folded into the scale,
+//    the running max starting at -1e30; element masks only on the tile that
+//    crosses the diagonal and the ragged tail; tiles past the diagonal are
+//    never loaded.
+//  * Causal tiles run longest first: grid (tile, bh) with the last Q tile
+//    at blockIdx.x = 0, so each bh's tiles start longest first and the
+//    blocks of one bh run together, sharing its K/V in the L2.
+//  * What sets its time at Dh 64 is the softmax on the CUDA cores, not the
+//    products: with the products left out the kernel takes as long. So the
+//    softmax is kept to one FFMA, one ex2, one max and one add a score.
+//    ptxas serialises the products (warning C7514/C7515) when a branch sits
+//    between a product's issue and its wait; hence the peeled last tile.
 template <typename T, int Dh>
-struct FwdTC {
-  static constexpr int BM = 64, BN = 64, S = Dh + 8;
-  static size_t smem() { return (size_t)(BM + 4 * BN) * S * sizeof(T); }
+struct FwdH {
+  static constexpr int BM = 64, BN = 64, kPanels = Dh / 64;
+  // stages of the K and V rings (Dh 64: 72 KB a block, three blocks an SM;
+  // Dh 128: 96 KB, two)
+  static constexpr int kKStages = Dh == 64 ? 4 : 3, kVStages = Dh == 64 ? 4 : 2;
+  static constexpr int kThreadsH = 160;  // 4 consumer warps + 1 producer warp
+  static constexpr uint32_t kQBytes = BM * Dh * sizeof(T);
+  static constexpr uint32_t kTileBytes = BN * Dh * sizeof(T);  // K or V
+  static constexpr size_t kBarOff =
+      kQBytes + (size_t)(kKStages + kVStages) * kTileBytes;
+  static size_t smem() { return 1024 + kBarOff + 8 * (1 + 2 * (kKStages + kVStages)); }
 };
 
-template <typename T, int Dh>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_tc(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ o, float* __restrict__ lse, int tq, int tk, int causal,
-             float scale) {
-  using Cfg = FwdTC<T, Dh>;
-  constexpr int BM = Cfg::BM, BN = Cfg::BN, S = Cfg::S, ND = Dh / 8, KD = Dh / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* q_sh = reinterpret_cast<T*>(smem_raw);   // [BM][S]
-  T* k_sh = q_sh + BM * S;                     // [2][BN][S]
-  T* v_sh = k_sh + 2 * BN * S;                 // [2][BN][S]
-  const int bh = blockIdx.y, q0 = blockIdx.x * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const T* qb = q + (size_t)bh * tq * Dh;
-  const T* kb = k + (size_t)bh * tk * Dh;
-  const T* vb = v + (size_t)bh * tk * Dh;
+template <typename T, int Dh, bool kNeg>
+__global__ void __launch_bounds__(160, 2)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap, T* __restrict__ o,
+                float* __restrict__ lse, int tq, int tk, int causal, float scale_log2) {
+  using namespace dst::hopper;
+  using C = FwdH<T, Dh>;
+  constexpr int BM = C::BM, BN = C::BN, SK = C::kKStages, SV = C::kVStages, NP = C::kPanels;
+  constexpr int PANEL_Q = BM * 64, PANEL_KV = BN * 64;  // elements of one 64-column panel
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  T* q_sh = reinterpret_cast<T*>(base);                 // [NP][BM][64]
+  T* k_sh = reinterpret_cast<T*>(base + C::kQBytes);    // [SK][NP][BN][64]
+  T* v_sh = k_sh + SK * NP * PANEL_KV;                  // [SV][NP][BN][64]
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(base + C::kBarOff);
+  uint64_t* k_full = q_bar + 1;
+  uint64_t* k_empty = k_full + SK;
+  uint64_t* v_full = k_empty + SK;
+  uint64_t* v_empty = v_full + SV;
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;  // longest tiles first
   int n_kt = (tk + BN - 1) / BN;
   if (causal) n_kt = min(n_kt, (q0 + BM - 1) / BN + 1);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  stage_rows<Dh, BM, S>(q_sh, qb, q0, tq);
-  stage_rows<Dh, BN, S>(k_sh, kb, 0, tk);
-  stage_rows<Dh, BN, S>(v_sh, vb, 0, tk);
-  cp_async_commit();
-
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  float acc[ND][4];
-#pragma unroll
-  for (int i = 0; i < ND; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m[2] = {kMInit, kMInit}, l[2] = {0.f, 0.f};
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < n_kt) {
-      stage_rows<Dh, BN, S>(k_sh + (cur ^ 1) * BN * S, kb, (kt + 1) * BN, tk);
-      stage_rows<Dh, BN, S>(v_sh + (cur ^ 1) * BN * S, vb, (kt + 1) * BN, tk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < SK; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&k_empty[s], 128);
     }
-    __syncthreads();
-    const T* ks = k_sh + cur * BN * S;
-    const T* vs = v_sh + cur * BN * S;
-    // s = q . k^T, f32
-    float s[BN / 8][4];
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t a[4];
-      frag_a<S>(a, q_sh, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < BN / 8; ++n) {
-        uint32_t b[2];
-        frag_bt<S>(b, ks, n * 8, kk * 16, g, t);
-        Mma<T>::run(s[n], a, b);
+    for (int s = 0; s < SV; ++s) {
+      mbar_init(&v_full[s], 1);
+      mbar_init(&v_empty[s], 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // ------------------------------------------ producer
+    if (lane == 0) {
+      mbar_expect_tx(q_bar, C::kQBytes);
+      for (int p = 0; p < NP; ++p) tma_load_3d(q_sh + p * PANEL_Q, &qmap, q_bar, p * 64, q0, bh);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int sk = kt % SK, sv = kt % SV;
+        if (kt >= SK) mbar_wait(&k_empty[sk], ((kt / SK) - 1) & 1);
+        mbar_expect_tx(&k_full[sk], C::kTileBytes);
+        for (int p = 0; p < NP; ++p)
+          tma_load_3d(k_sh + (sk * NP + p) * PANEL_KV, &kmap, &k_full[sk], p * 64, kt * BN, bh);
+        if (kt >= SV) mbar_wait(&v_empty[sv], ((kt / SV) - 1) & 1);
+        mbar_expect_tx(&v_full[sv], C::kTileBytes);
+        for (int p = 0; p < NP; ++p)
+          tma_load_3d(v_sh + (sv * NP + p) * PANEL_KV, &vmap, &v_full[sv], p * 64, kt * BN, bh);
       }
     }
-    // scale, mask, online softmax
-    const int k0 = kt * BN;
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  const int g = lane >> 2, t = lane & 3;
+  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  float acc[Dh / 2];
+#pragma unroll
+  for (int i = 0; i < Dh / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kMInit, kMInit}, l[2] = {0.f, 0.f};
+  mbar_wait(q_bar, 0);
+
+  // S(kt) = Q K(kt)^T into sc, issued and committed (asynchronous)
+  float sc[BN / 2];
+  auto issue_s = [&](int kt) {
+    const int s = kt % SK;
+    mbar_wait(&k_full[s], (kt / SK) & 1);
+    const T* ks = k_sh + s * NP * PANEL_KV;
+#pragma unroll
+    for (int kk = 0; kk < Dh / 16; ++kk) {
+      const int p = kk / 4, c = (kk % 4) * 16;
+      Wgmma<T>::ss_n64(sc, sw128_desc(q_sh + p * PANEL_Q + c, 16, 1024),
+                       sw128_desc(ks + p * PANEL_KV + c, 16, 1024), kk > 0);
+    }
+    wg_commit();
+  };
+  // online softmax of tile kt in place (sc -> p), in the log2 domain:
+  // p = 2^(s * scale_log2 - m) as one FFMA and one ex2, the tile's max
+  // taken on the raw scores (scaling is monotone: kNeg flips it for a
+  // negative scale). Element masks only in the copy for the tile that
+  // crosses the diagonal or the ragged tail.
+  float corr[2];
+  auto softmax_body = [&](int kt, auto masked) {
+    constexpr bool kMask = decltype(masked)::value;
+    const float lo = kNeg ? CUDART_INF_F : -CUDART_INF_F;  // a masked raw score
     float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-    for (int n = 0; n < BN / 8; ++n)
+    for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + 2 * t + (e & 1);
-        const bool ok = live(row[e >> 1], col, tq, tk, causal);
-        s[n][e] = ok ? s[n][e] * scale : -CUDART_INF_F;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+        float x = sc[4 * j + e];
+        if constexpr (kMask) {
+          const int col = kt * BN + 8 * j + 2 * t + (e & 1);
+          if (col >= tk || (causal && col > row[e >> 1])) x = lo;
+          sc[4 * j + e] = x;
+        }
+        mx[e >> 1] = fmaxf(mx[e >> 1], kNeg ? -x : x);
       }
-    float corr[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]));
-      corr[i] = expf(m[i] - m_new);
+      const float m_new = fmaxf(m[i], quad_max(mx[i]) * (kNeg ? -scale_log2 : scale_log2));
+      corr[i] = fast_exp2(m[i] - m_new);
       m[i] = m_new;
       l[i] *= corr[i];
     }
 #pragma unroll
-    for (int n = 0; n < BN / 8; ++n)
+    for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(s[n][e] - m[e >> 1]);   // masked: exp(-inf) = 0
-        l[e >> 1] += s[n][e];
+        const float p = fast_exp2(fmaf(sc[4 * j + e], scale_log2, -m[e >> 1]));  // masked: 0
+        sc[4 * j + e] = p;
+        l[e >> 1] += p;
       }
-#pragma unroll
-    for (int d = 0; d < ND; ++d) {
-      acc[d][0] *= corr[0];
-      acc[d][1] *= corr[0];
-      acc[d][2] *= corr[1];
-      acc[d][3] *= corr[1];
-    }
-    // acc += p . v, p rounded to the storage type
+  };
+  auto softmax = [&](int kt) {
+    const int k0 = kt * BN;
+    if ((causal && k0 + BN - 1 > q0) || k0 + BN > tk)
+      softmax_body(kt, std::true_type{});
+    else
+      softmax_body(kt, std::false_type{});
+  };
+
+
+  // p rounded to the storage type as the A operand of P.V, and the running
+  // output rescaled to the tile's max
+  uint32_t pa[BN / 16][4];
+  auto to_operand = [&]() {
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t a[4] = {Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]),
-                             Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]),
-                             Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int d = 0; d < ND; ++d) {
-        uint32_t b[2];
-        frag_bn<S>(b, vs, kk * 16, d * 8, g, t);
-        Mma<T>::run(acc[d], a, b);
-      }
+      pa[kk][0] = Mma<T>::pack(sc[8 * kk + 0], sc[8 * kk + 1]);
+      pa[kk][1] = Mma<T>::pack(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = Mma<T>::pack(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = Mma<T>::pack(sc[8 * kk + 6], sc[8 * kk + 7]);
     }
-    __syncthreads();   // this buffer is restaged next iteration
+#pragma unroll
+    for (int j = 0; j < Dh / 8; ++j) {
+      acc[4 * j + 0] *= corr[0];
+      acc[4 * j + 1] *= corr[0];
+      acc[4 * j + 2] *= corr[1];
+      acc[4 * j + 3] *= corr[1];
+    }
+  };
+  // O += P(kt) V(kt), issued and committed
+  auto issue_pv = [&](int kt) {
+    mbar_wait(&v_full[kt % SV], (kt / SV) & 1);
+    const T* vs = v_sh + (kt % SV) * NP * PANEL_KV;
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint64_t dv = sw128_desc(vs + kk * 16 * 64, PANEL_KV * (int)sizeof(T), 1024);
+      if constexpr (Dh == 64)
+        Wgmma<T>::rs_n64_mn(acc, pa[kk], dv);
+      else
+        Wgmma<T>::rs_n128_mn(acc, pa[kk], dv);
+    }
+    wg_commit();
+  };
+
+  // The walk overlaps each tile's softmax with the previous tile's P.V on
+  // the tensor cores: S(kt+1) and P(kt).V(kt) are issued back to back, the
+  // softmax of S(kt+1) runs while P.V finishes. The body has no branch
+  // between a product's issue and its wait (the last tile is peeled), so
+  // the compiler keeps the products asynchronous.
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
+  fence_regs<BN / 2>(sc);
+  wg_fence();
+  issue_s(0);
+  wg_wait<0>();
+  fence_regs<BN / 2>(sc);
+  mbar_arrive(&k_empty[0]);
+  softmax(0);
+  for (int kt = 0; kt + 1 < n_kt; ++kt) {
+    to_operand();
+    fence_regs<BN / 2>(sc);
+    fence_regs<Dh / 2>(acc);
+    wg_fence();
+    issue_s(kt + 1);
+    issue_pv(kt);
+    wg_wait<1>();  // S(kt+1) is in; P.V(kt) may still run
+    fence_regs<BN / 2>(sc);
+    mbar_arrive(&k_empty[(kt + 1) % SK]);  // K(kt+1) is done with
+    softmax(kt + 1);
+    wg_wait<0>();
+    fence_regs<Dh / 2>(acc);
+    mbar_arrive(&v_empty[kt % SV]);  // V(kt) is done with
   }
-  // normalise, cast once; lse in f32
+  to_operand();
+  fence_regs<Dh / 2>(acc);
+  wg_fence();
+  issue_pv(n_kt - 1);
+  wg_wait<0>();
+  fence_regs<Dh / 2>(acc);
+  mbar_arrive(&v_empty[(n_kt - 1) % SV]);
+  // normalise, cast once; lse in f32 (natural log)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const float ls = fmaxf(quad_sum(l[i]), 1e-20f);
-    const float inv = 1.f / ls;
     if (row[i] < tq) {
       T* orow = o + ((size_t)bh * tq + row[i]) * Dh;
 #pragma unroll
-      for (int d = 0; d < ND; ++d)
-        store2<T>(orow + d * 8 + 2 * t, acc[d][2 * i] * inv, acc[d][2 * i + 1] * inv);
-      if (t == 0) lse[(size_t)bh * tq + row[i]] = m[i] + logf(ls);
+      for (int j = 0; j < Dh / 8; ++j)
+        store2<T>(orow + 8 * j + 2 * t, acc[4 * j + 2 * i] / ls, acc[4 * j + 2 * i + 1] / ls);
+      if (t == 0) lse[(size_t)bh * tq + row[i]] = m[i] * kLn2 + logf(ls);
     }
   }
 }
@@ -763,6 +905,45 @@ cudaError_t allow_smem(K kernel, size_t bytes, size_t& allowed) {
   return cudaSuccess;
 }
 
+// cuTensorMapEncodeTiled from the driver, found at run time (the library
+// links no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A [bh, rows, Dh] 16-bit operand as a 3-d tensor map of 64-column x
+// box_rows boxes, 128-byte swizzled, zero-filled past each bh's last row.
+template <typename T, int Dh>
+cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int bh, int rows, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)Dh, (cuuint64_t)rows, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)Dh * sizeof(T), (cuuint64_t)rows * Dh * sizeof(T)};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, sizeof(T) == 2 && std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 struct Args {
   const void *q, *k, *v, *dout;
   void *o, *dq, *dk, *dv;
@@ -775,6 +956,24 @@ struct Args {
 
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
+template <typename T, int Dh, bool kNeg>
+cudaError_t launch_fwd(const Args& a) {
+  using Cfg = FwdH<T, Dh>;
+  CUtensorMap qm, km, vm;
+  cudaError_t err;
+  if ((err = tensor_map<T, Dh>(&qm, a.q, a.bh, a.tq, Cfg::BM)) != cudaSuccess ||
+      (err = tensor_map<T, Dh>(&km, a.k, a.bh, a.tk, Cfg::BN)) != cudaSuccess ||
+      (err = tensor_map<T, Dh>(&vm, a.v, a.bh, a.tk, Cfg::BN)) != cudaSuccess)
+    return err;
+  auto kern = flash_fwd_wgmma<T, Dh, kNeg>;
+  static size_t allowed = 48 * 1024;
+  if ((err = allow_smem(kern, Cfg::smem(), allowed)) != cudaSuccess) return err;
+  dim3 grid((a.tq + Cfg::BM - 1) / Cfg::BM, a.bh);
+  kern<<<grid, Cfg::kThreadsH, Cfg::smem(), a.st>>>(qm, km, vm, static_cast<T*>(a.o), a.lse,
+                                                    a.tq, a.tk, a.causal, a.scale * kLog2e);
+  return cudaGetLastError();
+}
+
 template <typename T, int Dh>
 cudaError_t launch_tc(Which which, const Args& a) {
   const T* q = static_cast<const T*>(a.q);
@@ -782,13 +981,7 @@ cudaError_t launch_tc(Which which, const Args& a) {
   const T* v = static_cast<const T*>(a.v);
   cudaError_t err;
   if (which == kFwd) {
-    using Cfg = FwdTC<T, Dh>;
-    auto kern = flash_fwd_tc<T, Dh>;
-    static size_t allowed = 48 * 1024;
-    if ((err = allow_smem(kern, Cfg::smem(), allowed)) != cudaSuccess) return err;
-    dim3 grid((a.tq + Cfg::BM - 1) / Cfg::BM, a.bh);
-    kern<<<grid, kThreads, Cfg::smem(), a.st>>>(q, k, v, static_cast<T*>(a.o), a.lse,
-                                                a.tq, a.tk, a.causal, a.scale);
+    return a.scale < 0 ? launch_fwd<T, Dh, true>(a) : launch_fwd<T, Dh, false>(a);
   } else if (which == kDq) {
     using Cfg = DqTC<T, Dh>;
     auto kern = flash_bwd_dq_tc<T, Dh>;

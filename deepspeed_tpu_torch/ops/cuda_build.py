@@ -118,9 +118,11 @@ def kernels() -> ctypes.CDLL:
             i32, vp]                     # dtype code, stream
         lib.dst_int8_matmul.restype = i32
         lib.dst_fused_decode_step.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp,  # q, k, v, k_new, v_new, out, idx
+            vp, vp, vp, vp, vp, vp,      # q, k, v, k_new, v_new, out
+            vp, vp, vp,                  # ml, acc (split scratch), idx
             i32, i32,                    # idx scalar, layer
             i32, i32, i32, i32, i32,     # b, hq, hkv, s_max, dh
+            i32, i32,                    # chunk, n_splits
             f32, i32, vp]                # scale, dtype code, stream
         lib.dst_fused_decode_step.restype = i32
         lib.dst_fused_block_decode_step.argtypes = [

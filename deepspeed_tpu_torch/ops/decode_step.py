@@ -8,7 +8,8 @@ then attend each slot over its own valid prefix.
 * ``fused_decode_step``: the stacked slot cache ``[L, B, Hkv, S, Dh]``; the
   write is dropped for a slot whose index is past the allocation. CUDA
   tensors launch ``csrc/decode_step.cu`` (replaces the TPU kernel
-  ``ops/decode_step.py:_kernel``).
+  ``ops/decode_step.py:_kernel``): the valid prefix split across blocks
+  (:func:`split_plan`), the splits merged by a second kernel.
 * ``fused_block_decode_step``: the block pool ``[L, N+1, Hkv, bs, Dh]``
   addressed through a ``[B, MB]`` block table, in the compute dtype or
   quantized (``{"q", "s"}`` int8/fp8 payload + bf16 scales, quantized on
@@ -16,8 +17,9 @@ then attend each slot over its own valid prefix.
   ``N``. CUDA tensors launch ``csrc/block_decode_step.cu`` (replaces
   ``ops/decode_step.py:_block_kernel``).
 
-Both kernels share their attention body (``csrc/decode_attend.cuh``); the
-source notes say what bounds them and how the design answers that. CPU
+The slot kernel's attention body is ``csrc/decode_split.cuh``, the block
+kernel's ``csrc/decode_attend.cuh``; the source notes say what bounds them
+and how the design answers that. CPU
 tensors run the plain versions beside them. The port keeps the logical
 unpacked layouts: the TPU's token-pair packing for Dh < 128 and its
 pair-grouped scales are tiling devices with no counterpart here.
@@ -30,10 +32,26 @@ from typing import Optional, Union
 import torch
 
 from deepspeed_tpu_torch.ops import cuda_build
+from deepspeed_tpu_torch.ops.flash_decode import _sm_count
 
-_THREADS, _MAX_PER_THREAD = 128, 16   # csrc/decode_attend.cuh block shape
+_THREADS, _MAX_PER_THREAD = 128, 16   # csrc/decode_split.cuh and
+                                      # csrc/decode_attend.cuh block shape
+_STAGE_ROWS = 64                      # csrc/decode_split.cuh kStageRows
 # pool storage code of csrc/block_decode_step.cu
 _KV_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
+
+
+def split_plan(b: int, hkv: int, s_max: int, sms: int):
+    """``(chunk, n_splits)`` of the fused decode step: positions per block
+    and blocks along S (``csrc/decode_step.cu`` runs a grid of (n_splits,
+    hkv, b) blocks). The smallest chunk is one 64-position stage (a 16-row
+    tile per warp); it doubles while the grid at full S would still hold
+    four blocks per SM. A function of the shapes only: the host never reads
+    idx, and a row's result does not depend on the other slots'."""
+    chunk = _STAGE_ROWS
+    while chunk < s_max and b * hkv * -(-s_max // (2 * chunk)) >= 4 * sms:
+        chunk *= 2
+    return chunk, -(-s_max // chunk)
 
 
 def supports(hq: int, hkv: int, s_max: int, dh: int, itemsize: int = 2) -> bool:
@@ -152,10 +170,20 @@ def fused_decode_step(q: torch.Tensor, k_full: torch.Tensor,
     sc = float(scale) if scale is not None else dh ** -0.5
     lib = cuda_build.kernels()
     out = torch.empty((b, 1, hq, dh), dtype=dtype, device=q.device)
+    chunk, n_splits = split_plan(b, hkv, s_max, _sm_count(q.device.index or 0))
+    ml = acc = None
+    if n_splits > 1:        # the splits' partials, on the current stream
+        ml = torch.empty((b, hq, n_splits, 2), dtype=torch.float32,
+                         device=q.device)
+        acc = torch.empty((b, hq, n_splits, dh), dtype=torch.float32,
+                          device=q.device)
     err = lib.dst_fused_decode_step(
         q.data_ptr(), k_full.data_ptr(), v_full.data_ptr(), k_new.data_ptr(),
-        v_new.data_ptr(), out.data_ptr(), idx_ptr, idx_scalar, int(layer),
-        b, hq, hkv, s_max, dh, sc, cuda_build.dtype_code(dtype),
+        v_new.data_ptr(), out.data_ptr(),
+        None if ml is None else ml.data_ptr(),
+        None if acc is None else acc.data_ptr(), idx_ptr, idx_scalar,
+        int(layer), b, hq, hkv, s_max, dh, chunk, n_splits, sc,
+        cuda_build.dtype_code(dtype),
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(lib, err, "fused_decode_step")
     fused_decode_step.launches += 1

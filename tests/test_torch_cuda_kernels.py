@@ -12,13 +12,18 @@ kernels take, ragged shapes (S not a multiple of the chunk, E not a
 multiple of the column tile, odd N), the scalar and per-slot index forms,
 the dropped write at idx == S, row independence (a slot's or a row's result
 does not depend on its neighbours), and the wrappers' input checks. The
+fused decode step's split along the cache: idx at and around the split
+edges, S - 1 and S with 0 beside S - 1 in one launch, rep 1 to 32, Dh 40
+(the CUDA-core body), 64 and 128, the cache past idx poisoned and unread,
+run-to-run bit identity, one launch counted per call, and a call captured in
+a CUDA graph replayed after the device idx changes. The
 block decode step: bf16/f16/f32 compute over pools in the compute type,
 int8 and fp8 (payload and scales), a permuted table, block edges, the
 overflow write to the garbage row, an inactive slot on a sentinel table.
 The flash attention kernels (forward, backward dQ, backward dK/dV): bf16,
 f16 and f32 at Dh 64 and 128, T a multiple of the tile and ragged, causal
 and not, Tk != Tq (top-left causal), run-to-run bit identity of the
-backward, and the wrappers' input checks. Flash-decode (both computations:
+forward and the backward, and the wrappers' input checks. Flash-decode (both computations:
 GQA rep >= 2 with p rounded, rep 1 in f32): bf16/f16/f32 at Dh 64, 128 and
 256, the CodeLlama-34B decode shape (B 1 and 4, Hq 64 / Hkv 8, S 640), an
 odd S, a rep that is not a multiple of the kernel's 8 rows, idx at 0, a
@@ -41,9 +46,11 @@ grads, row by row, within 2e-2 (bf16), 4e-3 (f16), 1e-4 (f32) of the row's
 own max |ref| (``kernel_check.rel_err``: about two ulps of the row's
 largest element; p and dS are rounded at the same points in kernel and
 plain version, but the forward's p at tile-local maxima, and sums run in
-another order), lse within 1e-4 absolute; decode outputs within
-2e-2 (bf16), 4e-3 (f16), 1e-5 (f32) absolute on O(1) values — the kernel's
-online softmax rounds its probabilities at chunk-local maxima; int8 matmul
+another order), lse within 1e-4 absolute; decode outputs (both decode steps), row by
+row, within 2e-2 (bf16), 4e-3 (f16), 1e-5 (f32) of the row's own max |ref|
+(``kernel_check.rel_err``: the kernels round p at chunk- or warp-local
+running maxima, the plain version at the row maximum; f32 differs in
+summation order only); int8 matmul
 outputs within one ulp of the output type (rtol 8e-3 bf16, 1e-3 f16,
 1e-5 f32) plus 1e-3 absolute. Block-sparse outputs and grads, row by row,
 within 1.6e-2 (bf16: two ulps of the row's largest element; kernel and
@@ -57,7 +64,8 @@ import torch
 from deepspeed_tpu_torch.ops.decode_step import (fused_block_decode_step,
                                                  fused_block_decode_step_plain,
                                                  fused_decode_step,
-                                                 fused_decode_step_plain)
+                                                 fused_decode_step_plain,
+                                                 split_plan)
 from deepspeed_tpu_torch.ops.flash_decode import (flash_decode,
                                                   flash_decode_mha,
                                                   flash_decode_plain)
@@ -87,6 +95,9 @@ from deepspeed_tpu_torch.ops.sparse_attention.block_sparse import (
 pytestmark = pytest.mark.cuda
 
 DECODE_TOL = {torch.bfloat16: 2e-2, torch.float16: 4e-3, torch.float32: 1e-5}
+# the CodeLlama-34B row's S, Hkv and a batch at which the split plan takes
+# the smallest chunk on any card of at least 80 SMs (4 blocks per SM)
+SPLIT_B, SPLIT_HKV, SPLIT_S = 6, 2, 300
 MATMUL_RTOL = {torch.bfloat16: 8e-3, torch.float16: 1e-3, torch.float32: 1e-5}
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float16: 4e-3, torch.float32: 1e-4}
 
@@ -125,7 +136,7 @@ def test_decode_step_matches_plain(cuda, dtype, b, hq, hkv, s, dh):
         ref, _, _ = fused_decode_step_plain(q, k2, v2, kn, vn, 1, form)
         torch.cuda.synchronize()
         assert torch.equal(k1, k2) and torch.equal(v1, v2)
-        err = (out.float() - ref.float()).abs().max().item()
+        err = rel_err(out, ref)
         assert err <= DECODE_TOL[dtype], err
 
 
@@ -156,6 +167,96 @@ def test_decode_step_counts_launches_and_rejects_bad_inputs(cuda):
     assert fused_decode_step.launches == n0 + 1
 
 
+def _poison_past(cache, idx):
+    """A copy of a [L, B, Hkv, S, Dh] cache with every position past each
+    slot's idx set to 1e4: a kernel that reads one moves the output."""
+    out = cache.clone()
+    for b, i in enumerate(idx):
+        out[:, b, :, max(int(i), -1) + 1:] = 1e4
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("hq,hkv,dh", [
+    (2, 2, 128),      # rep 1
+    (8, 2, 128),      # rep 4
+    (16, 2, 128),     # rep 8 (CodeLlama-34B's)
+    (32, 2, 128),     # rep 16: two n-tiles
+    (16, 2, 64),      # rep 8 at Dh 64
+    (64, 2, 64),      # rep 32 at Dh 64: four n-tiles
+    (4, 2, 40),       # a Dh that is no multiple of 16 (CUDA-core body)
+])
+def test_decode_step_split_boundaries(cuda, dtype, hq, hkv, dh):
+    """Positions at and around the split edges, S - 1, S (the dropped write)
+    and 0 beside S - 1, in one launch; the cache beyond each idx poisoned
+    and left unread; two launches equal bit for bit; the scalar index the
+    same bits as the device tensor."""
+    b, s = SPLIT_B, SPLIT_S
+    chunk, n_splits = split_plan(b, hkv, s, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert n_splits > 1, (chunk, n_splits)
+    q, kf, vf, kn, vn = _decode_inputs(cuda, dtype, b, hq, hkv, s, dh)
+    idx = [chunk - 1, chunk, chunk + 1, s - 1, s, 0]
+    iv = torch.tensor(idx, dtype=torch.int32, device=cuda)
+    k1, v1, k2, v2 = kf.clone(), vf.clone(), kf.clone(), vf.clone()
+    out, _, _ = fused_decode_step(q, k1, v1, kn, vn, 1, iv)
+    ref, _, _ = fused_decode_step_plain(q, k2, v2, kn, vn, 1, iv)
+    torch.cuda.synchronize()
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
+    assert torch.isfinite(out.float()).all()
+    assert rel_err(out, ref) <= DECODE_TOL[dtype]
+    again, _, _ = fused_decode_step(q, kf.clone(), vf.clone(), kn, vn, 1, iv)
+    assert torch.equal(again, out), "not bit-identical run to run"
+    # K/V past idx poisoned (the slot at idx S has nothing past it)
+    kp, vp = _poison_past(kf, idx), _poison_past(vf, idx)
+    poisoned, _, _ = fused_decode_step(q, kp, vp, kn, vn, 1, iv)
+    assert torch.equal(poisoned, out), "the kernel read past idx"
+    for i in (chunk, s - 1, s):                   # the scalar form
+        form, _, _ = fused_decode_step(q, kf.clone(), vf.clone(), kn, vn, 1, i)
+        dev, _, _ = fused_decode_step(
+            q, kf.clone(), vf.clone(), kn, vn, 1,
+            torch.full((b,), i, dtype=torch.int32, device=cuda))
+        assert torch.equal(form, dev), i
+
+
+def test_decode_step_one_launch_per_call(cuda):
+    q, kf, vf, kn, vn = _decode_inputs(cuda, torch.bfloat16, SPLIT_B, 16,
+                                       SPLIT_HKV, SPLIT_S, 128)
+    iv = torch.tensor([5, 70, 299, 300, 0, 128], dtype=torch.int32,
+                      device=cuda)
+    n0 = fused_decode_step.launches
+    for i in range(3):
+        fused_decode_step(q, kf, vf, kn, vn, 0, iv)
+        assert fused_decode_step.launches == n0 + i + 1
+
+
+def test_decode_step_replays_in_a_cuda_graph(cuda):
+    """A call captured in a CUDA graph, replayed after the device idx
+    changes, equals the eager call on the new idx (the split plan reads no
+    idx on the host, the scratch comes from the graph's pool)."""
+    b, hq, hkv, s, dh = SPLIT_B, 16, SPLIT_HKV, SPLIT_S, 128
+    q, kf, vf, kn, vn = _decode_inputs(cuda, torch.bfloat16, b, hq, hkv, s, dh)
+    iv = torch.tensor([0, 63, 64, 299, 300, 150], dtype=torch.int32,
+                      device=cuda)
+    kg, vg = kf.clone(), vf.clone()
+    fused_decode_step(q, kg.clone(), vg.clone(), kn, vn, 1, iv)   # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_g, _, _ = fused_decode_step(q, kg, vg, kn, vn, 1, iv)
+    for new in ([5, 200, 64, 1, 0, 299], [299, 0, 300, 130, 63, 64]):
+        kg.copy_(kf)
+        vg.copy_(vf)
+        iv.copy_(torch.tensor(new, dtype=torch.int32, device=cuda))
+        graph.replay()
+        ke, ve = kf.clone(), vf.clone()
+        eager, _, _ = fused_decode_step(q, ke, ve, kn, vn, 1, iv)
+        torch.cuda.synchronize()
+        assert torch.equal(out_g, eager), new
+        assert torch.equal(kg, ke) and torch.equal(vg, ve), new
+
+
 @pytest.mark.parametrize("dtype,kv", [
     (torch.bfloat16, None), (torch.float16, None), (torch.float32, None),
     (torch.bfloat16, "int8"), (torch.bfloat16, "fp8"),
@@ -182,7 +283,7 @@ def test_block_decode_step_matches_plain(cuda, dtype, kv, b, hq, hkv, bs, mb,
     torch.cuda.synchronize()
     assert real_rows_equal(k1, k2) and real_rows_equal(v1, v2)
     assert not real_rows_equal(k1, kp)          # the writes landed
-    err = (out.float() - ref.float()).abs().max().item()
+    err = rel_err(out, ref)
     assert err <= DECODE_TOL[dtype], err
 
 
@@ -287,6 +388,38 @@ def test_flash_kernels_match_plain(cuda, dtype, dh, tq, tk, causal):
     for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
         assert torch.isfinite(got.float()).all()
         assert rel_err(got, want) <= FLASH_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("t", [200, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_forward_ragged_and_bit_identical(cuda, dtype, dh, t, causal):
+    """The forward at T that is no multiple of the 64-row tile (TMA's zero
+    fill of the tail), held row by row, and two launches bit for bit."""
+    q, k, v, _ = flash_inputs(cuda, dtype, 4, t, dh, seed=t + dh)
+    out, lse = flash_fwd_parts(q, k, v, causal=causal)
+    ref, ref_lse = flash_fwd_parts_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert rel_err(out, ref) <= FLASH_TOL[dtype]
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    out2, lse2 = flash_fwd_parts(q, k, v, causal=causal)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("scale", [-0.3, 0.05])
+def test_flash_forward_takes_any_scale(cuda, scale):
+    """The forward takes the tile's max on the raw scores, so a negative
+    scale (the max of s * scale is scale * min s) must be handled apart."""
+    q, k, v, _ = flash_inputs(cuda, torch.bfloat16, 4, 200, 64, seed=7)
+    for causal in (True, False):
+        out, lse = flash_fwd_parts(q, k, v, causal=causal, scale=scale)
+        ref, ref_lse = flash_fwd_parts_plain(q, k, v, causal=causal,
+                                             scale=scale)
+        torch.cuda.synchronize()
+        assert rel_err(out, ref) <= FLASH_TOL[torch.bfloat16]
+        assert (lse - ref_lse).abs().max().item() <= 1e-4
 
 
 def test_flash_backward_is_bit_identical_run_to_run(cuda):

@@ -22,7 +22,8 @@ import torch
 from deepspeed_tpu.ops.attention import cached_attention as jax_cached_attention
 from deepspeed_tpu.ops.attention import kv_pack_factor
 from deepspeed_tpu.ops.decode_step import fused_decode_step as jax_fused_decode_step
-from deepspeed_tpu_torch.ops.decode_step import fused_decode_step, supports
+from deepspeed_tpu_torch.ops.decode_step import (fused_decode_step,
+                                                 split_plan, supports)
 
 ATOL, RTOL = 1e-2, 1e-2
 
@@ -111,3 +112,30 @@ def test_supports():
     assert not supports(4, 2, 128, 4)           # 8-byte rows: no 16B loads
     assert not supports(12, 5, 640, 64)         # hq % hkv
     assert not supports(64, 1, 640, 128)        # query group too wide
+
+
+@pytest.mark.parametrize("b,hkv,s,sms,want", [
+    (8, 32, 1024, 132, (256, 4)),    # LLaMA-7B MHA, 8 slots
+    (8, 8, 1024, 132, (64, 16)),     # LLaMA-7B at rep 4
+    (4, 8, 640, 132, (64, 10)),      # CodeLlama-34B, batch 4
+    (4, 20, 256, 132, (64, 4)),      # GPT-2 774M, batch 4
+    (1, 1, 50, 132, (64, 1)),        # a prefix shorter than one stage
+    (64, 32, 4096, 132, (4096, 1)),  # enough (slot, head) pairs alone
+])
+def test_split_plan_at_known_shapes(b, hkv, s, sms, want):
+    assert split_plan(b, hkv, s, sms) == want
+
+
+@pytest.mark.parametrize("b", [1, 3, 8, 32])
+@pytest.mark.parametrize("hkv", [1, 8, 32])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 640, 1024, 3000])
+def test_split_plan_covers_s_and_fills_the_card(b, hkv, s):
+    """The splits cover positions 0..S-1 exactly once, the chunk is a
+    power-of-two multiple of the kernel's 64-position stage, and a chunk
+    above 64 leaves the grid at full S at least four blocks per SM."""
+    sms = 132
+    chunk, n = split_plan(b, hkv, s, sms)
+    assert chunk % 64 == 0 and (chunk // 64) & (chunk // 64 - 1) == 0
+    assert (n - 1) * chunk < s <= n * chunk
+    if chunk > 64:
+        assert b * hkv * -(-s // chunk) >= 4 * sms

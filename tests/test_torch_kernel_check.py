@@ -13,6 +13,9 @@ holds a right tiled implementation and rejects a wrong one.
   are about sqrt(T) times smaller than row 0, so an error bound relative to
   the whole tensor's max |x| passes the scaled tile; this test pins that
   too, as the reason the metric is per row.
+* The decode steps are held by the same metric: at the LLaMA-7B decode
+  shape, a split of the cache left out of the merge is rejected, including
+  the variant an absolute 2e-2 bound on the output passes.
 """
 
 import jax.numpy as jnp
@@ -21,6 +24,7 @@ import pytest
 import torch
 
 import deepspeed_tpu.ops.flash_attention as jflash
+from deepspeed_tpu_torch.ops.decode_step import fused_decode_step_plain
 from deepspeed_tpu_torch.ops.flash_attention import (flash_bwd_dkv_plain,
                                                      flash_bwd_dq_plain,
                                                      flash_fwd_parts_plain)
@@ -95,3 +99,63 @@ def test_a_skipped_key_tile_is_rejected():
     p = torch.softmax(s, dim=-1)
     bad = torch.matmul(p.to(torch.bfloat16).float(), v.float()).to(v.dtype)
     assert rel_err(bad, out) > 2 * BF16_TOL
+
+
+# The fused decode step (kernel B) at chip_smoke's LLaMA-7B row: 8 slots x
+# 32 heads x Dh 128, S 1024. Slot 7 attends over 1001 positions, so its
+# output rows average about a thousand values and are small (max |x| ~ 0.2).
+_DECODE_IDX = [0, 1023, 1024, 17, 500, 733, 256, 1000]
+
+
+def _decode_7b():
+    rng = np.random.RandomState(0)
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            torch.bfloat16)
+
+    b, hq, s, dh = 8, 32, 1024, 128
+    q, kn, vn = rnd(b, 1, hq, dh), rnd(b, 1, hq, dh), rnd(b, 1, hq, dh)
+    kf, vf = rnd(2, b, hq, s, dh), rnd(2, b, hq, s, dh)
+    idx = torch.tensor(_DECODE_IDX, dtype=torch.int32)
+    ref, kf, vf = fused_decode_step_plain(q, kf, vf, kn, vn, 1, idx)
+    # the probabilities of slot 7 (idx 1000) as the plain version computes
+    # them, for the wrong variants below
+    qs, kl, vl = q[7, 0].float(), kf[1, 7].float(), vf[1, 7].float()
+    sc = torch.einsum("hd,hsd->hs", qs, kl)[:, :1001] * dh ** -0.5
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))
+    return ref, p, vl[:, :1001]
+
+
+def _slot7(ref, p, v, l):
+    bad = ref.clone()
+    pv = torch.einsum("hs,hsd->hd", p.to(torch.bfloat16).float(), v)
+    bad[7, 0] = (pv / l[:, None]).to(torch.bfloat16)
+    return bad
+
+
+def test_decode_step_one_split_left_out_is_rejected():
+    """Slot 7 with positions 512..575 (one 64-position chunk) left out of
+    both sums, as a split that never ran would leave them: rel_err rejects
+    it; so does the old absolute bound at this shape (the error, 0.074, is
+    a third of the row's largest element)."""
+    ref, p, v = _decode_7b()
+    keep = torch.ones(p.shape[-1], dtype=torch.bool)
+    keep[512:576] = False
+    pk = p * keep
+    bad = _slot7(ref, pk, v, pk.sum(-1))
+    assert rel_err(bad, ref) > 2 * BF16_TOL
+    assert (bad.float() - ref.float()).abs().max() > BF16_TOL
+
+
+def test_decode_step_one_split_left_out_of_l_is_rejected():
+    """Slot 7 with that chunk's probabilities left out of the denominator
+    only, as a merge that drops one split's l would: every entry of the
+    slot's rows is about 6% off, which the old absolute bound of 2e-2
+    passes (its error is 0.013) and rel_err rejects."""
+    ref, p, v = _decode_7b()
+    keep = torch.ones(p.shape[-1], dtype=torch.bool)
+    keep[512:576] = False
+    bad = _slot7(ref, p, v, (p * keep).sum(-1))
+    assert rel_err(bad, ref) > BF16_TOL
+    assert (bad.float() - ref.float()).abs().max() <= BF16_TOL
