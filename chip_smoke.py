@@ -17,9 +17,12 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                shapes at N in {1, 8, 32}, stacked, last layer). Written
                cache bytes must be bit-identical (block pools: every row but
                the garbage row); decode outputs are held row by row
-               (kernel_check.rel_err, 2e-2 in bf16) and the fused decode
-               step (split along the cache, then merged) repeats bit for
-               bit. Kernel rows carry bound_share (bound / kernel time)
+               (kernel_check.rel_err, 2e-2 in bf16) and both decode steps
+               (split along the cache, then merged) repeat bit for bit.
+               The block decode step also at its split edges (idx 63, 64,
+               255, 256, 1023, two overflow slots whose garbage rows are
+               compared, every pool type and Hkv), replayed from a CUDA
+               graph bit for bit. Kernel rows carry bound_share (bound / kernel time)
                and vs_library (kernel / library time). Times are device
                times: 20 launches on
                inputs rotated through more than the 50 MB L2 are captured in
@@ -166,8 +169,10 @@ Sparse attention (a phase added after ``kernels``, before ``reference``):
                points). At
                (a) and (b): kernel, plain and SDPA-over-the-dense-mask times
                (forward, backward), each captured in a CUDA graph, and
-               bounds from the active-block work; the layouts' density, LUT
-               width and longest row and column.
+               bounds from the active-block work (dK/dV also against the
+               f32 CUDA-core peak); the layouts' density, LUT width and
+               longest row and column; the dK/dV work list's
+               dkv_group_busy beside four consecutive key blocks'.
 
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -217,7 +222,7 @@ from deepspeed_tpu_torch.ops.sparse_attention.block_sparse import (
     block_sparse_attention_reference, block_sparse_bwd_dkv,
     block_sparse_bwd_dkv_plain, block_sparse_bwd_dq, block_sparse_bwd_dq_plain,
     block_sparse_delta, block_sparse_fwd, block_sparse_fwd_plain,
-    layout_to_dense_mask, sparse_luts)
+    dkv_group_busy, dkv_groups, layout_to_dense_mask, sparse_luts)
 from deepspeed_tpu_torch.utils.tree import tree_leaves
 from deepspeed_tpu_torch.serving import (BlockKVPool, Request, ServingEngine,
                                          poisson_trace, shared_prefix_trace)
@@ -557,11 +562,14 @@ def check_block_decode_step(b, hq, hkv, dh, bs, mb, kv, idx, seed=0):
                       clone_pool(vp))
     out, _, _ = fused_block_decode_step(q, k1, v1, kn, vn, 1, iv, table)
     ref, _, _ = fused_block_decode_step_plain(q, k2, v2, kn, vn, 1, iv, table)
+    again, _, _ = fused_block_decode_step(q, clone_pool(kp), clone_pool(vp),
+                                          kn, vn, 1, iv, table)
     torch.cuda.synchronize()
     assert real_rows_equal(k1, k2) and real_rows_equal(v1, v2), \
         f"block pool bytes differ (kv {kv})"
     assert not real_rows_equal(k1, kp), "the block writes did not land"
     assert torch.isfinite(out.float()).all()
+    assert torch.equal(again, out), f"kernel C not bit-identical (kv {kv})"
     err, abs_err = rel_err(out, ref), (out.float() - ref.float()).abs().max().item()
     assert err <= DECODE_TOL, f"fused_block_decode_step kv {kv} rel err {err}"
     del kp, vp, k1, v1, k2, v2
@@ -594,14 +602,88 @@ def check_block_decode_step(b, hq, hkv, dh, bs, mb, kv, idx, seed=0):
               + (2 * b * hkv * 2 if kv else 0)           # their scales
               + b * mb * 4 + b * 4                       # table, idx
               + read)                                    # K, V prefix reads
+    chunk, n_splits = split_plan(b, hkv, mb * bs, torch.cuda.get_device_properties(
+        0).multi_processor_count)
     return {"b": b, "hq": hq, "hkv": hkv, "dh": dh, "block_size": bs,
             "mb": mb, "pool": kv or "bf16", "idx": list(idx),
+            "chunk": chunk, "n_splits": n_splits,
             "rel_err": err, "max_abs_err": abs_err, "tol_rel": DECODE_TOL,
-            "pool_bit_identical": True, "kernel_ms": kernel_ms,
+            "pool_bit_identical": True, "bit_identical_run_to_run": True,
+            "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "scaled_dot_product_attention (attention only, no "
                        "gather)", "timing_layers": n_t,
             **_bytes_bound(nbytes, 4 * hq * dh * sum(n_pos))}
+
+
+def check_block_decode_edges(hkv, kv, graph: bool, b=8, hq=32, dh=128, bs=16,
+                             mb=64, seed=5):
+    """Kernel C at its split edges: every slot active on its own table, idx
+    at 63, 64, 255, 256 and MB*bs - 1 (chunk 256 at MHA and 64 at rep 4, so
+    each is a last or first position of a split at one of them), 0, and two
+    overflow slots (MB*bs and MB*bs + 6) whose writes land in rows 0 and 6
+    of the garbage row, written by split 0. Output row by row against the
+    plain version, every pool row bit-identical (the two written garbage
+    rows included), a second launch bit for bit and, with ``graph``, the
+    call captured in a CUDA graph and replayed, bit for bit with the eager
+    launch (output and pools)."""
+    dev = "cuda"
+    s = mb * bs
+    idx = [63, 64, 255, 256, s - 1, s, s + 6, 0]
+    # one more slot than used: block_step_inputs parks its last slot on the
+    # sentinel table, and this row keeps every slot on a real one
+    _, q, kp, vp, kn, vn, table = block_step_inputs(
+        dev, torch.bfloat16, kv, b + 1, hq, hkv, b * mb, bs, mb, dh, seed=seed)
+    q, kn, vn, table = q[:b], kn[:b], vn[:b], table[:b].contiguous()
+    iv = torch.tensor(idx, dtype=torch.int32, device=dev)
+    k1, v1, k2, v2 = (clone_pool(kp), clone_pool(vp), clone_pool(kp),
+                      clone_pool(vp))
+    out, _, _ = fused_block_decode_step(q, k1, v1, kn, vn, 1, iv, table)
+    ref, _, _ = fused_block_decode_step_plain(q, k2, v2, kn, vn, 1, iv, table)
+    again, _, _ = fused_block_decode_step(q, clone_pool(kp), clone_pool(vp),
+                                          kn, vn, 1, iv, table)
+    torch.cuda.synchronize()
+
+    def garbage(pool, rows):
+        x = pool["q"] if kv else pool
+        return x[1, -1, :, rows]
+
+    assert real_rows_equal(k1, k2) and real_rows_equal(v1, v2), \
+        f"kernel C edges: pool bytes differ (kv {kv})"
+    written = [s % bs, (s + 6) % bs]
+    for a, r in ((k1, k2), (v1, v2)):
+        assert torch.equal(garbage(a, written), garbage(r, written)), \
+            f"kernel C edges: the overflow writes differ (kv {kv})"
+        if kv:
+            assert torch.equal(a["s"][1, -1, :, written], r["s"][1, -1, :, written])
+    assert torch.isfinite(out.float()).all()
+    assert torch.equal(again, out), f"kernel C edges not bit-identical (kv {kv})"
+    err, abs_err = rel_err(out, ref), (out.float() - ref.float()).abs().max().item()
+    assert err <= DECODE_TOL, f"kernel C edges kv {kv} rel err {err}"
+    row = {"b": b, "hq": hq, "hkv": hkv, "dh": dh, "block_size": bs, "mb": mb,
+           "pool": kv or "bf16", "idx": idx, "rel_err": err,
+           "max_abs_err": abs_err, "tol_rel": DECODE_TOL,
+           "pool_bit_identical": True, "overflow_rows_bit_identical": True,
+           "bit_identical_run_to_run": True}
+    if graph:
+        kg, vg = clone_pool(kp), clone_pool(vp)
+        fused_block_decode_step(q, clone_pool(kp), clone_pool(vp), kn, vn, 1,
+                                iv, table)                      # warm-up
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out_g, _, _ = fused_block_decode_step(q, kg, vg, kn, vn, 1, iv,
+                                                  table)
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out_g, out), f"kernel C graph replay differs (kv {kv})"
+        assert real_rows_equal(kg, k1) and real_rows_equal(vg, v1)
+        for a, r in ((kg, k1), (vg, v1)):
+            assert torch.equal(garbage(a, written), garbage(r, written))
+        row["graph_replay_bit_identical"] = True
+        del g, kg, vg
+    del kp, vp, k1, v1, k2, v2
+    return row
 
 
 def attn_pairs(tq: int, tk: int, causal: bool) -> int:
@@ -809,11 +891,12 @@ def phase_kernels() -> dict:
     decode = [check_decode_step(8, 32, 32, s, 128, idx),
               check_decode_step(8, 32, 8, s, 128, idx, seed=1)]
     bidx = [0, 15, 16, 1023, 500, 733, 256, 37]    # the last slot inactive
-    block = []
+    block, edges = [], []
     for hkv in (32, 8):
         for kv in (None, "int8", "fp8"):
             block.append(check_block_decode_step(8, 32, hkv, 128, 16, 64, kv,
                                                  bidx, seed=2))
+            edges.append(check_block_decode_edges(hkv, kv, graph=True))
             torch.cuda.empty_cache()
     matmul = []
     for d, e in ((4096, 4096), (4096, 11008), (11008, 4096)):
@@ -844,11 +927,12 @@ def phase_kernels() -> dict:
                                  layers=16, seed=4)]
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "fused_decode_step": decode,
-          "fused_block_decode_step": block, "int8_matmul_dma": matmul,
+          "fused_block_decode_step": block,
+          "fused_block_decode_step_edges": edges, "int8_matmul_dma": matmul,
           "flash_attention": flash, "flash_decode": fdec})
     return {"fused_decode_step": decode, "fused_block_decode_step": block,
-            "int8_matmul_dma": matmul, "flash_attention": flash,
-            "flash_decode": fdec}
+            "fused_block_decode_step_edges": edges, "int8_matmul_dma": matmul,
+            "flash_attention": flash, "flash_decode": fdec}
 
 
 def kernel_summary(kern: dict, launches: dict, sparse: dict) -> list:
@@ -898,7 +982,8 @@ def _kernel_rows(kern: dict, launches: dict, sparse: dict) -> list:
              **KERNELS["fused_block_decode_step"],
              launches=launches["fused_block_decode_step"],
              max_abs_err=max(r["max_abs_err"]
-                             for r in kern["fused_block_decode_step"]),
+                             for r in kern["fused_block_decode_step"]
+                             + kern["fused_block_decode_step_edges"]),
              ms=blk["kernel_ms"], plain_ms=blk["plain_ms"],
              bound_ms=blk["bound_ms"], bound_by=blk["bound_by"],
              library_ms=blk["library_ms"]),
@@ -1069,10 +1154,20 @@ def check_sparse_row(sa, name, cfg, b, t, h, dh, dtype, causal, timed, oracle,
     main_errs = {key: rel_err(to_flat(gr), p)
                  for key, gr, p in zip(("dq", "dk", "dv"), grads, plain[2:])}
     assert max(main_errs.values()) <= tol, (name, "main path grads", main_errs)
+    # the dK/dV work list's balance, and that of four consecutive key
+    # blocks to a CUDA block (the first form of the kernel)
+    groups = dkv_groups(block)
     row = {"row": name, "dtype": str(dtype).split(".")[-1], "b": b, "t": t,
            "h": h, "dh": dh, "block": block, "causal": causal,
            "config": type(cfg).__name__ if mod is not None else "hand-made",
            **_layout_stats(layout),
+           "dkv_group_busy": dkv_group_busy(luts.dkv_items[:, 2].cpu().numpy(),
+                                            groups),
+           "dkv_group_busy_consecutive": dkv_group_busy(
+               luts.cnt_k.cpu().numpy().reshape(-1), groups),
+           "dkv_items": luts.dkv_items.shape[0],
+           "dkv_split_columns": luts.dkv_merge.shape[0],
+           "dkv_partials": luts.dkv_slots,
            "launches": {k: launches[k] for k in SPARSE},
            "tol_rel": tol, "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL,
            "errors": errs, "main_path_grad_rel_err": main_errs,
@@ -1155,8 +1250,9 @@ def _time_sparse(qf, kf, vf, dof, luts, layout, kw, b, h, t, dh, dtype, seed):
     esz = qf.element_size()
     big = b * h * t * dh * esz                          # one [BH, T, Dh]
     vec = b * h * t * 4                                 # one f32 row vector
-    lut = sum(x.numel() * 4 for x in luts[:2])          # fwd / dq table
-    lut_t = sum(x.numel() * 4 for x in luts[2:])        # dk/dv table
+    lut = 4 * (luts.lut_q.numel() + luts.cnt_q.numel())  # fwd / dq table
+    lut_t = 4 * (luts.lut_k.numel() + luts.dkv_items.numel()
+                 + luts.dkv_merge.numel())              # dk/dv table, work list
     rate = BF16_FLOP_PER_S if dtype != torch.float32 else F32_FLOP_PER_S
     return {
         "fwd": {"kernel_ms": fwd, "plain_ms": p_fwd, "library_ms": lib_fwd,
@@ -1164,7 +1260,9 @@ def _time_sparse(qf, kf, vf, dof, luts, layout, kw, b, h, t, dh, dtype, seed):
         "dq": {"kernel_ms": dq, "plain_ms": p_dq, "library_ms": lib_bwd,
                **_bound(5 * big + 2 * vec + lut, 6 * tile * active, rate)},
         "dkv": {"kernel_ms": dkv, "plain_ms": p_dkv, "library_ms": lib_bwd,
-                **_bound(6 * big + 2 * vec + lut_t, 8 * tile * active, rate)},
+                **_bound(6 * big + 2 * vec + lut_t, 8 * tile * active, rate),
+                # the reference's f32 contract on the CUDA cores
+                "f32_floor_ms": 1e3 * 8 * tile * active / F32_FLOP_PER_S},
         "library": "scaled_dot_product_attention over the dense element "
                    "mask: forward (fwd), backward of dQ, dK and dV together "
                    "(dq, dkv rows)",

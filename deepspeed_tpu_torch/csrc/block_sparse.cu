@@ -38,8 +38,26 @@
 //  * dQ walks the same table: p = exp(s - lse), ds = p * (dp - delta),
 //    acc += ds * k, dq = acc * scale once. dK/dV walk the transposed table
 //    with one thread row per key row: dv += p * do, dk += ds * (scale * q).
+//  * dK/dV for balance: a global key block's column holds every later query
+//    block (509 of them at T 8192, block 16), its neighbours 2-4, so four
+//    key blocks to a CUDA block kept 0.26 of its row groups busy. The
+//    kernel instead runs a work list built on the host with the tables
+//    (block_sparse.py dkv_work_list): each column cut into parts of at most
+//    64 entries, in table order, the parts sorted by length, G to a CUDA
+//    block, the longest blocks first. A column of one part writes dK/dV
+//    itself; a cut column's parts write f32 partials to scratch, and
+//    dkv_merge sums them in part order and rounds once. Each group keeps
+//    its next query blocks' Q, dO, lse and delta in flight (a cp.async ring
+//    of 3 stages, 2 in f32) while it computes on the current one, and each
+//    thread owns two key rows (8 threads to a row pair, DkvGeo), so a Q or
+//    dO chunk read once from shared memory serves both rows' products. At
+//    Dh 128 it takes two query rows a step and reduce-scatters their eight
+//    dot products over the row pair's lanes (7 shuffles where a reduction
+//    per value takes 24, one exp per lane where there were four): the inner
+//    loop is then three quarters FMAs.
 //  * No atomics: every output element is summed by one thread in a fixed
-//    order, so out, lse, dQ, dK and dV repeat bit for bit.
+//    order (dK/dV partials by one thread of the merge, in part order), so
+//    out, lse, dQ, dK and dV repeat bit for bit.
 #include "common.cuh"
 
 namespace {
@@ -101,6 +119,18 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// Row group g's barrier: named barrier 1 + g of GT threads (the whole block
+// when it is one group), so groups with rows of different lengths never
+// wait on each other.
+template <int G, int GT>
+__device__ __forceinline__ void group_sync(int g) {
+  if (G == 1) {
+    __syncthreads();
+  } else {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + g), "r"(GT) : "memory");
+  }
+}
+
 // Thread geometry of one block: G groups of BLK rows, 4 threads per row.
 template <int Dh, int BLK>
 struct Geo {
@@ -118,14 +148,7 @@ struct Geo {
   }
   // column of chunk i
   __device__ __forceinline__ int col(int i) const { return 16 * i + 4 * c; }
-  // the group's barrier: named barrier 1 + g (the whole block when G == 1)
-  __device__ __forceinline__ void sync() const {
-    if (G == 1) {
-      __syncthreads();
-    } else {
-      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + g), "r"(GT) : "memory");
-    }
-  }
+  __device__ __forceinline__ void sync() const { group_sync<G, GT>(g); }
 };
 
 // rows [row0, row0 + BLK) of a [T, Dh] slab into an f32 [BLK][Dh] tile,
@@ -149,10 +172,50 @@ struct Smem {
     return (size_t)Ge::G * (2 * Ge::TILE + BLK * Ge::SC) * sizeof(float);
   }
   static constexpr size_t dq() { return (size_t)Ge::G * 2 * Ge::TILE * sizeof(float); }
-  // dkv: Q and dO tiles, lse and delta of their rows
-  static constexpr size_t dkv() {
-    return (size_t)Ge::G * (2 * Ge::TILE + 2 * BLK) * sizeof(float);
+};
+
+// Thread geometry of the dK/dV kernel: G groups of BLK key rows, as Geo,
+// but 8 threads per row pair: thread (r, c) of a group owns key rows r and
+// r + BLK / 2 and float4 chunks c, c + 8, ... of each (Dh / 32 of them). A
+// query row's Q and dO chunks, read once from shared memory, then serve
+// both rows' dot products and both rows' updates from registers: a quarter
+// of Geo's shared-memory reads per FMA (the first form of this kernel, one
+// row per 4 threads reading each chunk twice, sat at 0.28 of the f32 peak).
+template <int Dh, int BLK>
+struct DkvGeo {
+  static constexpr int G = kRowsPerBlock / BLK;    // row groups
+  static constexpr int GT = BLK * 4;               // threads per group
+  static constexpr int HALF = BLK / 2;             // row pairs per group
+  static constexpr int NC = Dh / 32;               // float4 chunks per row per thread
+  static constexpr int TILE = BLK * Dh;            // floats per staged tile
+  int g, gt, r, c;
+  __device__ DkvGeo() {
+    g = threadIdx.x / GT;
+    gt = threadIdx.x % GT;
+    r = gt / 8;
+    c = gt % 8;
   }
+  __device__ __forceinline__ int col(int i) const { return 32 * i + 4 * c; }
+  __device__ __forceinline__ void sync() const { group_sync<G, GT>(g); }
+};
+
+__device__ __forceinline__ float oct_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v + __shfl_xor_sync(0xffffffffu, v, 4);
+}
+
+// The dK/dV kernel's shared memory, per row group: a ring of ST stages of
+// one query block's Q and dO rows as stored (T) with their lse and delta
+// (f32), then f32 tiles of the current block's scaled Q and dO.
+template <typename T, int Dh, int BLK>
+struct DkvShape {
+  using Ge = DkvGeo<Dh, BLK>;
+  static constexpr int ST = sizeof(T) == 4 ? 2 : 3;
+  static constexpr size_t kRaw = (size_t)BLK * Dh * sizeof(T);  // one stored tile
+  static constexpr size_t kStage = 2 * kRaw + 2 * BLK * sizeof(float);
+  static constexpr size_t kGroup = ST * kStage + 2 * (size_t)Ge::TILE * sizeof(float);
+  static constexpr size_t bytes() { return Ge::G * kGroup; }
 };
 
 template <typename T, int Dh, int BLK>
@@ -287,71 +350,227 @@ block_sparse_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     Vec4<T>::store(dq + base + (size_t)row * Dh + geo.col(i), scale4(acc[i], scale));
 }
 
+// BLK x Dh stored elements (shared memory) into an f32 tile, times `mul`,
+// by the group's GT threads
+template <typename T, int Dh, int BLK>
+__device__ __forceinline__ void to_f32_tile(float* dst, const T* src, int gt, float mul) {
+  constexpr int kChunks = BLK * Dh / 4;
+  for (int i = gt; i < kChunks; i += BLK * 4) {
+    float4 v = Vec4<T>::load(src + 4 * i);
+    if (mul != 1.f) v = scale4(v, mul);
+    *reinterpret_cast<float4*>(dst + 4 * i) = v;
+  }
+}
+
+// One work item per row group: item (h * nb + kj, first entry, count, slot)
+// walks entries first..first+count-1 of key block kj's column of the
+// transposed table, for batch row blockIdx.y.
 template <typename T, int Dh, int BLK>
 __global__ void __launch_bounds__(kThreads)
 block_sparse_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
-                        T* __restrict__ dk, T* __restrict__ dv,
-                        const int* __restrict__ lut_t, const int* __restrict__ cnt_t,
-                        int h_count, int t, int lut_width, int causal, float scale) {
-  using Ge = Geo<Dh, BLK>;
+                        T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ part,
+                        const int* __restrict__ lut_t, const int4* __restrict__ items,
+                        int n_items, int n_slots, int h_count, int t, int lut_width,
+                        int causal, float scale) {
+  using Ge = DkvGeo<Dh, BLK>;
+  using Sh = DkvShape<T, Dh, BLK>;
+  // two query rows per step at Dh 128 (one block per SM either way); Dh 64
+  // keeps one, so that two blocks fit per SM
+  constexpr int ST = Sh::ST, NC = Ge::NC, JU = Dh >= 128 ? 2 : 1;
   extern __shared__ __align__(16) float smem[];
   const Ge geo;
+  const int it = blockIdx.x * Ge::G + geo.g;
+  if (it >= n_items) return;  // a whole group leaves: no barrier of others waits
+  const int4 item = items[it];
   const int nb = t / BLK;
-  const int kj = blockIdx.x * Ge::G + geo.g;
-  if (kj >= nb) return;
-  const int bh = blockIdx.y, h = bh % h_count;
-  float* q_sh = smem + geo.g * (2 * Ge::TILE + 2 * BLK);
+  const int h = item.x / nb, kj = item.x - h * nb;
+  const int b = blockIdx.y, bh = b * h_count + h;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem) + geo.g * Sh::kGroup;
+  float* q_sh = reinterpret_cast<float*>(ring + ST * Sh::kStage);
   float* do_sh = q_sh + Ge::TILE;
-  float* lse_sh = do_sh + Ge::TILE;
-  float* dl_sh = lse_sh + BLK;
-  const int key = kj * BLK + geo.r;
   const size_t base = (size_t)bh * t * Dh;
-  float4 kr[Ge::NC], vr[Ge::NC], dka[Ge::NC], dva[Ge::NC];
+  // key rows kj * BLK + r + m * HALF, m = 0, 1
+  int key[2];
+  float4 kr[2][NC], vr[2][NC], dka[2][NC], dva[2][NC];
 #pragma unroll
-  for (int i = 0; i < Ge::NC; ++i) {
-    const size_t at = base + (size_t)key * Dh + geo.col(i);
-    kr[i] = Vec4<T>::load(k + at);
-    vr[i] = Vec4<T>::load(v + at);
-    dka[i] = dva[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int m = 0; m < 2; ++m) {
+    key[m] = kj * BLK + geo.r + m * Ge::HALF;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const size_t at = base + (size_t)key[m] * Dh + geo.col(i);
+      kr[m][i] = Vec4<T>::load(k + at);
+      vr[m][i] = Vec4<T>::load(v + at);
+      dka[m][i] = dva[m][i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
   }
-  const int* my_lut = lut_t + ((size_t)h * nb + kj) * lut_width;
-  const int n = cnt_t[h * nb + kj];
+  const int* my_lut = lut_t + ((size_t)h * nb + kj) * lut_width + item.y;
+  const int n = item.z;
+  // entry jj's Q, dO, lse and delta rows into stage jj % ST
+  auto issue = [&](int jj) {
+    unsigned char* st = ring + (jj % ST) * Sh::kStage;
+    const size_t row0 = (size_t)my_lut[jj] * BLK;
+    const unsigned char* qs = reinterpret_cast<const unsigned char*>(q + base + row0 * Dh);
+    const unsigned char* ds = reinterpret_cast<const unsigned char*>(dout + base + row0 * Dh);
+    for (int i = geo.gt; i < (int)(Sh::kRaw / 16); i += Ge::GT) {
+      cp_async16(st + 16 * i, qs + 16 * i);
+      cp_async16(st + Sh::kRaw + 16 * i, ds + 16 * i);
+    }
+    if (geo.gt < BLK / 4) {
+      const size_t at = (size_t)bh * t + row0 + 4 * geo.gt;
+      cp_async16(st + 2 * Sh::kRaw + 16 * geo.gt, lse + at);
+      cp_async16(st + 2 * Sh::kRaw + BLK * sizeof(float) + 16 * geo.gt, delta + at);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < n) issue(s);
+    cp_async_commit();
+  }
   for (int jj = 0; jj < n; ++jj) {
-    const int qi = my_lut[jj];
+    cp_async_wait<ST - 2>();
+    geo.sync();  // entry jj landed; the f32 tiles and stage jj - 1 are free
+    if (jj + ST - 1 < n) issue(jj + ST - 1);
+    cp_async_commit();
+    const unsigned char* st = ring + (jj % ST) * Sh::kStage;
+    to_f32_tile<T, Dh, BLK>(q_sh, reinterpret_cast<const T*>(st), geo.gt, scale);
+    to_f32_tile<T, Dh, BLK>(do_sh, reinterpret_cast<const T*>(st + Sh::kRaw), geo.gt, 1.f);
+    const float* lse_sh = reinterpret_cast<const float*>(st + 2 * Sh::kRaw);
+    const float* dl_sh = lse_sh + BLK;
     geo.sync();
-    stage<T, Dh, BLK>(q_sh, q + base, qi * BLK, geo.gt, scale);   // scaled q
-    stage<T, Dh, BLK>(do_sh, dout + base, qi * BLK, geo.gt, 1.f);
-    if (geo.gt < BLK) {
-      lse_sh[geo.gt] = lse[(size_t)bh * t + qi * BLK + geo.gt];
-      dl_sh[geo.gt] = delta[(size_t)bh * t + qi * BLK + geo.gt];
-    }
-    geo.sync();
-    for (int j = 0; j < BLK; ++j) {
-      float s = 0.f, dp = 0.f;
+    const int q0 = my_lut[jj] * BLK;
+    for (int j0 = 0; j0 < BLK; j0 += JU) {
+      // JU query rows at a time, independent chains for the latency
+      float4 qv[JU][NC], dov[JU][NC];
+      float sv[JU][2], dp[JU][2];
 #pragma unroll
-      for (int i = 0; i < Ge::NC; ++i) {
-        s = dot4(kr[i], *reinterpret_cast<const float4*>(q_sh + j * Dh + geo.col(i)), s);
-        dp = dot4(vr[i], *reinterpret_cast<const float4*>(do_sh + j * Dh + geo.col(i)), dp);
+      for (int u = 0; u < JU; ++u) {
+#pragma unroll
+        for (int i = 0; i < NC; ++i) {
+          qv[u][i] = *reinterpret_cast<const float4*>(q_sh + (j0 + u) * Dh + geo.col(i));
+          dov[u][i] = *reinterpret_cast<const float4*>(do_sh + (j0 + u) * Dh + geo.col(i));
+        }
+        sv[u][0] = sv[u][1] = dp[u][0] = dp[u][1] = 0.f;
       }
-      s = quad_sum(s);
-      dp = quad_sum(dp);
-      if (causal && key > qi * BLK + j) s = kMInit;
-      const float p = s > kMaskedBelow ? expf(s - lse_sh[j]) : 0.f;
-      const float ds = p * (dp - dl_sh[j]);
 #pragma unroll
-      for (int i = 0; i < Ge::NC; ++i) {
-        axpy4(p, *reinterpret_cast<const float4*>(do_sh + j * Dh + geo.col(i)), dva[i]);
-        axpy4(ds, *reinterpret_cast<const float4*>(q_sh + j * Dh + geo.col(i)), dka[i]);
+      for (int i = 0; i < NC; ++i)
+#pragma unroll
+        for (int u = 0; u < JU; ++u)
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            sv[u][m] = dot4(kr[m][i], qv[u][i], sv[u][m]);
+            dp[u][m] = dot4(vr[m][i], dov[u][i], dp[u][m]);
+          }
+      if constexpr (JU == 2) {
+        // the 8 partial sums s[u][m], dp[u][m] reduce-scattered over the 8
+        // lanes of the row pair (7 shuffles, not 24): lane c ends with sum c
+        // (s for c < 4, dp for c >= 4, of (u, m) = (c >> 1 & 1, c & 1));
+        // lanes c < 4 compute one p and ds each, one exp where there were
+        // four, and the 4 (p, ds) pairs go back to every lane
+        const int c = geo.c;
+        const float v8[8] = {sv[0][0], sv[0][1], sv[1][0], sv[1][1],
+                             dp[0][0], dp[0][1], dp[1][0], dp[1][1]};
+        float w4[4], w2[2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float keep = (c & 4) ? v8[4 + i] : v8[i], give = (c & 4) ? v8[i] : v8[4 + i];
+          w4[i] = keep + __shfl_xor_sync(0xffffffffu, give, 4);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float keep = (c & 2) ? w4[2 + i] : w4[i], give = (c & 2) ? w4[i] : w4[2 + i];
+          w2[i] = keep + __shfl_xor_sync(0xffffffffu, give, 2);
+        }
+        const float mine = ((c & 1) ? w2[1] : w2[0]) +
+                           __shfl_xor_sync(0xffffffffu, (c & 1) ? w2[0] : w2[1], 1);
+        const float dpv = __shfl_xor_sync(0xffffffffu, mine, 4);  // lanes c < 4: dp
+        const int u = (c >> 1) & 1, m = c & 1, j = j0 + u;
+        float sm = c < 4 ? mine : kMInit;  // lanes c >= 4 hold a dp: p = 0
+        if (causal && key[m] > q0 + j) sm = kMInit;
+        // exp of an argument below -127 is 0 in f32 either way; the clamp
+        // keeps masked lanes off exp's out-of-range path
+        const float p = sm > kMaskedBelow ? expf(fmaxf(sm - lse_sh[j], -127.f)) : 0.f;
+        const float ds = p * (dpv - dl_sh[j]);
+#pragma unroll
+        for (int uu = 0; uu < 2; ++uu)
+#pragma unroll
+          for (int mm = 0; mm < 2; ++mm) {
+            const float pq = __shfl_sync(0xffffffffu, p, 2 * uu + mm, 8);
+            const float dq = __shfl_sync(0xffffffffu, ds, 2 * uu + mm, 8);
+#pragma unroll
+            for (int i = 0; i < NC; ++i) {
+              axpy4(pq, dov[uu][i], dva[mm][i]);
+              axpy4(dq, qv[uu][i], dka[mm][i]);
+            }
+          }
+      } else {
+        const float lj = lse_sh[j0], dlj = dl_sh[j0];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          float sm = oct_sum(sv[0][m]);
+          const float dpm = oct_sum(dp[0][m]);
+          if (causal && key[m] > q0 + j0) sm = kMInit;
+          const float p = sm > kMaskedBelow ? expf(sm - lj) : 0.f;
+          const float ds = p * (dpm - dlj);
+#pragma unroll
+          for (int i = 0; i < NC; ++i) {
+            axpy4(p, dov[0][i], dva[m][i]);
+            axpy4(ds, qv[0][i], dka[m][i]);
+          }
+        }
       }
     }
   }
 #pragma unroll
-  for (int i = 0; i < Ge::NC; ++i) {
-    const size_t at = base + (size_t)key * Dh + geo.col(i);
-    Vec4<T>::store(dk + at, dka[i]);
-    Vec4<T>::store(dv + at, dva[i]);
+  for (int m = 0; m < 2; ++m) {
+    if (item.w < 0) {  // the whole column: dK/dV themselves
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const size_t at = base + (size_t)key[m] * Dh + geo.col(i);
+        Vec4<T>::store(dk + at, dka[m][i]);
+        Vec4<T>::store(dv + at, dva[m][i]);
+      }
+    } else {           // one part: f32 partials [2][BLK][Dh] in its slot
+      float* pk = part + (size_t)(b * n_slots + item.w) * 2 * BLK * Dh +
+                  (geo.r + m * Ge::HALF) * Dh;
+      float* pv = pk + BLK * Dh;
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        *reinterpret_cast<float4*>(pk + geo.col(i)) = dka[m][i];
+        *reinterpret_cast<float4*>(pv + geo.col(i)) = dva[m][i];
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void add4(float4& y, float4 x) {
+  y.x += x.x;
+  y.y += x.y;
+  y.z += x.z;
+  y.w += x.w;
+}
+
+// The columns cut in parts: merge entry (h * nb + kj, first slot, parts, 0)
+// sums its parts' partials in part order and rounds dK/dV once.
+template <typename T, int Dh, int BLK>
+__global__ void __launch_bounds__(kThreads)
+block_sparse_dkv_merge(const float* __restrict__ part, const int4* __restrict__ merge,
+                       T* __restrict__ dk, T* __restrict__ dv, int n_slots, int h_count,
+                       int t) {
+  const int4 m = merge[blockIdx.x];
+  const int nb = t / BLK, h = m.x / nb, kj = m.x - h * nb, b = blockIdx.y;
+  const size_t at = ((size_t)(b * h_count + h) * t + (size_t)kj * BLK) * Dh;
+  const float* p0 = part + (size_t)(b * n_slots + m.y) * 2 * BLK * Dh;
+  for (int i = 4 * threadIdx.x; i < BLK * Dh; i += 4 * kThreads) {
+    float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+    for (int j = 0; j < m.z; ++j) {
+      const float* pj = p0 + (size_t)j * 2 * BLK * Dh;
+      add4(sk, *reinterpret_cast<const float4*>(pj + i));
+      add4(sv, *reinterpret_cast<const float4*>(pj + BLK * Dh + i));
+    }
+    Vec4<T>::store(dk + at + i, sk);
+    Vec4<T>::store(dv + at + i, sv);
   }
 }
 
@@ -359,9 +578,11 @@ block_sparse_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 struct Args {
   const void *q, *k, *v, *dout;
   void *o, *dq, *dk, *dv;
-  float* lse;
+  float *lse, *part;
   const float *lse_in, *delta;
   const int *lut, *cnt;
+  const int4 *items, *merge;
+  int n_items, n_merge, n_slots;
   int bh, h, t, lut_width, causal;
   float scale;
   cudaStream_t st;
@@ -406,13 +627,19 @@ cudaError_t launch(Which which, const Args& a) {
         q, k, v, static_cast<const T*>(a.dout), a.lse_in, a.delta,
         static_cast<T*>(a.dq), a.lut, a.cnt, a.h, a.t, a.lut_width, a.causal, a.scale);
   } else {
+    using Sh = DkvShape<T, Dh, BLK>;
     auto kern = block_sparse_dkv_kernel<T, Dh, BLK>;
     static size_t allowed = 48 * 1024;
-    if ((err = allow_smem(kern, Sm::dkv(), allowed)) != cudaSuccess) return err;
-    kern<<<grid, kThreads, Sm::dkv(), a.st>>>(
+    if ((err = allow_smem(kern, Sh::bytes(), allowed)) != cudaSuccess) return err;
+    const dim3 work((a.n_items + Sh::Ge::G - 1) / Sh::Ge::G, a.bh / a.h);
+    kern<<<work, kThreads, Sh::bytes(), a.st>>>(
         q, k, v, static_cast<const T*>(a.dout), a.lse_in, a.delta,
-        static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.lut, a.cnt, a.h, a.t,
-        a.lut_width, a.causal, a.scale);
+        static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.part, a.lut, a.items, a.n_items,
+        a.n_slots, a.h, a.t, a.lut_width, a.causal, a.scale);
+    if ((err = cudaGetLastError()) != cudaSuccess || a.n_merge == 0) return err;
+    block_sparse_dkv_merge<T, Dh, BLK><<<dim3(a.n_merge, a.bh / a.h), kThreads, 0, a.st>>>(
+        a.part, a.merge, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.n_slots, a.h,
+        a.t);
   }
   return cudaGetLastError();
 }
@@ -486,15 +713,28 @@ extern "C" int dst_block_sparse_bwd_dq(const void* q, const void* k, const void*
 }
 
 // dk, dv [BH, T, Dh]; lut_t int32 [H, T/block, lut_width] (active query
-// blocks of each key block) and cnt_t [H, T/block].
+// blocks of each key block); the work list (block_sparse.py dkv_work_list):
+// items int32 [n_items, 4], merge int32 [n_merge, 4], and part f32
+// [BH / H, n_slots, 2, block, Dh] scratch for the partials (null when
+// n_slots is 0).
 extern "C" int dst_block_sparse_bwd_dkv(const void* q, const void* k, const void* v,
                                         const void* dout, const void* lse,
                                         const void* delta, void* dk, void* dv,
-                                        const void* lut_t, const void* cnt_t, int bh,
-                                        int h, int t, int dh, int block,
-                                        int lut_width, int causal, float scale,
-                                        int dtype, void* stream) {
-  Args a = make_args(q, k, v, lut_t, cnt_t, bh, h, t, lut_width, causal, scale, stream);
+                                        const void* lut_t, const void* items,
+                                        const void* merge, void* part, int n_items,
+                                        int n_merge, int n_slots, int bh, int h, int t,
+                                        int dh, int block, int lut_width, int causal,
+                                        float scale, int dtype, void* stream) {
+  if (n_items <= 0 || n_merge < 0 || n_slots < 0 || (n_slots > 0 && !part) ||
+      (n_merge > 0 && n_slots == 0) || (bh > 0 && h > 0 && bh / h > 65535))
+    return cudaErrorInvalidValue;
+  Args a = make_args(q, k, v, lut_t, nullptr, bh, h, t, lut_width, causal, scale, stream);
+  a.items = static_cast<const int4*>(items);
+  a.merge = static_cast<const int4*>(merge);
+  a.part = static_cast<float*>(part);
+  a.n_items = n_items;
+  a.n_merge = n_merge;
+  a.n_slots = n_slots;
   a.dout = dout;
   a.lse_in = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);

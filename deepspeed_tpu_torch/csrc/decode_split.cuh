@@ -1,10 +1,13 @@
-// The attention body of the fused decode step (decode_step.cu), split along
-// the cache: one CUDA block of kThreads attends the `rep` query heads of one
-// kv head of one slot over positions c0..c1-1 (one split of the valid
-// prefix), with position `idx` taken from the new token's row instead of the
-// cache, so no read waits on the write. It leaves the split's online-softmax
-// state (m, l, unnormalised acc, f32) for merge_splits, or, when the prefix
-// is one split, the output itself.
+// The attention body of the fused decode steps (decode_step.cu: the slot
+// cache, kernel B; block_decode_step.cu: the block pool, kernel C), split
+// along the cache: one CUDA block of kThreads attends the `rep` query heads
+// of one kv head of one slot over positions c0..c1-1 (one split of the valid
+// prefix). A row policy says where a position's K/V row lives (a contiguous
+// cache head, or a slot's block table) and which positions read the new
+// token's row instead of the cache (`fresh`: position idx, or any position
+// whose pool row is the one being written), so no read waits on the write.
+// It leaves the split's online-softmax state (m, l, unnormalised acc, f32)
+// for merge_splits, or, when the prefix is one split, the output itself.
 //
 // Two forms of the same arithmetic:
 //  * attend_tc (bf16/fp16, Dh 64, 128 or 256): the products run on the tensor
@@ -23,17 +26,30 @@
 //    of cp.async copies (3 stages, 2 at Dh 256), rows padded by 16 bytes so
 //    ldmatrix reads no bank twice; positions past c1 are zero-filled and
 //    masked, never read from the cache.
-//  * attend_cc (f32, and any other Dh the kernel takes): the CUDA cores, one
+//    An 8-bit pool (Rows::kRaw: int8 or fp8 e4m3 payloads with one bf16
+//    scale per row) stages the raw payload instead, half the bytes of bf16
+//    (cp.async cannot convert), with each row's scale loaded into registers
+//    one stage ahead and parked in shared memory. Each warp then
+//    dequantizes its own 16 rows of K into its own compute-type tile, as
+//    T(f32(payload) * f32(scale)) (the value the plain version's gather
+//    stores), runs ldmatrix on it for the scores, and dequantizes V into
+//    the same tile for P.V: no block barrier, only the warp's, and one tile
+//    per warp keeps the block at 68 KB (three blocks per SM). The
+//    conversions avoid the conversion pipe (a quarter of the FMA rate):
+//    int8 through an f32 magic number, and one bf16x2 multiply per pair.
+//  * attend_cc (f32, and any other Dh the kernels take): the CUDA cores, one
 //    warp per position for the scores, one per query row for the softmax,
-//    each thread owning rep * Dh / kThreads accumulators of P.V.
+//    each thread owning rep * Dh / kThreads accumulators of P.V. An 8-bit
+//    pool is dequantized as it is staged (loads through registers).
 //
-// Rounding points (both forms, the TPU kernel's and the plain version's):
+// Rounding points (both forms, the TPU kernels' and the plain versions'):
 // scores are products of the stored values summed in f32, then times
 // `scale`; the online softmax runs in f32; p is rounded to T before P.V; the
 // output is acc / max(l, 1e-20), cast once. Only the order of the f32 sums
 // differs from the plain version.
 #pragma once
 
+#include <cuda_fp8.h>
 #include <math_constants.h>
 
 #include "common.cuh"
@@ -45,6 +61,10 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kStageRows = 16 * kWarps;  // positions per stage: a 16-row tile per warp
 constexpr int kMaxPerThread = 16;        // attend_cc: rep * dh <= kThreads * kMaxPerThread
+
+using fp8_t = __nv_fp8_storage_t;        // e4m3 bytes
+
+
 
 // Where a block's result goes: the output rows (one split) or the split's
 // partial state, ml [B*Hq][n_splits][2] and acc [B*Hq][n_splits][Dh].
@@ -124,54 +144,174 @@ __device__ __forceinline__ uint32_t transpose8x8(uint32_t x) {
   return y;
 }
 
+// Row policies (decode_step.cu SlotRows, block_decode_step.cu BlockRows):
+//   kRaw, Elem   false and T: rows in the compute type; true and int8 or
+//                fp8_t: 8-bit payloads with one bf16 scale per row
+//   at(pos, kr, vr) -> fresh
+//                pointers to position pos's stored K and V rows, and whether
+//                pos reads the new token's row instead (the cache's row may
+//                be being written by this launch)
+//   fresh(pos)   the same flag alone
+//   kn, vn       (kRaw false) the new token's K/V row, in global memory
+//   kq_new, vq_new, kn_scale(), vn_scale()
+//                (kRaw true) its quantized payload and its scales, in shared
+//                memory (set by the prep step, read after its barrier)
+//   kscale(pos), vscale(pos)
+//                (kRaw true) a cached row's scales as f32
+
+// Two payload values (bytes b, b + 1 of `w`) as exact f32, without the
+// conversion pipe (a quarter of the FMA rate): int8 through the f32 magic
+// 2^23 + (x + 128) (one byte permute and one add each); fp8 e4m3 through
+// one e4m3x2 -> f16x2 convert.
+__device__ __forceinline__ float2 payload2_f32(uint32_t w, int b, int8_t) {
+  const uint32_t u = w ^ 0x80808080u;  // x + 128 in each byte
+  return make_float2(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650u | b)) - 8388736.f,
+                     __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650u | (b + 1))) -
+                         8388736.f);
+}
+__device__ __forceinline__ float2 payload2_f32(uint32_t w, int b, fp8_t) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(w >> (8 * b)), __NV_E4M3);
+  return __half22float2(*reinterpret_cast<const __half2*>(&h));
+}
+
+// T(f32(x) * f32(s)) for a pair of payload values, packed. bf16: x has at
+// most 8 significant bits, so the f32 value's top half is x in bf16, exact;
+// and x * s is exact in f32 (at most 16 significant bits), so one bf16x2
+// multiply rounds it once, to the plain version's value.
+template <typename T>
+struct Deq;
+template <>
+struct Deq<__nv_bfloat16> {
+  __device__ static __forceinline__ uint32_t pair(float2 x, __nv_bfloat162 s2) {
+    uint32_t xb = __byte_perm(__float_as_uint(x.x), __float_as_uint(x.y), 0x7632u);
+    __nv_bfloat162 p = __hmul2(*reinterpret_cast<__nv_bfloat162*>(&xb), s2);
+    return *reinterpret_cast<uint32_t*>(&p);
+  }
+};
+template <>
+struct Deq<__half> {
+  __device__ static __forceinline__ uint32_t pair(float2 x, __nv_bfloat162 s2) {
+    const float s = __low2float(s2);
+    return Tc<__half>::pack(x.x * s, x.y * s);
+  }
+};
+
+// 8 payload values times their row scale (a bf16, held as f32), rounded to
+// T, as one 16-byte store.
+template <typename T, typename S>
+__device__ __forceinline__ void dequant8(T* dst, const S* src, float s) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(src);
+  const __nv_bfloat162 s2 = __float2bfloat162_rn(s);  // exact: s is a bf16
+  uint4 w;
+  w.x = Deq<T>::pair(payload2_f32(raw.x, 0, S{}), s2);
+  w.y = Deq<T>::pair(payload2_f32(raw.x, 2, S{}), s2);
+  w.z = Deq<T>::pair(payload2_f32(raw.y, 0, S{}), s2);
+  w.w = Deq<T>::pair(payload2_f32(raw.y, 2, S{}), s2);
+  *reinterpret_cast<uint4*>(dst) = w;
+}
+
 template <typename T, int DH>
 struct TcShape {
   static constexpr int kStride = DH + 8;  // padded row (elements)
   static constexpr int kStages = DH >= 256 ? 2 : 3;
   static constexpr size_t kStage = (size_t)kStageRows * kStride;  // elements
-  template <int NT>
+  static constexpr size_t kRawStage = (size_t)kStageRows * DH;    // payload bytes
+  static constexpr size_t kTile = (size_t)16 * kStride;           // one warp's rows
+  // RAW: the payload ring, its scales and one compute-type tile per warp
+  template <int NT, bool RAW = false>
   static size_t smem() {
-    const size_t ring = 2 * kStages * kStage * sizeof(T);
+    const size_t ring = RAW ? 2 * kStages * (kRawStage + kStageRows * sizeof(float)) +
+                                  kWarps * kTile * sizeof(T)
+                            : 2 * kStages * kStage * sizeof(T);
     const size_t merge = (size_t)kWarps * NT * 8 * (DH + 2) * sizeof(float);
     return ring > merge ? ring : merge;
   }
 };
 
-// Rows provides krow(pos) / vrow(pos): pointers to a position's Dh stored
-// elements. q_rows [rep][DH] in global memory.
-template <typename T, int DH, int NT, class Rows>
+// q_rows [rep][DH] in global memory. prep() runs once the first stages'
+// copies are in flight, before any read of the new token's row (kernel C
+// writes, and quantizes, that row there).
+template <typename T, int DH, int NT, class Rows, class Prep>
 __device__ __forceinline__ void attend_tc(const T* __restrict__ q_rows, const Rows& rows,
-                                          const T* knh, const T* vnh, int idx, int c0,
-                                          int c1, int rep, float scale, const Out<T>& o,
-                                          unsigned char* smem) {
+                                          int c0, int c1, int rep, float scale,
+                                          const Out<T>& o, unsigned char* smem,
+                                          const Prep& prep) {
   using Sh = TcShape<T, DH>;
+  using S = typename Rows::Elem;
+  constexpr bool RAW = Rows::kRaw;
   constexpr int ST = Sh::kStages, STR = Sh::kStride, KD = DH / 16, R = NT * 8;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
-  T* k_sh = reinterpret_cast<T*>(smem);  // [ST][kStageRows][STR]
-  T* v_sh = k_sh + ST * Sh::kStage;      // [ST][kStageRows][STR]
+  // compute-type rows: [ST][kStageRows][STR] each
+  T* k_sh = reinterpret_cast<T*>(smem);
+  T* v_sh = k_sh + ST * Sh::kStage;
+  // 8-bit rows: [ST][kStageRows][DH] payloads, [ST][kStageRows] scales, and
+  // this warp's [16][STR] dequantized tile (K's, then V's)
+  S* kr_sh = reinterpret_cast<S*>(smem);
+  S* vr_sh = kr_sh + ST * Sh::kRawStage;
+  float* ksc_sh = reinterpret_cast<float*>(vr_sh + ST * Sh::kRawStage);
+  float* vsc_sh = ksc_sh + ST * kStageRows;
+  T* kt_sh = reinterpret_cast<T*>(vsc_sh + ST * kStageRows) + warp * Sh::kTile;
   const int n_st = (c1 - c0 + kStageRows - 1) / kStageRows;
+  float ks_pf = 0.f, vs_pf = 0.f;  // 8-bit: the issued stage's scales, in flight
 
-  // one stage's K and V rows as one cp.async group; rows past c1 zero-filled
+  // one stage's K and V rows as one cp.async group; rows past c1 (and, for a
+  // payload ring, fresh rows) zero-filled and not read
   auto stage = [&](int s) {
-    constexpr int kVpr = DH * (int)sizeof(T) / 16;
-    constexpr int kVec = 16 / (int)sizeof(T);
     const int base = c0 + s * kStageRows;
-    T* kd = k_sh + (s % ST) * Sh::kStage;
-    T* vd = v_sh + (s % ST) * Sh::kStage;
-    for (int i = tid; i < kStageRows * kVpr; i += kThreads) {
-      const int p = i / kVpr, c = (i - p * kVpr) * kVec, pos = base + p;
-      const bool ok = pos < c1;
-      const T* ks = pos == idx ? knh : rows.krow(ok ? pos : c0);
-      const T* vs = pos == idx ? vnh : rows.vrow(ok ? pos : c0);
-      cp_async16_zfill(kd + p * STR + c, ks + c, ok);
-      cp_async16_zfill(vd + p * STR + c, vs + c, ok);
+    if constexpr (RAW) {
+      constexpr int kVpr = DH / 16;
+      S* kd = kr_sh + (s % ST) * Sh::kRawStage;
+      S* vd = vr_sh + (s % ST) * Sh::kRawStage;
+      for (int i = tid; i < kStageRows * kVpr; i += kThreads) {
+        const int p = i / kVpr, c = (i - p * kVpr) * 16, pos = base + p;
+        const S* ks;
+        const S* vs;
+        const bool fresh = rows.at(pos < c1 ? pos : c0, ks, vs);
+        const bool ok = pos < c1 && !fresh;
+        cp_async16_zfill(kd + p * DH + c, ks + c, ok);
+        cp_async16_zfill(vd + p * DH + c, vs + c, ok);
+      }
+      if (tid < kStageRows) {
+        const int pos = base + tid;
+        ks_pf = pos < c1 ? rows.kscale(pos) : 0.f;
+        vs_pf = pos < c1 ? rows.vscale(pos) : 0.f;
+      }
+    } else {
+      constexpr int kVpr = DH * (int)sizeof(T) / 16;
+      constexpr int kVec = 16 / (int)sizeof(T);
+      T* kd = k_sh + (s % ST) * Sh::kStage;
+      T* vd = v_sh + (s % ST) * Sh::kStage;
+      for (int i = tid; i < kStageRows * kVpr; i += kThreads) {
+        const int p = i / kVpr, c = (i - p * kVpr) * kVec, pos = base + p;
+        const bool ok = pos < c1;
+        const T* ks;
+        const T* vs;
+        if (rows.at(ok ? pos : c0, ks, vs) && ok) {
+          ks = rows.kn;
+          vs = rows.vn;
+        }
+        cp_async16_zfill(kd + p * STR + c, ks + c, ok);
+        cp_async16_zfill(vd + p * STR + c, vs + c, ok);
+      }
+    }
+  };
+  // 8-bit: park the scales of stage s (loaded when it was issued) in its slot
+  auto park = [&](int s) {
+    if (tid < kStageRows) {
+      ksc_sh[(s % ST) * kStageRows + tid] = ks_pf;
+      vsc_sh[(s % ST) * kStageRows + tid] = vs_pf;
     }
   };
 #pragma unroll
   for (int s = 0; s < ST - 1; ++s) {
-    if (s < n_st) stage(s);
+    if (s < n_st) {
+      stage(s);
+      if constexpr (RAW) park(s);
+    }
     cp_async_commit();
   }
+  prep();
 
   // Q^T as the B operand (B[k = d][n = r] = Q[r][d]), kept for the walk;
   // query rows past rep are zeros
@@ -197,14 +337,52 @@ __device__ __forceinline__ void attend_tc(const T* __restrict__ q_rows, const Ro
   }
 
   for (int s = 0; s < n_st; ++s) {
+    if constexpr (RAW) {
+      if (s >= 1 && s + ST - 2 < n_st) park(s + ST - 2);  // issued last iteration
+    }
     cp_async_wait<ST - 2>();
     __syncthreads();  // stage s visible; stage s-1's buffer free
     if (s + ST - 1 < n_st) stage(s + ST - 1);
     cp_async_commit();
     const int p0 = c0 + s * kStageRows + warp * 16;
     if (p0 >= c1) continue;  // this warp's tile lies past the split
-    const T* ks = k_sh + (s % ST) * Sh::kStage + warp * 16 * STR;
-    const T* vs = v_sh + (s % ST) * Sh::kStage + warp * 16 * STR;
+    const T* ks;
+    const T* vs;
+    // 8-bit: which of the warp's 16 rows read the new token's row, and this
+    // stage's V payload and scales (dequantized after the scores)
+    unsigned fresh = 0;
+    const S* vr_st = nullptr;
+    const float* vsc_st = nullptr;
+    // rows of payload (+ the new row's for fresh rows) times their scales,
+    // into a [16][STR] compute-type tile
+    auto dequant_rows = [&](T* tile, const auto* raw, const auto* fresh_row, const float* sc,
+                            float fresh_s) {
+      constexpr int kCh = DH / 8;  // 8-byte payload chunks per row
+#pragma unroll
+      for (int i = lane; i < 16 * kCh; i += 32) {
+        const int r = i / kCh, c = (i - r * kCh) * 8;
+        const bool f = (fresh >> r) & 1u;
+        dequant8(tile + r * STR + c, f ? fresh_row + c : raw + r * DH + c, f ? fresh_s : sc[r]);
+      }
+    };
+    if constexpr (RAW) {
+      // this warp's 16 rows, dequantized into its own tiles; a fresh row
+      // takes the new token's payload and scales
+      const S* kr = kr_sh + (s % ST) * Sh::kRawStage + warp * 16 * DH;
+      const S* vr = vr_sh + (s % ST) * Sh::kRawStage + warp * 16 * DH;  // V: after the scores
+      const float* ksc = ksc_sh + (s % ST) * kStageRows + warp * 16;
+      const float* vsc = vsc_sh + (s % ST) * kStageRows + warp * 16;
+      fresh = __ballot_sync(0xffffffffu, lane < 16 && p0 + lane < c1 && rows.fresh(p0 + lane));
+      vr_st = vr;
+      vsc_st = vsc;
+      dequant_rows(kt_sh, kr, rows.kq_new, ksc, rows.kn_scale());
+      __syncwarp();
+      ks = kt_sh;
+      vs = kt_sh;  // V takes the tile once the scores have read K
+    } else {
+      ks = k_sh + (s % ST) * Sh::kStage + warp * 16 * STR;
+      vs = v_sh + (s % ST) * Sh::kStage + warp * 16 * STR;
+    }
     // scores: rows pos g, g + 8 of the tile; columns r 2t, 2t + 1
     float sc[NT][4];
 #pragma unroll
@@ -215,6 +393,10 @@ __device__ __forceinline__ void attend_tc(const T* __restrict__ q_rows, const Ro
       ldsm_x4(a, ks + ((lane & 7) + (lane & 8)) * STR + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) Tc<T>::mma(sc[nt], a, qf[kk][nt]);
+    }
+    if constexpr (RAW) {
+      __syncwarp();  // every lane has read K from the tile
+      dequant_rows(kt_sh, vr_st, rows.vq_new, vsc_st, rows.vn_scale());
     }
     float corr[NT][2];
 #pragma unroll
@@ -235,6 +417,7 @@ __device__ __forceinline__ void attend_tc(const T* __restrict__ q_rows, const Ro
         sc[nt][j] = e0;
         sc[nt][j + 2] = e1;
       }
+    if constexpr (RAW) __syncwarp();  // V's tile is complete
     // P^T as the B operand, p rounded to T: each 8-position half transposed
     uint32_t pb[NT][2];
 #pragma unroll
@@ -319,24 +502,65 @@ __host__ __device__ inline size_t cc_smem(int rep, int dh) {
   return (b + 15) / 16 * 16;
 }
 
+// Start the copies of K and V rows c0..c0+cn-1 into [cn][dh] buffers as one
+// cp.async group. An 8-bit pool is dequantized on the way instead (loads
+// through registers: only the f32 path and odd head widths take this body).
 template <typename T, class Rows>
-__device__ __forceinline__ void cc_stage(T* k_dst, T* v_dst, const Rows& rows, const T* knh,
-                                         const T* vnh, int c0, int cn, int idx, int dh) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int vpr = dh / kVec;
-  for (int i = threadIdx.x; i < cn * vpr; i += kThreads) {
-    const int p = i / vpr, v = (i - p * vpr) * kVec, pos = c0 + p;
-    cp_async16(k_dst + (size_t)p * dh + v, (pos == idx ? knh : rows.krow(pos)) + v);
-    cp_async16(v_dst + (size_t)p * dh + v, (pos == idx ? vnh : rows.vrow(pos)) + v);
+__device__ __forceinline__ void cc_stage(T* k_dst, T* v_dst, const Rows& rows, int c0, int cn,
+                                         int dh) {
+  using S = typename Rows::Elem;
+  if constexpr (Rows::kRaw) {
+    const int vpr = dh / 16;
+    for (int i = threadIdx.x; i < cn * vpr; i += kThreads) {
+      const int p = i / vpr, v = (i - p * vpr) * 16, pos = c0 + p;
+      const S* ks;
+      const S* vs;
+      const bool f = rows.at(pos, ks, vs);
+      const uint4 kraw = *reinterpret_cast<const uint4*>((f ? rows.kq_new : ks) + v);
+      const uint4 vraw = *reinterpret_cast<const uint4*>((f ? rows.vq_new : vs) + v);
+      const float ksc = f ? rows.kn_scale() : rows.kscale(pos);
+      const float vsc = f ? rows.vn_scale() : rows.vscale(pos);
+      const uint32_t* kw = reinterpret_cast<const uint32_t*>(&kraw);
+      const uint32_t* vw = reinterpret_cast<const uint32_t*>(&vraw);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 kx = payload2_f32(kw[j / 2], 2 * (j % 2), S{});
+        const float2 vx = payload2_f32(vw[j / 2], 2 * (j % 2), S{});
+        T* kd = k_dst + (size_t)p * dh + v + 2 * j;
+        T* vd = v_dst + (size_t)p * dh + v + 2 * j;
+        kd[0] = from_f32<T>(kx.x * ksc);
+        kd[1] = from_f32<T>(kx.y * ksc);
+        vd[0] = from_f32<T>(vx.x * vsc);
+        vd[1] = from_f32<T>(vx.y * vsc);
+      }
+    }
+  } else {
+    constexpr int kVec = 16 / sizeof(T);
+    const int vpr = dh / kVec;
+    for (int i = threadIdx.x; i < cn * vpr; i += kThreads) {
+      const int p = i / vpr, v = (i - p * vpr) * kVec, pos = c0 + p;
+      const T* ks;
+      const T* vs;
+      if (rows.at(pos, ks, vs)) {
+        ks = rows.kn;
+        vs = rows.vn;
+      }
+      cp_async16(k_dst + (size_t)p * dh + v, ks + v);
+      cp_async16(v_dst + (size_t)p * dh + v, vs + v);
+    }
   }
   cp_async_commit();
 }
 
-template <typename T, class Rows>
+// prep() as attend_tc's, here before the first copies: an 8-bit pool's
+// staging reads the new token's row.
+template <typename T, class Rows, class Prep>
 __device__ __forceinline__ void attend_cc(const T* __restrict__ q_rows, const Rows& rows,
-                                          const T* knh, const T* vnh, int idx, int c0,
-                                          int c1, int rep, int dh, float scale,
-                                          const Out<T>& o, unsigned char* smem) {
+                                          int c0, int c1, int rep, int dh, float scale,
+                                          const Out<T>& o, unsigned char* smem,
+                                          const Prep& prep) {
+  prep();
+  __syncthreads();  // what prep left in shared memory is visible to the copies
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int cs = cc_rows<T>(dh);
   const size_t buf = (size_t)cs * dh;
@@ -349,7 +573,7 @@ __device__ __forceinline__ void attend_cc(const T* __restrict__ q_rows, const Ro
   float* c_sh = l_sh + rep;                                      // [rep]
   const int n = c1 - c0, n_chunks = (n + cs - 1) / cs;
 
-  cc_stage(k_sh, v_sh, rows, knh, vnh, c0, min(cs, n), idx, dh);
+  cc_stage(k_sh, v_sh, rows, c0, min(cs, n), dh);
   for (int i = tid; i < rep * dh; i += kThreads) q_sh[i] = to_f32(q_rows[i]);
   if (tid < rep) {
     m_sh[tid] = -CUDART_INF_F;
@@ -363,8 +587,8 @@ __device__ __forceinline__ void attend_cc(const T* __restrict__ q_rows, const Ro
     const int cc0 = c * cs, cn = min(cs, n - cc0);
     const size_t cur = (size_t)(c & 1) * buf;
     if (c + 1 < n_chunks) {
-      cc_stage(k_sh + (buf - cur), v_sh + (buf - cur), rows, knh, vnh, c0 + cc0 + cs,
-               min(cs, n - cc0 - cs), idx, dh);
+      cc_stage(k_sh + (buf - cur), v_sh + (buf - cur), rows, c0 + cc0 + cs,
+               min(cs, n - cc0 - cs), dh);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();

@@ -46,14 +46,23 @@ namespace {
 
 using namespace dst::split;
 
-// Rows of one contiguous [S, Dh] cache head.
+// Rows of one contiguous [S, Dh] cache head; position idx reads the new
+// token's row (decode_split.cuh's row policy).
 template <typename T>
 struct SlotRows {
+  static constexpr bool kRaw = false;
+  using Elem = T;
   const T* k;
   const T* v;
-  int dh;
-  __device__ const T* krow(int pos) const { return k + (size_t)pos * dh; }
-  __device__ const T* vrow(int pos) const { return v + (size_t)pos * dh; }
+  const T* kn;
+  const T* vn;
+  int idx, dh;
+  __device__ bool at(int pos, const T*& kr, const T*& vr) const {
+    kr = k + (size_t)pos * dh;
+    vr = v + (size_t)pos * dh;
+    return pos == idx;
+  }
+  __device__ bool fresh(int pos) const { return pos == idx; }
 };
 
 struct Geometry {
@@ -99,11 +108,12 @@ fused_decode_step_split(const T* __restrict__ q, T* kc, T* vc, const T* __restri
   }
   const int c1 = min(c0 + geo.chunk, n_pos);
   const T* q_rows = q + o.row0 * dh;
-  const SlotRows<T> rows{kh, vh, dh};
+  const SlotRows<T> rows{kh, vh, knh, vnh, idx, dh};
+  const auto no_prep = [] {};
   if constexpr (DH > 0)
-    attend_tc<T, DH, NT>(q_rows, rows, knh, vnh, idx, c0, c1, rep, geo.scale, o, smem_raw);
+    attend_tc<T, DH, NT>(q_rows, rows, c0, c1, rep, geo.scale, o, smem_raw, no_prep);
   else
-    attend_cc<T>(q_rows, rows, knh, vnh, idx, c0, c1, rep, dh, geo.scale, o, smem_raw);
+    attend_cc<T>(q_rows, rows, c0, c1, rep, dh, geo.scale, o, smem_raw, no_prep);
 }
 
 template <typename T, int DH, int NT>

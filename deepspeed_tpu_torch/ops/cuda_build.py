@@ -127,9 +127,11 @@ def kernels() -> ctypes.CDLL:
         lib.dst_fused_decode_step.restype = i32
         lib.dst_fused_block_decode_step.argtypes = [
             vp, vp, vp, vp, vp,          # q, k pool, v pool, k scales, v scales
-            vp, vp, vp, vp, vp,          # k_new, v_new, out, idx, table
+            vp, vp, vp,                  # k_new, v_new, out
+            vp, vp, vp, vp,              # ml, acc (split scratch), idx, table
             i32, i32, i32, i32,          # layer, b, hq, hkv
             i32, i32, i32, i32,          # n_phys, bs, mb, dh
+            i32, i32,                    # chunk, n_splits
             f32, i32, i32, vp]           # scale, dtype code, kv code, stream
         lib.dst_fused_block_decode_step.restype = i32
         lib.dst_flash_fwd.argtypes = [
@@ -171,7 +173,9 @@ def kernels() -> ctypes.CDLL:
         lib.dst_block_sparse_bwd_dq.restype = i32
         lib.dst_block_sparse_bwd_dkv.argtypes = [
             vp, vp, vp, vp, vp, vp,      # q, k, v, dout, lse, delta
-            vp, vp, vp, vp,              # dk, dv, transposed lut, count
+            vp, vp, vp,                  # dk, dv, transposed lut
+            vp, vp, vp,                  # work items, merge list, partials
+            i32, i32, i32,               # items, merges, partial slots
             i32, i32, i32, i32, i32,     # bh, h, t, dh, block
             i32, i32, f32, i32, vp]      # lut width, causal, scale, dtype, stream
         lib.dst_block_sparse_bwd_dkv.restype = i32

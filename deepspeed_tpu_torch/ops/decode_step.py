@@ -15,11 +15,12 @@ then attend each slot over its own valid prefix.
   quantized (``{"q", "s"}`` int8/fp8 payload + bf16 scales, quantized on
   store). A position past the table width is written to the garbage row
   ``N``. CUDA tensors launch ``csrc/block_decode_step.cu`` (replaces
-  ``ops/decode_step.py:_block_kernel``).
+  ``ops/decode_step.py:_block_kernel``): the same split and merge as the
+  slot kernel, with table-addressed rows (an 8-bit pool staged as its raw
+  payload and dequantized in shared memory).
 
-The slot kernel's attention body is ``csrc/decode_split.cuh``, the block
-kernel's ``csrc/decode_attend.cuh``; the source notes say what bounds them
-and how the design answers that. CPU
+Both kernels' attention body is ``csrc/decode_split.cuh``; the source notes
+say what bounds them and how the design answers that. CPU
 tensors run the plain versions beside them. The port keeps the logical
 unpacked layouts: the TPU's token-pair packing for Dh < 128 and its
 pair-grouped scales are tiling devices with no counterpart here.
@@ -34,17 +35,17 @@ import torch
 from deepspeed_tpu_torch.ops import cuda_build
 from deepspeed_tpu_torch.ops.flash_decode import _sm_count
 
-_THREADS, _MAX_PER_THREAD = 128, 16   # csrc/decode_split.cuh and
-                                      # csrc/decode_attend.cuh block shape
+_THREADS, _MAX_PER_THREAD = 128, 16   # csrc/decode_split.cuh block shape
 _STAGE_ROWS = 64                      # csrc/decode_split.cuh kStageRows
 # pool storage code of csrc/block_decode_step.cu
 _KV_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 
 
 def split_plan(b: int, hkv: int, s_max: int, sms: int):
-    """``(chunk, n_splits)`` of the fused decode step: positions per block
-    and blocks along S (``csrc/decode_step.cu`` runs a grid of (n_splits,
-    hkv, b) blocks). The smallest chunk is one 64-position stage (a 16-row
+    """``(chunk, n_splits)`` of the fused decode steps: positions per block
+    and blocks along S (``csrc/decode_step.cu`` and, with S = MB * bs,
+    ``csrc/block_decode_step.cu`` run a grid of (n_splits, hkv, b)
+    blocks). The smallest chunk is one 64-position stage (a 16-row
     tile per warp); it doubles while the grid at full S would still hold
     four blocks per SM. A function of the shapes only: the host never reads
     idx, and a row's result does not depend on the other slots'."""
@@ -52,6 +53,19 @@ def split_plan(b: int, hkv: int, s_max: int, sms: int):
     while chunk < s_max and b * hkv * -(-s_max // (2 * chunk)) >= 4 * sms:
         chunk *= 2
     return chunk, -(-s_max // chunk)
+
+
+def _split_scratch(b: int, hq: int, hkv: int, s_max: int, dh: int, device):
+    """``(ml, acc, chunk, n_splits)``: the split plan on ``device``'s card
+    and, with more than one split, the splits' f32 partials from
+    ``torch.empty`` on the current stream (so a call replays in a CUDA
+    graph), else ``None``s."""
+    chunk, n_splits = split_plan(b, hkv, s_max, _sm_count(device.index or 0))
+    if n_splits == 1:
+        return None, None, chunk, n_splits
+    return (torch.empty((b, hq, n_splits, 2), dtype=torch.float32, device=device),
+            torch.empty((b, hq, n_splits, dh), dtype=torch.float32, device=device),
+            chunk, n_splits)
 
 
 def supports(hq: int, hkv: int, s_max: int, dh: int, itemsize: int = 2) -> bool:
@@ -170,13 +184,7 @@ def fused_decode_step(q: torch.Tensor, k_full: torch.Tensor,
     sc = float(scale) if scale is not None else dh ** -0.5
     lib = cuda_build.kernels()
     out = torch.empty((b, 1, hq, dh), dtype=dtype, device=q.device)
-    chunk, n_splits = split_plan(b, hkv, s_max, _sm_count(q.device.index or 0))
-    ml = acc = None
-    if n_splits > 1:        # the splits' partials, on the current stream
-        ml = torch.empty((b, hq, n_splits, 2), dtype=torch.float32,
-                         device=q.device)
-        acc = torch.empty((b, hq, n_splits, dh), dtype=torch.float32,
-                          device=q.device)
+    ml, acc, chunk, n_splits = _split_scratch(b, hq, hkv, s_max, dh, q.device)
     err = lib.dst_fused_decode_step(
         q.data_ptr(), k_full.data_ptr(), v_full.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), out.data_ptr(),
@@ -306,14 +314,21 @@ def fused_block_decode_step(q: torch.Tensor, k_pool, v_pool,
                          f"{block_table.dtype} {tuple(block_table.shape)} on "
                          f"{block_table.device}")
     mb = block_table.shape[1]
+    if bs > 1024 or mb * bs > 1 << 20:
+        raise ValueError(f"{what}: block_size {bs} (at most 1024) x table width "
+                         f"{mb} (at most 2^20 positions) is past the kernel's range")
     sc = float(scale) if scale is not None else dh ** -0.5
     lib = cuda_build.kernels()
     out = torch.empty((b, 1, hq, dh), dtype=dtype, device=q.device)
+    ml, acc, chunk, n_splits = _split_scratch(b, hq, hkv, mb * bs, dh, q.device)
     err = lib.dst_fused_block_decode_step(
         q.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks_ptr, vs_ptr,
-        k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), idx.data_ptr(),
+        k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(),
+        None if ml is None else ml.data_ptr(),
+        None if acc is None else acc.data_ptr(), idx.data_ptr(),
         block_table.data_ptr(), int(layer), b, hq, hkv, n_phys, bs, mb, dh,
-        sc, cuda_build.dtype_code(dtype), _KV_CODES[store] if quant else 0,
+        chunk, n_splits, sc, cuda_build.dtype_code(dtype),
+        _KV_CODES[store] if quant else 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(lib, err, what)
     fused_block_decode_step.launches += 1

@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.ops.sparse_attention.block_sparse import (
+    block_sparse_bwd_dkv_plain, dkv_work_list)
 from deepspeed_tpu_torch.serving.kv_quant import kv_quantize
 
 
@@ -117,3 +119,30 @@ def rel_err(out, ref) -> float:
     err = (out.float() - ref).abs().amax(-1)
     floor = ref.square().mean().sqrt().clamp_min(1e-30)
     return (err / ref.abs().amax(-1).clamp_min(floor)).max().item()
+
+
+def dkv_by_parts(qf, kf, vf, dof, lse, delta, luts, *, block: int,
+                 causal: bool, part: int, drop=()):
+    """dK and dV as the dK/dV kernel sums them from its work list
+    (block_sparse.dkv_work_list with ``part`` entries per item at most):
+    each part's contribution from the plain version in f32, the parts of a
+    column summed in part order, rounded once to ``kf``'s dtype. ``drop``
+    lists ``(column, part index)`` pairs left out, as a kernel that lost
+    one partial would (column = h * nb + key block)."""
+    lut = luts.lut_k.cpu().numpy()
+    h, nb, width = lut.shape
+    items = dkv_work_list(luts.cnt_k.cpu().numpy(), part)[0]
+    n_parts = -(-width // part)
+    f32 = [x.float() for x in (qf, kf, vf, dof)]
+    dk = dv = None
+    for p in range(n_parts):
+        lut_p = np.full((h * nb, part), -1, dtype=np.int32)
+        for col, first, count, _ in items:
+            if first == p * part and (col, p) not in drop:
+                lut_p[col, :count] = lut.reshape(h * nb, width)[col, first:first + count]
+        lut_p = torch.from_numpy(lut_p.reshape(h, nb, part)).to(qf.device)
+        pk, pv = block_sparse_bwd_dkv_plain(*f32, lse, delta,
+                                            luts._replace(lut_k=lut_p),
+                                            block=block, causal=causal)
+        dk, dv = (pk, pv) if dk is None else (dk + pk, dv + pv)
+    return dk.to(kf.dtype), dv.to(vf.dtype)

@@ -19,7 +19,12 @@ each, with a launch counter:
 * :func:`block_sparse_bwd_dq` (replaces ``_bwd_dq_kernel``) over the same
   table, from lse and ``delta = rowsum(dO * O)``;
 * :func:`block_sparse_bwd_dkv` (replaces ``_bwd_dkv_kernel``) over the
-  transposed table.
+  transposed table, from a work list built with the tables
+  (:func:`dkv_work_list`): each key block's column of query blocks is cut
+  into parts of at most ``_DKV_PART`` entries, the parts sorted by length
+  so that the row groups of one CUDA block get near-equal work, and a
+  column cut in several parts is summed from f32 partials by a second
+  launch, in part order.
 
 :func:`block_sparse_attention` on ``[B, T, H, Dh]`` wires them as a
 ``torch.autograd.Function``; delta stays plain torch, as the reference
@@ -53,6 +58,8 @@ import torch
 from deepspeed_tpu_torch.ops import cuda_build
 
 _NEG_INF = -1e30
+_DKV_PART = 64          # query blocks per dK/dV work item at most
+_DKV_ROWS = 64          # key rows per CUDA block of the dK/dV kernel
 _BLOCKS = (16, 32, 64)
 _HEAD_DIMS = (64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -86,13 +93,73 @@ def _build_luts(layout: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return _active_lut(layout)[0], _active_lut(layout.transpose(0, 2, 1))[0]
 
 
+def dkv_work_list(cnt_k: np.ndarray, part: int = _DKV_PART):
+    """The dK/dV kernel's work, from the column counts ``cnt_k [H, nb]``.
+
+    Each column (head h, key block kj) of the transposed table is cut into
+    parts of at most ``part`` entries, in table order (an empty column is
+    one empty part: its dK/dV are zeros). Returns ``(items, merge,
+    n_slots)``:
+
+    * ``items`` int32 ``[n, 4]``: ``(h * nb + kj, first entry, count,
+      slot)``, sorted by descending count (ties in (h, kj, part) order).
+      The kernel's CUDA block i runs items ``i * G .. i * G + G - 1``, one
+      per row group, so the longest blocks launch first. ``slot`` is -1
+      for a column of one part (it writes dK/dV itself), else the part's
+      f32 partial in the scratch;
+    * ``merge`` int32 ``[m, 4]``: ``(h * nb + kj, first slot, parts, 0)``
+      for each column of several parts, whose slots are consecutive in
+      part order;
+    * ``n_slots``: the number of partials."""
+    cols = np.asarray(cnt_k, dtype=np.int64).reshape(-1)
+    n_parts = np.maximum(1, -(-cols // part))
+    col = np.repeat(np.arange(cols.size), n_parts)
+    index = np.arange(col.size) - np.repeat(np.cumsum(n_parts) - n_parts, n_parts)
+    first = index * part
+    count = np.minimum(part, cols[col] - first)
+    split = n_parts[col] > 1
+    slot = np.where(split, np.cumsum(split) - 1, -1)
+    items = np.stack([col, first, count, slot], axis=1)
+    items = items[np.argsort(-count, kind="stable")]
+    split_cols = np.flatnonzero(n_parts > 1)
+    merge = np.stack([split_cols, slot[first == 0][split_cols], n_parts[split_cols],
+                      np.zeros_like(split_cols)], axis=1)
+    return (items.astype(np.int32).reshape(-1, 4),
+            merge.astype(np.int32).reshape(-1, 4), int(split.sum()))
+
+
+def dkv_groups(block: int) -> int:
+    """Row groups (one key block each) of a dK/dV CUDA block."""
+    return _DKV_ROWS // block
+
+
+def dkv_group_busy(counts, groups: int) -> float:
+    """The share of row-group time that does work, for items run ``groups``
+    to a CUDA block in the order given: for each CUDA block the sum of its
+    groups' entry counts over ``groups`` x its largest count, averaged over
+    the blocks weighted by that largest count (a block lasts as long as its
+    longest group)."""
+    c = np.asarray(counts, dtype=np.int64).reshape(-1)
+    c = np.concatenate([c, np.zeros(-c.size % groups, np.int64)]).reshape(-1, groups)
+    longest = c.max(axis=1).sum()
+    return float(c.sum() / (groups * longest)) if longest else 1.0
+
+
 class SparseLuts(NamedTuple):
-    """int32 tables on one device: ``lut_q [H, nb, A]`` and its row counts
-    ``cnt_q [H, nb]``; the transposed ``lut_k [H, nb, Bc]`` and ``cnt_k``."""
+    """Tables on one device: int32 ``lut_q [H, nb, A]`` and its row counts
+    ``cnt_q [H, nb]``; the transposed ``lut_k [H, nb, Bc]`` and ``cnt_k``;
+    the dK/dV work list (:func:`dkv_work_list`) ``dkv_items``,
+    ``dkv_merge`` and its partial count ``dkv_slots``."""
     lut_q: torch.Tensor
     cnt_q: torch.Tensor
     lut_k: torch.Tensor
     cnt_k: torch.Tensor
+    dkv_items: torch.Tensor
+    dkv_merge: torch.Tensor
+    dkv_slots: int
+
+
+_TABLES = ("lut_q", "cnt_q", "lut_k", "cnt_k", "dkv_items", "dkv_merge")
 
 
 @functools.lru_cache(maxsize=64)
@@ -100,8 +167,10 @@ def _luts_cached(key: bytes, shape: Tuple[int, int, int], device: str):
     layout = np.frombuffer(key, dtype=bool).reshape(shape)
     lut_q, cnt_q = _active_lut(layout)
     lut_k, cnt_k = _active_lut(layout.transpose(0, 2, 1))
+    items, merge, n_slots = dkv_work_list(cnt_k)
     return SparseLuts(*(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                        for a in (lut_q, cnt_q, lut_k, cnt_k)))
+                        for a in (lut_q, cnt_q, lut_k, cnt_k, items, merge)),
+                      n_slots)
 
 
 def sparse_luts(layout, device) -> SparseLuts:
@@ -270,7 +339,8 @@ def _check(what: str, luts: SparseLuts, block: int, tensors) -> Tuple[int, ...]:
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be contiguous and 16-byte "
                              "aligned")
-    for name, x in zip(SparseLuts._fields, luts):
+    for name in _TABLES:
+        x = getattr(luts, name)
         if x.device != qf.device or x.dtype != torch.int32 or not x.is_contiguous():
             raise ValueError(f"{what}: table {name} must be contiguous int32 on "
                              f"{qf.device}")
@@ -347,7 +417,8 @@ def block_sparse_bwd_dkv(qf, kf, vf, dof, lse, delta, luts: SparseLuts, *,
                          block: int, causal: bool,
                          scale: Optional[float] = None):
     """Backward ``(dK, dV)``, each ``[BH, T, Dh]``, over the transposed
-    table."""
+    table, from the cached work list (split columns through f32 partials
+    from ``torch.empty``, summed by a second launch)."""
     if qf.device.type == "cpu":
         return block_sparse_bwd_dkv_plain(qf, kf, vf, dof, lse, delta, luts,
                                           block=block, causal=causal,
@@ -357,12 +428,18 @@ def block_sparse_bwd_dkv(qf, kf, vf, dof, lse, delta, luts: SparseLuts, *,
                           _bwd_operands(qf, kf, vf, dof, lse, delta))
     lib = cuda_build.kernels()
     dk, dv = torch.empty_like(kf), torch.empty_like(vf)
+    part = None
+    if luts.dkv_slots:
+        part = torch.empty((bh // h, luts.dkv_slots, 2, block, dh),
+                           dtype=torch.float32, device=qf.device)
     err = lib.dst_block_sparse_bwd_dkv(
         qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), dof.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        luts.lut_k.data_ptr(), luts.cnt_k.data_ptr(), bh, h, t, dh, block,
-        luts.lut_k.shape[2], int(bool(causal)), _scale(scale, dh),
-        cuda_build.dtype_code(qf.dtype), _stream(qf))
+        luts.lut_k.data_ptr(), luts.dkv_items.data_ptr(),
+        luts.dkv_merge.data_ptr(), None if part is None else part.data_ptr(),
+        luts.dkv_items.shape[0], luts.dkv_merge.shape[0], luts.dkv_slots,
+        bh, h, t, dh, block, luts.lut_k.shape[2], int(bool(causal)),
+        _scale(scale, dh), cuda_build.dtype_code(qf.dtype), _stream(qf))
     cuda_build.check(lib, err, "block_sparse_bwd_dkv")
     block_sparse_bwd_dkv.launches += 1
     return dk, dv

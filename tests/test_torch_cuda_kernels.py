@@ -19,7 +19,11 @@ run-to-run bit identity, one launch counted per call, and a call captured in
 a CUDA graph replayed after the device idx changes. The
 block decode step: bf16/f16/f32 compute over pools in the compute type,
 int8 and fp8 (payload and scales), a permuted table, block edges, the
-overflow write to the garbage row, an inactive slot on a sentinel table.
+overflow write to the garbage row, an inactive slot on a sentinel table;
+its split along the prefix: idx at the last and first positions of
+splits, two overflow slots (their garbage rows bit-identical to the plain
+version's), run-to-run bit identity, and a call captured in a CUDA graph
+replayed after the device idx and table change.
 The flash attention kernels (forward, backward dQ, backward dK/dV): bf16,
 f16 and f32 at Dh 64 and 128, T a multiple of the tile and ragged, causal
 and not, Tk != Tq (top-left causal), run-to-run bit identity of the
@@ -35,8 +39,9 @@ bf16 and f32 at block 16, 32 and 64 and Dh 64 and 128, causal and not,
 over Fixed, BigBird and Longformer layouts (global rows much longer than
 the others) and a hand-made layout whose rows of one block see no key under
 causal (zeros, lse -1e30), held row by row against the plain versions and
-bit for bit across two launches; the autograd path's launch counts; the
-dense oracle. The gridded int8 matmul against its plain version at ragged
+bit for bit across two launches; dK/dV at layouts whose global columns are
+cut in parts of the work list (summed by the merge launch); the autograd
+path's launch counts; the dense oracle. The gridded int8 matmul against its plain version at ragged
 shapes, and the wrappers' input checks (a shape the kernels do not take
 raises and launches nothing: there is no fallback).
 
@@ -321,6 +326,89 @@ def test_block_decode_step_counts_launches_and_rejects_bad_inputs(cuda):
     assert fused_block_decode_step.launches == n0 + 1
 
 
+def _active_block_inputs(dev, dtype, kv, b, hq, hkv, bs, mb, dh, seed=0):
+    """block_step_inputs with every one of the ``b`` slots on its own real
+    table (its last, sentinel-table slot dropped)."""
+    _, q, kp, vp, kn, vn, table = block_step_inputs(
+        dev, dtype, kv, b + 1, hq, hkv, b * mb, bs, mb, dh, seed=seed)
+    return q[:b], kp, vp, kn[:b], vn[:b], table[:b].contiguous()
+
+
+def _garbage_rows(pool, rows):
+    """Rows ``rows`` of the garbage row at layer 1: payload and scales."""
+    if isinstance(pool, dict):
+        return pool["q"][1, -1, :, rows], pool["s"][1, -1, :, rows]
+    return (pool[1, -1, :, rows],)
+
+
+@pytest.mark.parametrize("dtype,kv", [
+    (torch.bfloat16, None), (torch.bfloat16, "int8"), (torch.bfloat16, "fp8"),
+    (torch.float16, "int8"), (torch.float32, None), (torch.float32, "fp8")])
+@pytest.mark.parametrize("hq,hkv,dh", [(8, 8, 128), (8, 2, 128), (16, 2, 64)])
+def test_block_decode_step_split_edges(cuda, dtype, kv, hq, hkv, dh):
+    """idx at the last and first positions of splits, MB*bs - 1, 0, and two
+    overflow slots (written to rows of the garbage row by split 0): pool
+    bytes bit-identical to the plain version's (every real row and the two
+    written garbage rows), output row by row, two launches bit for bit."""
+    b, bs, mb = 8, 16, 32
+    s = mb * bs
+    chunk, n_splits = split_plan(b, hkv, s, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert n_splits > 1, (chunk, n_splits)
+    q, kp, vp, kn, vn, table = _active_block_inputs(cuda, dtype, kv, b, hq, hkv,
+                                                    bs, mb, dh)
+    idx = [chunk - 1, chunk, 2 * chunk - 1, s - 1, s, s + 6, 0, 2 * chunk + 3]
+    iv = torch.tensor(idx, dtype=torch.int32, device=cuda)
+    k1, v1 = clone_pool(kp), clone_pool(vp)
+    k2, v2 = clone_pool(kp), clone_pool(vp)
+    out, _, _ = fused_block_decode_step(q, k1, v1, kn, vn, 1, iv, table)
+    ref, _, _ = fused_block_decode_step_plain(q, k2, v2, kn, vn, 1, iv, table)
+    again, _, _ = fused_block_decode_step(q, clone_pool(kp), clone_pool(vp), kn,
+                                          vn, 1, iv, table)
+    torch.cuda.synchronize()
+    assert real_rows_equal(k1, k2) and real_rows_equal(v1, v2)
+    written = [s % bs, (s + 6) % bs]
+    for a, r in ((k1, k2), (v1, v2)):
+        for x, y in zip(_garbage_rows(a, written), _garbage_rows(r, written)):
+            assert torch.equal(x, y)
+    assert not torch.equal(_garbage_rows(k1, written)[0],
+                           _garbage_rows(kp, written)[0])   # the writes landed
+    assert torch.isfinite(out.float()).all()
+    assert rel_err(out, ref) <= DECODE_TOL[dtype]
+    assert torch.equal(again, out), "not bit-identical run to run"
+
+
+def test_block_decode_step_replays_in_a_cuda_graph(cuda):
+    """A call captured in a CUDA graph, replayed after the device idx and
+    table change, equals the eager call on the new ones (the split plan
+    reads neither on the host; the scratch comes from the graph's pool)."""
+    b, hq, hkv, bs, mb, dh = 6, 16, 2, 16, 20, 128
+    q, kp, vp, kn, vn, table = _active_block_inputs(
+        cuda, torch.bfloat16, "int8", b, hq, hkv, bs, mb, dh)
+    iv = torch.tensor([0, 63, 64, 319, 320, 150], dtype=torch.int32, device=cuda)
+    tg = table.clone()
+    kg, vg = clone_pool(kp), clone_pool(vp)
+    fused_block_decode_step(q, clone_pool(kp), clone_pool(vp), kn, vn, 1, iv,
+                            tg)                                   # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_g, _, _ = fused_block_decode_step(q, kg, vg, kn, vn, 1, iv, tg)
+    for new, flip in (([5, 200, 64, 1, 0, 319], False),
+                      ([319, 0, 330, 130, 63, 64], True)):
+        for dst, src in ((kg, kp), (vg, vp)):
+            for key in ("q", "s"):
+                dst[key].copy_(src[key])
+        iv.copy_(torch.tensor(new, dtype=torch.int32, device=cuda))
+        tg.copy_(table.flip(1) if flip else table)
+        graph.replay()
+        ke, ve = clone_pool(kp), clone_pool(vp)
+        eager, _, _ = fused_block_decode_step(q, ke, ve, kn, vn, 1, iv, tg)
+        torch.cuda.synchronize()
+        assert torch.equal(out_g, eager), new
+        assert real_rows_equal(kg, ke) and real_rows_equal(vg, ve), new
+
+
 def _mm_inputs(dev, dtype, n, d, e, layers=2, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randint(-128, 128, (layers, d, e), generator=g, device=dev,
@@ -601,6 +689,31 @@ def test_block_sparse_kernels_repeat_bit_for_bit(cuda):
     again, _ = _sparse_run(cuda, torch.bfloat16, 2, 4, 16, 16, 128, "bigbird",
                            False, seed=5)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("block,nb,dh", [(16, 160, 128), (16, 160, 64),
+                                         (32, 144, 64), (64, 136, 128)])
+def test_block_sparse_dkv_columns_past_the_part_cap(cuda, dtype, block, nb, dh):
+    """dK/dV at a causal Fixed layout whose global columns hold more query
+    blocks than one work item takes (up to nb - 3 > 64), so they are cut in
+    parts and summed by the merge launch: against the plain version row by
+    row, and bit for bit on a repeat."""
+    layout = _sparse_layout("fixed", 2, nb, block)
+    luts = sparse_luts(layout, cuda)
+    assert luts.dkv_slots > 0 and luts.dkv_merge.shape[0] > 0
+    q, k, v, do = flash_inputs(cuda, dtype, 2 * 2, nb * block, dh, seed=block)
+    kw = dict(block=block, causal=True)
+    out, lse = block_sparse_fwd_plain(q, k, v, luts, **kw)
+    delta = block_sparse_delta(do, out)
+    got = block_sparse_bwd_dkv(q, k, v, do, lse, delta, luts, **kw)
+    again = block_sparse_bwd_dkv(q, k, v, do, lse, delta, luts, **kw)
+    want = block_sparse_bwd_dkv_plain(q, k, v, do, lse, delta, luts, **kw)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("dk", "dv"), got, want, again):
+        assert torch.isfinite(a.float()).all(), name
+        assert rel_err(a, b) <= SPARSE_TOL[dtype], (name, rel_err(a, b))
+        assert torch.equal(a, c), name
 
 
 def test_block_sparse_autograd_runs_the_kernels(cuda):

@@ -16,6 +16,10 @@ holds a right tiled implementation and rejects a wrong one.
 * The decode steps are held by the same metric: at the LLaMA-7B decode
   shape, a split of the cache left out of the merge is rejected, including
   the variant an absolute 2e-2 bound on the output passes.
+* So is the block-sparse dK/dV kernel's merge of partials: at a GPT-style
+  causal layout whose global columns are cut in two parts, dK summed from
+  its parts passes the sparse bound (1.6e-2 in bf16), and dK with one
+  part's partial left out is rejected.
 """
 
 import jax.numpy as jnp
@@ -28,8 +32,10 @@ from deepspeed_tpu_torch.ops.decode_step import fused_decode_step_plain
 from deepspeed_tpu_torch.ops.flash_attention import (flash_bwd_dkv_plain,
                                                      flash_bwd_dq_plain,
                                                      flash_fwd_parts_plain)
-from deepspeed_tpu_torch.ops.kernel_check import (flash_delta, flash_inputs,
-                                                  rel_err)
+from deepspeed_tpu_torch.ops.kernel_check import (dkv_by_parts, flash_delta,
+                                                  flash_inputs, rel_err)
+from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as tbs
+from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
 
 BF16_TOL = 2e-2
 
@@ -159,3 +165,32 @@ def test_decode_step_one_split_left_out_of_l_is_rejected():
     bad = _slot7(ref, p, v, (p * keep).sum(-1))
     assert rel_err(bad, ref) > BF16_TOL
     assert (bad.float() - ref.float()).abs().max() <= BF16_TOL
+
+
+SPARSE_BF16_TOL = 1.6e-2
+
+
+def test_sparse_dkv_one_partial_left_out_is_rejected():
+    """Layout (a)'s pattern (Fixed, 4 local, 1 global, unidirectional, block
+    16) at T 2048, bf16, Dh 64: the global column of key block 3 holds 125
+    query blocks, two parts of the work list. dK summed from all parts is
+    within the bound of the plain version; with that column's second part
+    left out it is rejected."""
+    t, blk, h = 2048, 16, 2
+    layout = FixedSparsityConfig(num_heads=h, block=blk, num_local_blocks=4,
+                                 num_global_blocks=1,
+                                 attention="unidirectional").make_layout(t)
+    luts = tbs.sparse_luts(layout, "cpu")
+    assert int(luts.cnt_k[0, 3]) == 125
+    qf, kf, vf, dof = flash_inputs("cpu", torch.bfloat16, h, t, 64, seed=7)
+    out, lse = tbs.block_sparse_fwd_plain(qf, kf, vf, luts, block=blk,
+                                          causal=True)
+    delta = tbs.block_sparse_delta(dof, out)
+    kw = dict(block=blk, causal=True)
+    ref, _ = tbs.block_sparse_bwd_dkv_plain(qf, kf, vf, dof, lse, delta, luts,
+                                            **kw)
+    good, _ = dkv_by_parts(qf, kf, vf, dof, lse, delta, luts, part=64, **kw)
+    bad, _ = dkv_by_parts(qf, kf, vf, dof, lse, delta, luts, part=64,
+                          drop={(3, 1)}, **kw)
+    assert rel_err(good, ref) <= SPARSE_BF16_TOL
+    assert rel_err(bad, ref) > 2 * SPARSE_BF16_TOL

@@ -21,6 +21,15 @@ Inputs come from numpy with a seed and go to both packages. Cases:
 * bf16 operands: the port's output within 8e-3 relative + 1e-2 absolute of
   JAX's. Both read bf16, compute in f32 and round the output once, so they
   differ by at most one bf16 ulp (2^-8 relative) of O(1) values;
+* the dK/dV kernel's work list (``dkv_work_list``): it covers every (head,
+  key block, query block) entry of the transposed table exactly once, in
+  table order within a column, with a cut column's parts on consecutive
+  partial slots in part order, over the fourteen layout cases (with a cap
+  that cuts their columns) and the chip run's two full-size layouts; the
+  plain dK/dV summed part by part in part order equals the plain version
+  within 1e-6 relative in f32; the group-busy share it gives at the chip
+  run's layout (a) is at least 0.9, where four consecutive key blocks to a
+  CUDA block (the first form of the kernel) give 0.259;
 * ``SparseSelfAttention``: the causal default from the config, the layout
   cache per sequence length, ``pad_to_block_size`` and
   ``unpad_sequence_output``;
@@ -41,7 +50,8 @@ from deepspeed_tpu.ops.sparse_attention import block_sparse as jbs
 from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.errors import NotPortedError
 from deepspeed_tpu_torch.ops import all_ops, get_op_builder
-from deepspeed_tpu_torch.ops.kernel_check import masked_row_layout
+from deepspeed_tpu_torch.ops.kernel_check import (dkv_by_parts,
+                                                  masked_row_layout, rel_err)
 from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as tbs
 import deepspeed_tpu_torch.ops.sparse_attention as tsa
 
@@ -267,6 +277,111 @@ def test_plain_versions_walk_only_table_columns():
     torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
     for a, b in zip(grads, rgrads):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# chip_smoke.py's full-size layouts: (a) GPT-style causal at T 8192 and
+# (b) BigBird at T 4096, block 16
+def _layout_a():
+    return tsa.FixedSparsityConfig(num_heads=32, block=16, num_local_blocks=4,
+                                   num_global_blocks=1,
+                                   attention="unidirectional").make_layout(8192)
+
+
+def _layout_b():
+    return tsa.BigBirdSparsityConfig(num_heads=16, block=16).make_layout(4096)
+
+
+def _case_layout(i):
+    cls, kw = LAYOUT_CASES[i]
+    heads = 4 if kw.get("different_layout_per_head") else H
+    return getattr(tsa, cls)(num_heads=heads, block=BLK, **kw).make_layout(T)
+
+
+WORK_CASES = ([(f"case{i}", i, part) for i in range(len(LAYOUT_CASES))
+               for part in (3, 64)]
+              + [("a_fixed_t8192", "a", 64), ("b_bigbird_t4096", "b", 64)])
+
+
+@pytest.mark.parametrize("name,which,part", WORK_CASES,
+                         ids=[c[0] + f"-p{c[2]}" for c in WORK_CASES])
+def test_dkv_work_list_covers_the_transposed_table(name, which, part):
+    layout = {"a": _layout_a, "b": _layout_b}.get(which, lambda: _case_layout(which))()
+    layout = np.asarray(layout) != 0
+    lut_k, cnt_k = tbs._active_lut(layout.transpose(0, 2, 1))
+    items, merge, n_slots = tbs.dkv_work_list(cnt_k, part)
+    h, nb = cnt_k.shape
+    counts = items[:, 2]
+    assert (np.diff(counts) <= 0).all()                 # longest first
+    assert (counts <= part).all() and (counts >= 0).all()
+    seen = np.zeros((h, nb, nb), dtype=np.int64)
+    by_col = {}
+    for col, first, count, slot in items:
+        hh, kj = divmod(int(col), nb)
+        for qi in lut_k[hh, kj, first:first + count]:
+            seen[hh, kj, qi] += 1
+        by_col.setdefault(int(col), []).append((first, count, slot))
+    # every active (head, key block, query block) exactly once
+    np.testing.assert_array_equal(seen, layout.transpose(0, 2, 1).astype(np.int64))
+    assert sorted(by_col) == list(range(h * nb))
+    merges = {int(m[0]): m for m in merge}
+    for col, parts in by_col.items():
+        parts.sort()
+        starts = [f for f, _, _ in parts]
+        # parts tile the column in table order
+        assert starts == [i * part for i in range(len(parts))]
+        assert sum(c for _, c, _ in parts) == cnt_k.reshape(-1)[col]
+        slots = [sl for _, _, sl in parts]
+        if len(parts) == 1:
+            assert slots == [-1] and col not in merges
+        else:                              # consecutive slots in part order
+            first_slot, n_parts = merges[col][1], merges[col][2]
+            assert n_parts == len(parts)
+            assert slots == list(range(first_slot, first_slot + n_parts))
+    assert n_slots == sum(len(p) for p in by_col.values() if len(p) > 1)
+
+
+@pytest.mark.parametrize("which,part,causal", [
+    ("fixed_unidirectional", 3, True), ("bigbird", 2, False),
+    ("longformer", 4, False)])
+def test_dkv_parts_sum_to_the_plain_version(which, part, causal):
+    """The plain dK/dV summed part by part, in part order (as the kernel's
+    merge sums its partials), equals the plain version within 1e-6
+    relative in f32: only the order of the f32 sums differs."""
+    t, blk, h = 256, 8, 2
+    cfg = {"fixed_unidirectional": tsa.FixedSparsityConfig(
+               num_heads=h, block=blk, num_local_blocks=2,
+               attention="unidirectional"),
+           "bigbird": tsa.BigBirdSparsityConfig(num_heads=h, block=blk, seed=1),
+           "longformer": tsa.BSLongformerSparsityConfig(
+               num_heads=h, block=blk, global_block_indices=[0, 9])}[which]
+    layout = cfg.make_layout(t)
+    luts = tbs.sparse_luts(layout, "cpu")
+    assert tbs.dkv_work_list(luts.cnt_k.numpy(), part)[2] > 0   # cuts happen
+    rng = np.random.RandomState(11)
+    qf, kf, vf, dof = (torch.from_numpy(rng.randn(2 * h, t, 64).astype(np.float32))
+                       for _ in range(4))
+    out, lse = tbs.block_sparse_fwd_plain(qf, kf, vf, luts, block=blk,
+                                          causal=causal)
+    delta = tbs.block_sparse_delta(dof, out)
+    ref = tbs.block_sparse_bwd_dkv_plain(qf, kf, vf, dof, lse, delta, luts,
+                                         block=blk, causal=causal)
+    got = dkv_by_parts(qf, kf, vf, dof, lse, delta, luts, block=blk,
+                       causal=causal, part=part)
+    for a, r in zip(got, ref):
+        assert rel_err(a, r) <= 1e-6
+
+
+def test_dkv_group_busy_at_layout_a():
+    """The work list keeps at least 0.9 of the row groups busy at layout (a),
+    where four consecutive key blocks to a CUDA block keep 0.259 (column
+    counts 4, 3, 2, 509, ...: the global column sets each block's time)."""
+    luts = tbs.sparse_luts(_layout_a(), "cpu")
+    groups = tbs.dkv_groups(16)
+    assert groups == 4
+    cnt = luts.cnt_k.numpy()
+    assert list(cnt[0, :4]) == [4, 3, 2, 509]
+    assert round(tbs.dkv_group_busy(cnt.reshape(-1), groups), 3) == 0.259
+    assert tbs.dkv_group_busy(luts.dkv_items[:, 2].numpy(), groups) >= 0.9
 
 
 class TestSparseSelfAttention:
