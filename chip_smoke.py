@@ -5,7 +5,9 @@
 Phases, each printing one JSON line (any failure raises and exits non-zero):
 
 1. device    — nvidia-smi's name and power limit; builds the CUDA kernels
-               from deepspeed_tpu_torch/csrc (nvcc, sm_90a) and times it.
+               from deepspeed_tpu_torch/csrc (nvcc, sm_90a) and times it;
+               counts HGMMA (wgmma) and HMMA (mma.sync) in the SASS of the
+               flash kernels (cuobjdump): each must issue HGMMA, none HMMA.
 2. kernels   — each hand-written kernel against its plain PyTorch version on
                the card at the serving path's full LLaMA-7B shapes (fused
                decode step: 8 slots x 32 heads x Dh 128 x S 1024, per-slot
@@ -69,13 +71,16 @@ Training (phases added after ``reference``, before the serving phases):
    kernels (flash) — the FlashAttention-2 kernels (forward; backward dQ;
                backward dK/dV) against their plain versions: bf16 at the
                GPT-2 774M training shape (B 8, H 20, T 1024, Dh 64) and at
-               Dh 128 (B 4, H 16, T 2048), causal and not, and f32 at a
-               small ragged shape. O and lse, then dQ/dK/dV from a fixed dO
+               Dh 128 (B 4, H 16, T 2048), causal and not, f32 at a
+               small ragged shape, and bf16 at the 774M width with ragged
+               T 1000 (causal). O and lse, then dQ/dK/dV from a fixed dO
                (each row within 2e-2 of its own max |x| in bf16, 1e-4 in
                f32: kernel_check.rel_err; lse within 1e-4 absolute);
-               O, lse and dQ/dK/dV bit-identical across two launches. Kernel, plain
-               and SDPA (forward, backward, forward+backward) times, each
-               captured in a CUDA graph.
+               O, lse and dQ/dK/dV bit-identical across two launches, and
+               dQ/dK/dV replayed from a CUDA graph bit for bit. Kernel,
+               plain and SDPA (forward, backward, forward+backward) times,
+               each captured in a CUDA graph; the bwd row holds E + F
+               against SDPA's backward.
    reference_train — a small fp32 GPT-2 (2 layers, hidden 256, 4 heads of
                Dh 64, vocab 2048, T 128, attn_impl="flash",
                compute_dtype=float32) trained 4 steps (gas 2, AdamW,
@@ -183,9 +188,11 @@ from __future__ import annotations
 import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -213,8 +220,9 @@ from deepspeed_tpu_torch.ops import get_op_builder
 from deepspeed_tpu_torch.ops.int8_matmul import (int8_matmul, int8_matmul_dma,
                                                  int8_matmul_plain)
 from deepspeed_tpu_torch.ops.kernel_check import (block_step_inputs,
-                                                  clone_pool, flash_delta,
-                                                  flash_inputs,
+                                                  capture_graph, clone_pool,
+                                                  flash_delta, flash_inputs,
+                                                  graph_replay,
                                                   masked_row_layout,
                                                   random_pool,
                                                   real_rows_equal, rel_err)
@@ -380,6 +388,32 @@ def time_ms(fn, n_inputs: int, per: int = 20, reps: int = 20,
 
 
 # --------------------------------------------------------------- phase 1
+FLASH_SASS = ("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
+
+
+def flash_sass_counts(lib_path) -> dict:
+    """HGMMA (wgmma) and HMMA (mma.sync) instructions in each 16-bit flash
+    kernel's SASS (``cuobjdump -sass`` of the built library, summed over
+    its instantiations); fails unless every one issues HGMMA and none HMMA."""
+    cuobjdump = (shutil.which("cuobjdump")
+                 or str(Path(cuda_build._nvcc()).with_name("cuobjdump")))
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts = {name: {"HGMMA": 0, "HMMA": 0} for name in FLASH_SASS}
+    current = None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            current = next((n for n in FLASH_SASS if n in line), None)
+        elif current is not None:
+            for op in ("HGMMA", "HMMA"):
+                if f" {op}." in line:
+                    counts[current][op] += 1
+    for name, c in counts.items():
+        assert c["HGMMA"] > 0 and c["HMMA"] == 0, (name, c)
+    return counts
+
+
 def phase_device() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -395,7 +429,8 @@ def phase_device() -> dict:
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "library": str(lib_path.name),
             "build_s": time.perf_counter() - t0,
-            "nvcc_build_s": cuda_build.build_seconds}
+            "nvcc_build_s": cuda_build.build_seconds,
+            "flash_sass": flash_sass_counts(lib_path)}
     emit(info)
     return info
 
@@ -666,14 +701,10 @@ def check_block_decode_edges(hkv, kv, graph: bool, b=8, hq=32, dh=128, bs=16,
            "pool_bit_identical": True, "overflow_rows_bit_identical": True,
            "bit_identical_run_to_run": True}
     if graph:
+        # the warm-up call writes the same rows the replay then writes again
         kg, vg = clone_pool(kp), clone_pool(vp)
-        fused_block_decode_step(q, clone_pool(kp), clone_pool(vp), kn, vn, 1,
-                                iv, table)                      # warm-up
-        torch.cuda.synchronize()
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            out_g, _, _ = fused_block_decode_step(q, kg, vg, kn, vn, 1, iv,
-                                                  table)
+        g, (out_g, _, _) = capture_graph(
+            lambda: fused_block_decode_step(q, kg, vg, kn, vn, 1, iv, table))
         g.replay()
         torch.cuda.synchronize()
         assert torch.equal(out_g, out), f"kernel C graph replay differs (kv {kv})"
@@ -703,11 +734,17 @@ def _bound(nbytes, flops, flop_rate):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def _flash_bwd(q, k, v, do, lse, delta, causal):
+    return (flash_bwd_dq(q, k, v, do, lse, delta, causal=causal),
+            *flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal))
+
+
 def check_flash(dtype, b, h, t, dh, causal, seed=0):
     """The three flash kernels against their plain versions at one shape
     (flat [B*H, T, Dh] operands), then their times. The backward is fed the
     plain version's lse and delta (so each kernel is held alone), from a
-    fixed dO; its outputs must be bit-identical across two launches."""
+    fixed dO; its outputs must be bit-identical across two launches and
+    when replayed from a CUDA graph."""
     dev = "cuda"
     bh = b * h
     sets = [flash_inputs(dev, dtype, bh, t, dh, seed=seed + i) for i in range(2)]
@@ -716,10 +753,10 @@ def check_flash(dtype, b, h, t, dh, causal, seed=0):
     out2, lse2 = flash_fwd_parts(q, k, v, causal=causal)
     ref, ref_lse = flash_fwd_parts_plain(q, k, v, causal=causal)
     delta = flash_delta(do, ref)
-    grads = (flash_bwd_dq(q, k, v, do, ref_lse, delta, causal=causal),
-             *flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal=causal))
-    again = (flash_bwd_dq(q, k, v, do, ref_lse, delta, causal=causal),
-             *flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal=causal))
+    grads = _flash_bwd(q, k, v, do, ref_lse, delta, causal)
+    again = _flash_bwd(q, k, v, do, ref_lse, delta, causal)
+    replayed = graph_replay(
+        lambda: _flash_bwd(q, k, v, do, ref_lse, delta, causal))
     plain = (flash_bwd_dq_plain(q, k, v, do, ref_lse, delta, causal=causal),
              *flash_bwd_dkv_plain(q, k, v, do, ref_lse, delta, causal=causal))
     torch.cuda.synchronize()
@@ -737,9 +774,11 @@ def check_flash(dtype, b, h, t, dh, causal, seed=0):
     assert lse_err <= LSE_TOL, ("lse", lse_err)
     assert all(torch.equal(x, y) for x, y in zip(grads, again)), \
         "flash backward not bit-identical across launches"
+    assert all(torch.equal(x, y) for x, y in zip(grads, replayed)), \
+        "flash backward from a CUDA graph differs from the eager launch"
     assert torch.equal(out, out2) and torch.equal(lse, lse2), \
         "flash forward not bit-identical across launches"
-    del out, out2, lse2, ref, grads, again, plain
+    del out, out2, lse2, ref, grads, again, replayed, plain
 
     # times, rotating two input sets (> 50 MB of operands at the main shapes)
     lses, deltas = [], []
@@ -788,6 +827,13 @@ def check_flash(dtype, b, h, t, dh, causal, seed=0):
     rate = BF16_FLOP_PER_S if dtype != torch.float32 else F32_FLOP_PER_S
     big = bh * t * dh * esz                  # one [BH, T, Dh] operand
     rows = bh * t * 4                        # one f32 row vector
+    fwd_b = _bound(4 * big + rows, 4 * bh * dh * pairs, rate)
+    dq_b = _bound(5 * big + 2 * rows, 6 * bh * dh * pairs, rate)
+    dkv_b = _bound(6 * big + 2 * rows, 8 * bh * dh * pairs, rate)
+    # E and F together compute dQ, dK, dV from q, k, v, dO, lse, delta: five
+    # products (S, dP, dV, dK, dQ), as SDPA's backward runs them. The pair
+    # runs seven (S and dP in both kernels), so it cannot reach this bound.
+    bwd_b = _bound(7 * big + 2 * rows, 10 * bh * dh * pairs, rate)
     return {"dtype": str(dtype).split(".")[-1], "b": b, "h": h, "t": t,
             "dh": dh, "causal": causal, "tol_rel": tol, "lse_max_abs_err": lse_err,
             "lse_tol": LSE_TOL, "errors": errs, "bwd_bit_identical": True,
@@ -795,18 +841,23 @@ def check_flash(dtype, b, h, t, dh, causal, seed=0):
             "attended_pairs": pairs,
             "fwd": {"kernel_ms": fwd, "plain_ms": p_fwd, "library_ms": lib_fwd,
                     "max_abs_err": max(errs["out"]["max_abs_err"], lse_err),
-                    **_bound(4 * big + rows, 4 * bh * dh * pairs, rate),
-                    **_shares(fwd, _bound(4 * big + rows, 4 * bh * dh * pairs,
-                                          rate)["bound_ms"], lib_fwd)},
+                    **fwd_b, **_shares(fwd, fwd_b["bound_ms"], lib_fwd)},
             "dq": {"kernel_ms": dq, "plain_ms": p_dq, "library_ms": lib_bwd,
                    "max_abs_err": errs["dq"]["max_abs_err"],
-                   **_bound(5 * big + 2 * rows, 6 * bh * dh * pairs, rate)},
+                   **dq_b, **_shares(dq, dq_b["bound_ms"], lib_bwd)},
             "dkv": {"kernel_ms": dkv, "plain_ms": p_dkv, "library_ms": lib_bwd,
                     "max_abs_err": max(errs["dk"]["max_abs_err"],
                                        errs["dv"]["max_abs_err"]),
-                    **_bound(6 * big + 2 * rows, 8 * bh * dh * pairs, rate)},
+                    **dkv_b, **_shares(dkv, dkv_b["bound_ms"], lib_bwd)},
+            "bwd": {"kernel_ms": dq + dkv, "plain_ms": p_dq + p_dkv,
+                    "library_ms": lib_bwd,
+                    "max_abs_err": max(errs[o]["max_abs_err"]
+                                       for o in ("dq", "dk", "dv")),
+                    **bwd_b, **_shares(dq + dkv, bwd_b["bound_ms"], lib_bwd)},
+            "bwd_replay_bit_identical": True,
             "library": "scaled_dot_product_attention: forward (fwd), backward "
-                       "of dQ, dK and dV together (dq, dkv rows)",
+                       "of dQ, dK and dV together (dq, dkv, bwd rows; bwd "
+                       "is E + F)",
             "sdpa_fwd_bwd_ms": lib_fb}
 
 
@@ -908,7 +959,9 @@ def phase_kernels() -> dict:
              check_flash(torch.bfloat16, 4, 16, 2048, 128, True),
              check_flash(torch.bfloat16, 4, 16, 2048, 128, False),
              check_flash(torch.float32, 2, 4, 200, 64, True),
-             check_flash(torch.float32, 2, 2, 136, 128, False)]
+             check_flash(torch.float32, 2, 2, 136, 128, False),
+             # ragged: T 1000 is no multiple of the 64-row tile
+             check_flash(torch.bfloat16, 8, 20, 1000, 64, True)]
     torch.cuda.empty_cache()
     # flash-decode: (a) CodeLlama-34B decode at batch 1 (generate's route),
     # (b) batch 4, (c) the rep-1 variant at LLaMA-7B's shape, (d) f32
@@ -2115,7 +2168,7 @@ def profile_train_step(eng, batch) -> dict:
     assert busy_us > 0, "the profiler saw no device time"
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     flash = {}
-    for name in ("flash_fwd_wgmma", "flash_bwd_dq_tc", "flash_bwd_dkv_tc"):
+    for name in ("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma"):
         flash[name] = sum(us for k, us in kernels.items() if name in k) / 1e3
     return {"host_ms": 1e3 * wall, "device_ms": busy_us / 1e3,
             "device_busy_share": busy_us / 1e6 / wall,

@@ -15,34 +15,37 @@
 // dS tile in registers.
 //
 // Design:
-//  * Forward (kernel D, flash_fwd_wgmma): Hopper's own route to the tensor
-//    cores, wgmma fed by TMA: a producer warp streams K/V tiles into a
-//    ring of mbarrier-guarded stages while a consumer warpgroup computes;
-//    see the note above the kernel.
-//  * Backward (kernels E and F): mma.sync m16n8k16 with one block of 4 warps
-//    per 64-row tile, each warp owning 16 rows. The walk over the other
-//    operand's tiles is a loop inside the block (the TPU grid's sequential
-//    dimension), with the next tile copied into shared memory with cp.async
-//    while this one is computed.
+//  * The three 16-bit kernels (D forward, E dQ, F dK/dV) take Hopper's own
+//    route to the tensor cores, wgmma fed by TMA (csrc/hopper.cuh): one
+//    block per 64-row tile of the operand it owns (Q for D and E, K and V
+//    for F), loaded once; a producer warp streams the other operand's
+//    64-row tiles into a ring of mbarrier-guarded stages; one consumer
+//    warpgroup issues the products and keeps their accumulators in
+//    registers. The walk over the streamed tiles is a loop inside the block
+//    (the TPU grid's sequential dimension). See the notes above each kernel.
+//  * Score products (S = Q K^T, dP = dO V^T, and F's S^T = K Q^T, dP^T =
+//    V dO^T) read both operands K-major from shared memory. Second-stage
+//    products (P V, dS K, P^T dO, dS^T Q) take the score tile, rounded to
+//    the storage dtype, as the register A operand (wgmma's accumulator and
+//    register-A layouts line up) and read B MN-major through the transpose
+//    mode.
 //  * Causal masking is top-left aligned (query row i sees key columns
 //    <= i, the reference's _causal_mask): whole tiles past the diagonal are
-//    skipped, the diagonal tile is masked element by element. Rows past T
-//    (the ragged tail tile) load as zeros and are masked to p = 0, so no
-//    garbage reaches a product; they are never written.
+//    never loaded; element masks run only on the tile that crosses the
+//    diagonal and on the ragged tail tile. Rows past T load as zeros (the
+//    tensor maps' fill) and are never written; masked scores give p = 0.
 //  * Rounding points of the reference: products take storage-dtype operands
 //    and accumulate in f32; p (forward, dQ and dK/dV) and dS are rounded to
-//    the storage dtype as the A operand of the second-stage products (P.V,
-//    dS.K, P^T.dO, dS^T.Q). The score tile's C fragment is re-read as that A
-//    fragment in registers (the m16n8k16 C and A layouts line up, and so do
-//    wgmma's accumulator and register-A layouts).
+//    the storage dtype as the A operand of the second-stage products.
 //  * Forward: online softmax with running max m (init -1e30) and sum l in
 //    f32, per-thread partial l reduced once at the end; O = acc /
 //    max(l, 1e-20) in the storage dtype, lse = m + log(max(l, 1e-20)) in f32.
 //  * Backward: p = exp(s - lse), ds = p * (dp - delta) from the caller's
-//    global lse and delta = rowsum(dO * O); dQ and dK are scaled once at the
-//    end (s was computed from unscaled q). Two kernels and no atomics: every
-//    output element is summed by one thread in a fixed order, so dQ, dK and
-//    dV are bit-identical run to run.
+//    global lse and delta = rowsum(dO * O), in the log2 domain (one FFMA and
+//    one ex2 a score); dQ and dK are scaled once at the end (s was computed
+//    from unscaled q). Two kernels and no atomics: every output element is
+//    summed by one thread in a fixed order, so dQ, dK and dV are
+//    bit-identical run to run and under CUDA-graph replay.
 //  * f32 operands take a CUDA-core path of the same structure (4 threads per
 //    row, each owning a quarter of Dh, dot products reduced by shuffles).
 #include <math_constants.h>
@@ -62,95 +65,45 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // ------------------------------------------------------------ tensor cores
+// Two f32 values rounded to one packed pair of T (lo in the low half).
 template <typename T>
-struct Mma;
-
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
 template <>
-struct Mma<__nv_bfloat16> {
-  __device__ static __forceinline__ void run(float* d, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  __device__ static __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 template <>
-struct Mma<__half> {
-  __device__ static __forceinline__ void run(float* d, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  __device__ static __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
-// Two stored 16-bit elements as one 32-bit operand register (lo in the low
-// half, the element order of the fragment layouts).
+// A 64-column f32 accumulator tile (wgmma's layout) rounded to T as the
+// register A operands of four k-steps of 16 (the m16n8k16 A layout).
 template <typename T>
-__device__ __forceinline__ uint32_t pack_raw(T lo, T hi) {
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(&lo)) |
-         (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(&hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Fragment loads from a row-major shared tile with row stride S elements;
-// g = lane / 4, t = lane % 4 (the PTX groupID / threadID_in_group).
-// A (16 x 16): rows r0.., columns k0.. of M.
-template <int S, typename T>
-__device__ __forceinline__ void frag_a(uint32_t* a, const T* m, int r0, int k0,
-                                       int g, int t) {
-  const T* p0 = m + (r0 + g) * S + k0 + 2 * t;
-  const T* p1 = p0 + 8 * S;
-  a[0] = ld32(p0);
-  a[1] = ld32(p1);
-  a[2] = ld32(p0 + 8);
-  a[3] = ld32(p1 + 8);
-}
-// B (16 x 8) with B[k][n] = M[n0 + n][k0 + k] (M holds B transposed: K for
-// Q.K^T, V for dO.V^T).
-template <int S, typename T>
-__device__ __forceinline__ void frag_bt(uint32_t* b, const T* m, int n0, int k0,
-                                        int g, int t) {
-  const T* p = m + (n0 + g) * S + k0 + 2 * t;
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
-}
-// B (16 x 8) with B[k][n] = M[k0 + k][n0 + n] (V for P.V, K for dS.K).
-template <int S, typename T>
-__device__ __forceinline__ void frag_bn(uint32_t* b, const T* m, int k0, int n0,
-                                        int g, int t) {
-  const T* p = m + (k0 + 2 * t) * S + n0 + g;
-  b[0] = pack_raw(p[0], p[S]);
-  b[1] = pack_raw(p[8 * S], p[9 * S]);
-}
-
-// Copy rows row0..row0+Rows-1 of a [n_rows, Dh] slab into a [Rows][S] shared
-// tile as one cp.async batch; rows past n_rows become zeros.
-template <int Dh, int Rows, int S, typename T>
-__device__ __forceinline__ void stage_rows(T* sm, const T* g, int row0, int n_rows) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kVpr = Dh / kVec;
-  for (int i = threadIdx.x; i < Rows * kVpr; i += kThreads) {
-    const int r = i / kVpr, c = (i - r * kVpr) * kVec;
-    const bool ok = row0 + r < n_rows;
-    cp_async16_zfill(sm + r * S + c, g + (size_t)(ok ? row0 + r : 0) * Dh + c, ok);
+__device__ __forceinline__ void to_a_operand(uint32_t (*a)[4], const float* x) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack2<T>(x[8 * kk + 0], x[8 * kk + 1]);
+    a[kk][1] = pack2<T>(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = pack2<T>(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = pack2<T>(x[8 * kk + 6], x[8 * kk + 7]);
   }
+}
+
+// The register A operand of k-step kk (16 columns) for warp w's rows
+// 16w..16w+15 of a 64-row tile kept as 128-byte-swizzled 64-column panels
+// (16-byte chunk j of row r stored at chunk j ^ (r % 8)).
+template <typename T>
+__device__ __forceinline__ void a_from_sw128(uint32_t* a, const T* tile, int kk, int w, int g,
+                                             int t) {
+  const unsigned char* p = reinterpret_cast<const unsigned char*>(tile + (kk / 4) * 64 * 64);
+  const int r0 = w * 16 + g, r1 = r0 + 8, ch = (kk % 4) * 2, sw = r0 & 7;
+  a[0] = *reinterpret_cast<const uint32_t*>(p + r0 * 128 + ((ch ^ sw) << 4) + 4 * t);
+  a[1] = *reinterpret_cast<const uint32_t*>(p + r1 * 128 + ((ch ^ sw) << 4) + 4 * t);
+  a[2] = *reinterpret_cast<const uint32_t*>(p + r0 * 128 + (((ch + 1) ^ sw) << 4) + 4 * t);
+  a[3] = *reinterpret_cast<const uint32_t*>(p + r1 * 128 + (((ch + 1) ^ sw) << 4) + 4 * t);
 }
 
 template <typename T>
@@ -361,13 +314,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
   // output rescaled to the tile's max
   uint32_t pa[BN / 16][4];
   auto to_operand = [&]() {
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      pa[kk][0] = Mma<T>::pack(sc[8 * kk + 0], sc[8 * kk + 1]);
-      pa[kk][1] = Mma<T>::pack(sc[8 * kk + 2], sc[8 * kk + 3]);
-      pa[kk][2] = Mma<T>::pack(sc[8 * kk + 4], sc[8 * kk + 5]);
-      pa[kk][3] = Mma<T>::pack(sc[8 * kk + 6], sc[8 * kk + 7]);
-    }
+    to_a_operand<T>(pa, sc);
 #pragma unroll
     for (int j = 0; j < Dh / 8; ++j) {
       acc[4 * j + 0] *= corr[0];
@@ -384,7 +331,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
     for (int kk = 0; kk < BN / 16; ++kk) {
       const uint64_t dv = sw128_desc(vs + kk * 16 * 64, PANEL_KV * (int)sizeof(T), 1024);
       if constexpr (Dh == 64)
-        Wgmma<T>::rs_n64_mn(acc, pa[kk], dv);
+        Wgmma<T>::template rs_n64<1>(acc, pa[kk], dv);
       else
         Wgmma<T>::rs_n128_mn(acc, pa[kk], dv);
     }
@@ -441,247 +388,535 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// -------------------------------------------------------------- backward dQ
+// --------------------------------------------------------------- backward
+// Kernels E (dQ) and F (dK/dV) on Hopper, on kernel D's skeleton: the rows
+// a block owns are loaded once by TMA; the other operand's 64-row tiles
+// stream through a ring of stages whose `full` barrier completes on the
+// bytes and whose `empty` barrier on the 128 consumer threads' release.
+//  * Per score: p = 2^(s * scale_log2 - lse * log2 e) as one FFMA and one
+//    ex2 (lse * log2 e folded once per row; the caller's lse needs no max,
+//    so a negative scale needs no care), then ds = p * (dp - delta).
+//  * The elementwise step of one tile overlaps the previous tile's
+//    gradient products on the tensor cores (E; F at Dh 64): the next
+//    tile's two score products and this tile's gradient products are
+//    issued back to back, and only the score products are waited for. The
+//    body has no branch between a product's issue and its wait (the last
+//    tile is peeled), so ptxas keeps the products asynchronous
+//    (C7514/C7515 otherwise).
+//  * Both run 256 threads: a consumer warpgroup and a producer warpgroup
+//    of which one warp works. ptxas caps __launch_bounds__(160, 2) at 168
+//    registers, where E at Dh 128 and F at Dh 64 spilled and had their
+//    products serialised (C7512); with 256 threads the producer warpgroup
+//    can give its registers to the consumers (setmaxnreg).
 template <typename T, int Dh>
-struct DqTC {
-  static constexpr int BM = 64, BN = 64, S = Dh + 8;
-  static size_t smem() { return (size_t)(2 * BM + 4 * BN) * S * sizeof(T); }
+struct BwdTile {
+  static constexpr int BM = 64, BN = 64, kPanels = Dh / 64;
+  static constexpr int kPanel = 64 * 64;  // elements of one 64-row, 64-column panel
+  static constexpr uint32_t kTileBytes = 64 * Dh * sizeof(T);
+};
+
+// Kernel E: one block per (bh, 64-row Q tile) of one consumer warpgroup
+// (warps 0-3, 16 rows each) and a producer warpgroup whose warp 4 works.
+// The producer loads the Q and dO tiles once, then the walk's (K, V) tile
+// pairs, one pair a stage, released once dQ += dS K has read K. S = Q K^T
+// and dP = dO V^T are wgmma with K and V K-major in shared memory; dS stays
+// in registers and, rounded to T, is the A operand of dQ += dS K (K read
+// MN-major). The causal walk stops at the diagonal tile; tiles run longest
+// first (the last Q tile at blockIdx.x = 0), so the blocks of one bh run
+// together, sharing its K/V in the L2.
+//  * Dh 64: Q and dO are the register A operands of the score products,
+//    loaded once from their swizzled tiles (shared-memory reads per tile
+//    fall from 56 to 40 KB; 0.079 against 0.083 ms at GPT-2 774M's causal
+//    shape on an H100). Two blocks an SM: the producer warpgroup gives its
+//    registers to the consumers (setmaxnreg 24/232).
+//  * Dh 128: both from shared memory (the registers would not fit), and a
+//    3-stage ring at one block an SM (no setmaxnreg: the block has the
+//    SM's registers): the walk holds two stages at once (K(kt) for dQ,
+//    K(kt+1) for S), so two stages left no load in flight (0.38 against
+//    0.24 ms at B 4, H 16, T 2048, causal).
+template <typename T, int Dh>
+struct DqH : BwdTile<T, Dh> {
+  static constexpr bool kRS = Dh == 64;  // Q, dO as register A operands
+  // stages of the (K, V) ring: Dh 64, 80 KB a block; Dh 128, 128 KB
+  static constexpr int kStages = Dh == 64 ? 4 : 3;
+  static constexpr int kMinBlocks = Dh == 64 ? 2 : 1;
+  static constexpr size_t kBarOff = (size_t)(2 + 2 * kStages) * BwdTile<T, Dh>::kTileBytes;
+  static size_t smem() { return 1024 + kBarOff + 8 * (1 + 2 * kStages); }
 };
 
 template <typename T, int Dh>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_tc(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, int tq, int tk,
-                int causal, float scale) {
-  using Cfg = DqTC<T, Dh>;
-  constexpr int BM = Cfg::BM, BN = Cfg::BN, S = Cfg::S, ND = Dh / 8, KD = Dh / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* q_sh = reinterpret_cast<T*>(smem_raw);   // [BM][S]
-  T* do_sh = q_sh + BM * S;                    // [BM][S]
-  T* k_sh = do_sh + BM * S;                    // [2][BN][S]
-  T* v_sh = k_sh + 2 * BN * S;                 // [2][BN][S]
-  const int bh = blockIdx.y, q0 = blockIdx.x * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const size_t qoff = (size_t)bh * tq * Dh, koff = (size_t)bh * tk * Dh;
+__global__ void __launch_bounds__(256, DqH<T, Dh>::kMinBlocks)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const __grid_constant__ CUtensorMap domap,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   T* __restrict__ dq, int tq, int tk, int causal, float scale) {
+  using namespace dst::hopper;
+  using C = DqH<T, Dh>;
+  constexpr int BM = C::BM, BN = C::BN, S = C::kStages, NP = C::kPanels, PANEL = C::kPanel;
+  constexpr uint32_t kTile = C::kTileBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  T* q_sh = reinterpret_cast<T*>(base);  // [NP][BM][64]
+  T* do_sh = q_sh + NP * PANEL;           // [NP][BM][64]
+  T* k_sh = do_sh + NP * PANEL;           // [S][NP][BN][64]
+  T* v_sh = k_sh + S * NP * PANEL;        // [S][NP][BN][64]
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(base + C::kBarOff);
+  uint64_t* full = q_bar + 1;
+  uint64_t* empty = full + S;
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;  // longest tiles first
   int n_kt = (tk + BN - 1) / BN;
   if (causal) n_kt = min(n_kt, (q0 + BM - 1) / BN + 1);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  stage_rows<Dh, BM, S>(q_sh, q + qoff, q0, tq);
-  stage_rows<Dh, BM, S>(do_sh, dout + qoff, q0, tq);
-  stage_rows<Dh, BN, S>(k_sh, k + koff, 0, tk);
-  stage_rows<Dh, BN, S>(v_sh, v + koff, 0, tk);
-  cp_async_commit();
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
+  if (warp >= 4) {  // ------------------------------------------ producer
+    if constexpr (C::kMinBlocks == 2) regs_dealloc<24>();
+    if (warp == 4 && lane == 0) {
+      mbar_expect_tx(q_bar, 2 * kTile);
+      for (int p = 0; p < NP; ++p) {
+        tma_load_3d(q_sh + p * PANEL, &qmap, q_bar, p * 64, q0, bh);
+        tma_load_3d(do_sh + p * PANEL, &domap, q_bar, p * 64, q0, bh);
+      }
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % S;
+        if (kt >= S) mbar_wait(&empty[s], ((kt / S) - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * kTile);
+        for (int p = 0; p < NP; ++p) {
+          tma_load_3d(k_sh + (s * NP + p) * PANEL, &kmap, &full[s], p * 64, kt * BN, bh);
+          tma_load_3d(v_sh + (s * NP + p) * PANEL, &vmap, &full[s], p * 64, kt * BN, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  const int g = lane >> 2, t = lane & 3;
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  float lse_r[2], dl_r[2];
+  const float scale_log2 = scale * kLog2e;
+  float lse2[2], dl[2];  // per row: lse * log2 e and delta (0 past tq)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const bool ok = row[i] < tq;
-    lse_r[i] = ok ? lse[(size_t)bh * tq + row[i]] : 0.f;
-    dl_r[i] = ok ? delta[(size_t)bh * tq + row[i]] : 0.f;
+    lse2[i] = ok ? lse[(size_t)bh * tq + row[i]] * kLog2e : 0.f;
+    dl[i] = ok ? delta[(size_t)bh * tq + row[i]] : 0.f;
   }
-  float acc[ND][4];
+  if constexpr (C::kMinBlocks == 2) regs_alloc<232>();
+  float acc[Dh / 2];
 #pragma unroll
-  for (int i = 0; i < ND; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < Dh / 2; ++i) acc[i] = 0.f;
+  mbar_wait(q_bar, 0);
+  uint32_t qa[C::kRS ? Dh / 16 : 1][4], doa[C::kRS ? Dh / 16 : 1][4];
+  if constexpr (C::kRS) {
+#pragma unroll
+    for (int kk = 0; kk < Dh / 16; ++kk) {
+      a_from_sw128<T>(qa[kk], q_sh, kk, warp, g, t);
+      a_from_sw128<T>(doa[kk], do_sh, kk, warp, g, t);
+    }
+  }
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < n_kt) {
-      stage_rows<Dh, BN, S>(k_sh + (cur ^ 1) * BN * S, k + koff, (kt + 1) * BN, tk);
-      stage_rows<Dh, BN, S>(v_sh + (cur ^ 1) * BN * S, v + koff, (kt + 1) * BN, tk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  // S(kt) = Q K(kt)^T into sc and dP(kt) = dO V(kt)^T into dp, issued and
+  // committed as one group
+  float sc[BN / 2], dp[BN / 2];
+  auto issue_sdp = [&](int kt) {
+    const int s = kt % S;
+    mbar_wait(&full[s], (kt / S) & 1);
+    const T* ks = k_sh + s * NP * PANEL;
+    const T* vs = v_sh + s * NP * PANEL;
+#pragma unroll
+    for (int kk = 0; kk < Dh / 16; ++kk) {
+      const int p = kk / 4, c = (kk % 4) * 16;
+      if constexpr (C::kRS)
+        Wgmma<T>::template rs_n64<0>(sc, qa[kk], sw128_desc(ks + p * PANEL + c, 16, 1024),
+                                     kk > 0);
+      else
+        Wgmma<T>::ss_n64(sc, sw128_desc(q_sh + p * PANEL + c, 16, 1024),
+                         sw128_desc(ks + p * PANEL + c, 16, 1024), kk > 0);
     }
-    __syncthreads();
-    const T* ks = k_sh + cur * BN * S;
-    const T* vs = v_sh + cur * BN * S;
-    float s[BN / 8][4], dp[BN / 8][4];
 #pragma unroll
-    for (int n = 0; n < BN / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t aq[4], ad[4];
-      frag_a<S>(aq, q_sh, warp * 16, kk * 16, g, t);
-      frag_a<S>(ad, do_sh, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < BN / 8; ++n) {
-        uint32_t b[2];
-        frag_bt<S>(b, ks, n * 8, kk * 16, g, t);
-        Mma<T>::run(s[n], aq, b);
-        frag_bt<S>(b, vs, n * 8, kk * 16, g, t);
-        Mma<T>::run(dp[n], ad, b);
-      }
+    for (int kk = 0; kk < Dh / 16; ++kk) {
+      const int p = kk / 4, c = (kk % 4) * 16;
+      if constexpr (C::kRS)
+        Wgmma<T>::template rs_n64<0>(dp, doa[kk], sw128_desc(vs + p * PANEL + c, 16, 1024),
+                                     kk > 0);
+      else
+        Wgmma<T>::ss_n64(dp, sw128_desc(do_sh + p * PANEL + c, 16, 1024),
+                         sw128_desc(vs + p * PANEL + c, 16, 1024), kk > 0);
     }
-    const int k0 = kt * BN;
-    // ds = p * (dp - delta), p = exp(s - lse); kept in s
+    wg_commit();
+  };
+  // ds = p (dp - delta) in place of s; element masks only in the copy for
+  // the tile that crosses the diagonal or the ragged key tail
+  auto ds_body = [&](int kt, auto masked) {
+    constexpr bool kMask = decltype(masked)::value;
 #pragma unroll
-    for (int n = 0; n < BN / 8; ++n)
+    for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + 2 * t + (e & 1);
-        const float p = live(row[e >> 1], col, tq, tk, causal)
-                            ? expf(s[n][e] * scale - lse_r[e >> 1]) : 0.f;
-        s[n][e] = p * (dp[n][e] - dl_r[e >> 1]);
+        float p = fast_exp2(fmaf(sc[4 * j + e], scale_log2, -lse2[e >> 1]));
+        if constexpr (kMask) {
+          const int col = kt * BN + 8 * j + 2 * t + (e & 1);
+          if (col >= tk || (causal && col > row[e >> 1])) p = 0.f;
+        }
+        sc[4 * j + e] = p * (dp[4 * j + e] - dl[e >> 1]);
       }
-    // dq += ds . k, ds rounded to the storage type
+  };
+  auto ds = [&](int kt) {
+    const int k0 = kt * BN;
+    if ((causal && k0 + BN - 1 > q0) || k0 + BN > tk)
+      ds_body(kt, std::true_type{});
+    else
+      ds_body(kt, std::false_type{});
+  };
+  // dQ += dS(kt) K(kt), K MN-major; issued and committed
+  uint32_t da[BN / 16][4];
+  auto issue_dq = [&](int kt) {
+    const T* ks = k_sh + (kt % S) * NP * PANEL;
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t a[4] = {Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]),
-                             Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]),
-                             Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int d = 0; d < ND; ++d) {
-        uint32_t b[2];
-        frag_bn<S>(b, ks, kk * 16, d * 8, g, t);
-        Mma<T>::run(acc[d], a, b);
-      }
+      const uint64_t kd = sw128_desc(ks + kk * 16 * 64, PANEL * (int)sizeof(T), 1024);
+      if constexpr (Dh == 64)
+        Wgmma<T>::template rs_n64<1>(acc, da[kk], kd);
+      else
+        Wgmma<T>::rs_n128_mn(acc, da[kk], kd);
     }
-    __syncthreads();
+    wg_commit();
+  };
+
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) sc[i] = dp[i] = 0.f;
+  fence_regs<BN / 2>(sc);
+  fence_regs<BN / 2>(dp);
+  wg_fence();
+  issue_sdp(0);
+  wg_wait<0>();
+  fence_regs<BN / 2>(sc);
+  fence_regs<BN / 2>(dp);
+  ds(0);
+  for (int kt = 0; kt + 1 < n_kt; ++kt) {
+    to_a_operand<T>(da, sc);
+    fence_regs<BN / 2>(sc);
+    fence_regs<BN / 2>(dp);
+    fence_regs<Dh / 2>(acc);
+    wg_fence();
+    issue_sdp(kt + 1);
+    issue_dq(kt);
+    wg_wait<1>();  // S, dP(kt+1) are in; dQ(kt) may still run
+    fence_regs<BN / 2>(sc);
+    fence_regs<BN / 2>(dp);
+    ds(kt + 1);
+    wg_wait<0>();
+    fence_regs<Dh / 2>(acc);
+    mbar_arrive(&empty[kt % S]);  // K(kt), V(kt) are done with
   }
+  to_a_operand<T>(da, sc);
+  fence_regs<Dh / 2>(acc);
+  wg_fence();
+  issue_dq(n_kt - 1);
+  wg_wait<0>();
+  fence_regs<Dh / 2>(acc);
+  mbar_arrive(&empty[(n_kt - 1) % S]);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (row[i] >= tq) continue;
     T* drow = dq + ((size_t)bh * tq + row[i]) * Dh;
 #pragma unroll
-    for (int d = 0; d < ND; ++d)
-      store2<T>(drow + d * 8 + 2 * t, acc[d][2 * i] * scale, acc[d][2 * i + 1] * scale);
+    for (int j = 0; j < Dh / 8; ++j)
+      store2<T>(drow + 8 * j + 2 * t, acc[4 * j + 2 * i] * scale, acc[4 * j + 2 * i + 1] * scale);
   }
 }
 
-// ----------------------------------------------------------- backward dK/dV
+// Kernel F: one block per (bh, 64-key tile) of one consumer warpgroup
+// (warps 0-3) and a producer warpgroup whose warp 4 works. The producer
+// loads the K and V tiles once, then streams the walk's 64-query tiles of Q
+// and dO by TMA, its 32 lanes staging the tiles' 64 lse and delta entries
+// beside them (plain loads: a TMA box must start 16-byte aligned, and
+// bh * Tq + row need not be), one stage each, released once dV and dK have
+// read them. S^T = K Q^T and dP^T = V dO^T are wgmma from shared memory;
+// each accumulator column (a query) takes its lse and delta from the staged
+// entries; P^T and dS^T, rounded to T, are the A operands of dV += P^T dO
+// and dK += dS^T Q (dO and Q read MN-major). The causal walk starts at the
+// first query tile that sees the key tile; key tile 0, the longest walk, is
+// at blockIdx.x = 0. A key tile no query sees (causal, Tk > Tq) writes
+// zeros.
+//  * Registers: dK and dV stay in registers for the whole walk (Dh
+//    f32 a thread). The producer warpgroup gives its registers to the
+//    consumers (setmaxnreg: 232 a consumer thread, 24 a producer thread), so
+//    two blocks fit an SM (at 160 threads Dh 64 took 201 registers, one
+//    block an SM: 0.157 against 0.115 ms at GPT-2 774M's causal shape on an
+//    H100).
+//  * Dh 64: the elementwise step overlaps the previous tile's dV/dK
+//    products (as in kernel E). Dh 128: dK and dV alone take 128 registers
+//    a thread, so a tile's score products, elementwise step and gradient
+//    products run in turn; the SM's other block fills the gaps (one block
+//    of 160 threads at up to 255 registers: 0.34 against 0.29 ms at B 4,
+//    H 16, T 2048, causal).
 template <typename T, int Dh>
-struct DkvTC {
-  static constexpr int BM = 64, BN = 32, S = Dh + 8;
-  static size_t smem() {
-    return (size_t)(2 * BM + 4 * BN) * S * sizeof(T) + 4 * BN * sizeof(float);
-  }
+struct DkvH : BwdTile<T, Dh> {
+  using B = BwdTile<T, Dh>;
+  static constexpr bool kOverlap = Dh == 64;
+  // stages of the (Q, dO, lse, delta) ring: Dh 64, 82 KB a block; Dh 128,
+  // 97 KB; two blocks an SM
+  static constexpr int kStages = Dh == 64 ? 4 : 2;
+  static constexpr uint32_t kRowBytes = B::BN * sizeof(float);  // one stage's lse or delta
+  static constexpr size_t kRowOff = (size_t)(2 + 2 * kStages) * B::kTileBytes;
+  static constexpr size_t kBarOff = kRowOff + 2 * kStages * kRowBytes;
+  static size_t smem() { return 1024 + kBarOff + 8 * (1 + 2 * kStages); }
 };
 
 template <typename T, int Dh>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_tc(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                 int tq, int tk, int causal, float scale) {
-  using Cfg = DkvTC<T, Dh>;
-  constexpr int BM = Cfg::BM, BN = Cfg::BN, S = Cfg::S, ND = Dh / 8, KD = Dh / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* k_sh = reinterpret_cast<T*>(smem_raw);   // [BM][S]
-  T* v_sh = k_sh + BM * S;                     // [BM][S]
-  T* q_sh = v_sh + BM * S;                     // [2][BN][S]
-  T* do_sh = q_sh + 2 * BN * S;                // [2][BN][S]
-  float* lse_sh = reinterpret_cast<float*>(do_sh + 2 * BN * S);  // [2][BN]
-  float* dl_sh = lse_sh + 2 * BN;                                  // [2][BN]
+__global__ void __launch_bounds__(256, 2)
+flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap domap,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    T* __restrict__ dk, T* __restrict__ dv, int tq, int tk, int causal,
+                    float scale) {
+  using namespace dst::hopper;
+  using C = DkvH<T, Dh>;
+  constexpr int BM = C::BM, BN = C::BN, S = C::kStages, NP = C::kPanels, PANEL = C::kPanel;
+  constexpr uint32_t kTile = C::kTileBytes;
+  extern __shared__ unsigned char smem_raw[];
   const int bh = blockIdx.y, k0 = blockIdx.x * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const size_t qoff = (size_t)bh * tq * Dh, koff = (size_t)bh * tk * Dh;
   const int n_qt = (tq + BN - 1) / BN;
-  const int qt0 = causal ? min(k0 / BN, n_qt) : 0;   // earlier q tiles see none of these keys
-
-  auto stage_q = [&](int qt, int buf) {
-    const int r0 = qt * BN;
-    stage_rows<Dh, BN, S>(q_sh + buf * BN * S, q + qoff, r0, tq);
-    stage_rows<Dh, BN, S>(do_sh + buf * BN * S, dout + qoff, r0, tq);
-    if (threadIdx.x < BN) {
-      const int r = r0 + threadIdx.x;
-      lse_sh[buf * BN + threadIdx.x] = r < tq ? lse[(size_t)bh * tq + r] : 0.f;
-      dl_sh[buf * BN + threadIdx.x] = r < tq ? delta[(size_t)bh * tq + r] : 0.f;
+  const int qt0 = causal ? min(k0 / BN, n_qt) : 0;  // earlier q tiles see none of these keys
+  const int n_walk = n_qt - qt0;
+  if (n_walk == 0) {  // no query sees these keys: dK = dV = 0
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    constexpr int kVpr = Dh * sizeof(T) / 16;
+    for (int i = threadIdx.x; i < BM * kVpr; i += blockDim.x) {
+      const int r = k0 + i / kVpr, c = i % kVpr;
+      if (r >= tk) continue;
+      reinterpret_cast<uint4*>(dk + ((size_t)bh * tk + r) * Dh)[c] = zero;
+      reinterpret_cast<uint4*>(dv + ((size_t)bh * tk + r) * Dh)[c] = zero;
     }
-  };
-  stage_rows<Dh, BM, S>(k_sh, k + koff, k0, tk);
-  stage_rows<Dh, BM, S>(v_sh, v + koff, k0, tk);
-  if (qt0 < n_qt) stage_q(qt0, 0);
-  cp_async_commit();
+    return;
+  }
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  T* k_sh = reinterpret_cast<T*>(base);  // [NP][BM][64]
+  T* v_sh = k_sh + NP * PANEL;            // [NP][BM][64]
+  T* q_sh = v_sh + NP * PANEL;            // [S][NP][BN][64]
+  T* do_sh = q_sh + S * NP * PANEL;       // [S][NP][BN][64]
+  float* lse_sh = reinterpret_cast<float*>(base + C::kRowOff);  // [S][BN]
+  float* dl_sh = lse_sh + S * BN;                               // [S][BN]
+  uint64_t* kv_bar = reinterpret_cast<uint64_t*>(base + C::kBarOff);
+  uint64_t* full = kv_bar + 1;
+  uint64_t* empty = full + S;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  float dka[ND][4], dva[ND][4];
-#pragma unroll
-  for (int i = 0; i < ND; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
-
-  for (int qt = qt0; qt < n_qt; ++qt) {
-    const int cur = (qt - qt0) & 1;
-    if (qt + 1 < n_qt) {
-      stage_q(qt + 1, cur ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(kv_bar, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the TMA bytes' arrival + the 32 lanes'
+      mbar_init(&empty[s], 128);
     }
-    __syncthreads();
-    const T* qs = q_sh + cur * BN * S;
-    const T* ds_ = do_sh + cur * BN * S;
-    const float* ls = lse_sh + cur * BN;
-    const float* dls = dl_sh + cur * BN;
-    // s^T = k . q^T and dp^T = v . dO^T, [keys x queries]
-    float st[BN / 8][4], dpt[BN / 8][4];
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t ak[4], av[4];
-      frag_a<S>(ak, k_sh, warp * 16, kk * 16, g, t);
-      frag_a<S>(av, v_sh, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < BN / 8; ++n) {
-        uint32_t b[2];
-        frag_bt<S>(b, qs, n * 8, kk * 16, g, t);
-        Mma<T>::run(st[n], ak, b);
-        frag_bt<S>(b, ds_, n * 8, kk * 16, g, t);
-        Mma<T>::run(dpt[n], av, b);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4) {  // ------------------------------------------ producer
+    regs_dealloc<24>();
+    if (warp == 4) {
+      if (lane == 0) {
+        mbar_expect_tx(kv_bar, 2 * kTile);
+        for (int p = 0; p < NP; ++p) {
+          tma_load_3d(k_sh + p * PANEL, &kmap, kv_bar, p * 64, k0, bh);
+          tma_load_3d(v_sh + p * PANEL, &vmap, kv_bar, p * 64, k0, bh);
+        }
+      }
+      const float* lse_bh = lse + (size_t)bh * tq;
+      const float* dl_bh = delta + (size_t)bh * tq;
+      for (int i = 0; i < n_walk; ++i) {
+        const int s = i % S, r0 = (qt0 + i) * BN;
+        if (i >= S) mbar_wait(&empty[s], ((i / S) - 1) & 1);
+        if (lane == 0) {
+          mbar_expect_tx(&full[s], 2 * kTile);
+          for (int p = 0; p < NP; ++p) {
+            tma_load_3d(q_sh + (s * NP + p) * PANEL, &qmap, &full[s], p * 64, r0, bh);
+            tma_load_3d(do_sh + (s * NP + p) * PANEL, &domap, &full[s], p * 64, r0, bh);
+          }
+        }
+        for (int c = lane; c < BN; c += 32) {  // 0 past tq (masked there)
+          const bool ok = r0 + c < tq;
+          lse_sh[s * BN + c] = ok ? lse_bh[r0 + c] : 0.f;
+          dl_sh[s * BN + c] = ok ? dl_bh[r0 + c] : 0.f;
+        }
+        mbar_arrive(&full[s]);  // releases the stores to the consumers
       }
     }
-    const int q0 = qt * BN;
+    return;
+  }
+  regs_alloc<232>();
+
+  // ------------------------------------------------------------ consumers
+  const int g = lane >> 2, t = lane & 3;
+  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  const float scale_log2 = scale * kLog2e;
+  float dka[Dh / 2], dva[Dh / 2];
 #pragma unroll
-    for (int n = 0; n < BN / 8; ++n)
+  for (int i = 0; i < Dh / 2; ++i) dka[i] = dva[i] = 0.f;
+  mbar_wait(kv_bar, 0);
+
+  // S^T(i) = K Q(i)^T into st and dP^T(i) = V dO(i)^T into dpt, issued and
+  // committed as one group
+  float st[BN / 2], dpt[BN / 2];
+  auto issue_sdp = [&](int i) {
+    const int s = i % S;
+    mbar_wait(&full[s], (i / S) & 1);
+    const T* qs = q_sh + s * NP * PANEL;
+    const T* dos = do_sh + s * NP * PANEL;
+#pragma unroll
+    for (int kk = 0; kk < Dh / 16; ++kk) {
+      const int p = kk / 4, c = (kk % 4) * 16;
+      Wgmma<T>::ss_n64(st, sw128_desc(k_sh + p * PANEL + c, 16, 1024),
+                       sw128_desc(qs + p * PANEL + c, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < Dh / 16; ++kk) {
+      const int p = kk / 4, c = (kk % 4) * 16;
+      Wgmma<T>::ss_n64(dpt, sw128_desc(v_sh + p * PANEL + c, 16, 1024),
+                       sw128_desc(dos + p * PANEL + c, 16, 1024), kk > 0);
+    }
+    wg_commit();
+  };
+  // p^T in place of s^T, ds^T = p^T (dp^T - delta) in place of dp^T; the
+  // lse and delta of column (query) 8j + 2t + e%2 from the staged entries
+  auto ew_body = [&](int i, auto masked) {
+    constexpr bool kMask = decltype(masked)::value;
+    const int q0 = (qt0 + i) * BN;
+    const float* ls = lse_sh + (i % S) * BN;
+    const float* dls = dl_sh + (i % S) * BN;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
+      const float2 d = *reinterpret_cast<const float2*>(dls + 8 * j + 2 * t);
+      const float nl[2] = {-l.x * kLog2e, -l.y * kLog2e}, dd[2] = {d.x, d.y};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int cl = n * 8 + 2 * t + (e & 1);
-        const float p = live(q0 + cl, key[e >> 1], tq, tk, causal)
-                            ? expf(st[n][e] * scale - ls[cl]) : 0.f;
-        st[n][e] = p;                            // p^T
-        dpt[n][e] = p * (dpt[n][e] - dls[cl]);   // ds^T
-      }
-    // dv += p^T . dO and dk += ds^T . q, operands rounded to the storage type
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t ap[4] = {Mma<T>::pack(st[2 * kk][0], st[2 * kk][1]),
-                              Mma<T>::pack(st[2 * kk][2], st[2 * kk][3]),
-                              Mma<T>::pack(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-                              Mma<T>::pack(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-      const uint32_t as[4] = {Mma<T>::pack(dpt[2 * kk][0], dpt[2 * kk][1]),
-                              Mma<T>::pack(dpt[2 * kk][2], dpt[2 * kk][3]),
-                              Mma<T>::pack(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
-                              Mma<T>::pack(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
-#pragma unroll
-      for (int d = 0; d < ND; ++d) {
-        uint32_t b[2];
-        frag_bn<S>(b, ds_, kk * 16, d * 8, g, t);
-        Mma<T>::run(dva[d], ap, b);
-        frag_bn<S>(b, qs, kk * 16, d * 8, g, t);
-        Mma<T>::run(dka[d], as, b);
+        float p = fast_exp2(fmaf(st[4 * j + e], scale_log2, nl[e & 1]));
+        if constexpr (kMask) {
+          const int qc = q0 + 8 * j + 2 * t + (e & 1);
+          if (qc >= tq || (causal && key[e >> 1] > qc)) p = 0.f;
+        }
+        st[4 * j + e] = p;
+        dpt[4 * j + e] = p * (dpt[4 * j + e] - dd[e & 1]);
       }
     }
-    __syncthreads();
+  };
+  auto ew = [&](int i) {
+    const int q0 = (qt0 + i) * BN;
+    if ((causal && q0 < k0 + BM - 1) || q0 + BN > tq)
+      ew_body(i, std::true_type{});
+    else
+      ew_body(i, std::false_type{});
+  };
+  // dV += P^T(i) dO(i) and dK += dS^T(i) Q(i), dO and Q MN-major; issued
+  // and committed
+  uint32_t pa[BN / 16][4], sa[BN / 16][4];
+  auto issue_grad = [&](int i) {
+    const int s = i % S;
+    const T* qs = q_sh + s * NP * PANEL;
+    const T* dos = do_sh + s * NP * PANEL;
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint64_t dod = sw128_desc(dos + kk * 16 * 64, PANEL * (int)sizeof(T), 1024);
+      const uint64_t qd = sw128_desc(qs + kk * 16 * 64, PANEL * (int)sizeof(T), 1024);
+      if constexpr (Dh == 64) {
+        Wgmma<T>::template rs_n64<1>(dva, pa[kk], dod);
+        Wgmma<T>::template rs_n64<1>(dka, sa[kk], qd);
+      } else {
+        Wgmma<T>::rs_n128_mn(dva, pa[kk], dod);
+        Wgmma<T>::rs_n128_mn(dka, sa[kk], qd);
+      }
+    }
+    wg_commit();
+  };
+  auto to_operands = [&]() {
+    to_a_operand<T>(pa, st);
+    to_a_operand<T>(sa, dpt);
+  };
+
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) st[i] = dpt[i] = 0.f;
+  if constexpr (C::kOverlap) {
+    fence_regs<BN / 2>(st);
+    fence_regs<BN / 2>(dpt);
+    wg_fence();
+    issue_sdp(0);
+    wg_wait<0>();
+    fence_regs<BN / 2>(st);
+    fence_regs<BN / 2>(dpt);
+    ew(0);
+    for (int i = 0; i + 1 < n_walk; ++i) {
+      to_operands();
+      fence_regs<BN / 2>(st);
+      fence_regs<BN / 2>(dpt);
+      fence_regs<Dh / 2>(dka);
+      fence_regs<Dh / 2>(dva);
+      wg_fence();
+      issue_sdp(i + 1);
+      issue_grad(i);
+      wg_wait<1>();  // S^T, dP^T(i+1) are in; dV, dK(i) may still run
+      fence_regs<BN / 2>(st);
+      fence_regs<BN / 2>(dpt);
+      ew(i + 1);
+      wg_wait<0>();
+      fence_regs<Dh / 2>(dka);
+      fence_regs<Dh / 2>(dva);
+      mbar_arrive(&empty[i % S]);  // Q(i), dO(i) are done with
+    }
+    to_operands();
+    fence_regs<Dh / 2>(dka);
+    fence_regs<Dh / 2>(dva);
+    wg_fence();
+    issue_grad(n_walk - 1);
+    wg_wait<0>();
+    fence_regs<Dh / 2>(dka);
+    fence_regs<Dh / 2>(dva);
+    mbar_arrive(&empty[(n_walk - 1) % S]);
+  } else {
+    for (int i = 0; i < n_walk; ++i) {
+      fence_regs<BN / 2>(st);
+      fence_regs<BN / 2>(dpt);
+      wg_fence();
+      issue_sdp(i);
+      wg_wait<0>();
+      fence_regs<BN / 2>(st);
+      fence_regs<BN / 2>(dpt);
+      ew(i);
+      to_operands();
+      fence_regs<Dh / 2>(dka);
+      fence_regs<Dh / 2>(dva);
+      wg_fence();
+      issue_grad(i);
+      wg_wait<0>();
+      fence_regs<Dh / 2>(dka);
+      fence_regs<Dh / 2>(dva);
+      mbar_arrive(&empty[i % S]);
+    }
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (key[i] >= tk) continue;
-    T* krow = dk + koff + (size_t)key[i] * Dh;
-    T* vrow = dv + koff + (size_t)key[i] * Dh;
+    T* krow = dk + ((size_t)bh * tk + key[i]) * Dh;
+    T* vrow = dv + ((size_t)bh * tk + key[i]) * Dh;
 #pragma unroll
-    for (int d = 0; d < ND; ++d) {
-      store2<T>(krow + d * 8 + 2 * t, dka[d][2 * i] * scale, dka[d][2 * i + 1] * scale);
-      store2<T>(vrow + d * 8 + 2 * t, dva[d][2 * i], dva[d][2 * i + 1]);
+    for (int j = 0; j < Dh / 8; ++j) {
+      store2<T>(krow + 8 * j + 2 * t, dka[4 * j + 2 * i] * scale, dka[4 * j + 2 * i + 1] * scale);
+      store2<T>(vrow + 8 * j + 2 * t, dva[4 * j + 2 * i], dva[4 * j + 2 * i + 1]);
     }
   }
 }
@@ -975,33 +1210,50 @@ cudaError_t launch_fwd(const Args& a) {
 }
 
 template <typename T, int Dh>
-cudaError_t launch_tc(Which which, const Args& a) {
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
+cudaError_t launch_dq(const Args& a) {
+  using Cfg = DqH<T, Dh>;
+  CUtensorMap qm, km, vm, dom;
   cudaError_t err;
-  if (which == kFwd) {
-    return a.scale < 0 ? launch_fwd<T, Dh, true>(a) : launch_fwd<T, Dh, false>(a);
-  } else if (which == kDq) {
-    using Cfg = DqTC<T, Dh>;
-    auto kern = flash_bwd_dq_tc<T, Dh>;
-    static size_t allowed = 48 * 1024;
-    if ((err = allow_smem(kern, Cfg::smem(), allowed)) != cudaSuccess) return err;
-    dim3 grid((a.tq + Cfg::BM - 1) / Cfg::BM, a.bh);
-    kern<<<grid, kThreads, Cfg::smem(), a.st>>>(
-        q, k, v, static_cast<const T*>(a.dout), a.lse_in, a.delta,
-        static_cast<T*>(a.dq), a.tq, a.tk, a.causal, a.scale);
-  } else {
-    using Cfg = DkvTC<T, Dh>;
-    auto kern = flash_bwd_dkv_tc<T, Dh>;
-    static size_t allowed = 48 * 1024;
-    if ((err = allow_smem(kern, Cfg::smem(), allowed)) != cudaSuccess) return err;
-    dim3 grid((a.tk + Cfg::BM - 1) / Cfg::BM, a.bh);
-    kern<<<grid, kThreads, Cfg::smem(), a.st>>>(
-        q, k, v, static_cast<const T*>(a.dout), a.lse_in, a.delta,
-        static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.tq, a.tk, a.causal, a.scale);
-  }
+  if ((err = tensor_map<T, Dh>(&qm, a.q, a.bh, a.tq, Cfg::BM)) != cudaSuccess ||
+      (err = tensor_map<T, Dh>(&km, a.k, a.bh, a.tk, Cfg::BN)) != cudaSuccess ||
+      (err = tensor_map<T, Dh>(&vm, a.v, a.bh, a.tk, Cfg::BN)) != cudaSuccess ||
+      (err = tensor_map<T, Dh>(&dom, a.dout, a.bh, a.tq, Cfg::BM)) != cudaSuccess)
+    return err;
+  auto kern = flash_bwd_dq_wgmma<T, Dh>;
+  static size_t allowed = 48 * 1024;
+  if ((err = allow_smem(kern, Cfg::smem(), allowed)) != cudaSuccess) return err;
+  dim3 grid((a.tq + Cfg::BM - 1) / Cfg::BM, a.bh);
+  kern<<<grid, 256, Cfg::smem(), a.st>>>(qm, km, vm, dom, a.lse_in, a.delta,
+                                         static_cast<T*>(a.dq), a.tq, a.tk, a.causal,
+                                         a.scale);
   return cudaGetLastError();
+}
+
+template <typename T, int Dh>
+cudaError_t launch_dkv(const Args& a) {
+  using Cfg = DkvH<T, Dh>;
+  CUtensorMap qm, km, vm, dom;
+  cudaError_t err;
+  if ((err = tensor_map<T, Dh>(&qm, a.q, a.bh, a.tq, Cfg::BN)) != cudaSuccess ||
+      (err = tensor_map<T, Dh>(&km, a.k, a.bh, a.tk, Cfg::BM)) != cudaSuccess ||
+      (err = tensor_map<T, Dh>(&vm, a.v, a.bh, a.tk, Cfg::BM)) != cudaSuccess ||
+      (err = tensor_map<T, Dh>(&dom, a.dout, a.bh, a.tq, Cfg::BN)) != cudaSuccess)
+    return err;
+  auto kern = flash_bwd_dkv_wgmma<T, Dh>;
+  static size_t allowed = 48 * 1024;
+  if ((err = allow_smem(kern, Cfg::smem(), allowed)) != cudaSuccess) return err;
+  dim3 grid((a.tk + Cfg::BM - 1) / Cfg::BM, a.bh);
+  kern<<<grid, 256, Cfg::smem(), a.st>>>(qm, km, vm, dom, a.lse_in, a.delta,
+                                         static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+                                         a.tq, a.tk, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int Dh>
+cudaError_t launch_tc(Which which, const Args& a) {
+  if (which == kFwd)
+    return a.scale < 0 ? launch_fwd<T, Dh, true>(a) : launch_fwd<T, Dh, false>(a);
+  return which == kDq ? launch_dq<T, Dh>(a) : launch_dkv<T, Dh>(a);
 }
 
 template <int Dh>
@@ -1086,3 +1338,4 @@ extern "C" int dst_flash_bwd_dkv(const void* q, const void* k, const void* v,
   a.st = static_cast<cudaStream_t>(stream);
   return dispatch(kDkv, dh, dtype, a);
 }
+

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks in raw PTX: mbarriers, TMA tile loads,
-// wgmma shared-memory descriptors and the warpgroup products the flash
-// forward uses (flash_attention.cu).
+// wgmma shared-memory descriptors, register reallocation between
+// warpgroups, and the warpgroup products the flash kernels use
+// (flash_attention.cu).
 //
 //  * A TMA tile load is issued by one thread and completes on an mbarrier
 //    (complete_tx counts the whole box, zero-filled past the tensor's edge).
@@ -10,11 +11,14 @@
 //    bytes, every tile 1024-byte aligned. A wider row is kept as panels of
 //    64 columns.
 //  * Wgmma<T>::ss_n64: D[64 x 64] (+)= A[64 x 16] . B[16 x 64], both
-//    K-major in shared memory (S = Q K^T). rs_n64_mn / rs_n128_mn: D += A . B
+//    K-major in shared memory (S = Q K^T, dP = dO V^T and their
+//    transposes). rs_n64<kTransB> / rs_n128_mn: D (+)= A . B
 //    with A in registers (the mma.m16n8k16 A layout per warp, rows
-//    16w..16w+15) and B [16 x N] MN-major in shared memory, read through the
-//    transpose mode (O += P V). The accumulator layout per warp w: d[4j + e] is row
-//    16w + lane/4 + 8 (e/2), column 8j + 2 (lane%4) + e%2.
+//    16w..16w+15) and B [16 x N] in shared memory, K-major (rs_n64<0>: S
+//    = Q K^T with Q in registers) or MN-major through the transpose mode
+//    (O += P V, dQ += dS K, dV += P^T dO, dK += dS^T Q). The accumulator
+//    layout per warp w: d[4j + e] is row 16w + lane/4 + 8 (e/2), column
+//    8j + 2 (lane%4) + e%2.
 #pragma once
 
 #include <cuda.h>
@@ -67,6 +71,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// Move registers between the warpgroups of a block: every warp of a
+// warpgroup executes the same call; the block's total stays what it was
+// launched with.
+template <int N>
+__device__ __forceinline__ void regs_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // A wgmma descriptor of a 128-byte-swizzled operand at p. K-major: `sbo`
 // is the stride of 8-row atoms (1024), `lbo` unused; MN-major: `lbo` is the
 // stride between 64-column panels, `sbo` between 8-row atoms along K.
@@ -112,21 +128,23 @@ struct Wgmma<__nv_bfloat16> {
           "+f"(d[30]), "+f"(d[31])
         : "l"(da), "l"(db), "r"(scale_d));
   }
-  __device__ static __forceinline__ void rs_n64_mn(float* d, const uint32_t* a, uint64_t db,
-                                                  int scale_d = 1) {
+  // B K-major (kTransB 0) or MN-major through the transpose mode (1)
+  template <int kTransB>
+  __device__ static __forceinline__ void rs_n64(float* d, const uint32_t* a, uint64_t db,
+                                                int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(kTransB));
   }
   __device__ static __forceinline__ void rs_n128_mn(float* d, const uint32_t* a, uint64_t db,
                                                   int scale_d = 1) {
@@ -171,21 +189,23 @@ struct Wgmma<__half> {
           "+f"(d[30]), "+f"(d[31])
         : "l"(da), "l"(db), "r"(scale_d));
   }
-  __device__ static __forceinline__ void rs_n64_mn(float* d, const uint32_t* a, uint64_t db,
-                                                  int scale_d = 1) {
+  // B K-major (kTransB 0) or MN-major through the transpose mode (1)
+  template <int kTransB>
+  __device__ static __forceinline__ void rs_n64(float* d, const uint32_t* a, uint64_t db,
+                                                int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(kTransB));
   }
   __device__ static __forceinline__ void rs_n128_mn(float* d, const uint32_t* a, uint64_t db,
                                                   int scale_d = 1) {

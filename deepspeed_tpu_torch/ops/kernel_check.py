@@ -72,6 +72,33 @@ def real_rows_equal(a, b) -> bool:
                        b[:, :-1].contiguous().view(view))
 
 
+def capture_graph(fn):
+    """``(graph, outs)``: ``fn()`` captured in a CUDA graph after one
+    warm-up call on a side stream (the kernel built and its scratch sized
+    off the capture). ``outs`` is what the captured call returned; each
+    replay writes it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fn()
+    return graph, outs
+
+
+def graph_replay(fn):
+    """The tensors ``fn()`` returns, as one replay of its CUDA graph writes
+    them (zeroed before the replay, so no bit comes from elsewhere)."""
+    graph, outs = capture_graph(fn)
+    for x in outs:
+        x.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    return outs
+
+
 def flash_inputs(dev, dtype, bh: int, tq: int, dh: int, tk=None, seed: int = 0):
     """``(q, k, v, dout)`` flat ``[BH, T, Dh]`` operands from a seeded
     generator: q and dout over ``tq`` rows, k and v over ``tk`` (default

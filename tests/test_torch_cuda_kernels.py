@@ -27,7 +27,9 @@ replayed after the device idx and table change.
 The flash attention kernels (forward, backward dQ, backward dK/dV): bf16,
 f16 and f32 at Dh 64 and 128, T a multiple of the tile and ragged, causal
 and not, Tk != Tq (top-left causal), run-to-run bit identity of the
-forward and the backward, and the wrappers' input checks. Flash-decode (both computations:
+forward and the backward (T 200 and 1000 ragged), the backward at a
+negative and a small scale and replayed from a CUDA graph bit for bit (Dh
+64 and 128), and the wrappers' input checks. Flash-decode (both computations:
 GQA rep >= 2 with p rounded, rep 1 in f32): bf16/f16/f32 at Dh 64, 128 and
 256, the CodeLlama-34B decode shape (B 1 and 4, Hq 64 / Hkv 8, S 640), an
 odd S, a rep that is not a multiple of the kernel's 8 rows, idx at 0, a
@@ -85,8 +87,9 @@ from deepspeed_tpu_torch.ops.int8_matmul import (int8_matmul,
                                                  int8_matmul_dma,
                                                  int8_matmul_plain)
 from deepspeed_tpu_torch.ops.kernel_check import (block_step_inputs,
-                                                  clone_pool, flash_delta,
-                                                  flash_inputs,
+                                                  capture_graph, clone_pool,
+                                                  flash_delta, flash_inputs,
+                                                  graph_replay,
                                                   masked_row_layout,
                                                   real_rows_equal, rel_err)
 from deepspeed_tpu_torch.ops.sparse_attention import (
@@ -245,11 +248,8 @@ def test_decode_step_replays_in_a_cuda_graph(cuda):
     iv = torch.tensor([0, 63, 64, 299, 300, 150], dtype=torch.int32,
                       device=cuda)
     kg, vg = kf.clone(), vf.clone()
-    fused_decode_step(q, kg.clone(), vg.clone(), kn, vn, 1, iv)   # warm-up
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out_g, _, _ = fused_decode_step(q, kg, vg, kn, vn, 1, iv)
+    graph, (out_g, _, _) = capture_graph(
+        lambda: fused_decode_step(q, kg, vg, kn, vn, 1, iv))
     for new in ([5, 200, 64, 1, 0, 299], [299, 0, 300, 130, 63, 64]):
         kg.copy_(kf)
         vg.copy_(vf)
@@ -388,12 +388,8 @@ def test_block_decode_step_replays_in_a_cuda_graph(cuda):
     iv = torch.tensor([0, 63, 64, 319, 320, 150], dtype=torch.int32, device=cuda)
     tg = table.clone()
     kg, vg = clone_pool(kp), clone_pool(vp)
-    fused_block_decode_step(q, clone_pool(kp), clone_pool(vp), kn, vn, 1, iv,
-                            tg)                                   # warm-up
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out_g, _, _ = fused_block_decode_step(q, kg, vg, kn, vn, 1, iv, tg)
+    graph, (out_g, _, _) = capture_graph(
+        lambda: fused_block_decode_step(q, kg, vg, kn, vn, 1, iv, tg))
     for new, flip in (([5, 200, 64, 1, 0, 319], False),
                       ([319, 0, 330, 130, 63, 64], True)):
         for dst, src in ((kg, kp), (vg, vp)):
@@ -459,7 +455,7 @@ def test_int8_matmul_rejects_bad_inputs(cuda):
                                    torch.float32])
 @pytest.mark.parametrize("dh", [64, 128])
 @pytest.mark.parametrize("tq,tk", [(128, 128), (48, 48), (200, 200),
-                                   (96, 160), (160, 96)])
+                                   (1000, 1000), (96, 160), (160, 96)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernels_match_plain(cuda, dtype, dh, tq, tk, causal):
     q, k, v, do = flash_inputs(cuda, dtype, 6, tq, dh, tk=tk, seed=tq + dh)
@@ -510,15 +506,51 @@ def test_flash_forward_takes_any_scale(cuda, scale):
         assert (lse - ref_lse).abs().max().item() <= 1e-4
 
 
+def _flash_bwd(q, k, v, do, lse, delta, causal, scale=None):
+    return (flash_bwd_dq(q, k, v, do, lse, delta, causal=causal, scale=scale),
+            *flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal, scale=scale))
+
+
 def test_flash_backward_is_bit_identical_run_to_run(cuda):
     q, k, v, do = flash_inputs(cuda, torch.bfloat16, 8, 300, 64)
     out, lse = flash_fwd_parts(q, k, v, causal=True)
     delta = flash_delta(do, out)
-    first = (flash_bwd_dq(q, k, v, do, lse, delta, causal=True),
-             *flash_bwd_dkv(q, k, v, do, lse, delta, causal=True))
-    again = (flash_bwd_dq(q, k, v, do, lse, delta, causal=True),
-             *flash_bwd_dkv(q, k, v, do, lse, delta, causal=True))
+    first = _flash_bwd(q, k, v, do, lse, delta, True)
+    again = _flash_bwd(q, k, v, do, lse, delta, True)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_backward_graph_replay_is_bit_identical(cuda, dtype, dh):
+    """The backward captured in a CUDA graph and replayed gives the eager
+    launch's bits: no atomics, every element summed in a fixed order."""
+    q, k, v, do = flash_inputs(cuda, dtype, 8, 1000, dh, seed=3)
+    out, lse = flash_fwd_parts(q, k, v, causal=True)
+    delta = flash_delta(do, out)
+    eager = _flash_bwd(q, k, v, do, lse, delta, True)
+    replayed = graph_replay(lambda: _flash_bwd(q, k, v, do, lse, delta, True))
+    assert all(torch.equal(a, b) for a, b in zip(eager, replayed))
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("scale", [-0.3, 0.05])
+def test_flash_backward_takes_any_scale(cuda, scale, dh):
+    """The backward folds scale * log2(e) into one FFMA before the ex2;
+    a negative scale must come out as the plain version's."""
+    q, k, v, do = flash_inputs(cuda, torch.bfloat16, 4, 200, dh, seed=11)
+    for causal in (True, False):
+        ref, lse = flash_fwd_parts_plain(q, k, v, causal=causal, scale=scale)
+        delta = flash_delta(do, ref)
+        got = _flash_bwd(q, k, v, do, lse, delta, causal, scale)
+        want = (flash_bwd_dq_plain(q, k, v, do, lse, delta, causal=causal,
+                                   scale=scale),
+                *flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=causal,
+                                     scale=scale))
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.isfinite(g.float()).all()
+            assert rel_err(g, w) <= FLASH_TOL[torch.bfloat16]
 
 
 def test_flash_attention_autograd_runs_the_kernels(cuda):
