@@ -7,7 +7,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 1. device    — nvidia-smi's name and power limit; builds the CUDA kernels
                from deepspeed_tpu_torch/csrc (nvcc, sm_90a) and times it;
                counts HGMMA (wgmma) and HMMA (mma.sync) in the SASS of the
-               flash kernels (cuobjdump): each must issue HGMMA, none HMMA.
+               flash kernels (cuobjdump): each must issue HGMMA, none HMMA;
+               and in each 16-bit instantiation of the GQA flash-decode
+               kernel: each must issue HMMA.
 2. kernels   — each hand-written kernel against its plain PyTorch version on
                the card at the serving path's full LLaMA-7B shapes (fused
                decode step: 8 slots x 32 heads x Dh 128 x S 1024, per-slot
@@ -114,10 +116,16 @@ Generate (phases added after ``reference`` and after ``probe_fp32``):
                variant at LLaMA-7B's shape (B 8, H 32, S 1024) and an f32
                case; each idx as a python int and as a device tensor (the
                same bits), values past idx set to 1e4 (the output must not
-               change), a second launch (bit-identical). Kernel, plain and
+               change), a second launch (bit-identical); at rep 8 the fused
+               decode step on the same cache (writing back row idx's own
+               values) gives the same bits under the same split plan (the
+               two run one body). Kernel, plain and
                SDPA-over-the-valid-prefix times at the largest idx, on cache
-               copies rotated past the L2. Kernel B gets rows at rep 8
-               (34B, B 4) and at Dh 64 MHA (GPT-2 774M, B 4, S 256).
+               copies rotated past the L2, with the bound share; at rep 8
+               the kernel's time under its split plan, kernel B's plan and
+               32-position chunks. Kernel B
+               gets rows at rep 8 (34B, B 4) and at Dh 64 MHA (GPT-2 774M,
+               B 4, S 256).
    reference_generate — generate() of a small fp32 LLaMA (2 layers,
                hidden 2048, 16/2 heads: rep 8 at Dh 128, vocab 32000) on the
                CPU (plain versions) and the card (kernels): identical greedy
@@ -174,10 +182,11 @@ Sparse attention (a phase added after ``kernels``, before ``reference``):
                points). At
                (a) and (b): kernel, plain and SDPA-over-the-dense-mask times
                (forward, backward), each captured in a CUDA graph, and
-               bounds from the active-block work (dK/dV also against the
-               f32 CUDA-core peak); the layouts' density, LUT width and
-               longest row and column; the dK/dV work list's
-               dkv_group_busy beside four consecutive key blocks'.
+               bounds from the active-block work (dQ and dK/dV also against
+               the f32 CUDA-core peak, f32_floor_ms); the layouts' density,
+               LUT width and longest row and column; the work lists'
+               dq_group_busy and dkv_group_busy beside four consecutive
+               query (key) blocks'.
 
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -188,6 +197,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -201,12 +211,14 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaModel
 from deepspeed_tpu_torch.ops import cuda_build
 from deepspeed_tpu_torch.ops.attention import gather_block_kv, pool_layer
-from deepspeed_tpu_torch.ops.decode_step import (fused_block_decode_step,
+from deepspeed_tpu_torch.ops.decode_step import (block_split_plan,
+                                                 fused_block_decode_step,
                                                  fused_block_decode_step_plain,
                                                  fused_decode_step,
                                                  fused_decode_step_plain,
                                                  split_plan)
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+import deepspeed_tpu_torch.ops.decode_step as decode_step_module
 from deepspeed_tpu_torch.ops.flash_decode import (flash_decode,
                                                   flash_decode_mha,
                                                   flash_decode_plain)
@@ -230,7 +242,7 @@ from deepspeed_tpu_torch.ops.sparse_attention.block_sparse import (
     block_sparse_attention_reference, block_sparse_bwd_dkv,
     block_sparse_bwd_dkv_plain, block_sparse_bwd_dq, block_sparse_bwd_dq_plain,
     block_sparse_delta, block_sparse_fwd, block_sparse_fwd_plain,
-    dkv_group_busy, dkv_groups, layout_to_dense_mask, sparse_luts)
+    group_busy, layout_to_dense_mask, row_groups, sparse_luts)
 from deepspeed_tpu_torch.utils.tree import tree_leaves
 from deepspeed_tpu_torch.serving import (BlockKVPool, Request, ServingEngine,
                                          poisson_trace, shared_prefix_trace)
@@ -389,29 +401,45 @@ def time_ms(fn, n_inputs: int, per: int = 20, reps: int = 20,
 
 # --------------------------------------------------------------- phase 1
 FLASH_SASS = ("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
+# the 16-bit instantiations of the GQA flash-decode kernel, by their
+# mangled (or demangled) names: bf16 and fp16 at Dh 64 (1, 2 or 4 n-tiles),
+# 128 (1 or 2) and 256 (1)
+FLASH_DECODE_SASS = re.compile(
+    r"flash_decode_gqa(?:I13__nv_bfloat16|I6__half|<__nv_bfloat16|<__half)")
+FLASH_DECODE_16BIT = 12
 
 
-def flash_sass_counts(lib_path) -> dict:
-    """HGMMA (wgmma) and HMMA (mma.sync) instructions in each 16-bit flash
-    kernel's SASS (``cuobjdump -sass`` of the built library, summed over
-    its instantiations); fails unless every one issues HGMMA and none HMMA."""
+def sass_counts(lib_path) -> dict:
+    """HGMMA (wgmma) and HMMA (mma.sync) instructions in the SASS of the
+    built library (``cuobjdump -sass``): each 16-bit flash kernel's, summed
+    over its instantiations, and each 16-bit GQA flash-decode
+    instantiation's. Fails unless every flash kernel issues HGMMA and no
+    HMMA, and every flash-decode instantiation HMMA (its products on the
+    tensor cores; the GQA kernel it replaced issued none)."""
     cuobjdump = (shutil.which("cuobjdump")
                  or str(Path(cuda_build._nvcc()).with_name("cuobjdump")))
     sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    counts = {name: {"HGMMA": 0, "HMMA": 0} for name in FLASH_SASS}
+    flash = {name: {"HGMMA": 0, "HMMA": 0} for name in FLASH_SASS}
+    decode = {}
     current = None
     for line in sass.splitlines():
         if "Function : " in line:
-            current = next((n for n in FLASH_SASS if n in line), None)
+            fn = line.split("Function : ", 1)[1].strip()
+            current = next((flash[n] for n in FLASH_SASS if n in fn), None)
+            if current is None and FLASH_DECODE_SASS.search(fn):
+                current = decode.setdefault(fn, {"HGMMA": 0, "HMMA": 0})
         elif current is not None:
             for op in ("HGMMA", "HMMA"):
                 if f" {op}." in line:
-                    counts[current][op] += 1
-    for name, c in counts.items():
+                    current[op] += 1
+    for name, c in flash.items():
         assert c["HGMMA"] > 0 and c["HMMA"] == 0, (name, c)
-    return counts
+    assert len(decode) == FLASH_DECODE_16BIT, sorted(decode)
+    for name, c in decode.items():
+        assert c["HMMA"] > 0, (name, c)
+    return {"flash": flash, "flash_decode_gqa": decode}
 
 
 def phase_device() -> dict:
@@ -430,7 +458,7 @@ def phase_device() -> dict:
             "library": str(lib_path.name),
             "build_s": time.perf_counter() - t0,
             "nvcc_build_s": cuda_build.build_seconds,
-            "flash_sass": flash_sass_counts(lib_path)}
+            "sass": sass_counts(lib_path)}
     emit(info)
     return info
 
@@ -471,6 +499,14 @@ def check_decode_step(b, hq, hkv, s, dh, idx, layers=2, seed=0):
     # timing: rotate over the layers (> L2 per call at these shapes)
     kernel_ms = time_ms(lambda i: fused_decode_step(q, kf, vf, kn, vn, i, iv),
                         layers)
+    # kernel B under its plan and kernel C's, at this row's idx and with
+    # every slot at the last position (flash-decode's case: one shared idx)
+    iv_full = torch.full_like(iv, s - 1)
+    plans = {name: _plan_times(
+        "split_plan",
+        lambda i, v_=v_: fused_decode_step(q, kf, vf, kn, vn, i, v_), layers,
+        (b, hkv, s, dh, 2), ("split_plan", "block_split_plan"))
+        for name, v_ in (("row_idx", iv), ("full_idx", iv_full))}
     plain_ms = time_ms(
         lambda i: fused_decode_step_plain(q, kf, vf, kn, vn, i, iv), layers)
     rep = hq // hkv
@@ -495,12 +531,12 @@ def check_decode_step(b, hq, hkv, s, dh, idx, layers=2, seed=0):
     flops = 4 * hq * dh * sum(n_pos)                     # QK^T and P.V
     chunk, n_splits = split_plan(b, hkv, s,
                                  torch.cuda.get_device_properties(0)
-                                 .multi_processor_count)
+                                 .multi_processor_count, dh, 2)
     return {"b": b, "hq": hq, "hkv": hkv, "s": s, "dh": dh, "idx": list(idx),
             "chunk": chunk, "n_splits": n_splits,
             "rel_err": err, "max_abs_err": abs_err, "tol_rel": DECODE_TOL,
             "cache_bit_identical": True, "bit_identical_run_to_run": True,
-            "kernel_ms": kernel_ms,
+            "kernel_ms": kernel_ms, "plans": plans,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "scaled_dot_product_attention (attention only)",
             "bytes": nbytes, "flops": flops,
@@ -613,6 +649,10 @@ def check_block_decode_step(b, hq, hkv, dh, bs, mb, kv, idx, seed=0):
               for _ in range(2))
     kernel_ms = time_ms(
         lambda i: fused_block_decode_step(q, kt, vt, kn, vn, i, iv, table), n_t)
+    plans = _plan_times(
+        "block_split_plan",
+        lambda i: fused_block_decode_step(q, kt, vt, kn, vn, i, iv, table), n_t,
+        (b, hkv, mb * bs), ("block_split_plan", "split_plan"))
     plain_ms = time_ms(
         lambda i: fused_block_decode_step_plain(q, kt, vt, kn, vn, i, iv,
                                                 table), n_t)
@@ -637,14 +677,14 @@ def check_block_decode_step(b, hq, hkv, dh, bs, mb, kv, idx, seed=0):
               + (2 * b * hkv * 2 if kv else 0)           # their scales
               + b * mb * 4 + b * 4                       # table, idx
               + read)                                    # K, V prefix reads
-    chunk, n_splits = split_plan(b, hkv, mb * bs, torch.cuda.get_device_properties(
+    chunk, n_splits = block_split_plan(b, hkv, mb * bs, torch.cuda.get_device_properties(
         0).multi_processor_count)
     return {"b": b, "hq": hq, "hkv": hkv, "dh": dh, "block_size": bs,
             "mb": mb, "pool": kv or "bf16", "idx": list(idx),
             "chunk": chunk, "n_splits": n_splits,
             "rel_err": err, "max_abs_err": abs_err, "tol_rel": DECODE_TOL,
             "pool_bit_identical": True, "bit_identical_run_to_run": True,
-            "kernel_ms": kernel_ms,
+            "kernel_ms": kernel_ms, "plans": plans,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "scaled_dot_product_attention (attention only, no "
                        "gather)", "timing_layers": n_t,
@@ -866,9 +906,12 @@ def check_flash_decode(dtype, b, hq, hkv, s, dh, idxs, seed=0):
     :func:`flash_decode_plain` at one geometry: each ``idx`` as a python int
     and as a device tensor, row by row (kernel_check.rel_err); values past
     idx set to 1e4 must leave the output bit for bit unchanged, and a second
-    launch must repeat it bit for bit. Then the times at the largest idx,
-    on copies of the cache rotated through more than the L2 holds: the
-    kernel, the plain version, and SDPA over the valid prefix."""
+    launch must repeat it bit for bit. At rep >= 2, the fused decode step
+    (kernel B, the same body under the same plan) on the same cache,
+    writing back row idx's own values, bit for bit. Then the times at the
+    largest idx, on copies of the cache rotated through more than the L2
+    holds: the kernel (also under the other plans of ``PLANS``), the plain
+    version, and SDPA over the valid prefix."""
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(seed)
 
@@ -898,6 +941,19 @@ def check_flash_decode(dtype, b, hq, hkv, s, dh, idxs, seed=0):
         errs.append({"idx": idx, "rel_err": err,
                      "max_abs_err": (out.float() - ref.float()).abs().max().item()})
         del k2, v2
+    fused = None
+    if hq != hkv:
+        for idx in idxs:
+            row = min(idx, s - 1)
+            step, _, _ = fused_decode_step(
+                q, k[None].clone(), v[None].clone(),
+                k[:, :, row].unsqueeze(1).contiguous(),
+                v[:, :, row].unsqueeze(1).contiguous(), 0, idx)
+            out = flash_decode(q, k, v, idx)
+            torch.cuda.synchronize()
+            assert torch.equal(out, step), \
+                f"flash_decode differs from the fused step at idx {idx}"
+        fused = {"bit_identical": True}
     idx = max(idxs)
     n_pos = idx + 1
     esz = q.element_size()
@@ -906,6 +962,9 @@ def check_flash_decode(dtype, b, hq, hkv, s, dh, idxs, seed=0):
     ks = [k] + [rnd(b, hkv, s, dh) for _ in range(n_t - 1)]
     vs = [v] + [rnd(b, hkv, s, dh) for _ in range(n_t - 1)]
     kernel_ms = time_ms(lambda i: flash_decode(q, ks[i], vs[i], idx), n_t)
+    plans = (_plan_times("split_plan",
+                         lambda i: flash_decode(q, ks[i], vs[i], idx), n_t,
+                         (b, hkv, s, dh, esz), PLANS) if hq != hkv else None)
     plain_ms = time_ms(lambda i: flash_decode_plain(q, ks[i], vs[i], idx), n_t)
     qs = q.transpose(1, 2)                      # [B, Hq, 1, Dh]
     gqa = {"enable_gqa": True} if hq != hkv else {}
@@ -917,17 +976,55 @@ def check_flash_decode(dtype, b, hq, hkv, s, dh, idxs, seed=0):
               + 2 * b * hkv * n_pos * dh * esz)          # K, V valid prefix
     flops = 4 * b * hq * dh * n_pos                      # QK^T and P.V
     rate = BF16_FLOP_PER_S if dtype != torch.float32 else F32_FLOP_PER_S
+    bound = _bound(nbytes, flops, rate)
     return {"variant": "mha (rep 1)" if hq == hkv else "gqa",
             "dtype": str(dtype).split(".")[-1], "b": b, "hq": hq, "hkv": hkv,
             "s": s, "dh": dh, "idx": list(idxs), "errors": errs,
             "max_abs_err": max(e["max_abs_err"] for e in errs),
             "tol_rel": tol, "past_idx_unchanged": True,
-            "bit_identical_run_to_run": True, "timed_idx": idx,
-            "timing_copies": n_t, "kernel_ms": kernel_ms,
+            "bit_identical_run_to_run": True, "fused_step": fused,
+            "timed_idx": idx, "timing_copies": n_t, "kernel_ms": kernel_ms,
+            "plans": plans,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "scaled_dot_product_attention over the valid prefix"
                        + (" (enable_gqa)" if gqa else ""),
-            **_bound(nbytes, flops, rate)}
+            **bound, **_shares(kernel_ms, bound["bound_ms"], library_ms)}
+
+
+def _fixed_chunk(chunk: int):
+    return lambda b, hkv, s, sms, *body: (chunk, -(-s // chunk))
+
+
+# split plans timed against each other at the flash-decode, kernel B and
+# kernel C rows: the two plans of decode_step and fixed chunks (16 to 256)
+PLANS = {"split_plan": split_plan,
+         "block_split_plan": lambda b, hkv, s, sms, *body: block_split_plan(
+             b, hkv, s, sms),
+         **{f"chunk_{c}": _fixed_chunk(c) for c in (16, 32, 64, 128, 256)}}
+
+
+def _plan_times(attr: str, call, n_t: int, args: tuple, plans) -> dict:
+    """``call``'s time (:func:`time_ms`) under each named plan of ``PLANS``
+    in ``plans``. The wrappers look up their plan function by name in
+    ``ops/decode_step.py`` at every call (``attr``: ``split_plan`` for
+    kernel B and flash-decode, ``block_split_plan`` for kernel C), so each
+    plan is set there for its timing and the wrapper's own is put back
+    after. ``args``: the plan's arguments but the SM count, as the wrapper
+    passes them ((B, Hkv, S, Dh, element size) or (B, Hkv, S)). Timing
+    only: the results under the wrapper's own plan are checked by the
+    caller."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    own = getattr(decode_step_module, attr)
+    out = {}
+    try:
+        for name in plans:
+            fn = PLANS[name]
+            setattr(decode_step_module, attr, fn)
+            out[name] = {"chunk_splits": list(fn(*args[:3], sms, *args[3:])),
+                         "kernel_ms": time_ms(call, n_t)}
+    finally:
+        setattr(decode_step_module, attr, own)
+    return out
 
 
 LLAMA7B_MATMULS = [("wq", 4096, 4096), ("wk", 4096, 4096),
@@ -964,13 +1061,15 @@ def phase_kernels() -> dict:
              check_flash(torch.bfloat16, 8, 20, 1000, 64, True)]
     torch.cuda.empty_cache()
     # flash-decode: (a) CodeLlama-34B decode at batch 1 (generate's route),
-    # (b) batch 4, (c) the rep-1 variant at LLaMA-7B's shape, (d) f32
+    # (b) batch 4, (c) the rep-1 variant at LLaMA-7B's shape, (d, e) f32 at
+    # batch 1 and 4
     fidx = [0, 127, 128, 639]
     fdec = [check_flash_decode(torch.bfloat16, 1, 64, 8, 640, 128, fidx),
             check_flash_decode(torch.bfloat16, 4, 64, 8, 640, 128, fidx, seed=1),
             check_flash_decode(torch.bfloat16, 8, 32, 32, 1024, 128,
                                [0, 511, 1023], seed=2),
-            check_flash_decode(torch.float32, 1, 64, 8, 640, 128, fidx, seed=3)]
+            check_flash_decode(torch.float32, 1, 64, 8, 640, 128, fidx, seed=3),
+            check_flash_decode(torch.float32, 4, 64, 8, 640, 128, fidx, seed=4)]
     torch.cuda.empty_cache()
     # kernel B on generate's routes: rep 8 (CodeLlama-34B, batch 4) and
     # Dh 64 MHA (GPT-2 774M, batch 4); enough layers to rotate past the L2
@@ -1207,16 +1306,23 @@ def check_sparse_row(sa, name, cfg, b, t, h, dh, dtype, causal, timed, oracle,
     main_errs = {key: rel_err(to_flat(gr), p)
                  for key, gr, p in zip(("dq", "dk", "dv"), grads, plain[2:])}
     assert max(main_errs.values()) <= tol, (name, "main path grads", main_errs)
-    # the dK/dV work list's balance, and that of four consecutive key
-    # blocks to a CUDA block (the first form of the kernel)
-    groups = dkv_groups(block)
+    # the work lists' balance, and that of four consecutive query (key)
+    # blocks to a CUDA block (the first form of each backward kernel)
+    groups = row_groups(block)
     row = {"row": name, "dtype": str(dtype).split(".")[-1], "b": b, "t": t,
            "h": h, "dh": dh, "block": block, "causal": causal,
            "config": type(cfg).__name__ if mod is not None else "hand-made",
            **_layout_stats(layout),
-           "dkv_group_busy": dkv_group_busy(luts.dkv_items[:, 2].cpu().numpy(),
-                                            groups),
-           "dkv_group_busy_consecutive": dkv_group_busy(
+           "dq_group_busy": group_busy(luts.dq_items[:, 2].cpu().numpy(),
+                                       groups),
+           "dq_group_busy_consecutive": group_busy(
+               luts.cnt_q.cpu().numpy().reshape(-1), groups),
+           "dq_items": luts.dq_items.shape[0],
+           "dq_split_rows": luts.dq_merge.shape[0],
+           "dq_partials": luts.dq_slots,
+           "dkv_group_busy": group_busy(luts.dkv_items[:, 2].cpu().numpy(),
+                                        groups),
+           "dkv_group_busy_consecutive": group_busy(
                luts.cnt_k.cpu().numpy().reshape(-1), groups),
            "dkv_items": luts.dkv_items.shape[0],
            "dkv_split_columns": luts.dkv_merge.shape[0],
@@ -1303,7 +1409,9 @@ def _time_sparse(qf, kf, vf, dof, luts, layout, kw, b, h, t, dh, dtype, seed):
     esz = qf.element_size()
     big = b * h * t * dh * esz                          # one [BH, T, Dh]
     vec = b * h * t * 4                                 # one f32 row vector
-    lut = 4 * (luts.lut_q.numel() + luts.cnt_q.numel())  # fwd / dq table
+    lut = 4 * (luts.lut_q.numel() + luts.cnt_q.numel())  # fwd table
+    lut_dq = 4 * (luts.lut_q.numel() + luts.dq_items.numel()
+                  + luts.dq_merge.numel())              # dq table, work list
     lut_t = 4 * (luts.lut_k.numel() + luts.dkv_items.numel()
                  + luts.dkv_merge.numel())              # dk/dv table, work list
     rate = BF16_FLOP_PER_S if dtype != torch.float32 else F32_FLOP_PER_S
@@ -1311,7 +1419,9 @@ def _time_sparse(qf, kf, vf, dof, luts, layout, kw, b, h, t, dh, dtype, seed):
         "fwd": {"kernel_ms": fwd, "plain_ms": p_fwd, "library_ms": lib_fwd,
                 **_bound(4 * big + vec + lut, 4 * tile * active, rate)},
         "dq": {"kernel_ms": dq, "plain_ms": p_dq, "library_ms": lib_bwd,
-               **_bound(5 * big + 2 * vec + lut, 6 * tile * active, rate)},
+               **_bound(5 * big + 2 * vec + lut_dq, 6 * tile * active, rate),
+               # the reference's f32 contract on the CUDA cores
+               "f32_floor_ms": 1e3 * 6 * tile * active / F32_FLOP_PER_S},
         "dkv": {"kernel_ms": dkv, "plain_ms": p_dkv, "library_ms": lib_bwd,
                 **_bound(6 * big + 2 * vec + lut_t, 8 * tile * active, rate),
                 # the reference's f32 contract on the CUDA cores
@@ -1914,7 +2024,8 @@ def profile_generate(eng, b: int, prompt_len: int, steps: int = 5) -> dict:
     assert busy_us > 0, "the profiler saw no device time"
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
     flash_us = sum(us for k, us in kernels.items() if "flash_decode" in k)
-    # kernel B is two launches: the split walk and the merge
+    # kernel B is two launches: the split walk and the merge (merge_splits;
+    # flash-decode's merge is flash_decode_merge, counted above)
     fused_us = sum(us for k, us in kernels.items()
                    if "fused_decode_step" in k or "merge_splits" in k)
     return {"steps": steps, "host_ms_per_token": 1e3 * wall / steps,

@@ -16,7 +16,7 @@
 // (kv head, slot) walking the whole prefix, products on the CUDA cores: 64
 // blocks on 132 SMs at GQA rep 4).
 //  * Grid (split, kv head, slot), `chunk` positions per split from the
-//    wrapper's split_plan (B, Hkv and MB*bs alone); splits past
+//    wrapper's block_split_plan (B, Hkv and MB*bs alone); splits past
 //    min(idx, MB*bs - 1) return before reading; merge_splits merges the live
 //    splits in split order (the live count from idx on the device). Scratch
 //    comes from the wrapper, so a call replays in a CUDA graph.
@@ -311,7 +311,7 @@ cudaError_t launch(const Ptrs& p, Geometry geo, cudaStream_t st) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || geo.n_splits == 1) return err;
   merge_splits<T><<<dim3(geo.hq, geo.nb), kThreads, 0, st>>>(
-      p.ml, p.acc, static_cast<T*>(p.out), geo.idx, 0, geo.hq, geo.mb * geo.bs, geo.dh,
+      p.ml, p.acc, static_cast<T*>(p.out), geo.idx, 1, 0, geo.hq, geo.mb * geo.bs, geo.dh,
       geo.chunk, geo.n_splits);
   return cudaGetLastError();
 }

@@ -17,17 +17,19 @@
 //
 // Design:
 //  * A block of 256 threads holds 64 rows: 64 / block row groups (four
-//    query blocks at block 16, one at 64), 4 threads per row, each owning
-//    Dh / 4 columns in float4 chunks (thread c of a row takes chunks c,
-//    c + 4, ...: the row's 4 threads read 64 contiguous bytes of a shared
-//    tile, conflict-free, and dot products are reduced by two shuffles).
-//  * Each group walks only its own row of the table, count[h, block]
-//    entries, not the padded width: the loop inside the group takes the
-//    place of the TPU grid's last axis. The group stages one K and V (or
-//    Q and dO) tile at a time in shared memory, converted to f32, and syncs
-//    on its own named barrier, so groups with rows of different lengths
-//    never wait on each other. Global rows (BigBird, Longformer) still make
-//    their block the slowest: the split of long rows is left for later.
+//    query blocks at block 16, one at 64). In the forward (Geo) 4 threads
+//    own a row, each Dh / 4 columns in float4 chunks (thread c of a row
+//    takes chunks c, c + 4, ...: the row's 4 threads read 64 contiguous
+//    bytes of a shared tile, conflict-free, and dot products are reduced
+//    by two shuffles).
+//  * Forward: each group walks only its own row of the table,
+//    count[h, block] entries, not the padded width: the loop inside the
+//    group takes the place of the TPU grid's last axis. The group stages
+//    one K and V tile at a time in shared memory, converted to f32, and
+//    syncs on its own named barrier, so groups with rows of different
+//    lengths never wait on each other. Global rows (BigBird, Longformer)
+//    still make their block the slowest: the split of long rows is left for
+//    later.
 //  * Forward: scores of the tile first (kept in shared memory, a padded
 //    [row][key] tile), then an online softmax (running max m from -1e30 and
 //    sum l, in f32) and acc += p * v. out = l > 0 ? acc / max(l, 1e-20) : 0,
@@ -38,26 +40,31 @@
 //  * dQ walks the same table: p = exp(s - lse), ds = p * (dp - delta),
 //    acc += ds * k, dq = acc * scale once. dK/dV walk the transposed table
 //    with one thread row per key row: dv += p * do, dk += ds * (scale * q).
-//  * dK/dV for balance: a global key block's column holds every later query
-//    block (509 of them at T 8192, block 16), its neighbours 2-4, so four
-//    key blocks to a CUDA block kept 0.26 of its row groups busy. The
-//    kernel instead runs a work list built on the host with the tables
-//    (block_sparse.py dkv_work_list): each column cut into parts of at most
-//    64 entries, in table order, the parts sorted by length, G to a CUDA
-//    block, the longest blocks first. A column of one part writes dK/dV
-//    itself; a cut column's parts write f32 partials to scratch, and
-//    dkv_merge sums them in part order and rounds once. Each group keeps
-//    its next query blocks' Q, dO, lse and delta in flight (a cp.async ring
-//    of 3 stages, 2 in f32) while it computes on the current one, and each
-//    thread owns two key rows (8 threads to a row pair, DkvGeo), so a Q or
-//    dO chunk read once from shared memory serves both rows' products. At
-//    Dh 128 it takes two query rows a step and reduce-scatters their eight
-//    dot products over the row pair's lanes (7 shuffles where a reduction
-//    per value takes 24, one exp per lane where there were four): the inner
-//    loop is then three quarters FMAs.
+//  * Both backward kernels run a work list built on the host with the
+//    tables (block_sparse.py work_list), for balance: a global key block's
+//    column holds every later query block (509 of them at T 8192, block
+//    16), its neighbours 2-4, so four key blocks to a CUDA block kept 0.26
+//    of its row groups busy; BigBird's global query rows hold 256 entries
+//    against a mean of 6. Each row (dQ) or column (dK/dV) is cut into parts
+//    of at most 64 entries, in table order, the parts sorted by length, G
+//    to a CUDA block, the longest blocks first. A row or column of one part
+//    writes its output itself; a cut one's parts write f32 partials to
+//    scratch, and a merge launch (block_sparse_dq_merge,
+//    block_sparse_dkv_merge) sums them in part order and rounds once.
+//  * Each backward group keeps its next blocks' operands in flight (a
+//    cp.async ring of 3 stages, 2 in f32: K and V for dQ; Q, dO, lse and
+//    delta for dK/dV) while it computes on the current one, and each thread
+//    owns two rows (8 threads to a row pair, PairGeo), so a chunk read once
+//    from shared memory serves both rows' products. A step takes two rows
+//    of the staged tile (dK/dV at Dh 128, dQ at every Dh) and
+//    reduce-scatters their eight dot products over the row pair's lanes (7
+//    shuffles where a reduction per value takes 24, one exp per lane where
+//    there were four): the inner loop is then mostly FMAs. dQ's first form
+//    (one tile staged at a time, 4 threads per row reading each chunk
+//    twice, one query block per group) reached 0.20 of its f32 floor.
 //  * No atomics: every output element is summed by one thread in a fixed
-//    order (dK/dV partials by one thread of the merge, in part order), so
-//    out, lse, dQ, dK and dV repeat bit for bit.
+//    order (partials by one thread of a merge, in part order), so out, lse,
+//    dQ, dK and dV repeat bit for bit.
 #include "common.cuh"
 
 namespace {
@@ -164,32 +171,30 @@ __device__ __forceinline__ void stage(float* sm, const T* g, int row0, int gt, f
   }
 }
 
+// the forward's K and V tiles and its score tile, per group
 template <int Dh, int BLK>
-struct Smem {
+constexpr size_t fwd_smem() {
   using Ge = Geo<Dh, BLK>;
-  // fwd / dq: K and V tiles (+ the forward's score tile)
-  static constexpr size_t fwd() {
-    return (size_t)Ge::G * (2 * Ge::TILE + BLK * Ge::SC) * sizeof(float);
-  }
-  static constexpr size_t dq() { return (size_t)Ge::G * 2 * Ge::TILE * sizeof(float); }
-};
+  return (size_t)Ge::G * (2 * Ge::TILE + BLK * Ge::SC) * sizeof(float);
+}
 
-// Thread geometry of the dK/dV kernel: G groups of BLK key rows, as Geo,
-// but 8 threads per row pair: thread (r, c) of a group owns key rows r and
-// r + BLK / 2 and float4 chunks c, c + 8, ... of each (Dh / 32 of them). A
-// query row's Q and dO chunks, read once from shared memory, then serve
-// both rows' dot products and both rows' updates from registers: a quarter
-// of Geo's shared-memory reads per FMA (the first form of this kernel, one
-// row per 4 threads reading each chunk twice, sat at 0.28 of the f32 peak).
+// Thread geometry of the backward kernels: G groups of BLK rows (query rows
+// for dQ, key rows for dK/dV), as Geo, but 8 threads per row pair: thread
+// (r, c) of a group owns rows r and r + BLK / 2 and float4 chunks c, c + 8,
+// ... of each (Dh / 32 of them). A staged row's chunks, read once from
+// shared memory, then serve both rows' dot products and both rows' updates
+// from registers: a quarter of Geo's shared-memory reads per FMA (the first
+// form of dK/dV, one row per 4 threads reading each chunk twice, sat at 0.28
+// of the f32 peak).
 template <int Dh, int BLK>
-struct DkvGeo {
+struct PairGeo {
   static constexpr int G = kRowsPerBlock / BLK;    // row groups
   static constexpr int GT = BLK * 4;               // threads per group
   static constexpr int HALF = BLK / 2;             // row pairs per group
   static constexpr int NC = Dh / 32;               // float4 chunks per row per thread
   static constexpr int TILE = BLK * Dh;            // floats per staged tile
   int g, gt, r, c;
-  __device__ DkvGeo() {
+  __device__ PairGeo() {
     g = threadIdx.x / GT;
     gt = threadIdx.x % GT;
     r = gt / 8;
@@ -205,15 +210,16 @@ __device__ __forceinline__ float oct_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 4);
 }
 
-// The dK/dV kernel's shared memory, per row group: a ring of ST stages of
-// one query block's Q and dO rows as stored (T) with their lse and delta
-// (f32), then f32 tiles of the current block's scaled Q and dO.
-template <typename T, int Dh, int BLK>
-struct DkvShape {
-  using Ge = DkvGeo<Dh, BLK>;
+// A backward kernel's shared memory, per row group: a ring of ST stages of
+// two stored (T) tiles of one block (dQ: K and V; dK/dV: Q and dO) and, for
+// dK/dV (VEC), the block's lse and delta (f32); then f32 tiles of the
+// current block's two operands.
+template <typename T, int Dh, int BLK, bool VEC>
+struct PairShape {
+  using Ge = PairGeo<Dh, BLK>;
   static constexpr int ST = sizeof(T) == 4 ? 2 : 3;
   static constexpr size_t kRaw = (size_t)BLK * Dh * sizeof(T);  // one stored tile
-  static constexpr size_t kStage = 2 * kRaw + 2 * BLK * sizeof(float);
+  static constexpr size_t kStage = 2 * kRaw + (VEC ? 2 * BLK * sizeof(float) : 0);
   static constexpr size_t kGroup = ST * kStage + 2 * (size_t)Ge::TILE * sizeof(float);
   static constexpr size_t bytes() { return Ge::G * kGroup; }
 };
@@ -291,65 +297,6 @@ block_sparse_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (geo.c == 0) lse[(size_t)bh * t + row] = m + logf(ls);
 }
 
-template <typename T, int Dh, int BLK>
-__global__ void __launch_bounds__(kThreads)
-block_sparse_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const T* __restrict__ dout,
-                       const float* __restrict__ lse, const float* __restrict__ delta,
-                       T* __restrict__ dq, const int* __restrict__ lut,
-                       const int* __restrict__ cnt, int h_count, int t,
-                       int lut_width, int causal, float scale) {
-  using Ge = Geo<Dh, BLK>;
-  extern __shared__ __align__(16) float smem[];
-  const Ge geo;
-  const int nb = t / BLK;
-  const int qi = blockIdx.x * Ge::G + geo.g;
-  if (qi >= nb) return;
-  const int bh = blockIdx.y, h = bh % h_count;
-  float* k_sh = smem + geo.g * 2 * Ge::TILE;
-  float* v_sh = k_sh + Ge::TILE;
-  const int row = qi * BLK + geo.r;
-  const size_t base = (size_t)bh * t * Dh;
-  float4 qr[Ge::NC], dor[Ge::NC], acc[Ge::NC];
-#pragma unroll
-  for (int i = 0; i < Ge::NC; ++i) {
-    const size_t at = base + (size_t)row * Dh + geo.col(i);
-    qr[i] = scale4(Vec4<T>::load(q + at), scale);
-    dor[i] = Vec4<T>::load(dout + at);
-    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  const float lr = lse[(size_t)bh * t + row];
-  const float dl = delta[(size_t)bh * t + row];
-  const int* my_lut = lut + ((size_t)h * nb + qi) * lut_width;
-  const int n = cnt[h * nb + qi];
-  for (int jj = 0; jj < n; ++jj) {
-    const int kj = my_lut[jj];
-    geo.sync();
-    stage<T, Dh, BLK>(k_sh, k + base, kj * BLK, geo.gt, 1.f);
-    stage<T, Dh, BLK>(v_sh, v + base, kj * BLK, geo.gt, 1.f);
-    geo.sync();
-    for (int j = 0; j < BLK; ++j) {
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int i = 0; i < Ge::NC; ++i) {
-        s = dot4(qr[i], *reinterpret_cast<const float4*>(k_sh + j * Dh + geo.col(i)), s);
-        dp = dot4(dor[i], *reinterpret_cast<const float4*>(v_sh + j * Dh + geo.col(i)), dp);
-      }
-      s = quad_sum(s);
-      dp = quad_sum(dp);
-      if (causal && kj * BLK + j > row) s = kMInit;
-      const float p = s > kMaskedBelow ? expf(s - lr) : 0.f;
-      const float ds = p * (dp - dl);
-#pragma unroll
-      for (int i = 0; i < Ge::NC; ++i)
-        axpy4(ds, *reinterpret_cast<const float4*>(k_sh + j * Dh + geo.col(i)), acc[i]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < Ge::NC; ++i)
-    Vec4<T>::store(dq + base + (size_t)row * Dh + geo.col(i), scale4(acc[i], scale));
-}
-
 // BLK x Dh stored elements (shared memory) into an f32 tile, times `mul`,
 // by the group's GT threads
 template <typename T, int Dh, int BLK>
@@ -374,8 +321,8 @@ block_sparse_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const int* __restrict__ lut_t, const int4* __restrict__ items,
                         int n_items, int n_slots, int h_count, int t, int lut_width,
                         int causal, float scale) {
-  using Ge = DkvGeo<Dh, BLK>;
-  using Sh = DkvShape<T, Dh, BLK>;
+  using Ge = PairGeo<Dh, BLK>;
+  using Sh = PairShape<T, Dh, BLK, true>;
   // two query rows per step at Dh 128 (one block per SM either way); Dh 64
   // keeps one, so that two blocks fit per SM
   constexpr int ST = Sh::ST, NC = Ge::NC, JU = Dh >= 128 ? 2 : 1;
@@ -574,6 +521,175 @@ block_sparse_dkv_merge(const float* __restrict__ part, const int4* __restrict__ 
   }
 }
 
+// One work item per row group: item (h * nb + qi, first entry, count, slot)
+// walks entries first..first+count-1 of query block qi's row of the table,
+// for batch row blockIdx.y. Each thread owns query rows r and r + BLK / 2
+// (q scaled, dO, lse and delta in registers) and stages the entries' K and V.
+template <typename T, int Dh, int BLK>
+__global__ void __launch_bounds__(kThreads)
+block_sparse_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       T* __restrict__ dq, float* __restrict__ part,
+                       const int* __restrict__ lut, const int4* __restrict__ items,
+                       int n_items, int n_slots, int h_count, int t, int lut_width,
+                       int causal, float scale) {
+  using Ge = PairGeo<Dh, BLK>;
+  using Sh = PairShape<T, Dh, BLK, false>;
+  constexpr int ST = Sh::ST, NC = Ge::NC;
+  extern __shared__ __align__(16) float smem[];
+  const Ge geo;
+  const int it = blockIdx.x * Ge::G + geo.g;
+  if (it >= n_items) return;  // a whole group leaves: no barrier of others waits
+  const int4 item = items[it];
+  const int nb = t / BLK;
+  const int h = item.x / nb, qi = item.x - h * nb;
+  const int b = blockIdx.y, bh = b * h_count + h;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem) + geo.g * Sh::kGroup;
+  float* k_sh = reinterpret_cast<float*>(ring + ST * Sh::kStage);
+  float* v_sh = k_sh + Ge::TILE;
+  const size_t base = (size_t)bh * t * Dh;
+  // query rows qi * BLK + r + m * HALF, m = 0, 1
+  int row[2];
+  float lr[2], dl[2];
+  float4 qr[2][NC], dor[2][NC], acc[2][NC];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    row[m] = qi * BLK + geo.r + m * Ge::HALF;
+    lr[m] = lse[(size_t)bh * t + row[m]];
+    dl[m] = delta[(size_t)bh * t + row[m]];
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const size_t at = base + (size_t)row[m] * Dh + geo.col(i);
+      qr[m][i] = scale4(Vec4<T>::load(q + at), scale);
+      dor[m][i] = Vec4<T>::load(dout + at);
+      acc[m][i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  const int* my_lut = lut + ((size_t)h * nb + qi) * lut_width + item.y;
+  const int n = item.z;
+  // entry jj's K and V rows into stage jj % ST
+  auto issue = [&](int jj) {
+    unsigned char* st = ring + (jj % ST) * Sh::kStage;
+    const size_t row0 = (size_t)my_lut[jj] * BLK;
+    const unsigned char* ks = reinterpret_cast<const unsigned char*>(k + base + row0 * Dh);
+    const unsigned char* vs = reinterpret_cast<const unsigned char*>(v + base + row0 * Dh);
+    for (int i = geo.gt; i < (int)(Sh::kRaw / 16); i += Ge::GT) {
+      cp_async16(st + 16 * i, ks + 16 * i);
+      cp_async16(st + Sh::kRaw + 16 * i, vs + 16 * i);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < n) issue(s);
+    cp_async_commit();
+  }
+  for (int jj = 0; jj < n; ++jj) {
+    cp_async_wait<ST - 2>();
+    geo.sync();  // entry jj landed; the f32 tiles and stage jj - 1 are free
+    if (jj + ST - 1 < n) issue(jj + ST - 1);
+    cp_async_commit();
+    const unsigned char* st = ring + (jj % ST) * Sh::kStage;
+    to_f32_tile<T, Dh, BLK>(k_sh, reinterpret_cast<const T*>(st), geo.gt, 1.f);
+    to_f32_tile<T, Dh, BLK>(v_sh, reinterpret_cast<const T*>(st + Sh::kRaw), geo.gt, 1.f);
+    geo.sync();
+    const int k0 = my_lut[jj] * BLK;
+    for (int j0 = 0; j0 < BLK; j0 += 2) {
+      // two key rows at a time, independent chains for the latency (at Dh 64
+      // too, unlike dK/dV: dQ holds three row arrays where dK/dV holds four,
+      // so two blocks still fit an SM)
+      float4 kv[2][NC], vv[2][NC];
+      float sv[2][2], dp[2][2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+#pragma unroll
+        for (int i = 0; i < NC; ++i) {
+          kv[u][i] = *reinterpret_cast<const float4*>(k_sh + (j0 + u) * Dh + geo.col(i));
+          vv[u][i] = *reinterpret_cast<const float4*>(v_sh + (j0 + u) * Dh + geo.col(i));
+        }
+        sv[u][0] = sv[u][1] = dp[u][0] = dp[u][1] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < NC; ++i)
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            sv[u][m] = dot4(qr[m][i], kv[u][i], sv[u][m]);
+            dp[u][m] = dot4(dor[m][i], vv[u][i], dp[u][m]);
+          }
+      // the 8 partial sums s[u][m], dp[u][m] reduce-scattered over the 8
+      // lanes of the row pair as in the dK/dV kernel: lane c < 4 ends with s
+      // of (u, m) = (c >> 1 & 1, c & 1) and takes its dp from lane c + 4,
+      // computes one ds, and the 4 ds go back to every lane
+      const int c = geo.c;
+      const float v8[8] = {sv[0][0], sv[0][1], sv[1][0], sv[1][1],
+                           dp[0][0], dp[0][1], dp[1][0], dp[1][1]};
+      float w4[4], w2[2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float keep = (c & 4) ? v8[4 + i] : v8[i], give = (c & 4) ? v8[i] : v8[4 + i];
+        w4[i] = keep + __shfl_xor_sync(0xffffffffu, give, 4);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float keep = (c & 2) ? w4[2 + i] : w4[i], give = (c & 2) ? w4[i] : w4[2 + i];
+        w2[i] = keep + __shfl_xor_sync(0xffffffffu, give, 2);
+      }
+      const float mine = ((c & 1) ? w2[1] : w2[0]) +
+                         __shfl_xor_sync(0xffffffffu, (c & 1) ? w2[0] : w2[1], 1);
+      const float dpv = __shfl_xor_sync(0xffffffffu, mine, 4);  // lanes c < 4: dp
+      const int u = (c >> 1) & 1, m = c & 1;
+      float sm = c < 4 ? mine : kMInit;  // lanes c >= 4 hold a dp: p = 0
+      if (causal && k0 + j0 + u > (m ? row[1] : row[0])) sm = kMInit;
+      // exp of an argument below -127 is 0 in f32 either way; the clamp
+      // keeps masked lanes off exp's out-of-range path
+      const float p =
+          sm > kMaskedBelow ? expf(fmaxf(sm - (m ? lr[1] : lr[0]), -127.f)) : 0.f;
+      const float ds = p * (dpv - (m ? dl[1] : dl[0]));
+#pragma unroll
+      for (int uu = 0; uu < 2; ++uu)
+#pragma unroll
+        for (int mm = 0; mm < 2; ++mm) {
+          const float dsq = __shfl_sync(0xffffffffu, ds, 2 * uu + mm, 8);
+#pragma unroll
+          for (int i = 0; i < NC; ++i) axpy4(dsq, kv[uu][i], acc[mm][i]);
+        }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    if (item.w < 0) {  // the whole row: dQ itself, scaled once
+#pragma unroll
+      for (int i = 0; i < NC; ++i)
+        Vec4<T>::store(dq + base + (size_t)row[m] * Dh + geo.col(i), scale4(acc[m][i], scale));
+    } else {           // one part: an f32 partial [BLK][Dh] in its slot
+      float* pq = part + (size_t)(b * n_slots + item.w) * BLK * Dh +
+                  (geo.r + m * Ge::HALF) * Dh;
+#pragma unroll
+      for (int i = 0; i < NC; ++i) *reinterpret_cast<float4*>(pq + geo.col(i)) = acc[m][i];
+    }
+  }
+}
+
+// The rows cut in parts: merge entry (h * nb + qi, first slot, parts, 0)
+// sums its parts' partials in part order, scales and rounds dQ once.
+template <typename T, int Dh, int BLK>
+__global__ void __launch_bounds__(kThreads)
+block_sparse_dq_merge(const float* __restrict__ part, const int4* __restrict__ merge,
+                      T* __restrict__ dq, int n_slots, int h_count, int t, float scale) {
+  const int4 m = merge[blockIdx.x];
+  const int nb = t / BLK, h = m.x / nb, qi = m.x - h * nb, b = blockIdx.y;
+  const size_t at = ((size_t)(b * h_count + h) * t + (size_t)qi * BLK) * Dh;
+  const float* p0 = part + (size_t)(b * n_slots + m.y) * BLK * Dh;
+  for (int i = 4 * threadIdx.x; i < BLK * Dh; i += 4 * kThreads) {
+    float4 sq = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = 0; j < m.z; ++j)
+      add4(sq, *reinterpret_cast<const float4*>(p0 + (size_t)j * BLK * Dh + i));
+    Vec4<T>::store(dq + at + i, scale4(sq, scale));
+  }
+}
+
 // ------------------------------------------------------------------ launch
 struct Args {
   const void *q, *k, *v, *dout;
@@ -606,28 +722,33 @@ cudaError_t allow_smem(K kernel, size_t bytes, size_t& allowed) {
 template <typename T, int Dh, int BLK>
 cudaError_t launch(Which which, const Args& a) {
   using Ge = Geo<Dh, BLK>;
-  using Sm = Smem<Dh, BLK>;
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
-  const dim3 grid((a.t / BLK + Ge::G - 1) / Ge::G, a.bh);
   cudaError_t err;
   if (which == kFwd) {
     auto kern = block_sparse_fwd_kernel<T, Dh, BLK>;
+    constexpr size_t smem = fwd_smem<Dh, BLK>();
     static size_t allowed = 48 * 1024;
-    if ((err = allow_smem(kern, Sm::fwd(), allowed)) != cudaSuccess) return err;
-    kern<<<grid, kThreads, Sm::fwd(), a.st>>>(q, k, v, static_cast<T*>(a.o), a.lse,
-                                              a.lut, a.cnt, a.h, a.t, a.lut_width,
-                                              a.causal, a.scale);
+    if ((err = allow_smem(kern, smem, allowed)) != cudaSuccess) return err;
+    const dim3 grid((a.t / BLK + Ge::G - 1) / Ge::G, a.bh);
+    kern<<<grid, kThreads, smem, a.st>>>(q, k, v, static_cast<T*>(a.o), a.lse, a.lut, a.cnt,
+                                         a.h, a.t, a.lut_width, a.causal, a.scale);
   } else if (which == kDq) {
+    using Sh = PairShape<T, Dh, BLK, false>;
     auto kern = block_sparse_dq_kernel<T, Dh, BLK>;
     static size_t allowed = 48 * 1024;
-    if ((err = allow_smem(kern, Sm::dq(), allowed)) != cudaSuccess) return err;
-    kern<<<grid, kThreads, Sm::dq(), a.st>>>(
-        q, k, v, static_cast<const T*>(a.dout), a.lse_in, a.delta,
-        static_cast<T*>(a.dq), a.lut, a.cnt, a.h, a.t, a.lut_width, a.causal, a.scale);
+    if ((err = allow_smem(kern, Sh::bytes(), allowed)) != cudaSuccess) return err;
+    const dim3 work((a.n_items + Sh::Ge::G - 1) / Sh::Ge::G, a.bh / a.h);
+    kern<<<work, kThreads, Sh::bytes(), a.st>>>(
+        q, k, v, static_cast<const T*>(a.dout), a.lse_in, a.delta, static_cast<T*>(a.dq),
+        a.part, a.lut, a.items, a.n_items, a.n_slots, a.h, a.t, a.lut_width, a.causal,
+        a.scale);
+    if ((err = cudaGetLastError()) != cudaSuccess || a.n_merge == 0) return err;
+    block_sparse_dq_merge<T, Dh, BLK><<<dim3(a.n_merge, a.bh / a.h), kThreads, 0, a.st>>>(
+        a.part, a.merge, static_cast<T*>(a.dq), a.n_slots, a.h, a.t, a.scale);
   } else {
-    using Sh = DkvShape<T, Dh, BLK>;
+    using Sh = PairShape<T, Dh, BLK, true>;
     auto kern = block_sparse_dkv_kernel<T, Dh, BLK>;
     static size_t allowed = 48 * 1024;
     if ((err = allow_smem(kern, Sh::bytes(), allowed)) != cudaSuccess) return err;
@@ -681,6 +802,32 @@ Args make_args(const void* q, const void* k, const void* v, const void* lut,
   return a;
 }
 
+// The backward kernels' common arguments: dout [BH, T, Dh]; lse, delta f32
+// [BH, T]; a table and its work list (block_sparse.py work_list): items
+// int32 [n_items, 4], merge int32 [n_merge, 4], and part f32 scratch for the
+// partials (null when n_slots is 0).
+bool bad_work(int n_items, int n_merge, int n_slots, const void* part, int bh, int h) {
+  return n_items <= 0 || n_merge < 0 || n_slots < 0 || (n_slots > 0 && !part) ||
+         (n_merge > 0 && n_slots == 0) || (bh > 0 && h > 0 && bh / h > 65535);
+}
+
+Args bwd_args(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, const void* lut, const void* items,
+              const void* merge, void* part, int n_items, int n_merge, int n_slots, int bh,
+              int h, int t, int lut_width, int causal, float scale, void* stream) {
+  Args a = make_args(q, k, v, lut, nullptr, bh, h, t, lut_width, causal, scale, stream);
+  a.items = static_cast<const int4*>(items);
+  a.merge = static_cast<const int4*>(merge);
+  a.part = static_cast<float*>(part);
+  a.n_items = n_items;
+  a.n_merge = n_merge;
+  a.n_slots = n_slots;
+  a.dout = dout;
+  a.lse_in = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  return a;
+}
+
 }  // namespace
 
 // q, k, v, o [BH, T, Dh]; lse f32 [BH, T]; lut int32 [H, T/block, lut_width]
@@ -697,26 +844,25 @@ extern "C" int dst_block_sparse_fwd(const void* q, const void* k, const void* v,
   return dispatch(kFwd, dh, block, dtype, a);
 }
 
-// + dout [BH, T, Dh]; lse, delta f32 [BH, T]; dq [BH, T, Dh].
+// dq [BH, T, Dh]; lut as the forward's; the work list over its rows; part
+// [BH / H, n_slots, block, Dh].
 extern "C" int dst_block_sparse_bwd_dq(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse,
                                        const void* delta, void* dq, const void* lut,
-                                       const void* cnt, int bh, int h, int t, int dh,
-                                       int block, int lut_width, int causal,
+                                       const void* items, const void* merge, void* part,
+                                       int n_items, int n_merge, int n_slots, int bh, int h,
+                                       int t, int dh, int block, int lut_width, int causal,
                                        float scale, int dtype, void* stream) {
-  Args a = make_args(q, k, v, lut, cnt, bh, h, t, lut_width, causal, scale, stream);
-  a.dout = dout;
-  a.lse_in = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
+  if (bad_work(n_items, n_merge, n_slots, part, bh, h)) return cudaErrorInvalidValue;
+  Args a = bwd_args(q, k, v, dout, lse, delta, lut, items, merge, part, n_items, n_merge,
+                    n_slots, bh, h, t, lut_width, causal, scale, stream);
   a.dq = dq;
   return dispatch(kDq, dh, block, dtype, a);
 }
 
 // dk, dv [BH, T, Dh]; lut_t int32 [H, T/block, lut_width] (active query
-// blocks of each key block); the work list (block_sparse.py dkv_work_list):
-// items int32 [n_items, 4], merge int32 [n_merge, 4], and part f32
-// [BH / H, n_slots, 2, block, Dh] scratch for the partials (null when
-// n_slots is 0).
+// blocks of each key block); the work list over its columns; part
+// [BH / H, n_slots, 2, block, Dh].
 extern "C" int dst_block_sparse_bwd_dkv(const void* q, const void* k, const void* v,
                                         const void* dout, const void* lse,
                                         const void* delta, void* dk, void* dv,
@@ -725,19 +871,9 @@ extern "C" int dst_block_sparse_bwd_dkv(const void* q, const void* k, const void
                                         int n_merge, int n_slots, int bh, int h, int t,
                                         int dh, int block, int lut_width, int causal,
                                         float scale, int dtype, void* stream) {
-  if (n_items <= 0 || n_merge < 0 || n_slots < 0 || (n_slots > 0 && !part) ||
-      (n_merge > 0 && n_slots == 0) || (bh > 0 && h > 0 && bh / h > 65535))
-    return cudaErrorInvalidValue;
-  Args a = make_args(q, k, v, lut_t, nullptr, bh, h, t, lut_width, causal, scale, stream);
-  a.items = static_cast<const int4*>(items);
-  a.merge = static_cast<const int4*>(merge);
-  a.part = static_cast<float*>(part);
-  a.n_items = n_items;
-  a.n_merge = n_merge;
-  a.n_slots = n_slots;
-  a.dout = dout;
-  a.lse_in = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
+  if (bad_work(n_items, n_merge, n_slots, part, bh, h)) return cudaErrorInvalidValue;
+  Args a = bwd_args(q, k, v, dout, lse, delta, lut_t, items, merge, part, n_items, n_merge,
+                    n_slots, bh, h, t, lut_width, causal, scale, stream);
   a.dk = dk;
   a.dv = dv;
   return dispatch(kDkv, dh, block, dtype, a);

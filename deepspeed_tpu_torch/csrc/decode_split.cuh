@@ -7,7 +7,8 @@
 // token's row instead of the cache (`fresh`: position idx, or any position
 // whose pool row is the one being written), so no read waits on the write.
 // It leaves the split's online-softmax state (m, l, unnormalised acc, f32)
-// for merge_splits, or, when the prefix is one split, the output itself.
+// for the merge (merge_row), or, when the prefix is one split, the output
+// itself.
 //
 // Two forms of the same arithmetic:
 //  * attend_tc (bf16/fp16, Dh 64, 128 or 256): the products run on the tensor
@@ -37,10 +38,20 @@
 //    per warp keeps the block at 68 KB (three blocks per SM). The
 //    conversions avoid the conversion pipe (a quarter of the FMA rate):
 //    int8 through an f32 magic number, and one bf16x2 multiply per pair.
-//  * attend_cc (f32, and any other Dh the kernels take): the CUDA cores, one
-//    warp per position for the scores, one per query row for the softmax,
-//    each thread owning rep * Dh / kThreads accumulators of P.V. An 8-bit
-//    pool is dequantized as it is staged (loads through registers).
+//  * attend_cc (f32, and any other Dh the kernels take): the CUDA cores.
+//    K/V batches arrive through two cp.async buffers (an 8-bit pool is
+//    dequantized as it is staged, loads through registers). Each warp takes
+//    every fourth position of a batch for up to 8 query rows (4 where a
+//    lane holds 8 columns) and keeps their (m, l, acc) in registers, each
+//    lane the columns lane + 32 e: per group of 4 positions it loads the K
+//    rows once for all the rows, runs the rows x positions butterflies side
+//    by side, updates the softmax and adds P.V. A group has no branch: Dh
+//    64, 128 and 256 and the row count are compile-time, rows past rep
+//    score a clamped row that is never stored, and positions past the
+//    batch read its first position with p = 0 (the run-time bounds of the
+//    body's first form kept its loads, shuffles and exps from overlapping).
+//    The warps merge in warp order at the end; further rows, and columns
+//    past 256, take further passes over the positions.
 //
 // Rounding points (both forms, the TPU kernels' and the plain versions'):
 // scores are products of the stored values summed in f32, then times
@@ -60,7 +71,12 @@ namespace split {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kStageRows = 16 * kWarps;  // positions per stage: a 16-row tile per warp
-constexpr int kMaxPerThread = 16;        // attend_cc: rep * dh <= kThreads * kMaxPerThread
+constexpr int kMaxPerThread = 16;        // rep * dh <= kThreads * kMaxPerThread
+// attend_cc: query rows a warp carries at once, columns a lane owns
+// (lane + 32 e, so 256 a pass), positions scored together
+constexpr int kCcRows = 8;
+constexpr int kCcCols = 8;
+constexpr int kCcGroup = 4;
 
 using fp8_t = __nv_fp8_storage_t;        // e4m3 bytes
 
@@ -494,11 +510,13 @@ __host__ __device__ inline int cc_rows(int dh) {
   return cs > 64 ? 64 : (cs < 8 ? 8 : cs);
 }
 
+// attend_cc's shared memory: q in f32, then the two K/V buffers, which the
+// merge reuses ([kWarps][kCcRows] m and l, [kWarps][kCcRows][<= 256] acc).
 template <typename T>
 __host__ __device__ inline size_t cc_smem(int rep, int dh) {
-  const int cs = cc_rows<T>(dh);
-  const size_t b = 4 * (size_t)cs * dh * sizeof(T)
-                 + ((size_t)rep * dh + (size_t)rep * cs + 3 * (size_t)rep) * sizeof(float);
+  const size_t stage = 4 * (size_t)cc_rows<T>(dh) * dh * sizeof(T);
+  const size_t merge = (size_t)kWarps * kCcRows * (2 + 32 * kCcCols) * sizeof(float);
+  const size_t b = (size_t)rep * dh * sizeof(float) + (stage > merge ? stage : merge);
   return (b + 15) / 16 * 16;
 }
 
@@ -552,37 +570,37 @@ __device__ __forceinline__ void cc_stage(T* k_dst, T* v_dst, const Rows& rows, i
   cp_async_commit();
 }
 
-// prep() as attend_tc's, here before the first copies: an 8-bit pool's
-// staging reads the new token's row.
-template <typename T, class Rows, class Prep>
-__device__ __forceinline__ void attend_cc(const T* __restrict__ q_rows, const Rows& rows,
-                                          int c0, int c1, int rep, int dh, float scale,
-                                          const Out<T>& o, unsigned char* smem,
-                                          const Prep& prep) {
-  prep();
-  __syncthreads();  // what prep left in shared memory is visible to the copies
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+// One pass of attend_cc over all positions for query rows r0.. (up to R)
+// and output columns d0.. (up to 32 * NE). DHC > 0: Dh is DHC (64, 128 or
+// 256) and NE = DHC / 32, so the pass covers every column and no column
+// needs a bound; DHC == 0: Dh is dh at run time, columns past it are
+// masked. Rows past rep score a clamped row and are never stored, and a
+// group's positions past the batch read its first position with p = 0, so
+// a group's work has no branch.
+template <typename T, int R, int NE, int DHC, class Rows>
+__device__ __forceinline__ void cc_pass(const float* __restrict__ q_sh, T* k_sh, T* v_sh,
+                                        float* mg, const Rows& rows, int c0, int c1,
+                                        int rep, int dh_rt, int r0, int d0, float scale,
+                                        const Out<T>& o) {
+  const int dh = DHC > 0 ? DHC : dh_rt;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int cs = cc_rows<T>(dh);
   const size_t buf = (size_t)cs * dh;
-  T* k_sh = reinterpret_cast<T*>(smem);                          // [2][cs][dh]
-  T* v_sh = k_sh + 2 * buf;                                      // [2][cs][dh]
-  float* q_sh = reinterpret_cast<float*>(v_sh + 2 * buf);        // [rep][dh]
-  float* p_sh = q_sh + rep * dh;                                 // [rep][cs]
-  float* m_sh = p_sh + rep * cs;                                 // [rep]
-  float* l_sh = m_sh + rep;                                      // [rep]
-  float* c_sh = l_sh + rep;                                      // [rep]
   const int n = c1 - c0, n_chunks = (n + cs - 1) / cs;
-
-  cc_stage(k_sh, v_sh, rows, c0, min(cs, n), dh);
-  for (int i = tid; i < rep * dh; i += kThreads) q_sh[i] = to_f32(q_rows[i]);
-  if (tid < rep) {
-    m_sh[tid] = -CUDART_INF_F;
-    l_sh[tid] = 0.f;
-  }
-  float acc[kMaxPerThread];
+  const int n_t = min(R, rep - r0);
+  int qrow[R];  // rows past rep read the last row (never stored)
 #pragma unroll
-  for (int j = 0; j < kMaxPerThread; ++j) acc[j] = 0.f;
-
+  for (int t = 0; t < R; ++t) qrow[t] = min(r0 + t, rep - 1) * dh;
+  float m[R], l[R], acc[R][NE];
+#pragma unroll
+  for (int t = 0; t < R; ++t) {
+    m[t] = -CUDART_INF_F;
+    l[t] = 0.f;
+#pragma unroll
+    for (int e = 0; e < NE; ++e) acc[t][e] = 0.f;
+  }
+  __syncthreads();  // q_sh written; the buffers' last readers are done
+  cc_stage(k_sh, v_sh, rows, c0, min(cs, n), dh);
   for (int c = 0; c < n_chunks; ++c) {
     const int cc0 = c * cs, cn = min(cs, n - cc0);
     const size_t cur = (size_t)(c & 1) * buf;
@@ -596,72 +614,178 @@ __device__ __forceinline__ void attend_cc(const T* __restrict__ q_rows, const Ro
     __syncthreads();
     const T* kb = k_sh + cur;
     const T* vb = v_sh + cur;
-    for (int p = warp; p < cn; p += kWarps) {  // scores, one warp per position
-      const T* krow = kb + (size_t)p * dh;
-      for (int r = 0; r < rep; ++r) {
-        float part = 0.f;
-        for (int i = lane; i < dh; i += 32) part = fmaf(q_sh[r * dh + i], to_f32(krow[i]), part);
-        part = warp_sum(part);
-        if (lane == 0) p_sh[r * cs + p] = part * scale;
-      }
-    }
-    __syncthreads();
-    for (int r = warp; r < rep; r += kWarps) {  // online softmax, one warp per row
-      float mx = -CUDART_INF_F;
-      for (int p = lane; p < cn; p += 32) mx = fmaxf(mx, p_sh[r * cs + p]);
-      mx = warp_max(mx);
-      const float m_old = m_sh[r], m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int p = lane; p < cn; p += 32) {
-        const float e = expf(p_sh[r * cs + p] - m_new);
-        p_sh[r * cs + p] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        c_sh[r] = corr;
-        l_sh[r] = l_sh[r] * corr + sum;
-        m_sh[r] = m_new;
-      }
-    }
-    __syncthreads();
+    // positions warp, warp + 4, ... of the batch, kCcGroup at a time
+    for (int u0 = warp; u0 < cn; u0 += kWarps * kCcGroup) {
+      bool ok[kCcGroup];
+      int prow[kCcGroup];
 #pragma unroll
-    for (int j = 0; j < kMaxPerThread; ++j) {  // P.V, p rounded to T
-      const int i = tid + j * kThreads;
-      if (i < rep * dh) {
-        const int r = i / dh, col = i - r * dh;
-        const float* prow = p_sh + r * cs;
-        float a = acc[j] * c_sh[r];
-        for (int p = 0; p < cn; ++p)
-          a = fmaf(to_f32(from_f32<T>(prow[p])), to_f32(vb[(size_t)p * dh + col]), a);
-        acc[j] = a;
+      for (int j = 0; j < kCcGroup; ++j) {
+        ok[j] = u0 + kWarps * j < cn;
+        prow[j] = (ok[j] ? u0 + kWarps * j : u0) * dh;
+      }
+      float s[R][kCcGroup];
+#pragma unroll
+      for (int t = 0; t < R; ++t)
+#pragma unroll
+        for (int j = 0; j < kCcGroup; ++j) s[t][j] = 0.f;
+      for (int k0 = 0; k0 < dh; k0 += 32 * NE) {  // scores over all of Dh
+#pragma unroll
+        for (int e = 0; e < NE; ++e) {
+          const int col = k0 + lane + 32 * e;
+          const bool in = DHC > 0 || col < dh;
+          float kr[kCcGroup];
+#pragma unroll
+          for (int j = 0; j < kCcGroup; ++j) kr[j] = in ? to_f32(kb[prow[j] + col]) : 0.f;
+#pragma unroll
+          for (int t = 0; t < R; ++t) {
+            const float qv = in ? q_sh[qrow[t] + col] : 0.f;
+#pragma unroll
+            for (int j = 0; j < kCcGroup; ++j) s[t][j] = fmaf(qv, kr[j], s[t][j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < R; ++t)
+#pragma unroll
+        for (int j = 0; j < kCcGroup; ++j) s[t][j] = warp_sum(s[t][j]) * scale;
+      // online softmax per row (s becomes p), then P.V with p rounded to T
+#pragma unroll
+      for (int t = 0; t < R; ++t) {
+        float mx = s[t][0];  // position u0 < cn
+#pragma unroll
+        for (int j = 1; j < kCcGroup; ++j) mx = ok[j] ? fmaxf(mx, s[t][j]) : mx;
+        const float m_new = fmaxf(m[t], mx);
+        const float corr = expf(m[t] - m_new);  // 0 on the first group
+        l[t] *= corr;
+#pragma unroll
+        for (int e = 0; e < NE; ++e) acc[t][e] *= corr;
+#pragma unroll
+        for (int j = 0; j < kCcGroup; ++j) {
+          const float pj = ok[j] ? expf(s[t][j] - m_new) : 0.f;
+          l[t] += pj;
+          s[t][j] = to_f32(from_f32<T>(pj));
+        }
+        m[t] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < kCcGroup; ++j) {
+        float vr[NE];
+#pragma unroll
+        for (int e = 0; e < NE; ++e) {
+          const int col = d0 + lane + 32 * e;
+          vr[e] = DHC > 0 || col < dh ? to_f32(vb[prow[j] + col]) : 0.f;
+        }
+#pragma unroll
+        for (int t = 0; t < R; ++t)
+#pragma unroll
+          for (int e = 0; e < NE; ++e) acc[t][e] = fmaf(s[t][j], vr[e], acc[t][e]);
       }
     }
     __syncthreads();  // this buffer is restaged next iteration
   }
+  // merge the warps in warp order: [kWarps][R] m and l, then
+  // [kWarps][R][32 * NE] acc, over the retired K/V buffers
+  float* mg_m = mg;
+  float* mg_l = mg + kWarps * R;
+  float* mg_a = mg_l + kWarps * R;
+  constexpr int kCols = 32 * NE;
 #pragma unroll
-  for (int j = 0; j < kMaxPerThread; ++j) {
-    const int i = tid + j * kThreads;
-    if (i < rep * dh) {
-      const int r = i / dh;
-      o.put(r, i - r * dh, m_sh[r], l_sh[r], acc[j]);
+  for (int t = 0; t < R; ++t) {
+    if (lane == 0) {
+      mg_m[warp * R + t] = m[t];
+      mg_l[warp * R + t] = l[t];
     }
+#pragma unroll
+    for (int e = 0; e < NE; ++e) mg_a[(warp * R + t) * kCols + lane + 32 * e] = acc[t][e];
+  }
+  __syncthreads();
+  const int cols = min(dh - d0, kCols);
+  for (int i = threadIdx.x; i < n_t * cols; i += kThreads) {
+    const int t = i / cols, col = i - t * cols;
+    float mm = -CUDART_INF_F;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, mg_m[w * R + t]);  // warp 0 saw c0
+    float ll = 0.f, aa = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float cw = expf(mg_m[w * R + t] - mm);  // 0 for a warp with no position
+      ll = fmaf(mg_l[w * R + t], cw, ll);
+      aa = fmaf(mg_a[(w * R + t) * kCols + col], cw, aa);
+    }
+    o.put(r0 + t, d0 + col, mm, ll, aa);
+  }
+}
+
+// attend_cc's row passes at one column range: kCcRows rows a pass (4 when a
+// lane holds 8 columns), the last pass at the fewest of 1, 2, 4 that holds
+// its rows.
+template <typename T, int NE, int DHC, class Rows>
+__device__ __forceinline__ void cc_passes(const float* q_sh, T* k_sh, T* v_sh, float* mg,
+                                          const Rows& rows, int c0, int c1, int rep, int dh,
+                                          int d0, float scale, const Out<T>& o) {
+  constexpr int kR = NE <= 4 ? kCcRows : kCcRows / 2;
+  for (int r0 = 0; r0 < rep; r0 += kR) {
+    const int left = rep - r0;
+    if (left >= kR)
+      cc_pass<T, kR, NE, DHC>(q_sh, k_sh, v_sh, mg, rows, c0, c1, rep, dh, r0, d0, scale, o);
+    else if (left > 2)
+      cc_pass<T, 4, NE, DHC>(q_sh, k_sh, v_sh, mg, rows, c0, c1, rep, dh, r0, d0, scale, o);
+    else if (left == 2)
+      cc_pass<T, 2, NE, DHC>(q_sh, k_sh, v_sh, mg, rows, c0, c1, rep, dh, r0, d0, scale, o);
+    else
+      cc_pass<T, 1, NE, DHC>(q_sh, k_sh, v_sh, mg, rows, c0, c1, rep, dh, r0, d0, scale, o);
+  }
+}
+
+// prep() as attend_tc's, here before the first copies: an 8-bit pool's
+// staging reads the new token's row.
+template <typename T, class Rows, class Prep>
+__device__ __forceinline__ void attend_cc(const T* __restrict__ q_rows, const Rows& rows,
+                                          int c0, int c1, int rep, int dh, float scale,
+                                          const Out<T>& o, unsigned char* smem,
+                                          const Prep& prep) {
+  prep();
+  __syncthreads();  // what prep left in shared memory is visible to the copies
+  float* q_sh = reinterpret_cast<float*>(smem);                     // [rep][dh]
+  T* k_sh = reinterpret_cast<T*>(q_sh + rep * dh);                  // [2][cs][dh]
+  T* v_sh = k_sh + 2 * (size_t)cc_rows<T>(dh) * dh;                 // [2][cs][dh]
+  float* mg = reinterpret_cast<float*>(k_sh);                       // merge, reuses K/V
+  for (int i = threadIdx.x; i < rep * dh; i += kThreads) q_sh[i] = to_f32(q_rows[i]);
+  switch (dh) {
+    case 64:
+      cc_passes<T, 2, 64>(q_sh, k_sh, v_sh, mg, rows, c0, c1, rep, dh, 0, scale, o);
+      break;
+    case 128:
+      cc_passes<T, 4, 128>(q_sh, k_sh, v_sh, mg, rows, c0, c1, rep, dh, 0, scale, o);
+      break;
+    case 256:
+      cc_passes<T, 8, 256>(q_sh, k_sh, v_sh, mg, rows, c0, c1, rep, dh, 0, scale, o);
+      break;
+    default:  // column passes of 256
+      for (int d0 = 0; d0 < dh; d0 += 32 * kCcCols)
+        cc_passes<T, kCcCols, 0>(q_sh, k_sh, v_sh, mg, rows, c0, c1, rep, dh, d0, scale, o);
   }
 }
 
 // ------------------------------------------------------------------ merge
 // One query row's live splits, merged in split order (no atomics: the result
 // repeats bit for bit). The live count comes from idx on the device, so
-// splits that returned early are never read.
+// splits that returned early are never read. idx_step: 1 for one index per
+// slot (idx_vec[b]), 0 for one index shared by every slot. Launched as a
+// programmatic dependent of the split kernel (flash_decode.cu's
+// flash_decode_merge), it may start before that kernel ends:
+// griddepcontrol.wait holds it until the split kernel has finished and its
+// partials are visible (a no-op after a plain launch).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-merge_splits(const float* __restrict__ ml, const float* __restrict__ acc, T* __restrict__ out,
-             const int* __restrict__ idx_vec, int idx_scalar, int hq, int s_max, int dh,
-             int chunk, int n_splits) {
+__device__ __forceinline__ void merge_row(const float* __restrict__ ml,
+                                          const float* __restrict__ acc, T* __restrict__ out,
+                                          const int* __restrict__ idx_vec, int idx_step,
+                                          int idx_scalar, int hq, int s_max, int dh, int chunk,
+                                          int n_splits) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int b = blockIdx.y;
   const size_t row = (size_t)b * hq + blockIdx.x;
-  const int idx = idx_vec ? idx_vec[b] : idx_scalar;
+  const int idx = idx_vec ? idx_vec[b * idx_step] : idx_scalar;
   const int n_pos = min(idx, s_max - 1) + 1;
   const int n_live = n_pos > 0 ? min((n_pos - 1) / chunk + 1, n_splits) : 0;
   const float* m = ml + 2 * row * n_splits;
@@ -677,6 +801,15 @@ merge_splits(const float* __restrict__ ml, const float* __restrict__ acc, T* __r
     }
     out[row * dh + d] = from_f32<T>(n_live ? aa / fmaxf(ll, 1e-20f) : 0.f);
   }
+}
+
+// The merge of kernels B and C: grid (hq, slots).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+merge_splits(const float* __restrict__ ml, const float* __restrict__ acc, T* __restrict__ out,
+             const int* __restrict__ idx_vec, int idx_step, int idx_scalar, int hq,
+             int s_max, int dh, int chunk, int n_splits) {
+  merge_row<T>(ml, acc, out, idx_vec, idx_step, idx_scalar, hq, s_max, dh, chunk, n_splits);
 }
 
 }  // namespace split

@@ -12,9 +12,11 @@
 // first form of this kernel back (one block per (kv head, slot) walking the
 // prefix with scores on the CUDA cores):
 //  * Too few blocks: the grid is (split, kv head, slot). Each block takes
-//    `chunk` positions, chosen by the wrapper from B, Hkv and S alone so
-//    that the grid at full S holds at least four blocks per SM (CodeLlama-34B
-//    at batch 4: 320 blocks where there were 32). A block whose first
+//    `chunk` positions, chosen by the wrapper (decode_step.split_plan,
+//    flash-decode's plan too) from B, Hkv, S and the body alone: on the
+//    tensor cores the grid at full S holds at most one block per SM, longer
+//    chunks streaming through the ring (CodeLlama-34B at batch 4: 96 blocks
+//    of 256 positions where the first form had 32 blocks). A block whose first
 //    position lies past min(idx[b], S-1) returns before reading anything,
 //    so bytes follow idx, not S. merge_splits then merges each query row's
 //    live splits in split order: no atomics, results repeat bit for bit.
@@ -142,7 +144,7 @@ cudaError_t launch(const void* q, void* kc, void* vc, const void* kn, const void
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || geo.n_splits == 1) return err;
   merge_splits<T><<<dim3(geo.hq, geo.nb), kThreads, 0, st>>>(
-      ml, acc, static_cast<T*>(out), geo.idx_vec, geo.idx_scalar, geo.hq, geo.s_max, geo.dh,
+      ml, acc, static_cast<T*>(out), geo.idx_vec, 1, geo.idx_scalar, geo.hq, geo.s_max, geo.dh,
       geo.chunk, geo.n_splits);
   return cudaGetLastError();
 }

@@ -15,6 +15,7 @@ build raises; there is no fallback to the plain versions."""
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -167,7 +168,8 @@ def kernels() -> ctypes.CDLL:
         lib.dst_block_sparse_fwd.restype = i32
         lib.dst_block_sparse_bwd_dq.argtypes = [
             vp, vp, vp, vp, vp, vp, vp,  # q, k, v, dout, lse, delta, dq
-            vp, vp,                      # lut, count
+            vp, vp, vp, vp,              # lut, work items, merge list, partials
+            i32, i32, i32,               # items, merges, partial slots
             i32, i32, i32, i32, i32,     # bh, h, t, dh, block
             i32, i32, f32, i32, vp]      # lut width, causal, scale, dtype, stream
         lib.dst_block_sparse_bwd_dq.restype = i32
@@ -183,6 +185,15 @@ def kernels() -> ctypes.CDLL:
         lib.dst_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``device_index`` (the split
+    plans of the decode kernels size their grids by it)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

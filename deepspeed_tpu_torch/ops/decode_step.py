@@ -9,7 +9,8 @@ then attend each slot over its own valid prefix.
   write is dropped for a slot whose index is past the allocation. CUDA
   tensors launch ``csrc/decode_step.cu`` (replaces the TPU kernel
   ``ops/decode_step.py:_kernel``): the valid prefix split across blocks
-  (:func:`split_plan`), the splits merged by a second kernel.
+  (:func:`split_plan`, flash-decode's plan too), the splits merged by a
+  second kernel.
 * ``fused_block_decode_step``: the block pool ``[L, N+1, Hkv, bs, Dh]``
   addressed through a ``[B, MB]`` block table, in the compute dtype or
   quantized (``{"q", "s"}`` int8/fp8 payload + bf16 scales, quantized on
@@ -17,7 +18,8 @@ then attend each slot over its own valid prefix.
   ``N``. CUDA tensors launch ``csrc/block_decode_step.cu`` (replaces
   ``ops/decode_step.py:_block_kernel``): the same split and merge as the
   slot kernel, with table-addressed rows (an 8-bit pool staged as its raw
-  payload and dequantized in shared memory).
+  payload and dequantized in shared memory), under its own plan
+  (:func:`block_split_plan`).
 
 Both kernels' attention body is ``csrc/decode_split.cuh``; the source notes
 say what bounds them and how the design answers that. CPU
@@ -33,39 +35,66 @@ from typing import Optional, Union
 import torch
 
 from deepspeed_tpu_torch.ops import cuda_build
-from deepspeed_tpu_torch.ops.flash_decode import _sm_count
 
 _THREADS, _MAX_PER_THREAD = 128, 16   # csrc/decode_split.cuh block shape
 _STAGE_ROWS = 64                      # csrc/decode_split.cuh kStageRows
+_TC_HEAD_DIMS = (64, 128, 256)        # csrc/decode_split.cuh attend_tc widths
 # pool storage code of csrc/block_decode_step.cu
 _KV_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 
 
-def split_plan(b: int, hkv: int, s_max: int, sms: int):
-    """``(chunk, n_splits)`` of the fused decode steps: positions per block
-    and blocks along S (``csrc/decode_step.cu`` and, with S = MB * bs,
-    ``csrc/block_decode_step.cu`` run a grid of (n_splits, hkv, b)
-    blocks). The smallest chunk is one 64-position stage (a 16-row
-    tile per warp); it doubles while the grid at full S would still hold
-    four blocks per SM. A function of the shapes only: the host never reads
+def _cc_rows(dh: int, itemsize: int) -> int:
+    """Positions per copy batch of the CUDA-core body (decode_split.cuh
+    ``cc_rows``): one batch of K or V rows within 16 KB, 8 to 64."""
+    return min(64, max(8, 16384 // (dh * itemsize)))
+
+
+def split_plan(b: int, hkv: int, s_max: int, sms: int, dh: int = 128,
+               itemsize: int = 2):
+    """``(chunk, n_splits)`` of the split attention over a contiguous cache,
+    the fused decode step (kernel B, ``csrc/decode_step.cu``) and
+    flash-decode at rep >= 2 (``csrc/flash_decode.cu``): positions per
+    block and blocks along S, for a grid of (n_splits, hkv, b) blocks.
+
+    On the tensor-core body (16-bit elements at Dh 64, 128 or 256) the
+    smallest chunk is one 64-position stage, and it doubles while the grid
+    at full S would hold more than one block per SM: the body's ring fits
+    two, and a second wave cost more than the longer walk. On the
+    CUDA-core body (f32, other head widths) the smallest chunk is one copy
+    batch (``_cc_rows``), doubling while the grid would hold more than two
+    blocks per SM. ``chip_smoke.py`` times these plans against fixed
+    chunks (PERF.md). A function of the shapes only: the host never reads
     idx, and a row's result does not depend on the other slots'."""
+    tc = itemsize == 2 and dh in _TC_HEAD_DIMS
+    chunk, per_sm = (_STAGE_ROWS, 1) if tc else (_cc_rows(dh, itemsize), 2)
+    while chunk < s_max and b * hkv * -(-s_max // chunk) > per_sm * sms:
+        chunk *= 2
+    return chunk, -(-s_max // chunk)
+
+
+def block_split_plan(b: int, hkv: int, s_max: int, sms: int):
+    """``(chunk, n_splits)`` of the block decode step (kernel C,
+    ``csrc/block_decode_step.cu``, S = MB * bs): the smallest chunk is one
+    64-position stage, and it doubles while the grid at full S would still
+    hold four blocks per SM. Kernel C keeps these finer splits: its rows
+    ran slower under :func:`split_plan` at every pool type, where kernel
+    B's ran faster (``chip_smoke.py`` times both; PERF.md). A function of
+    the shapes only."""
     chunk = _STAGE_ROWS
     while chunk < s_max and b * hkv * -(-s_max // (2 * chunk)) >= 4 * sms:
         chunk *= 2
     return chunk, -(-s_max // chunk)
 
 
-def _split_scratch(b: int, hq: int, hkv: int, s_max: int, dh: int, device):
-    """``(ml, acc, chunk, n_splits)``: the split plan on ``device``'s card
-    and, with more than one split, the splits' f32 partials from
-    ``torch.empty`` on the current stream (so a call replays in a CUDA
-    graph), else ``None``s."""
-    chunk, n_splits = split_plan(b, hkv, s_max, _sm_count(device.index or 0))
+def _split_scratch(b: int, hq: int, s_max: int, dh: int, plan, device):
+    """``(ml, acc)``: with more than one split in ``plan`` (``(chunk,
+    n_splits)``), the splits' f32 partials from ``torch.empty`` on the
+    current stream (so a call replays in a CUDA graph), else ``None``s."""
+    n_splits = plan[1]
     if n_splits == 1:
-        return None, None, chunk, n_splits
+        return None, None
     return (torch.empty((b, hq, n_splits, 2), dtype=torch.float32, device=device),
-            torch.empty((b, hq, n_splits, dh), dtype=torch.float32, device=device),
-            chunk, n_splits)
+            torch.empty((b, hq, n_splits, dh), dtype=torch.float32, device=device))
 
 
 def supports(hq: int, hkv: int, s_max: int, dh: int, itemsize: int = 2) -> bool:
@@ -184,7 +213,10 @@ def fused_decode_step(q: torch.Tensor, k_full: torch.Tensor,
     sc = float(scale) if scale is not None else dh ** -0.5
     lib = cuda_build.kernels()
     out = torch.empty((b, 1, hq, dh), dtype=dtype, device=q.device)
-    ml, acc, chunk, n_splits = _split_scratch(b, hq, hkv, s_max, dh, q.device)
+    chunk, n_splits = split_plan(b, hkv, s_max,
+                                 cuda_build.sm_count(q.device.index or 0), dh,
+                                 q.element_size())
+    ml, acc = _split_scratch(b, hq, s_max, dh, (chunk, n_splits), q.device)
     err = lib.dst_fused_decode_step(
         q.data_ptr(), k_full.data_ptr(), v_full.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), out.data_ptr(),
@@ -320,7 +352,9 @@ def fused_block_decode_step(q: torch.Tensor, k_pool, v_pool,
     sc = float(scale) if scale is not None else dh ** -0.5
     lib = cuda_build.kernels()
     out = torch.empty((b, 1, hq, dh), dtype=dtype, device=q.device)
-    ml, acc, chunk, n_splits = _split_scratch(b, hq, hkv, mb * bs, dh, q.device)
+    chunk, n_splits = block_split_plan(b, hkv, mb * bs,
+                                       cuda_build.sm_count(q.device.index or 0))
+    ml, acc = _split_scratch(b, hq, mb * bs, dh, (chunk, n_splits), q.device)
     err = lib.dst_fused_block_decode_step(
         q.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks_ptr, vs_ptr,
         k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(),

@@ -11,23 +11,26 @@ because their rounding differs:
 * rep == 1 (the TPU ``_mha_kernel``, :func:`flash_decode_mha`): all in
   f32, probabilities not rounded. Unrouted, as in the reference.
 
-On a CUDA tensor each launches ``csrc/flash_decode.cu`` (split along the
-valid prefix, then combined; the source note says what bounds it); on a
-CPU tensor each runs :func:`flash_decode_plain`. A CUDA call the kernel
-cannot take raises ``ValueError``; nothing falls back.
+On a CUDA tensor each launches ``csrc/flash_decode.cu``, split along the
+valid prefix and then merged (the source note says what bounds it): rep >= 2
+runs kernel B's attention body (``csrc/decode_split.cuh``) under kernel B's
+plan (``decode_step.split_plan``) with its merge as a programmatic
+dependent launch, rep == 1 its own CUDA-core kernel under :func:`plan`. On a
+CPU tensor each runs
+:func:`flash_decode_plain`. A CUDA call the kernel cannot take raises
+``ValueError``; nothing falls back.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Union
 
 import torch
 
-from deepspeed_tpu_torch.ops import cuda_build
+from deepspeed_tpu_torch.ops import cuda_build, decode_step
 
 HEAD_DIMS = (64, 128, 256)          # csrc/flash_decode.cu instantiations
-_WARPS = 4                          # csrc/flash_decode.cu block: 4 warps
+_WARPS = 4                          # csrc/flash_decode.cu rep-1 block: 4 warps
 
 
 def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -61,18 +64,13 @@ def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, 1, hq, dh)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
 def plan(b: int, hkv_rows: int, s_max: int, dh: int, sms: int):
-    """``(chunk, n_splits)``: positions per block and blocks along S. The
-    smallest chunk gives each warp one group of positions (the kernel's
-    ``kGroup``: 8 rows, 4 at Dh 256); it doubles while the grid at full S
-    would still hold two blocks per SM. ``hkv_rows`` is the grid's middle
-    dimension (kv heads x row groups). A function of the shapes only, so a
-    row's result does not depend on idx."""
+    """``(chunk, n_splits)`` of the rep-1 kernel: positions per block and
+    blocks along S. The smallest chunk gives each warp one group of
+    positions (the kernel's ``kGroup``: 8 rows, 4 at Dh 256); it doubles
+    while the grid at full S would still hold two blocks per SM.
+    ``hkv_rows`` is the grid's middle dimension (its heads). A function of
+    the shapes only, so a row's result does not depend on idx."""
     chunk = _WARPS * min(8, 1024 // dh)
     while chunk < s_max and b * hkv_rows * -(-s_max // (2 * chunk)) >= 2 * sms:
         chunk *= 2
@@ -114,9 +112,10 @@ def _launch(q, k_cache, v_cache, cache_index, scale, mha: bool, what: str):
         idx_ptr, idx_scalar = cache_index.data_ptr(), 0
     else:
         idx_ptr, idx_scalar = None, int(cache_index)
-    rows = 1 if mha else (4 if dh == 256 else 8)        # per block
-    chunk, n_splits = plan(b, hkv * -(-rep // rows), s_max, dh,
-                           _sm_count(q.device.index or 0))
+    sms = cuda_build.sm_count(q.device.index or 0)
+    chunk, n_splits = (plan(b, hkv, s_max, dh, sms) if mha
+                       else decode_step.split_plan(b, hkv, s_max, sms, dh,
+                                                   q.element_size()))
     sc = float(scale) if scale is not None else dh ** -0.5
     lib = cuda_build.kernels()
     out = torch.empty((b, 1, hq, dh), dtype=dtype, device=q.device)

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops.sparse_attention.block_sparse import (
-    block_sparse_bwd_dkv_plain, dkv_work_list)
+    block_sparse_bwd_dkv_plain, block_sparse_bwd_dq_plain, work_list)
 from deepspeed_tpu_torch.serving.kv_quant import kv_quantize
 
 
@@ -148,28 +148,58 @@ def rel_err(out, ref) -> float:
     return (err / ref.abs().amax(-1).clamp_min(floor)).max().item()
 
 
+def _part_luts(lut: np.ndarray, counts: np.ndarray, part: int, drop=()):
+    """The table ``lut [H, nb, width]`` cut as :func:`block_sparse.work_list`
+    cuts it: one ``[H, nb, part]`` table per part index, each line holding
+    that part's entries (-1 elsewhere). ``drop`` lists ``(line, part index)``
+    pairs left out (line = h * nb + block)."""
+    h, nb, width = lut.shape
+    flat = lut.reshape(h * nb, width)
+    items = work_list(counts, part)[0]
+    for p in range(-(-width // part)):
+        lut_p = np.full((h * nb, part), -1, dtype=np.int32)
+        for line, first, count, _ in items:
+            if first == p * part and (line, p) not in drop:
+                lut_p[line, :count] = flat[line, first:first + count]
+        yield lut_p.reshape(h, nb, part)
+
+
+def dq_by_parts(qf, kf, vf, dof, lse, delta, luts, *, block: int,
+                causal: bool, part: int, drop=()):
+    """dQ as the dQ kernel sums it from its work list (block_sparse.work_list
+    over the rows, ``part`` entries per item at most): each part's
+    contribution from the plain version in f32 (which scales each part,
+    where the kernel's merge scales their sum: an f32 rounding apart), the
+    parts of a row summed in part order, rounded once to ``qf``'s dtype.
+    ``drop`` lists ``(row, part index)`` pairs left out, as a kernel that
+    lost one partial would (row = h * nb + query block)."""
+    f32 = [x.float() for x in (qf, kf, vf, dof)]
+    dq = None
+    for lut_p in _part_luts(luts.lut_q.cpu().numpy(), luts.cnt_q.cpu().numpy(),
+                            part, drop):
+        p = block_sparse_bwd_dq_plain(
+            *f32, lse, delta,
+            luts._replace(lut_q=torch.from_numpy(lut_p).to(qf.device)),
+            block=block, causal=causal)
+        dq = p if dq is None else dq + p
+    return dq.to(qf.dtype)
+
+
 def dkv_by_parts(qf, kf, vf, dof, lse, delta, luts, *, block: int,
                  causal: bool, part: int, drop=()):
     """dK and dV as the dK/dV kernel sums them from its work list
-    (block_sparse.dkv_work_list with ``part`` entries per item at most):
-    each part's contribution from the plain version in f32, the parts of a
-    column summed in part order, rounded once to ``kf``'s dtype. ``drop``
-    lists ``(column, part index)`` pairs left out, as a kernel that lost
-    one partial would (column = h * nb + key block)."""
-    lut = luts.lut_k.cpu().numpy()
-    h, nb, width = lut.shape
-    items = dkv_work_list(luts.cnt_k.cpu().numpy(), part)[0]
-    n_parts = -(-width // part)
+    (block_sparse.work_list over the columns, ``part`` entries per item at
+    most): each part's contribution from the plain version in f32, the
+    parts of a column summed in part order, rounded once to ``kf``'s dtype.
+    ``drop`` lists ``(column, part index)`` pairs left out, as a kernel that
+    lost one partial would (column = h * nb + key block)."""
     f32 = [x.float() for x in (qf, kf, vf, dof)]
     dk = dv = None
-    for p in range(n_parts):
-        lut_p = np.full((h * nb, part), -1, dtype=np.int32)
-        for col, first, count, _ in items:
-            if first == p * part and (col, p) not in drop:
-                lut_p[col, :count] = lut.reshape(h * nb, width)[col, first:first + count]
-        lut_p = torch.from_numpy(lut_p.reshape(h, nb, part)).to(qf.device)
-        pk, pv = block_sparse_bwd_dkv_plain(*f32, lse, delta,
-                                            luts._replace(lut_k=lut_p),
-                                            block=block, causal=causal)
+    for lut_p in _part_luts(luts.lut_k.cpu().numpy(), luts.cnt_k.cpu().numpy(),
+                            part, drop):
+        pk, pv = block_sparse_bwd_dkv_plain(
+            *f32, lse, delta,
+            luts._replace(lut_k=torch.from_numpy(lut_p).to(qf.device)),
+            block=block, causal=causal)
         dk, dv = (pk, pv) if dk is None else (dk + pk, dv + pv)
     return dk.to(kf.dtype), dv.to(vf.dtype)

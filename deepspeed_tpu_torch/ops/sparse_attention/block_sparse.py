@@ -19,12 +19,14 @@ each, with a launch counter:
 * :func:`block_sparse_bwd_dq` (replaces ``_bwd_dq_kernel``) over the same
   table, from lse and ``delta = rowsum(dO * O)``;
 * :func:`block_sparse_bwd_dkv` (replaces ``_bwd_dkv_kernel``) over the
-  transposed table, from a work list built with the tables
-  (:func:`dkv_work_list`): each key block's column of query blocks is cut
-  into parts of at most ``_DKV_PART`` entries, the parts sorted by length
-  so that the row groups of one CUDA block get near-equal work, and a
-  column cut in several parts is summed from f32 partials by a second
-  launch, in part order.
+  transposed table.
+
+The two backward kernels run work lists built with the tables
+(:func:`work_list`): each query block's row (dQ) or key block's column
+(dK/dV) is cut into parts of at most ``_PART`` entries, the parts sorted by
+length so that the row groups of one CUDA block get near-equal work, and a
+row or column cut in several parts is summed from f32 partials by a second
+launch, in part order.
 
 :func:`block_sparse_attention` on ``[B, T, H, Dh]`` wires them as a
 ``torch.autograd.Function``; delta stays plain torch, as the reference
@@ -58,8 +60,8 @@ import torch
 from deepspeed_tpu_torch.ops import cuda_build
 
 _NEG_INF = -1e30
-_DKV_PART = 64          # query blocks per dK/dV work item at most
-_DKV_ROWS = 64          # key rows per CUDA block of the dK/dV kernel
+_PART = 64              # table entries per backward work item at most
+_GROUP_ROWS = 64        # rows per CUDA block of the backward kernels
 _BLOCKS = (16, 32, 64)
 _HEAD_DIMS = (64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -93,47 +95,48 @@ def _build_luts(layout: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return _active_lut(layout)[0], _active_lut(layout.transpose(0, 2, 1))[0]
 
 
-def dkv_work_list(cnt_k: np.ndarray, part: int = _DKV_PART):
-    """The dK/dV kernel's work, from the column counts ``cnt_k [H, nb]``.
+def work_list(counts: np.ndarray, part: int = _PART):
+    """A backward kernel's work, from the entry counts ``[H, nb]`` of its
+    table's lines: the rows of the table for dQ (``cnt_q``), the columns,
+    i.e. the rows of the transposed table, for dK/dV (``cnt_k``).
 
-    Each column (head h, key block kj) of the transposed table is cut into
-    parts of at most ``part`` entries, in table order (an empty column is
-    one empty part: its dK/dV are zeros). Returns ``(items, merge,
-    n_slots)``:
+    Each line (head h, block i) is cut into parts of at most ``part``
+    entries, in table order (an empty line is one empty part: its output
+    block is zeros). Returns ``(items, merge, n_slots)``:
 
-    * ``items`` int32 ``[n, 4]``: ``(h * nb + kj, first entry, count,
-      slot)``, sorted by descending count (ties in (h, kj, part) order).
-      The kernel's CUDA block i runs items ``i * G .. i * G + G - 1``, one
+    * ``items`` int32 ``[n, 4]``: ``(h * nb + i, first entry, count,
+      slot)``, sorted by descending count (ties in (h, i, part) order).
+      The kernel's CUDA block j runs items ``j * G .. j * G + G - 1``, one
       per row group, so the longest blocks launch first. ``slot`` is -1
-      for a column of one part (it writes dK/dV itself), else the part's
-      f32 partial in the scratch;
-    * ``merge`` int32 ``[m, 4]``: ``(h * nb + kj, first slot, parts, 0)``
-      for each column of several parts, whose slots are consecutive in
-      part order;
+      for a line of one part (it writes its output itself), else the
+      part's f32 partial in the scratch;
+    * ``merge`` int32 ``[m, 4]``: ``(h * nb + i, first slot, parts, 0)``
+      for each line of several parts, whose slots are consecutive in part
+      order;
     * ``n_slots``: the number of partials."""
-    cols = np.asarray(cnt_k, dtype=np.int64).reshape(-1)
-    n_parts = np.maximum(1, -(-cols // part))
-    col = np.repeat(np.arange(cols.size), n_parts)
-    index = np.arange(col.size) - np.repeat(np.cumsum(n_parts) - n_parts, n_parts)
+    lines = np.asarray(counts, dtype=np.int64).reshape(-1)
+    n_parts = np.maximum(1, -(-lines // part))
+    line = np.repeat(np.arange(lines.size), n_parts)
+    index = np.arange(line.size) - np.repeat(np.cumsum(n_parts) - n_parts, n_parts)
     first = index * part
-    count = np.minimum(part, cols[col] - first)
-    split = n_parts[col] > 1
+    count = np.minimum(part, lines[line] - first)
+    split = n_parts[line] > 1
     slot = np.where(split, np.cumsum(split) - 1, -1)
-    items = np.stack([col, first, count, slot], axis=1)
+    items = np.stack([line, first, count, slot], axis=1)
     items = items[np.argsort(-count, kind="stable")]
-    split_cols = np.flatnonzero(n_parts > 1)
-    merge = np.stack([split_cols, slot[first == 0][split_cols], n_parts[split_cols],
-                      np.zeros_like(split_cols)], axis=1)
+    split_lines = np.flatnonzero(n_parts > 1)
+    merge = np.stack([split_lines, slot[first == 0][split_lines], n_parts[split_lines],
+                      np.zeros_like(split_lines)], axis=1)
     return (items.astype(np.int32).reshape(-1, 4),
             merge.astype(np.int32).reshape(-1, 4), int(split.sum()))
 
 
-def dkv_groups(block: int) -> int:
-    """Row groups (one key block each) of a dK/dV CUDA block."""
-    return _DKV_ROWS // block
+def row_groups(block: int) -> int:
+    """Row groups (one work item each) of a backward kernel's CUDA block."""
+    return _GROUP_ROWS // block
 
 
-def dkv_group_busy(counts, groups: int) -> float:
+def group_busy(counts, groups: int) -> float:
     """The share of row-group time that does work, for items run ``groups``
     to a CUDA block in the order given: for each CUDA block the sum of its
     groups' entry counts over ``groups`` x its largest count, averaged over
@@ -148,18 +151,23 @@ def dkv_group_busy(counts, groups: int) -> float:
 class SparseLuts(NamedTuple):
     """Tables on one device: int32 ``lut_q [H, nb, A]`` and its row counts
     ``cnt_q [H, nb]``; the transposed ``lut_k [H, nb, Bc]`` and ``cnt_k``;
-    the dK/dV work list (:func:`dkv_work_list`) ``dkv_items``,
-    ``dkv_merge`` and its partial count ``dkv_slots``."""
+    the dQ work list over ``cnt_q`` (:func:`work_list`) ``dq_items``,
+    ``dq_merge`` and its partial count ``dq_slots``; the dK/dV work list
+    over ``cnt_k``, ``dkv_items``, ``dkv_merge`` and ``dkv_slots``."""
     lut_q: torch.Tensor
     cnt_q: torch.Tensor
     lut_k: torch.Tensor
     cnt_k: torch.Tensor
+    dq_items: torch.Tensor
+    dq_merge: torch.Tensor
+    dq_slots: int
     dkv_items: torch.Tensor
     dkv_merge: torch.Tensor
     dkv_slots: int
 
 
-_TABLES = ("lut_q", "cnt_q", "lut_k", "cnt_k", "dkv_items", "dkv_merge")
+_TABLES = ("lut_q", "cnt_q", "lut_k", "cnt_k", "dq_items", "dq_merge",
+           "dkv_items", "dkv_merge")
 
 
 @functools.lru_cache(maxsize=64)
@@ -167,10 +175,15 @@ def _luts_cached(key: bytes, shape: Tuple[int, int, int], device: str):
     layout = np.frombuffer(key, dtype=bool).reshape(shape)
     lut_q, cnt_q = _active_lut(layout)
     lut_k, cnt_k = _active_lut(layout.transpose(0, 2, 1))
-    items, merge, n_slots = dkv_work_list(cnt_k)
-    return SparseLuts(*(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                        for a in (lut_q, cnt_q, lut_k, cnt_k, items, merge)),
-                      n_slots)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    dq_items, dq_merge, dq_slots = work_list(cnt_q)
+    dkv_items, dkv_merge, dkv_slots = work_list(cnt_k)
+    return SparseLuts(dev(lut_q), dev(cnt_q), dev(lut_k), dev(cnt_k),
+                      dev(dq_items), dev(dq_merge), dq_slots,
+                      dev(dkv_items), dev(dkv_merge), dkv_slots)
 
 
 def sparse_luts(layout, device) -> SparseLuts:
@@ -186,9 +199,12 @@ def _scale(scale, dh: int) -> float:
 
 
 def _blocks(x: torch.Tensor, h: int, block: int) -> torch.Tensor:
-    """Flat ``[BH, T, Dh]`` → f32 ``[B, H, nb, block, Dh]``."""
+    """Flat ``[BH, T, Dh]`` → ``[B, H, nb, block, Dh]`` in f32 (in f64 for an
+    f64 ``x``: the plain arithmetic at a higher precision, the yardstick of
+    two f32 summation orders)."""
     bh, t, dh = x.shape
-    return x.float().reshape(bh // h, h, t // block, block, dh)
+    x = x if x.dtype == torch.float64 else x.float()
+    return x.reshape(bh // h, h, t // block, block, dh)
 
 
 def _rows(x: torch.Tensor, h: int, block: int) -> torch.Tensor:
@@ -390,7 +406,8 @@ def _bwd_operands(qf, kf, vf, dof, lse, delta):
 def block_sparse_bwd_dq(qf, kf, vf, dof, lse, delta, luts: SparseLuts, *,
                         block: int, causal: bool, scale: Optional[float] = None):
     """Backward dQ ``[BH, T, Dh]`` from lse and ``delta = rowsum(dO * O)``
-    (f32 ``[BH, T]``)."""
+    (f32 ``[BH, T]``), from the cached work list (cut rows through f32
+    partials from ``torch.empty``, summed by a second launch)."""
     if qf.device.type == "cpu":
         return block_sparse_bwd_dq_plain(qf, kf, vf, dof, lse, delta, luts,
                                          block=block, causal=causal, scale=scale)
@@ -399,12 +416,18 @@ def block_sparse_bwd_dq(qf, kf, vf, dof, lse, delta, luts: SparseLuts, *,
                           _bwd_operands(qf, kf, vf, dof, lse, delta))
     lib = cuda_build.kernels()
     dq = torch.empty_like(qf)
+    part = None
+    if luts.dq_slots:
+        part = torch.empty((bh // h, luts.dq_slots, block, dh),
+                           dtype=torch.float32, device=qf.device)
     err = lib.dst_block_sparse_bwd_dq(
         qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), dof.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), luts.lut_q.data_ptr(),
-        luts.cnt_q.data_ptr(), bh, h, t, dh, block, luts.lut_q.shape[2],
-        int(bool(causal)), _scale(scale, dh), cuda_build.dtype_code(qf.dtype),
-        _stream(qf))
+        luts.dq_items.data_ptr(), luts.dq_merge.data_ptr(),
+        None if part is None else part.data_ptr(), luts.dq_items.shape[0],
+        luts.dq_merge.shape[0], luts.dq_slots, bh, h, t, dh, block,
+        luts.lut_q.shape[2], int(bool(causal)), _scale(scale, dh),
+        cuda_build.dtype_code(qf.dtype), _stream(qf))
     cuda_build.check(lib, err, "block_sparse_bwd_dq")
     block_sparse_bwd_dq.launches += 1
     return dq

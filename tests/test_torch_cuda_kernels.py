@@ -36,13 +36,18 @@ odd S, a rep that is not a multiple of the kernel's 8 rows, idx at 0, a
 split edge and S - 1, the index as a python int and as a device tensor
 (the same bits), values past idx that must not change the output (the
 kernel never reads them), run-to-run bit identity, and the wrapper's input
-checks. Block-sparse attention (forward, backward dQ, backward dK/dV):
+checks; the GQA computation at its split edges (idx 0, chunk - 1, chunk,
+S - 1, S and past it) for rep 2 to 16, Dh 64 to 256 and every element
+type, replayed from a CUDA graph after the device idx changes, and equal
+bit for bit to the fused decode step (kernel B, the same body) on the same
+cache under the same plan. Block-sparse attention (forward, backward dQ, backward dK/dV):
 bf16 and f32 at block 16, 32 and 64 and Dh 64 and 128, causal and not,
 over Fixed, BigBird and Longformer layouts (global rows much longer than
 the others) and a hand-made layout whose rows of one block see no key under
 causal (zeros, lse -1e30), held row by row against the plain versions and
-bit for bit across two launches; dK/dV at layouts whose global columns are
-cut in parts of the work list (summed by the merge launch); the autograd
+bit for bit across two launches; dK/dV at layouts whose global columns and
+dQ at layouts whose global rows are cut in parts of the work list (summed
+by the merge launch), bit for bit on a repeat; the autograd
 path's launch counts; the dense oracle. The gridded int8 matmul against its plain version at ragged
 shapes, and the wrappers' input checks (a shape the kernels do not take
 raises and launches nothing: there is no fallback).
@@ -68,7 +73,8 @@ one) and 1e-5 (f32: summation order only); lse within 1e-4 absolute.
 import pytest
 import torch
 
-from deepspeed_tpu_torch.ops.decode_step import (fused_block_decode_step,
+from deepspeed_tpu_torch.ops.decode_step import (block_split_plan,
+                                                 fused_block_decode_step,
                                                  fused_block_decode_step_plain,
                                                  fused_decode_step,
                                                  fused_decode_step_plain,
@@ -88,6 +94,7 @@ from deepspeed_tpu_torch.ops.int8_matmul import (int8_matmul,
                                                  int8_matmul_plain)
 from deepspeed_tpu_torch.ops.kernel_check import (block_step_inputs,
                                                   capture_graph, clone_pool,
+                                                  dq_by_parts,
                                                   flash_delta, flash_inputs,
                                                   graph_replay,
                                                   masked_row_layout,
@@ -202,7 +209,7 @@ def test_decode_step_split_boundaries(cuda, dtype, hq, hkv, dh):
     same bits as the device tensor."""
     b, s = SPLIT_B, SPLIT_S
     chunk, n_splits = split_plan(b, hkv, s, torch.cuda.get_device_properties(
-        cuda).multi_processor_count)
+        cuda).multi_processor_count, dh, dtype.itemsize)
     assert n_splits > 1, (chunk, n_splits)
     q, kf, vf, kn, vn = _decode_inputs(cuda, dtype, b, hq, hkv, s, dh)
     idx = [chunk - 1, chunk, chunk + 1, s - 1, s, 0]
@@ -352,7 +359,7 @@ def test_block_decode_step_split_edges(cuda, dtype, kv, hq, hkv, dh):
     written garbage rows), output row by row, two launches bit for bit."""
     b, bs, mb = 8, 16, 32
     s = mb * bs
-    chunk, n_splits = split_plan(b, hkv, s, torch.cuda.get_device_properties(
+    chunk, n_splits = block_split_plan(b, hkv, s, torch.cuda.get_device_properties(
         cuda).multi_processor_count)
     assert n_splits > 1, (chunk, n_splits)
     q, kp, vp, kn, vn, table = _active_block_inputs(cuda, dtype, kv, b, hq, hkv,
@@ -637,6 +644,84 @@ def test_flash_decode_ignores_values_past_idx_and_repeats_bits(cuda):
             assert torch.equal(flash_decode(q, k, v, dev_idx), out)
 
 
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("rep", [2, 4, 8, 16])
+def test_flash_decode_split_edges(cuda, dtype, dh, rep):
+    """The GQA computation (kernel B's split body) at idx 0, the last and
+    first positions of a split, S - 1 and past S, row by row against the
+    plain version; the cache past idx poisoned and unread; the device
+    index the same bits as the python int. rep 16 at Dh 256 takes two row
+    groups."""
+    b, hkv, s = 2, 2, 300
+    chunk, n_splits = split_plan(b, hkv, s, _sms(cuda), dh, dtype.itemsize)
+    assert n_splits > 1, (chunk, n_splits)
+    q, k, v = _flash_decode_inputs(cuda, dtype, b, rep * hkv, hkv, s, dh,
+                                   seed=rep + dh)
+    for idx in (0, chunk - 1, chunk, s - 1, s, s + 7):
+        out = flash_decode(q, k, v, idx)
+        ref = flash_decode_plain(q, k, v, idx)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out.float()).all(), idx
+        err = rel_err(out, ref)
+        assert err <= FLASH_DECODE_TOL[dtype], (idx, err)
+        k2, v2 = k.clone(), v.clone()
+        k2[:, :, idx + 1:] = 1e4
+        v2[:, :, idx + 1:] = 1e4
+        assert torch.equal(flash_decode(q, k2, v2, idx), out), idx
+        dev_idx = torch.tensor(idx, dtype=torch.int32, device=cuda)
+        assert torch.equal(flash_decode(q, k, v, dev_idx), out), idx
+
+
+def test_flash_decode_replays_in_a_cuda_graph(cuda):
+    """A call captured in a CUDA graph, replayed after the device idx
+    changes, equals the eager call on the new idx (the plan reads no idx on
+    the host, the split scratch comes from the graph's pool)."""
+    q, k, v = _flash_decode_inputs(cuda, torch.bfloat16, 1, 64, 8, 640, 128,
+                                   seed=3)
+    iv = torch.tensor(639, dtype=torch.int32, device=cuda)
+    graph, out_g = capture_graph(lambda: flash_decode(q, k, v, iv))
+    for new in (0, 63, 64, 300, 639, 700):
+        iv.fill_(new)
+        graph.replay()
+        eager = flash_decode(q, k, v, new)
+        torch.cuda.synchronize()
+        assert torch.equal(out_g, eager), new
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("b,rep,hkv,dh", [
+    (1, 8, 8, 128),       # CodeLlama-34B decode, batch 1
+    (4, 8, 8, 128),       # ... batch 4
+    (2, 4, 2, 64),
+    (2, 16, 2, 64),       # two n-tiles
+    (2, 2, 2, 256),
+])
+def test_flash_decode_equals_the_fused_step(cuda, dtype, b, rep, hkv, dh):
+    """The GQA computation and the fused decode step (kernel B) run one
+    body under one plan (``split_plan``): on the same cache, with the step
+    writing back row idx's own values (one layer), they agree bit for
+    bit."""
+    s = 640
+    q, k, v = _flash_decode_inputs(cuda, dtype, b, rep * hkv, hkv, s, dh,
+                                   seed=b + rep)
+    for idx in (0, 63, 64, 639, 650):
+        row = min(idx, s - 1)
+        kn = k[:, :, row].unsqueeze(1).contiguous()
+        vn = v[:, :, row].unsqueeze(1).contiguous()
+        step, _, _ = fused_decode_step(q, k[None].clone(), v[None].clone(),
+                                       kn, vn, 0, idx)
+        out = flash_decode(q, k, v, idx)
+        torch.cuda.synchronize()
+        assert torch.equal(out, step), idx
+
+
 def test_flash_decode_counts_launches_and_rejects_bad_inputs(cuda):
     q, k, v = _flash_decode_inputs(cuda, torch.bfloat16, 1, 16, 2, 256, 128)
     n0, m0 = flash_decode.launches, flash_decode_mha.launches
@@ -746,6 +831,68 @@ def test_block_sparse_dkv_columns_past_the_part_cap(cuda, dtype, block, nb, dh):
         assert torch.isfinite(a.float()).all(), name
         assert rel_err(a, b) <= SPARSE_TOL[dtype], (name, rel_err(a, b))
         assert torch.equal(a, c), name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("block,nb,dh", [(16, 160, 128), (16, 160, 64),
+                                         (32, 144, 64), (64, 136, 128)])
+@pytest.mark.parametrize("kind,causal", [("bigbird", False),
+                                         ("longformer", True)])
+def test_block_sparse_dq_rows_past_the_part_cap(cuda, dtype, block, nb, dh,
+                                                kind, causal):
+    """dQ at layouts whose global rows (BigBird's, Longformer's) hold more
+    key blocks than one work item takes (nb > 64), so they are cut in parts
+    and summed by the merge launch: against the plain version row by row,
+    and bit for bit on a repeat."""
+    layout = _sparse_layout(kind, 2, nb, block)
+    luts = sparse_luts(layout, cuda)
+    assert luts.dq_slots > 0 and luts.dq_merge.shape[0] > 0
+    q, k, v, do = flash_inputs(cuda, dtype, 2 * 2, nb * block, dh, seed=block)
+    kw = dict(block=block, causal=causal)
+    out, lse = block_sparse_fwd_plain(q, k, v, luts, **kw)
+    delta = block_sparse_delta(do, out)
+    got = block_sparse_bwd_dq(q, k, v, do, lse, delta, luts, **kw)
+    again = block_sparse_bwd_dq(q, k, v, do, lse, delta, luts, **kw)
+    want = block_sparse_bwd_dq_plain(q, k, v, do, lse, delta, luts, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert rel_err(got, want) <= SPARSE_TOL[dtype], rel_err(got, want)
+    assert torch.equal(got, again)
+
+
+# f32 dQ against an f64 run of the same arithmetic (as the CPU test of the
+# same name in test_torch_sparse_attention.py)
+F64_DQ_BOUND = 2e-5
+
+
+@pytest.mark.parametrize("block,nb,dh,kind,causal,seed", [
+    (64, 68, 128, "fixed", True, 192), (16, 160, 128, "fixed", True, 16),
+    (16, 160, 64, "bigbird", False, 16), (32, 144, 64, "longformer", True, 32)])
+def test_f32_dq_orders_against_f64(cuda, block, nb, dh, kind, causal, seed):
+    """The f32 dQ kernel, its plain version and the part-wise sum of its
+    work list (``dq_by_parts``) each within ``F64_DQ_BOUND`` of an f64 run of
+    the plain arithmetic on the same lse and delta, B 2 x 2 heads; the
+    first case is the long Fixed causal layout whose kernel reading sits
+    past 1e-5 against the plain version. Prints each order's reading."""
+    luts = sparse_luts(_sparse_layout(kind, 2, nb, block), cuda)
+    q, k, v, do = flash_inputs(cuda, torch.float32, 2 * 2, nb * block, dh,
+                               seed=seed)
+    kw = dict(block=block, causal=causal)
+    out, lse = block_sparse_fwd_plain(q, k, v, luts, **kw)
+    delta = block_sparse_delta(do, out)
+    ref64 = block_sparse_bwd_dq_plain(*(x.double() for x in (q, k, v, do)),
+                                      lse, delta, luts, **kw)
+    errs = {"kernel": block_sparse_bwd_dq(q, k, v, do, lse, delta, luts, **kw),
+            "plain": block_sparse_bwd_dq_plain(q, k, v, do, lse, delta, luts,
+                                               **kw),
+            "parts": dq_by_parts(q, k, v, do, lse, delta, luts, part=64, **kw)}
+    errs = {name: rel_err(x, ref64) for name, x in errs.items()}
+    errs["kernel_vs_plain"] = rel_err(
+        block_sparse_bwd_dq(q, k, v, do, lse, delta, luts, **kw),
+        block_sparse_bwd_dq_plain(q, k, v, do, lse, delta, luts, **kw))
+    print(f"f32 dQ against f64 at {kind} block {block} nb {nb} Dh {dh}: {errs}")
+    for name in ("kernel", "plain", "parts"):
+        assert errs[name] <= F64_DQ_BOUND, (name, errs)
 
 
 def test_block_sparse_autograd_runs_the_kernels(cuda):

@@ -22,7 +22,8 @@ import torch
 from deepspeed_tpu.ops.attention import cached_attention as jax_cached_attention
 from deepspeed_tpu.ops.attention import kv_pack_factor
 from deepspeed_tpu.ops.decode_step import fused_decode_step as jax_fused_decode_step
-from deepspeed_tpu_torch.ops.decode_step import (fused_decode_step,
+from deepspeed_tpu_torch.ops.decode_step import (block_split_plan,
+                                                 fused_decode_step,
                                                  split_plan, supports)
 
 ATOL, RTOL = 1e-2, 1e-2
@@ -115,10 +116,10 @@ def test_supports():
 
 
 @pytest.mark.parametrize("b,hkv,s,sms,want", [
-    (8, 32, 1024, 132, (256, 4)),    # LLaMA-7B MHA, 8 slots
-    (8, 8, 1024, 132, (64, 16)),     # LLaMA-7B at rep 4
-    (4, 8, 640, 132, (64, 10)),      # CodeLlama-34B, batch 4
-    (4, 20, 256, 132, (64, 4)),      # GPT-2 774M, batch 4
+    (8, 32, 1024, 132, (1024, 1)),   # LLaMA-7B MHA, 8 slots
+    (8, 8, 1024, 132, (512, 2)),     # LLaMA-7B at rep 4
+    (4, 8, 640, 132, (256, 3)),      # CodeLlama-34B, batch 4
+    (4, 20, 256, 132, (256, 1)),     # GPT-2 774M, batch 4
     (1, 1, 50, 132, (64, 1)),        # a prefix shorter than one stage
     (64, 32, 4096, 132, (4096, 1)),  # enough (slot, head) pairs alone
 ])
@@ -131,10 +132,58 @@ def test_split_plan_at_known_shapes(b, hkv, s, sms, want):
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 640, 1024, 3000])
 def test_split_plan_covers_s_and_fills_the_card(b, hkv, s):
     """The splits cover positions 0..S-1 exactly once, the chunk is a
-    power-of-two multiple of the kernel's 64-position stage, and a chunk
-    above 64 leaves the grid at full S at least four blocks per SM."""
+    power-of-two multiple of the tensor-core body's 64-position stage, the
+    grid at full S holds at most one block per SM unless the chunk covers
+    S, and a chunk above 64 is the smallest that does: half of it would
+    have put more than one block on an SM."""
     sms = 132
     chunk, n = split_plan(b, hkv, s, sms)
+    assert chunk % 64 == 0 and (chunk // 64) & (chunk // 64 - 1) == 0
+    assert (n - 1) * chunk < s <= n * chunk
+    assert b * hkv * n <= sms or chunk >= s
+    if chunk > 64:
+        assert b * hkv * -(-s // (chunk // 2)) > sms
+
+
+@pytest.mark.parametrize("b,hkv,s,dh,itemsize,want", [
+    (1, 8, 640, 128, 4, (32, 20)),   # f32 CodeLlama-34B shape, batch 1
+    (4, 8, 640, 128, 4, (128, 5)),   # ... batch 4
+    (1, 8, 640, 64, 4, (64, 10)),    # f32 at Dh 64: 64-position batches
+    (1, 8, 640, 256, 4, (32, 20)),   # f32 at Dh 256: 16-position batches, x 2
+    (6, 2, 300, 40, 2, (64, 5)),     # bf16 at Dh 40: no tensor-core width
+    (8, 32, 1024, 128, 2, (1024, 1)),  # bf16 at Dh 128: the tensor cores
+])
+def test_split_plan_on_the_cuda_core_body(b, hkv, s, dh, itemsize, want):
+    """f32, and a head width the tensor-core body has no form for, run the
+    CUDA-core body: its smallest chunk is one copy batch (16 KB of K rows,
+    8 to 64 positions), doubling while the grid at full S holds more than
+    two blocks per SM."""
+    chunk, n = split_plan(b, hkv, s, 132, dh, itemsize)
+    assert (chunk, n) == want
+    if itemsize == 4 or dh not in (64, 128, 256):
+        assert b * hkv * n <= 2 * 132 or chunk >= s
+
+
+@pytest.mark.parametrize("b,hkv,s,sms,want", [
+    (8, 32, 1024, 132, (256, 4)),    # LLaMA-7B MHA, 8 slots
+    (8, 8, 1024, 132, (64, 16)),     # LLaMA-7B at rep 4
+    (8, 32, 512, 132, (128, 4)),     # the block card tests' pool (MB 32 x 16)
+    (1, 1, 50, 132, (64, 1)),        # a prefix shorter than one stage
+    (64, 32, 4096, 132, (4096, 1)),  # enough (slot, head) pairs alone
+])
+def test_block_split_plan_at_known_shapes(b, hkv, s, sms, want):
+    assert block_split_plan(b, hkv, s, sms) == want
+
+
+@pytest.mark.parametrize("b", [1, 3, 8, 32])
+@pytest.mark.parametrize("hkv", [1, 8, 32])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 640, 1024, 3000])
+def test_block_split_plan_covers_s_and_keeps_four_blocks_an_sm(b, hkv, s):
+    """Kernel C's plan: the splits cover positions 0..S-1 exactly once, the
+    chunk is a power-of-two multiple of the 64-position stage, and a chunk
+    above 64 leaves the grid at full S at least four blocks per SM."""
+    sms = 132
+    chunk, n = block_split_plan(b, hkv, s, sms)
     assert chunk % 64 == 0 and (chunk // 64) & (chunk // 64 - 1) == 0
     assert (n - 1) * chunk < s <= n * chunk
     if chunk > 64:

@@ -37,10 +37,14 @@ import deepspeed_tpu.ops.attention as jattn
 import deepspeed_tpu.ops.decode_step as jdecode
 import deepspeed_tpu.ops.flash_decode as jflash
 from deepspeed_tpu.ops.flash_decode import flash_decode as jax_flash_decode
+import deepspeed_tpu_torch.ops.flash_decode as tflash
+from deepspeed_tpu_torch.ops import cuda_build
 from deepspeed_tpu_torch.ops.attention import decode_route
+from deepspeed_tpu_torch.ops.decode_step import split_plan
 from deepspeed_tpu_torch.ops.flash_decode import (flash_decode,
                                                   flash_decode_mha,
-                                                  flash_decode_plain, plan)
+                                                  flash_decode_plain,
+                                                  plan)
 
 S_MAX, DH = 64, 16
 CASES = [(1, 4, 4, 17), (8, 4, 4, 63), (2, 8, 2, 30), (2, 16, 2, 45),
@@ -163,6 +167,68 @@ def test_plan_splits_along_s():
     assert plan(1, 1, 100, 256, sms) == (16, 7)
     chunk, n = plan(2, 2, 4096, 256, sms)
     assert chunk * n >= 4096 and chunk * (n - 1) < 4096
+
+
+@pytest.mark.parametrize("b,hkv,s,sms", [
+    (1, 8, 640, 132), (4, 8, 640, 132), (1, 8, 896, 132), (1, 1, 100, 132),
+    (8, 8, 4096, 132), (2, 2, 300, 80), (1, 8, 640, 114), (32, 8, 64, 132)])
+def test_gqa_plan_from_the_shapes_alone(b, hkv, s, sms):
+    """The rep >= 2 kernel's split plan is kernel B's (``split_plan``), so
+    the two give the same bits on one cache: (chunk, n_splits) from (B,
+    Hkv, S, SMs, Dh, element size) alone, the splits covering S once. On
+    the tensor-core body (16-bit) the chunk is a multiple of the 64-position
+    stage with at most one block per SM at full S unless the chunk covers
+    S; on the CUDA-core body (f32) a multiple of its 32-position copy batch
+    at Dh 128 with at most two blocks per SM."""
+    for itemsize, stage, per_sm in ((2, 64, 1), (4, 32, 2)):
+        chunk, n = split_plan(b, hkv, s, sms, 128, itemsize)
+        assert chunk % stage == 0 and chunk * n >= s and chunk * (n - 1) < s
+        assert b * hkv * n <= per_sm * sms or chunk >= s
+        assert chunk == stage or b * hkv * -(-s // (chunk // 2)) > per_sm * sms
+    if (b, hkv, s, sms) == (1, 8, 640, 132):      # CodeLlama-34B, batch 1
+        assert split_plan(b, hkv, s, sms, 128, 2) == (64, 10)
+        assert split_plan(b, hkv, s, sms, 128, 4) == (32, 20)
+    if (b, hkv, s, sms) == (4, 8, 640, 132):      # ... batch 4: 96 blocks
+        assert split_plan(b, hkv, s, sms, 128, 2) == (256, 3)
+        assert split_plan(b, hkv, s, sms, 128, 4) == (128, 5)
+
+
+class _FakeLib:
+    """Stands in for the kernel library: records dst_flash_decode's
+    arguments and returns success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def dst_flash_decode(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,dh", [
+    (1, 64, 8, 640, 128), (4, 64, 8, 640, 128), (2, 8, 8, 300, 64),
+    (1, 32, 2, 1000, 256)])
+def test_wrapper_launches_with_its_plan(monkeypatch, b, hq, hkv, s, dh):
+    """The CUDA path's arguments, traced on meta tensors with the library
+    replaced: rep >= 2 launches under kernel B's ``split_plan``, rep 1 under
+    :func:`plan`, with split scratch for every split, from the shapes and
+    the card's SM count alone (idx goes through as it came)."""
+    lib = _FakeLib()
+    monkeypatch.setattr(cuda_build, "kernels", lambda: lib)
+    monkeypatch.setattr(cuda_build, "sm_count", lambda index: 132)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    q = torch.empty((b, 1, hq, dh), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((b, hkv, s, dh), dtype=torch.bfloat16, device="meta")
+    out = tflash._launch(q, k, k, s - 1, None, hq == hkv, "flash_decode")
+    assert out.shape == q.shape and out.device.type == "meta"
+    (args,) = lib.calls
+    chunk, n_splits, mha = args[13], args[14], args[17]
+    want = (plan(b, hkv, s, dh, 132) if hq == hkv
+            else split_plan(b, hkv, s, 132, dh, 2))
+    assert (chunk, n_splits) == want and mha == int(hq == hkv)
+    assert args[7] == s - 1 and args[8:13] == (b, hq, hkv, s, dh)
+    assert (args[4] is None) == (args[5] is None) == (n_splits == 1)
 
 
 # ------------------------------------------------------------------ routing
