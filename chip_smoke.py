@@ -9,7 +9,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                counts HGMMA (wgmma) and HMMA (mma.sync) in the SASS of the
                flash kernels (cuobjdump): each must issue HGMMA, none HMMA;
                and in each 16-bit instantiation of the GQA flash-decode
-               kernel: each must issue HMMA.
+               kernel and of the int8 matmul (kernel 2): each must issue
+               HMMA (or HGMMA).
 2. kernels   — each hand-written kernel against its plain PyTorch version on
                the card at the serving path's full LLaMA-7B shapes (fused
                decode step: 8 slots x 32 heads x Dh 128 x S 1024, per-slot
@@ -18,7 +19,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                through a permuted 64-wide table, lengths incl. 0, 15, 16,
                1023 and an inactive slot on a sentinel table, pools in bf16,
                int8 and fp8, plus GQA rep 4; int8 matmul: the three block
-               shapes at N in {1, 8, 32}, stacked, last layer). Written
+               shapes at N in {1, 8, 32}, stacked, last layer, in bf16, fp16
+               and f32, each row bit-identical at batch 1 and run to run,
+               timed in bf16 beside torch._weight_int8pack_mm and a bf16
+               torch.matmul of the same values). Written
                cache bytes must be bit-identical (block pools: every row but
                the garbage row); decode outputs are held row by row
                (kernel_check.rel_err, 2e-2 in bf16) and both decode steps
@@ -113,7 +117,8 @@ Generate (phases added after ``reference`` and after ``probe_fp32``):
                version, row by row (2e-2 bf16, 1e-5 f32: kernel_check.
                rel_err): CodeLlama-34B decode (B 1 and B 4, Hq 64 / Hkv 8,
                Dh 128, S 640, bf16, idx 0, 127, 128, 639), the rep-1
-               variant at LLaMA-7B's shape (B 8, H 32, S 1024) and an f32
+               variant at LLaMA-7B's shape (B 8, H 32, S 1024; also fp16,
+               Dh 64 and 256, S 1000) and an f32
                case; each idx as a python int and as a device tensor (the
                same bits), values past idx set to 1e4 (the output must not
                change), a second launch (bit-identical); at rep 8 the fused
@@ -231,6 +236,7 @@ from deepspeed_tpu_torch.ops.flash_attention import (flash_bwd_dkv,
 from deepspeed_tpu_torch.ops import get_op_builder
 from deepspeed_tpu_torch.ops.int8_matmul import (int8_matmul, int8_matmul_dma,
                                                  int8_matmul_plain)
+from deepspeed_tpu_torch.ops.int8_matmul import plan as int8_plan
 from deepspeed_tpu_torch.ops.kernel_check import (block_step_inputs,
                                                   capture_graph, clone_pool,
                                                   flash_delta, flash_inputs,
@@ -333,10 +339,12 @@ LSE_TOL = 1e-4                                              # absolute
 # GPT-2 774M first-batch loss through flash vs dense attention, absolute
 # (the reading is 9.4e-5 at a loss of 11.1)
 FLASH_DENSE_LOSS_TOL = 1e-3
-# flash-decode outputs, per row (kernel_check.rel_err): bf16 about two ulps
-# of the row's largest element (the kernel rounds p at warp-local running
-# maxima, the plain version at the row maximum); f32 summation order only
-FLASH_DECODE_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+# flash-decode outputs, per row (kernel_check.rel_err): bf16 (fp16) about
+# two ulps of the row's largest element (the kernel rounds p at warp-local
+# running maxima, the plain version at the row maximum); f32 summation
+# order only
+FLASH_DECODE_TOL = {torch.bfloat16: 2e-2, torch.float16: 4e-3,
+                    torch.float32: 1e-5}
 # block-sparse outputs and grads against their plain versions and the dense
 # oracle, per row (kernel_check.rel_err): both sides compute in f32 and
 # round once, so bf16 is held to two ulps of the row's largest element and
@@ -407,22 +415,26 @@ FLASH_SASS = ("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
 FLASH_DECODE_SASS = re.compile(
     r"flash_decode_gqa(?:I13__nv_bfloat16|I6__half|<__nv_bfloat16|<__half)")
 FLASH_DECODE_16BIT = 12
+# the 16-bit instantiations of kernel 2: bf16 and fp16 at 1-4 n-tiles
+INT8_MATMUL_SASS = re.compile(
+    r"int8_matmul_tc(?:I13__nv_bfloat16|I6__half|<__nv_bfloat16|<__half)")
+INT8_MATMUL_16BIT = 8
 
 
 def sass_counts(lib_path) -> dict:
     """HGMMA (wgmma) and HMMA (mma.sync) instructions in the SASS of the
     built library (``cuobjdump -sass``): each 16-bit flash kernel's, summed
-    over its instantiations, and each 16-bit GQA flash-decode
+    over its instantiations, and each 16-bit GQA flash-decode and kernel 2
     instantiation's. Fails unless every flash kernel issues HGMMA and no
-    HMMA, and every flash-decode instantiation HMMA (its products on the
-    tensor cores; the GQA kernel it replaced issued none)."""
+    HMMA, and every flash-decode and kernel 2 instantiation HMMA (their
+    products on the tensor cores; the kernels they replaced issued none)."""
     cuobjdump = (shutil.which("cuobjdump")
                  or str(Path(cuda_build._nvcc()).with_name("cuobjdump")))
     sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
     flash = {name: {"HGMMA": 0, "HMMA": 0} for name in FLASH_SASS}
-    decode = {}
+    decode, matmul = {}, {}
     current = None
     for line in sass.splitlines():
         if "Function : " in line:
@@ -430,6 +442,8 @@ def sass_counts(lib_path) -> dict:
             current = next((flash[n] for n in FLASH_SASS if n in fn), None)
             if current is None and FLASH_DECODE_SASS.search(fn):
                 current = decode.setdefault(fn, {"HGMMA": 0, "HMMA": 0})
+            if current is None and INT8_MATMUL_SASS.search(fn):
+                current = matmul.setdefault(fn, {"HGMMA": 0, "HMMA": 0})
         elif current is not None:
             for op in ("HGMMA", "HMMA"):
                 if f" {op}." in line:
@@ -437,9 +451,11 @@ def sass_counts(lib_path) -> dict:
     for name, c in flash.items():
         assert c["HGMMA"] > 0 and c["HMMA"] == 0, (name, c)
     assert len(decode) == FLASH_DECODE_16BIT, sorted(decode)
-    for name, c in decode.items():
-        assert c["HMMA"] > 0, (name, c)
-    return {"flash": flash, "flash_decode_gqa": decode}
+    assert len(matmul) == INT8_MATMUL_16BIT, sorted(matmul)
+    for name, c in list(decode.items()) + list(matmul.items()):
+        assert c["HMMA"] > 0 or c["HGMMA"] > 0, (name, c)
+    return {"flash": flash, "flash_decode_gqa": decode,
+            "int8_matmul_tc": matmul}
 
 
 def phase_device() -> dict:
@@ -556,7 +572,21 @@ def _shares(ms, bound_ms, library_ms) -> dict:
             "vs_library": ms / library_ms if library_ms else None}
 
 
+INT8_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+# kernel 2 against its plain version, per element: |out - ref| <= rtol
+# |ref| + 1e-3 (one ulp of the output type; f32 summation order only)
+MATMUL_RTOLS = {torch.bfloat16: MATMUL_RTOL, torch.float16: 1e-3,
+                torch.float32: 1e-5}
+
+
 def check_int8_matmul(n, d, e, seed=0):
+    """Kernel 2 (``int8_matmul_dma``) on the last of enough stacked layers
+    that one rotation exceeds the L2: in bf16, fp16 and f32 against the
+    plain version, each row's result the same bits at batch 1 and in a
+    second launch; the gridded form on the same layer (bf16). Times (bf16
+    x): kernel 2, the gridded form, the plain version,
+    ``torch._weight_int8pack_mm`` (library_ms) and a bf16 ``torch.matmul``
+    of the same values (bf16_matmul_ms), both yardsticks only."""
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(seed)
     # enough stacked layers that one rotation exceeds L2 (fresh weights)
@@ -564,14 +594,27 @@ def check_int8_matmul(n, d, e, seed=0):
     q = torch.randint(-128, 128, (layers, d, e), generator=g, device=dev,
                       dtype=torch.int8)
     s = (torch.rand((layers, 1, e), generator=g, device=dev) * 0.02)
-    x = torch.randn((n, d), generator=g, device=dev).to(torch.bfloat16)
-    out = int8_matmul_dma(x, q, s, layers - 1)
-    ref = int8_matmul_plain(x, q, s, layers - 1)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs()
-    bound = MATMUL_RTOL * ref.float().abs() + 1e-3
-    assert torch.isfinite(out.float()).all()
-    assert (err <= bound).all(), f"int8_matmul_dma {n}x{d}x{e} err {err.max()}"
+    x32 = torch.randn((n, d), generator=g, device=dev)
+    errs = {}
+    for dtype in INT8_DTYPES:
+        xd = x32.to(dtype)
+        out = int8_matmul_dma(xd, q, s, layers - 1)
+        ref = int8_matmul_plain(xd, q, s, layers - 1)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        name = str(dtype).split(".")[-1]
+        assert torch.isfinite(out.float()).all()
+        assert (err <= MATMUL_RTOLS[dtype] * ref.float().abs() + 1e-3).all(), \
+            f"int8_matmul_dma {name} {n}x{d}x{e} err {err.max()}"
+        assert torch.equal(int8_matmul_dma(xd, q, s, layers - 1), out), \
+            f"int8_matmul_dma {name} {n}x{d}x{e} not bit-identical run to run"
+        assert torch.equal(int8_matmul_dma(xd[-1:].contiguous(), q, s,
+                                           layers - 1), out[-1:]), \
+            f"int8_matmul_dma {name} {n}x{d}x{e}: the last row differs at batch 1"
+        errs[name] = err.max().item()
+        if dtype == torch.bfloat16:
+            x, ref_bf16, bound = xd, ref, MATMUL_RTOL * ref.float().abs() + 1e-3
+    ref = ref_bf16
     # the gridded form (unrouted) on the same layer's [D, E] view and [1, E]
     # scales: the same function, so the same plain version and bound
     grid = int8_matmul(x, q[layers - 1], s[layers - 1])
@@ -583,21 +626,30 @@ def check_int8_matmul(n, d, e, seed=0):
     kernel_ms = time_ms(lambda i: int8_matmul_dma(x, q, s, i), layers)
     grid_ms = time_ms(lambda i: int8_matmul(x, q[i], s[i]), layers)
     plain_ms = time_ms(lambda i: int8_matmul_plain(x, q, s, i), layers)
-    # yardstick only: PyTorch's weight-only int8 matmul takes the weight as
-    # [E, D] and bf16 scales, so it gets its own copies of the same values
+    # yardsticks only: PyTorch's weight-only int8 matmul takes the weight as
+    # [E, D] and bf16 scales, so it gets its own copies of the same values;
+    # the bf16 matmul streams the same values as a bf16 weight (twice the
+    # bytes), as the bf16 serving path's weight GEMMs do
     qt = q.transpose(1, 2).contiguous()                 # [L, E, D]
     sb = s.reshape(layers, e).to(torch.bfloat16).contiguous()
     library_ms = time_ms(
         lambda i: torch._weight_int8pack_mm(x, qt[i], sb[i]), layers)
     del qt, sb
+    wb = q.to(torch.bfloat16)                           # [L, D, E]
+    bf16_matmul_ms = time_ms(lambda i: torch.matmul(x, wb[i]), layers)
+    del wb
     nbytes = d * e + n * d * 2 + e * 4 + n * e * 2
     flops = 2 * n * d * e
-    return {"n": n, "d": d, "e": e, "max_abs_err": err.max().item(),
-            "tol": f"rtol {MATMUL_RTOL} + atol 1e-3",
+    return {"n": n, "d": d, "e": e, "plan": list(int8_plan(d, e)),
+            "max_abs_err": max(errs.values()), "max_abs_err_by_dtype": errs,
+            "tol": f"rtol {MATMUL_RTOL} (bf16), 1e-3 (fp16), 1e-5 (f32) "
+                   "+ atol 1e-3",
+            "bit_identical_run_to_run_and_at_batch_1": True,
             "kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "grid": {"kernel_ms": grid_ms, "dma_kernel_ms": kernel_ms,
                      "max_abs_err": grid_err.max().item()},
             "library_ms": library_ms, "library": "torch._weight_int8pack_mm",
+            "bf16_matmul_ms": bf16_matmul_ms,
             "bytes": nbytes,
             "flops": flops,
             "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
@@ -1062,14 +1114,22 @@ def phase_kernels() -> dict:
     torch.cuda.empty_cache()
     # flash-decode: (a) CodeLlama-34B decode at batch 1 (generate's route),
     # (b) batch 4, (c) the rep-1 variant at LLaMA-7B's shape, (d, e) f32 at
-    # batch 1 and 4
+    # batch 1 and 4, (f-h) more rep-1 rows
     fidx = [0, 127, 128, 639]
     fdec = [check_flash_decode(torch.bfloat16, 1, 64, 8, 640, 128, fidx),
             check_flash_decode(torch.bfloat16, 4, 64, 8, 640, 128, fidx, seed=1),
             check_flash_decode(torch.bfloat16, 8, 32, 32, 1024, 128,
                                [0, 511, 1023], seed=2),
             check_flash_decode(torch.float32, 1, 64, 8, 640, 128, fidx, seed=3),
-            check_flash_decode(torch.float32, 4, 64, 8, 640, 128, fidx, seed=4)]
+            check_flash_decode(torch.float32, 4, 64, 8, 640, 128, fidx, seed=4),
+            # rep 1 at Dh 64 and 256 and in fp16, S 1000 no multiple of
+            # the 32-position stage
+            check_flash_decode(torch.bfloat16, 8, 32, 32, 1000, 64,
+                               [0, 31, 32, 511, 999], seed=5),
+            check_flash_decode(torch.float16, 8, 32, 32, 1024, 128,
+                               [0, 511, 1023], seed=6),
+            check_flash_decode(torch.bfloat16, 4, 16, 16, 1000, 256,
+                               [0, 63, 64, 999], seed=7)]
     torch.cuda.empty_cache()
     # kernel B on generate's routes: rep 8 (CodeLlama-34B, batch 4) and
     # Dh 64 MHA (GPT-2 774M, batch 4); enough layers to rotate past the L2

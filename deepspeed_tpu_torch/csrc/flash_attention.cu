@@ -1140,31 +1140,11 @@ cudaError_t allow_smem(K kernel, size_t bytes, size_t& allowed) {
   return cudaSuccess;
 }
 
-// cuTensorMapEncodeTiled from the driver, found at run time (the library
-// links no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A [bh, rows, Dh] 16-bit operand as a 3-d tensor map of 64-column x
 // box_rows boxes, 128-byte swizzled, zero-filled past each bh's last row.
 template <typename T, int Dh>
 cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int bh, int rows, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
+  const dst::hopper::EncodeTiled encode = dst::hopper::encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)Dh, (cuuint64_t)rows, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)Dh * sizeof(T), (cuuint64_t)rows * Dh * sizeof(T)};

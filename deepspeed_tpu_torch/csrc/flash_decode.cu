@@ -35,14 +35,27 @@
 // Dh 64, 16 at 128, 8 at 256) takes several row groups, each reading the kv
 // head's prefix.
 //
-// rep == 1 (flash_decode_split<T, EPL> + flash_decode_combine): a
-// CUDA-core kernel. Each warp scores a group of positions at a time: every
-// lane holds Dh/32 elements of the query row and of each K/V row (one
-// coalesced load per row per warp, several rows in flight), sums its
-// products in f32 and finishes the dot product with a butterfly; online
-// softmax over (m, l, acc) in f32 per warp; the warps merge through shared
-// memory in warp order, and a second kernel merges the splits in split
-// order.
+// rep == 1 (mha::flash_decode_mha): a streaming kernel on the CUDA cores,
+// since the reference keeps q, K, V and p in f32 (:113-125) and the work is
+// 0.5 FMA per byte, about 6% of the CUDA cores' rate at full bandwidth: the
+// design keeps the bytes flowing. Grid (split, head, slot) under
+// ops/flash_decode.py:plan (one split per head while the heads fill the
+// SMs). One producer thread streams the K and V rows of 32 positions a
+// stage with TMA (tensor maps over the cache, 128-byte swizzle, an L2
+// evict-first policy: each byte is read once) into a ring whose slots each
+// belong to one of the consumer warps (4 slots of 16 KB at Dh 128 bf16;
+// 64-128 KB a block); it requests the first ring before q is staged, and a
+// warp fences its reads of a slot against the async proxy before freeing
+// it. A lane owns a position: it reads its K
+// row 16 bytes at a time (the swizzle keeps a warp's 32 rows off each other's
+// banks) against q kept in shared memory as f32, so a score needs no
+// cross-lane sum; the warp's online softmax moves once per stage; P.V runs
+// with each lane owning Dh / 32 columns and p broadcast from its lane. The
+// warps merge in warp order and, where the plan splits the prefix, the
+// splits merge in split order in flash_decode_merge (a programmatic
+// dependent launch). Positions of the last stage past idx are read but
+// scored -inf, so p is 0 there, as the TPU kernel reads its last block
+// whole (:113-125); no split starts past idx.
 //
 // Rounding points follow the TPU kernels: scores are products of the stored
 // values summed in f32, times `scale`. The GQA computation rounds p to the V
@@ -53,35 +66,12 @@
 #include <math_constants.h>
 
 #include "decode_split.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace dst;
 namespace ds = dst::split;
-
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-
-template <int BYTES> struct Raw;
-template <> struct Raw<4> { using type = uint32_t; };
-template <> struct Raw<8> { using type = uint2; };
-template <> struct Raw<16> { using type = uint4; };
-
-// N consecutive elements at p (aligned to N * sizeof(T), or to 16 bytes
-// when that is more) as f32, in loads of at most 16 bytes.
-template <typename T, int N>
-__device__ __forceinline__ void load_f32(const T* __restrict__ p, float (&out)[N]) {
-  constexpr int kBytes = N * (int)sizeof(T) > 16 ? 16 : N * (int)sizeof(T);
-  constexpr int kPer = kBytes / (int)sizeof(T);
-  using R = typename Raw<kBytes>::type;
-#pragma unroll
-  for (int c = 0; c < N / kPer; ++c) {
-    const R raw = *reinterpret_cast<const R*>(p + c * kPer);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) out[c * kPer + i] = to_f32(e[i]);
-  }
-}
 
 __device__ __forceinline__ int valid_positions(const int* idx_ptr, int idx_scalar,
                                                int s_max) {
@@ -241,103 +231,200 @@ cudaError_t dispatch_gqa(const void* q, const void* k, const void* v, void* out,
 }
 
 // --------------------------------------------------------------- rep == 1
-// One split of the valid prefix for one query head (its own kv head). EPL =
-// Dh / 32 elements per lane; kGroup positions scored per warp step (8 at
-// Dh <= 128, 4 at Dh 256).
-template <typename T, int EPL>
-__global__ void __launch_bounds__(kThreads)
-flash_decode_split(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, T* __restrict__ out,
-                   float* __restrict__ part_ml, float* __restrict__ part_acc,
-                   const int* __restrict__ idx_ptr, int idx_scalar, int hq, int s_max,
-                   int chunk, int n_splits, float scale) {
-  constexpr int DH = 32 * EPL;
-  constexpr int kGroup = EPL >= 4 ? 32 / EPL : 8;  // 64 K/V values a lane
-  __shared__ float m_sh[kWarps];
-  __shared__ float l_sh[kWarps];
-  __shared__ float acc_sh[kWarps][DH];
+namespace mha {
+
+constexpr int kPos = 32;  // positions per ring stage: one per lane
+
+// W consumer warps, each owning SPW slots of a W * SPW-stage ring (so a
+// slot's phases are always waited on in order by one warp); a stage is the
+// K and V rows of 32 positions, as 128-byte panels (Dh * sizeof(T) / 128 of
+// them, 32 rows each) in the 128-byte swizzle.
+template <typename T, int DH>
+struct Shape {
+  static constexpr int kPanelElems = 128 / (int)sizeof(T);
+  static constexpr int kPanels = DH / kPanelElems;
+  static constexpr int kPanelBytes = kPos * 128;
+  static constexpr int kTileBytes = kPanels * kPanelBytes;    // K (or V) of a stage
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int W = 4 * kStageBytes <= 128 * 1024 ? 4 : 2;
+  static constexpr int SPW = 2 * W * kStageBytes <= 64 * 1024 ? 2 : 1;
+  static constexpr int kStages = W * SPW;
+  static constexpr int kThreads = 32 * (W + 1);
+  static constexpr int kEpl = DH / 32;                        // V columns per lane
+  static constexpr int kQOff = kStages * kStageBytes;         // q as f32 [DH]
+  static constexpr int kMlOff = kQOff + DH * 4;               // warps' (m, l) [W][2]
+  static constexpr int kAccOff = kMlOff + W * 8;              // warps' acc [W][DH]
+  static constexpr int kBarOff = kAccOff + W * DH * 4;
+  static constexpr size_t smem() { return 1024 + kBarOff + 16 * kStages; }
+};
+
+// Grid (split, head, slot). The block streams the K and V rows of its split
+// of the valid prefix [c0, c1) through the ring (one producer thread, TMA);
+// consumer warp w takes stages w, w + W, ...: lane l scores position
+// 32 st + l over the whole row (K row in registers 16 bytes at a time, q
+// from shared memory as f32: no cross-lane sum), the warp's online softmax
+// moves by one max per stage, and P.V runs with each lane owning Dh / 32
+// columns, p broadcast from its lane.
+template <typename T, int DH>
+__global__ void __launch_bounds__(Shape<T, DH>::kThreads)
+flash_decode_mha(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+                 const T* __restrict__ q, T* __restrict__ out, float* __restrict__ part_ml,
+                 float* __restrict__ part_acc, const int* __restrict__ idx_ptr, int idx_scalar,
+                 int hq, int s_max, int chunk, int n_splits, float scale) {
+  using namespace dst::hopper;
+  using S = Shape<T, DH>;
+  constexpr int W = S::W, SPW = S::SPW;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* q_sh = reinterpret_cast<float*>(base + S::kQOff);
+  float* ml_sh = reinterpret_cast<float*>(base + S::kMlOff);
+  float* acc_sh = reinterpret_cast<float*>(base + S::kAccOff);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + S::kBarOff);
+  uint64_t* empty = full + S::kStages;
 
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t row = (size_t)b * hq + h;  // the query row, and its kv head
+  const size_t row = (size_t)b * hq + h;  // the query row, and its cache head
   const int n_pos = valid_positions(idx_ptr, idx_scalar, s_max);
   const int c0 = split * chunk;
+  // let the merge launch now (it waits for this grid to end before reading)
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   if (c0 >= n_pos) {  // past idx: nothing to read
     if (n_splits == 1)  // no positions at all: the reference's 0 / 1e-20
-      for (int i = tid; i < DH; i += kThreads) out[row * DH + i] = from_f32<T>(0.f);
+      for (int i = tid; i < DH; i += S::kThreads) out[row * DH + i] = from_f32<T>(0.f);
     return;
   }
   const int c1 = min(c0 + chunk, n_pos);
+  const int n_st = (c1 - c0 + kPos - 1) / kPos;
 
-  float qr[EPL];
-  load_f32<T, EPL>(q + row * DH + lane * EPL, qr);
-  const size_t head = row * (size_t)s_max * DH;
-  const T* kh = k + head + lane * EPL;
-  const T* vh = v + head + lane * EPL;
-
-  float m = -CUDART_INF_F, l = 0.f, acc[EPL];
+  // The producer thread sets up the ring and requests its first stages at
+  // once; the consumers stage q meanwhile.
+  // K and V are read once: evict them from the L2 first
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  const auto issue = [&](int st) {
+    const int w = st % W, j = st / W, slot = w + W * (j % SPW);
+    if (j >= SPW) mbar_wait(&empty[slot], ((j / SPW) - 1) & 1);
+    unsigned char* sb = base + slot * S::kStageBytes;
+    const int p0 = c0 + st * kPos;
+    mbar_expect_tx(&full[slot], S::kStageBytes);
 #pragma unroll
-  for (int e = 0; e < EPL; ++e) acc[e] = 0.f;
-
-  for (int p0 = c0 + warp * kGroup; p0 < c1; p0 += kWarps * kGroup) {
-    const int np = min(kGroup, c1 - p0);
-    float kf[kGroup][EPL], vf[kGroup][EPL];
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      if (j < np) {
-        load_f32<T, EPL>(kh + (size_t)(p0 + j) * DH, kf[j]);
-        load_f32<T, EPL>(vh + (size_t)(p0 + j) * DH, vf[j]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) kf[j][e] = vf[j][e] = 0.f;
-      }
+    for (int pn = 0; pn < S::kPanels; ++pn) {
+      tma_load_3d_hint(sb + pn * S::kPanelBytes, &kmap, &full[slot], pn * S::kPanelElems, p0,
+                       (int)row, policy);
+      tma_load_3d_hint(sb + S::kTileBytes + pn * S::kPanelBytes, &vmap, &full[slot],
+                       pn * S::kPanelElems, p0, (int)row, policy);
     }
-    float s[kGroup];
-    float mx = -CUDART_INF_F;
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      float part = 0.f;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) part = fmaf(qr[e], kf[j][e], part);
-      s[j] = warp_sum(part) * scale;
-      if (j < np) mx = fmaxf(mx, s[j]);
+  };
+  const int first = min(n_st, S::kStages);
+  if (tid == 32 * W) {
+    for (int i = 0; i < S::kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 1);
     }
-    const float m_new = fmaxf(m, mx);
-    const float corr = expf(m - m_new);  // 0 on the warp's first group
-    float lr = l * corr;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[e] *= corr;
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      if (j < np) {
-        const float p = expf(s[j] - m_new);
-        lr += p;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[e] = fmaf(p, vf[j][e], acc[e]);
-      }
-    }
-    l = lr;
-    m = m_new;
+    mbar_fence_init();
+    for (int st = 0; st < first; ++st) issue(st);
   }
-
-  // merge the warps in warp order
-  if (lane == 0) {
-    m_sh[warp] = m;
-    l_sh[warp] = l;
-  }
-#pragma unroll
-  for (int e = 0; e < EPL; ++e) acc_sh[warp][lane * EPL + e] = acc[e];
+  if (warp < W)
+    for (int i = tid; i < DH; i += 32 * W) q_sh[i] = to_f32(q[row * DH + i]);
   __syncthreads();
-  for (int d = tid; d < DH; d += kThreads) {
-    float mm = -CUDART_INF_F;
+
+  if (warp == W) {  // ----------------------------------------------- producer
+    if (lane == 0)
+      for (int st = first; st < n_st; ++st) issue(st);
+    return;
+  }
+
+  // --------------------------------------------------------------- consumers
+  float m = -CUDART_INF_F, l = 0.f, acc[S::kEpl];
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, m_sh[w]);  // finite: warp 0 has c0
+  for (int e = 0; e < S::kEpl; ++e) acc[e] = 0.f;
+  // this lane's P.V columns: kEpl elements from column lane * kEpl
+  constexpr int kVBytes = S::kEpl * (int)sizeof(T);
+  constexpr int kVLoad = kVBytes < 16 ? kVBytes : 16;
+  const int vcol = lane * kVBytes;  // byte offset in the row
+  for (int st = warp; st < n_st; st += W) {
+    const int j = st / W, slot = warp + W * (j % SPW);
+    mbar_wait(&full[slot], (j / SPW) & 1);
+    const unsigned char* kt = base + slot * S::kStageBytes;
+    const unsigned char* vt = kt + S::kTileBytes;
+    // score of position c0 + 32 st + lane: its K row against q
+    float sc = 0.f;
+#pragma unroll
+    for (int pn = 0; pn < S::kPanels; ++pn) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const uint4 raw =
+            *reinterpret_cast<const uint4*>(kt + pn * S::kPanelBytes + sw128(lane, 16 * c));
+        const T* kv = reinterpret_cast<const T*>(&raw);
+        const float* qc = q_sh + pn * S::kPanelElems + c * (16 / (int)sizeof(T));
+#pragma unroll
+        for (int i = 0; i < 16 / (int)sizeof(T); ++i) sc = fmaf(qc[i], to_f32(kv[i]), sc);
+      }
+    }
+    const int pos = c0 + st * kPos + lane;
+    const float s = pos < c1 ? sc * scale : -CUDART_INF_F;
+    const float m_new = fmaxf(m, warp_max(s));  // finite: lane 0's position is live
+    const float corr = expf(m - m_new);         // 0 on the warp's first stage
+    const float p = expf(s - m_new);            // 0 past c1
+    l = fmaf(l, corr, p);
+#pragma unroll
+    for (int e = 0; e < S::kEpl; ++e) acc[e] *= corr;
+    m = m_new;
+    // P.V: position r's V row, this lane's columns, in position order
+#pragma unroll 4
+    for (int r = 0; r < kPos; ++r) {
+      const float pr = __shfl_sync(0xffffffffu, p, r);
+      const unsigned char* vrow = vt + (vcol / 128) * S::kPanelBytes;
+#pragma unroll
+      for (int cb = 0; cb < kVBytes; cb += kVLoad) {
+        const int bb = vcol % 128 + cb;
+        const T* vv;
+        uint4 raw16;
+        uint2 raw8;
+        uint32_t raw4;
+        if constexpr (kVLoad == 16) {
+          raw16 = *reinterpret_cast<const uint4*>(vrow + sw128(r, bb));
+          vv = reinterpret_cast<const T*>(&raw16);
+        } else if constexpr (kVLoad == 8) {
+          raw8 = *reinterpret_cast<const uint2*>(vrow + sw128(r, bb));
+          vv = reinterpret_cast<const T*>(&raw8);
+        } else {
+          raw4 = *reinterpret_cast<const uint32_t*>(vrow + sw128(r, bb));
+          vv = reinterpret_cast<const T*>(&raw4);
+        }
+#pragma unroll
+        for (int i = 0; i < kVLoad / (int)sizeof(T); ++i) {
+          const int e = cb / (int)sizeof(T) + i;
+          acc[e] = fmaf(pr, to_f32(vv[i]), acc[e]);
+        }
+      }
+    }
+    // this warp's reads of the slot, before the TMA refill (async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot]);
+  }
+
+  // merge the warps in warp order (a warp with no stage: m = -inf, l = 0)
+  const float lw = warp_sum(l);
+  if (lane == 0) {
+    ml_sh[2 * warp] = m;
+    ml_sh[2 * warp + 1] = lw;
+  }
+#pragma unroll
+  for (int e = 0; e < S::kEpl; ++e) acc_sh[warp * DH + lane * S::kEpl + e] = acc[e];
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * W) : "memory");
+  float mm = -CUDART_INF_F;
+#pragma unroll
+  for (int w = 0; w < W; ++w) mm = fmaxf(mm, ml_sh[2 * w]);  // finite: warp 0 has stage 0
+  for (int d = tid; d < DH; d += 32 * W) {
     float ll = 0.f, aa = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float c = expf(m_sh[w] - mm);  // 0 for a warp past idx
-      ll = fmaf(l_sh[w], c, ll);
-      aa = fmaf(acc_sh[w][d], c, aa);
+    for (int w = 0; w < W; ++w) {
+      const float c = expf(ml_sh[2 * w] - mm);
+      ll = fmaf(ml_sh[2 * w + 1], c, ll);
+      aa = fmaf(acc_sh[w * DH + d], c, aa);
     }
     if (n_splits == 1) {
       out[row * DH + d] = from_f32<T>(aa / fmaxf(ll, 1e-20f));
@@ -352,79 +439,84 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Merge the live splits of one query row, in split order.
 template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-flash_decode_combine(const float* __restrict__ part_ml, const float* __restrict__ part_acc,
-                     T* __restrict__ out, const int* __restrict__ idx_ptr, int idx_scalar,
-                     int hq, int s_max, int chunk, int n_splits) {
-  const size_t row = (size_t)blockIdx.y * hq + blockIdx.x;
-  const int n_pos = valid_positions(idx_ptr, idx_scalar, s_max);
-  const int n_live = n_pos > 0 ? min((n_pos - 1) / chunk + 1, n_splits) : 0;
-  const float* ml = part_ml + 2 * row * n_splits;
-  const float* acc = part_acc + row * n_splits * DH;
-  float mm = -CUDART_INF_F;
-  for (int j = 0; j < n_live; ++j) mm = fmaxf(mm, ml[2 * j]);
-  for (int d = threadIdx.x; d < DH; d += kThreads) {
-    float ll = 0.f, aa = 0.f;
-    for (int j = 0; j < n_live; ++j) {
-      const float c = expf(ml[2 * j] - mm);
-      ll = fmaf(ml[2 * j + 1], c, ll);
-      aa = fmaf(acc[(size_t)j * DH + d], c, aa);
-    }
-    out[row * DH + d] = from_f32<T>(n_live ? aa / fmaxf(ll, 1e-20f) : 0.f);
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* ml,
+                   float* acc, const int* idx_ptr, int idx_scalar, int b, int hq, int s_max,
+                   int chunk, int n_splits, float scale, cudaStream_t st) {
+  using namespace dst::hopper;
+  using S = Shape<T, DH>;
+  CUtensorMap kmap, vmap;
+  const cuuint64_t dims[3] = {(cuuint64_t)DH, (cuuint64_t)s_max, (cuuint64_t)b * hq};
+  const cuuint64_t strides[2] = {(cuuint64_t)DH * sizeof(T), (cuuint64_t)s_max * DH * sizeof(T)};
+  const cuuint32_t box[3] = {(cuuint32_t)S::kPanelElems, kPos, 1};
+  cudaError_t err;
+  if ((err = swizzled_map(&kmap, map_type<T>(), 3, k, dims, strides, box)) != cudaSuccess ||
+      (err = swizzled_map(&vmap, map_type<T>(), 3, v, dims, strides, box)) != cudaSuccess)
+    return err;
+  auto kern = flash_decode_mha<T, DH>;
+  constexpr size_t smem = S::smem();
+  static bool allowed = false;  // raised once, before any graph capture
+  if (!allowed) {
+    if ((err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)smem)) != cudaSuccess)
+      return err;
+    allowed = true;
   }
-}
-
-template <typename T, int EPL>
-cudaError_t launch_mha(const void* q, const void* k, const void* v, void* out, float* ml,
-                       float* acc, const int* idx_ptr, int idx_scalar, int b, int hq,
-                       int s_max, int chunk, int n_splits, float scale, cudaStream_t st) {
-  constexpr int DH = 32 * EPL;
-  const dim3 grid(n_splits, hq, b);
-  flash_decode_split<T, EPL><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), ml, acc, idx_ptr, idx_scalar, hq, s_max, chunk, n_splits, scale);
-  cudaError_t err = cudaGetLastError();
+  kern<<<dim3(n_splits, hq, b), S::kThreads, smem, st>>>(
+      kmap, vmap, static_cast<const T*>(q), static_cast<T*>(out), ml, acc, idx_ptr, idx_scalar,
+      hq, s_max, chunk, n_splits, scale);
+  err = cudaGetLastError();
   if (err != cudaSuccess || n_splits == 1) return err;
-  flash_decode_combine<T, DH><<<dim3(hq, b), kThreads, 0, st>>>(
-      ml, acc, static_cast<T*>(out), idx_ptr, idx_scalar, hq, s_max, chunk, n_splits);
-  return cudaGetLastError();
+  // kernel B's merge under flash-decode's name, as a programmatic dependent
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(hq, b);
+  cfg.blockDim = dim3(ds::kThreads);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, flash_decode_merge<T>, static_cast<const float*>(ml),
+                            static_cast<const float*>(acc), static_cast<T*>(out), idx_ptr,
+                            idx_scalar, hq, s_max, DH, chunk, n_splits);
 }
 
 template <typename T>
-cudaError_t dispatch_mha_dh(const void* q, const void* k, const void* v, void* out, float* ml,
-                            float* acc, const int* iv, int idx_scalar, int b, int hq,
-                            int s_max, int dh, int chunk, int n_splits, float scale,
-                            cudaStream_t st) {
+cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* out, float* ml,
+                        float* acc, const int* iv, int idx_scalar, int b, int hq, int s_max,
+                        int dh, int chunk, int n_splits, float scale, cudaStream_t st) {
   switch (dh) {
     case 64:
-      return launch_mha<T, 2>(q, k, v, out, ml, acc, iv, idx_scalar, b, hq, s_max, chunk,
-                              n_splits, scale, st);
+      return launch<T, 64>(q, k, v, out, ml, acc, iv, idx_scalar, b, hq, s_max, chunk,
+                           n_splits, scale, st);
     case 128:
-      return launch_mha<T, 4>(q, k, v, out, ml, acc, iv, idx_scalar, b, hq, s_max, chunk,
-                              n_splits, scale, st);
+      return launch<T, 128>(q, k, v, out, ml, acc, iv, idx_scalar, b, hq, s_max, chunk,
+                            n_splits, scale, st);
     case 256:
-      return launch_mha<T, 8>(q, k, v, out, ml, acc, iv, idx_scalar, b, hq, s_max, chunk,
-                              n_splits, scale, st);
+      return launch<T, 256>(q, k, v, out, ml, acc, iv, idx_scalar, b, hq, s_max, chunk,
+                            n_splits, scale, st);
   }
   return cudaErrorInvalidValue;
 }
+
+}  // namespace mha
 
 cudaError_t dispatch_mha(const void* q, const void* k, const void* v, void* out, float* ml,
                          float* acc, const int* iv, int idx_scalar, int b, int hq, int s_max,
                          int dh, int chunk, int n_splits, float scale, int dtype,
                          cudaStream_t st) {
+  if (chunk % mha::kPos) return cudaErrorInvalidValue;  // whole stages per split
   switch (dtype) {
     case kF32:
-      return dispatch_mha_dh<float>(q, k, v, out, ml, acc, iv, idx_scalar, b, hq, s_max, dh,
-                                    chunk, n_splits, scale, st);
-    case kF16:
-      return dispatch_mha_dh<__half>(q, k, v, out, ml, acc, iv, idx_scalar, b, hq, s_max, dh,
+      return mha::dispatch_dh<float>(q, k, v, out, ml, acc, iv, idx_scalar, b, hq, s_max, dh,
                                      chunk, n_splits, scale, st);
+    case kF16:
+      return mha::dispatch_dh<__half>(q, k, v, out, ml, acc, iv, idx_scalar, b, hq, s_max, dh,
+                                      chunk, n_splits, scale, st);
     case kBF16:
-      return dispatch_mha_dh<__nv_bfloat16>(q, k, v, out, ml, acc, iv, idx_scalar, b, hq,
-                                            s_max, dh, chunk, n_splits, scale, st);
+      return mha::dispatch_dh<__nv_bfloat16>(q, k, v, out, ml, acc, iv, idx_scalar, b, hq,
+                                             s_max, dh, chunk, n_splits, scale, st);
   }
   return cudaErrorInvalidValue;
 }

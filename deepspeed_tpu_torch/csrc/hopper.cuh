@@ -1,10 +1,15 @@
-// Hopper (sm_90a) building blocks in raw PTX: mbarriers, TMA tile loads,
-// wgmma shared-memory descriptors, register reallocation between
-// warpgroups, and the warpgroup products the flash kernels use
-// (flash_attention.cu).
+// Hopper (sm_90a) building blocks in raw PTX: mbarriers, TMA tile loads
+// and the host's tensor-map encoder, thread-block-cluster barriers and
+// distributed shared memory, wgmma shared-memory descriptors, register
+// reallocation between warpgroups, and the warpgroup products the flash
+// kernels use (flash_attention.cu). The int8 matmul (int8_matmul.cu) and
+// the rep-1 flash-decode (flash_decode.cu) use the TMA and cluster parts.
 //
 //  * A TMA tile load is issued by one thread and completes on an mbarrier
 //    (complete_tx counts the whole box, zero-filled past the tensor's edge).
+//  * A cluster's blocks read each other's shared memory through map_rank
+//    (mapa) and ld.shared::cluster, between two cluster_sync calls that
+//    every thread of every block of the cluster makes.
 //  * Operands in shared memory use the 128-byte swizzle that the tensor map
 //    (CU_TENSOR_MAP_SWIZZLE_128B) writes and the descriptor (layout type 1)
 //    reads: rows of 128 bytes (64 16-bit elements), 8-row atoms of 1024
@@ -22,6 +27,8 @@
 #pragma once
 
 #include <cuda.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -69,6 +76,108 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// as tma_load_3d, with an L2 cache policy (createpolicy)
+__device__ __forceinline__ void tma_load_3d_hint(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                                 int c0, int c1, int c2, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "l"(policy)
+      : "memory");
+}
+
+// the box at (c0, c1) of a 2-d tensor map into shared memory
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// The 16-byte chunk that holds byte `b` of row `r` of a tile written with
+// the 128-byte swizzle (rows of 128 bytes, the tile 1024-byte aligned):
+// the offset of that byte from the tile's start.
+__device__ __forceinline__ int sw128(int r, int b) {
+  return r * 128 + ((((b >> 4) ^ r) & 7) << 4) + (b & 15);
+}
+
+// ------------------------------------------------------------ clusters
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of every block of the cluster; release/acquire order the
+// shared-memory writes before it against the reads after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+// this block's shared address p, as the same offset in block `rank`'s
+// shared memory (a shared::cluster address)
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// ------------------------------------------------------- host: tensor maps
+// cuTensorMapEncodeTiled from the driver, found at run time (the library
+// links no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A rank-`rank` tensor map over ptr (dims and box innermost first, strides
+// in bytes of every dim but the first), 128-byte swizzled, zero-filled past
+// each dim's edge.
+static inline cudaError_t swizzled_map(CUtensorMap* map, CUtensorMapDataType type,
+                                       cuuint32_t rank, const void* ptr, const cuuint64_t* dims,
+                                       const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, type, rank, const_cast<void*>(ptr), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T>
+constexpr CUtensorMapDataType map_type() {
+  return std::is_same<T, float>::value    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+         : std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
 // Move registers between the warpgroups of a block: every warp of a

@@ -114,9 +114,9 @@ def kernels() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dst_int8_matmul.argtypes = [
-            vp, vp, vp, vp, vp,          # x, w, s, out, partials
-            i32, i32, i32, i32, i32,     # n, d, e, layer, k_splits
-            i32, vp]                     # dtype code, stream
+            vp, vp, vp, vp, vp,          # x, w, s, out, f32 partials
+            i32, i32, i32, i32, i32,     # n, d, e, layer, layers
+            i32, i32, i32, vp]           # splits, slab, dtype code, stream
         lib.dst_int8_matmul.restype = i32
         lib.dst_fused_decode_step.argtypes = [
             vp, vp, vp, vp, vp, vp,      # q, k, v, k_new, v_new, out

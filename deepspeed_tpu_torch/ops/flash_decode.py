@@ -15,8 +15,9 @@ On a CUDA tensor each launches ``csrc/flash_decode.cu``, split along the
 valid prefix and then merged (the source note says what bounds it): rep >= 2
 runs kernel B's attention body (``csrc/decode_split.cuh``) under kernel B's
 plan (``decode_step.split_plan``) with its merge as a programmatic
-dependent launch, rep == 1 its own CUDA-core kernel under :func:`plan`. On a
-CPU tensor each runs
+dependent launch, rep == 1 its own streaming kernel (TMA ring, a lane per
+position, f32 on the CUDA cores) under :func:`plan`, with the same merge
+where the plan splits. On a CPU tensor each runs
 :func:`flash_decode_plain`. A CUDA call the kernel cannot take raises
 ``ValueError``; nothing falls back.
 """
@@ -30,7 +31,7 @@ import torch
 from deepspeed_tpu_torch.ops import cuda_build, decode_step
 
 HEAD_DIMS = (64, 128, 256)          # csrc/flash_decode.cu instantiations
-_WARPS = 4                          # csrc/flash_decode.cu rep-1 block: 4 warps
+STAGE_POSITIONS = 32                # csrc/flash_decode.cu mha::kPos
 
 
 def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -64,16 +65,17 @@ def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, 1, hq, dh)
 
 
-def plan(b: int, hkv_rows: int, s_max: int, dh: int, sms: int):
+def plan(b: int, heads: int, s_max: int, sms: int):
     """``(chunk, n_splits)`` of the rep-1 kernel: positions per block and
-    blocks along S. The smallest chunk gives each warp one group of
-    positions (the kernel's ``kGroup``: 8 rows, 4 at Dh 256); it doubles
-    while the grid at full S would still hold two blocks per SM.
-    ``hkv_rows`` is the grid's middle dimension (its heads). A function of
-    the shapes only, so a row's result does not depend on idx."""
-    chunk = _WARPS * min(8, 1024 // dh)
-    while chunk < s_max and b * hkv_rows * -(-s_max // (2 * chunk)) >= 2 * sms:
-        chunk *= 2
+    blocks along S. The whole prefix in one block per head (no merge) while
+    the heads alone give every SM a block; otherwise the chunk halves, in
+    whole 32-position stages and no shorter than 64, until they do.
+    ``heads`` is the grid's middle dimension; the head width does not
+    enter (every width streams the same way). A function of the shapes and
+    the SM count only, so a row's result does not depend on idx."""
+    chunk = -(-s_max // STAGE_POSITIONS) * STAGE_POSITIONS
+    while chunk > 64 and b * heads * -(-s_max // chunk) < sms:
+        chunk = max(64, -(-chunk // (2 * STAGE_POSITIONS)) * STAGE_POSITIONS)
     return chunk, -(-s_max // chunk)
 
 
@@ -113,7 +115,7 @@ def _launch(q, k_cache, v_cache, cache_index, scale, mha: bool, what: str):
     else:
         idx_ptr, idx_scalar = None, int(cache_index)
     sms = cuda_build.sm_count(q.device.index or 0)
-    chunk, n_splits = (plan(b, hkv, s_max, dh, sms) if mha
+    chunk, n_splits = (plan(b, hkv, s_max, sms) if mha
                        else decode_step.split_plan(b, hkv, s_max, sms, dh,
                                                    q.element_size()))
     sc = float(scale) if scale is not None else dh ** -0.5

@@ -6,9 +6,13 @@ deepspeed_tpu/ops/int8_matmul.py ``int8_matmul_dma`` and ``int8_matmul``).
 index. On a CUDA tensor it launches the hand-written kernel in
 ``csrc/int8_matmul.cu`` (the replacement of the TPU kernel
 ``ops/int8_matmul.py:_dma_kernel``; the source note says what bounds it and
-how its design answers that). On a CPU tensor it runs
-:func:`int8_matmul_plain`, the same function in plain PyTorch. There is no
-other path: a CUDA call the kernel cannot take raises.
+how its design answers that): for bf16/fp16 x one launch on the tensor
+cores, split along D into :func:`plan`'s slabs whose blocks sum in a
+thread-block cluster; for f32 x the CUDA-core kernel, split into
+:func:`k_splits` blocks along D with f32 partials summed by a second
+launch. On a CPU tensor it runs :func:`int8_matmul_plain`, the same
+function in plain PyTorch. There is no other path: a CUDA call the kernel
+cannot take raises.
 
 :func:`int8_matmul` is the gridded form of the same function (replaces the
 TPU kernel ``ops/int8_matmul.py:_kernel``): one block per column tile walks
@@ -36,10 +40,38 @@ def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
 
 
 def k_splits(d: int) -> int:
-    """Blocks along D: the kernel gives every block 128 weight rows. A
-    function of the shape only, so a row's result never depends on the
-    batch or the card."""
+    """Blocks along D of the f32 kernel: it gives every block 128 weight
+    rows. A function of the shape only, so a row's result never depends on
+    the batch or the card."""
     return -(-d // 128)
+
+
+TILE_COLS = 128      # csrc/int8_matmul.cu tc::kCols: columns per block
+STAGE_ROWS = 128     # tc::kStageRows: weight rows per ring stage
+MAX_SPLITS = 8       # tc::kMaxSplits: a portable thread-block cluster
+WAVE_SMS = 132       # the H100's SMs: the plan fills whole waves of them
+
+
+def plan(d: int, e: int):
+    """``(splits, slab)`` of the 16-bit kernel: D is cut into ``splits``
+    slabs of ``slab`` rows (whole 128-row stages, every slab non-empty), one
+    block per (slab, 128-column tile), the slabs of a tile forming one
+    thread-block cluster. Picks the split count (1..8) whose blocks fill
+    whole waves of 132 SMs best, the fewest on a tie. A function of (D, E)
+    only, so a row's result never depends on the batch, the card or the
+    run."""
+    tiles = -(-e // TILE_COLS)
+    stages = -(-d // STAGE_ROWS)
+    best = None
+    for splits in range(1, MAX_SPLITS + 1):
+        per = -(-stages // splits)
+        if -(-stages // per) != splits:       # a slab would be empty
+            continue
+        blocks = tiles * splits
+        fill = blocks / (-(-blocks // WAVE_SMS) * WAVE_SMS)
+        if best is None or fill > best[0] + 1e-9:
+            best = (fill, splits, per * STAGE_ROWS)
+    return best[1], best[2]
 
 
 def _check(what: str, x, q, s, nl: int):
@@ -53,6 +85,9 @@ def _check(what: str, x, q, s, nl: int):
         raise ValueError(f"{what} takes 1..{MAX_ROWS} rows, got {n}")
     if e % 16:
         raise ValueError(f"{what} needs E % 16 == 0, got {e}")
+    if x.dtype != torch.float32 and d % 8 and what == "int8_matmul_dma":
+        raise ValueError(f"{what} needs D % 8 == 0 for 16-bit x (x's rows "
+                         f"feed a tensor map in 16-byte strides), got {d}")
     if q.dtype != torch.int8 or s.dtype != torch.float32:
         raise TypeError(f"{what}: q {q.dtype} (int8), s {s.dtype} (float32)")
     if s.shape[-1] != e or s.numel() != nl * e:
@@ -84,22 +119,35 @@ def int8_matmul_dma(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
         raise ValueError(f"int8_matmul_dma: x {tuple(x.shape)}, q {tuple(q.shape)}")
     if not 0 <= layer < nl:
         raise ValueError(f"layer {layer} outside [0, {nl})")
-    n, d, e = _check("int8_matmul_dma", x, q, s, nl)
-    code = cuda_build.dtype_code(x.dtype)
-    lib = cuda_build.kernels()
-    ks = k_splits(d)
-    out = torch.empty((n, e), dtype=x.dtype, device=x.device)
-    part = torch.empty((ks, n, e), dtype=torch.float32, device=x.device)
-    err = lib.dst_int8_matmul(
-        x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-        part.data_ptr(), n, d, e, layer, ks, code,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check(lib, err, "int8_matmul_dma")
+    out = _launch_dma(x, q, s, layer)
     int8_matmul_dma.launches += 1
     return out
 
 
 int8_matmul_dma.launches = 0
+
+
+def _launch_dma(x, q, s, layer: int) -> torch.Tensor:
+    """Checks the operands and launches kernel 2 (``layer`` an int, 0 for
+    a ``[D, E]`` weight)."""
+    nl = q.shape[0] if q.ndim == 3 else 1
+    n, d, e = _check("int8_matmul_dma", x, q, s, nl)
+    code = cuda_build.dtype_code(x.dtype)
+    lib = cuda_build.kernels()
+    out = torch.empty((n, e), dtype=x.dtype, device=x.device)
+    part = None
+    if x.dtype == torch.float32:
+        splits, slab = k_splits(d), 128
+        part = torch.empty((splits, n, e), dtype=torch.float32,
+                           device=x.device)
+    else:
+        splits, slab = plan(d, e)
+    err = lib.dst_int8_matmul(
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), n, d, e, layer, nl,
+        splits, slab, code, torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(lib, err, "int8_matmul_dma")
+    return out
 
 
 def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:

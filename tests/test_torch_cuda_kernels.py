@@ -81,7 +81,7 @@ from deepspeed_tpu_torch.ops.decode_step import (block_split_plan,
                                                  split_plan)
 from deepspeed_tpu_torch.ops.flash_decode import (flash_decode,
                                                   flash_decode_mha,
-                                                  flash_decode_plain)
+                                                  flash_decode_plain, plan)
 from deepspeed_tpu_torch.ops.flash_attention import (flash_attention,
                                                      flash_bwd_dkv,
                                                      flash_bwd_dkv_plain,
@@ -438,12 +438,36 @@ def test_int8_matmul_matches_plain(cuda, dtype, n, d, e):
     assert torch.equal(out, out2)
 
 
-def test_int8_matmul_row_result_independent_of_batch(cuda):
-    x, q, s = _mm_inputs(cuda, torch.bfloat16, 32, 1024, 2048)
-    full = int8_matmul_dma(x, q, s, 0)
-    for n in (1, 2, 5, 8, 16):
-        assert torch.equal(int8_matmul_dma(x[:n].contiguous(), q, s, 0),
-                           full[:n])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("n", range(1, 33))
+def test_int8_matmul_every_batch_width(cuda, dtype, n):
+    """Every N the kernel takes (its n-tiles: 1-8, 9-16, 17-24, 25-32), at
+    ragged D (384 and 1408: slabs and stages cut short) and E (a last
+    column tile cut short), on the last of three stacked layers, against
+    the plain version."""
+    for d, e in ((384, 2064), (1408, 640)):
+        x, q, s = _mm_inputs(cuda, dtype, n, d, e, layers=3, seed=n)
+        out = int8_matmul_dma(x, q, s, 2)
+        ref = int8_matmul_plain(x, q, s, 2)
+        err = (out.float() - ref.float()).abs()
+        assert (err <= MATMUL_RTOL[dtype] * ref.float().abs() + 1e-3).all(), \
+            (d, e, err.max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_int8_matmul_row_result_independent_of_batch(cuda, dtype):
+    """A row's result is the same bits whatever the batch around it (every
+    N from 1 to 32) and run to run: the plan depends on (D, E) alone and
+    the split-K sum runs in a fixed order."""
+    for d, e in ((1024, 2048), (4096, 11008)):
+        x, q, s = _mm_inputs(cuda, dtype, 32, d, e)
+        full = int8_matmul_dma(x, q, s, 0)
+        assert torch.equal(int8_matmul_dma(x, q, s, 0), full)
+        for n in range(1, 32):
+            assert torch.equal(int8_matmul_dma(x[:n].contiguous(), q, s, 0),
+                               full[:n]), (d, e, n)
 
 
 def test_int8_matmul_rejects_bad_inputs(cuda):
@@ -455,6 +479,9 @@ def test_int8_matmul_rejects_bad_inputs(cuda):
         int8_matmul_dma(x[:4].contiguous(), q, s)
     with pytest.raises(TypeError):      # bf16 scales
         int8_matmul_dma(x[:4].contiguous(), q, s.to(torch.bfloat16), 0)
+    with pytest.raises(ValueError):     # 16-bit x with D % 8 != 0
+        int8_matmul_dma(x[:4, :252].contiguous(), q[:, :252].contiguous(), s,
+                        0)
     assert int8_matmul_dma.launches == n0
 
 
@@ -676,6 +703,54 @@ def test_flash_decode_split_edges(cuda, dtype, dh, rep):
         assert torch.equal(flash_decode(q, k2, v2, idx), out), idx
         dev_idx = torch.tensor(idx, dtype=torch.int32, device=cuda)
         assert torch.equal(flash_decode(q, k, v, dev_idx), out), idx
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("dh", [64, 128, 256])
+def test_flash_decode_mha_split_edges(cuda, dtype, dh):
+    """The rep-1 kernel at idx 0, the last and first positions of a split
+    (and of a 32-position stage), S - 1 and past S, at an S that is no
+    multiple of the stage, row by row against the plain version; values
+    past idx set to 1e4 leave the output bit for bit unchanged; the device
+    index gives the python int's bits; a second launch repeats them."""
+    b, h, s = 2, 3, 300
+    chunk, n_splits = plan(b, h, s, _sms(cuda))
+    assert n_splits > 1, (chunk, n_splits)
+    q, k, v = _flash_decode_inputs(cuda, dtype, b, h, h, s, dh, seed=dh)
+    for idx in (0, 31, 32, chunk - 1, chunk, 2 * chunk - 1, s - 1, s, s + 7):
+        out = flash_decode(q, k, v, idx)
+        ref = flash_decode_plain(q, k, v, idx)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out.float()).all(), idx
+        err = rel_err(out, ref)
+        assert err <= FLASH_DECODE_TOL[dtype], (idx, err)
+        k2, v2 = k.clone(), v.clone()
+        k2[:, :, idx + 1:] = 1e4
+        v2[:, :, idx + 1:] = 1e4
+        assert torch.equal(flash_decode(q, k2, v2, idx), out), idx
+        dev_idx = torch.tensor(idx, dtype=torch.int32, device=cuda)
+        assert torch.equal(flash_decode(q, k, v, dev_idx), out), idx
+        assert torch.equal(flash_decode(q, k, v, idx), out), idx
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_decode_mha_one_split_ignores_values_past_idx(cuda, dtype):
+    """LLaMA-7B's MHA row (B 8, H 32, S 1024: one split per head) with every
+    value past idx set to 1e4: the output keeps its bits, at idx 0, inside
+    the first stage, at a stage edge and at S - 1."""
+    b, h, s = 8, 32, 1024
+    assert plan(b, h, s, _sms(cuda))[1] == 1
+    q, k, v = _flash_decode_inputs(cuda, dtype, b, h, h, s, 128, seed=5)
+    for idx in (0, 17, 511, 512, 1000, s - 1):
+        out = flash_decode(q, k, v, idx)
+        ref = flash_decode_plain(q, k, v, idx)
+        torch.cuda.synchronize()
+        assert rel_err(out, ref) <= FLASH_DECODE_TOL[dtype], idx
+        k2, v2 = k.clone(), v.clone()
+        k2[:, :, idx + 1:] = 1e4
+        v2[:, :, idx + 1:] = 1e4
+        assert torch.equal(flash_decode(q, k2, v2, idx), out), idx
 
 
 def test_flash_decode_replays_in_a_cuda_graph(cuda):

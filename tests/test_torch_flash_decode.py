@@ -159,14 +159,37 @@ def test_rounding_differs_between_the_two_computations():
 
 
 def test_plan_splits_along_s():
+    """The rep-1 kernel's plan: the whole prefix in one block per head while
+    the heads fill the SMs, else halving chunks of whole 32-position
+    stages, no shorter than 64."""
     sms = 132
-    assert plan(1, 8, 640, 128, sms) == (32, 20)        # 160 blocks
-    assert plan(4, 8, 640, 128, sms) == (64, 10)        # 320 blocks
-    assert plan(8, 32, 1024, 128, sms) == (512, 2)      # MHA, 512 blocks
-    assert plan(1, 1, 100, 64, sms) == (32, 4)
-    assert plan(1, 1, 100, 256, sms) == (16, 7)
-    chunk, n = plan(2, 2, 4096, 256, sms)
+    assert plan(8, 32, 1024, sms) == (1024, 1)     # LLaMA-7B MHA, 256 blocks
+    assert plan(1, 32, 1024, sms) == (128, 8)      # batch 1: 256 blocks
+    assert plan(4, 8, 640, sms) == (96, 7)         # 224 blocks
+    assert plan(1, 8, 640, sms) == (64, 10)        # the floor: 80 blocks
+    assert plan(1, 1, 100, sms) == (64, 2)
+    chunk, n = plan(2, 2, 4096, sms)
     assert chunk * n >= 4096 and chunk * (n - 1) < 4096
+
+
+@pytest.mark.parametrize("b,h,s,sms", [
+    (8, 32, 1024, 132), (1, 32, 1024, 132), (4, 8, 640, 132), (1, 1, 100, 132),
+    (2, 2, 300, 80), (3, 4, 200, 132), (8, 32, 1000, 114), (64, 32, 64, 132),
+    (1, 20, 4096, 132)])
+def test_rep1_plan_from_the_shapes_alone(b, h, s, sms):
+    """(chunk, n_splits) of the rep-1 kernel from (B, H, S, SMs) alone (the
+    same at every Dh): chunks of whole 32-position stages covering S once;
+    one split while the heads alone give every SM a block, else the longest
+    chunk (>= 64) that does, or 64."""
+    chunk, n = plan(b, h, s, sms)
+    assert plan(b, h, s, sms) == (chunk, n)
+    assert chunk % 32 == 0 and chunk >= min(64, -(-s // 32) * 32)
+    assert chunk * n >= s and chunk * (n - 1) < s
+    if b * h >= sms:
+        assert n == 1
+    else:
+        assert b * h * n >= sms or chunk == 64
+        assert chunk >= s or b * h * -(-s // (2 * chunk)) < sms
 
 
 @pytest.mark.parametrize("b,hkv,s,sms", [
@@ -224,7 +247,7 @@ def test_wrapper_launches_with_its_plan(monkeypatch, b, hq, hkv, s, dh):
     assert out.shape == q.shape and out.device.type == "meta"
     (args,) = lib.calls
     chunk, n_splits, mha = args[13], args[14], args[17]
-    want = (plan(b, hkv, s, dh, 132) if hq == hkv
+    want = (plan(b, hkv, s, 132) if hq == hkv
             else split_plan(b, hkv, s, 132, dh, 2))
     assert (chunk, n_splits) == want and mha == int(hq == hkv)
     assert args[7] == s - 1 and args[8:13] == (b, hq, hkv, s, dh)

@@ -28,7 +28,7 @@ from deepspeed_tpu.ops.int8_matmul import int8_matmul_dma as jax_int8_matmul_dma
 from deepspeed_tpu_torch.compression.quantize import dequantize_int8, quantize_int8
 from deepspeed_tpu_torch.models.base import layer_view, qdot
 from deepspeed_tpu_torch.ops.int8_matmul import (int8_matmul, int8_matmul_dma,
-                                                 k_splits)
+                                                 k_splits, plan)
 
 
 def _mk(n, d, e, l=None, seed=0):
@@ -119,9 +119,83 @@ def test_quantize_int8_bit_identical(dtype):
     assert (deq - tw.float()).abs().max() <= ts.max() / 2 + 1e-9
 
 
-def test_k_splits_depends_on_shape_only():
-    # 128 weight rows per block, whatever the batch or the card
-    assert k_splits(4096) == 32
-    assert k_splits(11008) == 86
-    assert k_splits(256) == 2
-    assert k_splits(130) == 2
+# every (D, E) that models/base.qdot routes to the kernel for LLaMA-7B
+# (q/k/v/o, gate/up, down), CodeLlama-34B (q/o, k/v at 8 kv heads,
+# gate/up, down) and GPT-2 774M (qkv, proj, fc, fc2)
+ROUTED_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096),
+                 (8192, 8192), (8192, 1024), (8192, 22016), (22016, 8192),
+                 (1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280)]
+
+
+@pytest.mark.parametrize("d,e", ROUTED_SHAPES)
+def test_k_splits_depends_on_shape_only(d, e):
+    """The 16-bit kernel's plan (splits of D into whole 128-row stages, one
+    thread-block cluster per 128-column tile) from (D, E) alone: at most 8
+    splits (a portable cluster), every split holding rows, the slabs
+    covering D once, and no split count filling whole waves of 132 SMs
+    better. The f32 kernel gives every block 128 weight rows."""
+    splits, slab = plan(d, e)
+    assert plan(d, e) == (splits, slab)
+    assert 1 <= splits <= 8 and slab % 128 == 0
+    assert (splits - 1) * slab < d <= splits * slab
+    tiles = -(-e // 128)
+
+    def fill(ks):
+        blocks = tiles * ks
+        return blocks / (-(-blocks // 132) * 132)
+
+    stages = -(-d // 128)
+    valid = [ks for ks in range(1, 9)
+             if -(-stages // -(-stages // ks)) == ks]
+    assert fill(splits) == max(fill(ks) for ks in valid)
+    assert splits == min(ks for ks in valid if fill(ks) == fill(splits))
+    assert k_splits(d) == -(-d // 128)
+    if (d, e) == (4096, 4096):
+        assert (splits, slab) == (4, 1024)        # 128 blocks
+    if (d, e) == (4096, 11008):
+        assert (splits, slab) == (3, 1408)        # 258 blocks
+    if (d, e) == (11008, 4096):
+        assert (splits, slab) == (4, 2816)        # 128 blocks
+        assert k_splits(d) == 86
+
+
+class _FakeLib:
+    """Stands in for the kernel library: records dst_int8_matmul's
+    arguments and returns success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def dst_int8_matmul(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("n,d,e,layers", [(8, 4096, 4096, 3),
+                                          (1, 4096, 11008, 2),
+                                          (32, 11008, 4096, 1)])
+def test_wrapper_launches_with_its_plan(monkeypatch, dtype, n, d, e, layers):
+    """The CUDA path's arguments, traced on meta tensors with the library
+    replaced: 16-bit x launches under :func:`plan` with no partials, f32 x
+    under :func:`k_splits` with [splits, N, E] f32 partials; the stacked
+    weight goes through whole, with its layer count and the layer index."""
+    from deepspeed_tpu_torch.ops import cuda_build
+    from deepspeed_tpu_torch.ops import int8_matmul as tmm
+
+    lib = _FakeLib()
+    monkeypatch.setattr(cuda_build, "kernels", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    x = torch.empty((n, d), dtype=dtype, device="meta")
+    q = torch.empty((layers, d, e), dtype=torch.int8, device="meta")
+    s = torch.empty((layers, 1, e), dtype=torch.float32, device="meta")
+    out = tmm._launch_dma(x, q, s, layers - 1)
+    assert out.shape == (n, e) and out.dtype == dtype
+    (args,) = lib.calls
+    assert args[5:10] == (n, d, e, layers - 1, layers)
+    if dtype == torch.float32:
+        assert args[10] == k_splits(d) and args[4] is not None
+    else:
+        assert tuple(args[10:12]) == plan(d, e) and args[4] is None
