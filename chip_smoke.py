@@ -9,8 +9,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                counts HGMMA (wgmma) and HMMA (mma.sync) in the SASS of the
                flash kernels (cuobjdump): each must issue HGMMA, none HMMA;
                and in each 16-bit instantiation of the GQA flash-decode
-               kernel and of the int8 matmul (kernel 2): each must issue
-               HMMA (or HGMMA).
+               kernel and of the int8 matmul's tensor-core body (kernel 2
+               at 128 columns, the gridded form at 32 and 64): each must
+               issue HMMA (or HGMMA).
 2. kernels   — each hand-written kernel against its plain PyTorch version on
                the card at the serving path's full LLaMA-7B shapes (fused
                decode step: 8 slots x 32 heads x Dh 128 x S 1024, per-slot
@@ -164,8 +165,11 @@ Generate (phases added after ``reference`` and after ``probe_fp32``):
 Sparse attention (a phase added after ``kernels``, before ``reference``):
 
    kernels (gridded int8) — the gridded int8 matmul (int8_matmul, unrouted
-               as in the reference) beside every int8_matmul_dma row: held
-               to the same plain version and bound, its time printed beside
+               as in the reference; kernel 2's tensor-core body at one split
+               over grid_plan's column tiles) beside every int8_matmul_dma
+               row: in bf16, fp16 and f32 against the same plain version and
+               bound, each row the same bits at batch 1 and run to run, its
+               time (bf16; f32 beside it) and bound share printed beside
                kernel 2's.
    sparse_attention — block-sparse attention through the op registry
                (get_op_builder("sparse_attn")().load().SparseSelfAttention),
@@ -176,10 +180,11 @@ Sparse attention (a phase added after ``kernels``, before ``reference``):
                bf16, B 1, T 8192; (b) BigBirdSparsityConfig (block 16) at
                BERT-large's, 16 heads x Dh 64, bf16, B 4, T 4096; (c) small
                rows: f32 (Longformer), bf16 at block 32 (Fixed) and 64
-               (BigBird), and a hand-made layout whose rows of one block see
-               no key under causal. Each kernel against its plain version on
-               the same operands, row by row (kernel_check.rel_err: 1.6e-2
-               bf16, 1e-5 f32; lse 1e-4 absolute), a second launch bit for
+               (BigBird), fp16 (BigBird, its global rows cut in parts), and
+               a hand-made layout whose rows of one block see no key under
+               causal. Each kernel against its plain version on the same
+               operands, row by row (kernel_check.rel_err: 1.6e-2 bf16,
+               2e-3 fp16, 1e-5 f32; lse 1e-4 absolute), a second launch bit for
                bit, the main path's output equal to the kernel's; at (b) and
                (c) the dense oracle (block_sparse_attention_reference:
                outputs to the same bound, f32 gradients to 1e-4, bf16
@@ -188,10 +193,12 @@ Sparse attention (a phase added after ``kernels``, before ``reference``):
                (a) and (b): kernel, plain and SDPA-over-the-dense-mask times
                (forward, backward), each captured in a CUDA graph, and
                bounds from the active-block work (dQ and dK/dV also against
-               the f32 CUDA-core peak, f32_floor_ms); the layouts' density,
-               LUT width and longest row and column; the work lists'
-               dq_group_busy and dkv_group_busy beside four consecutive
-               query (key) blocks'.
+               the f32 CUDA-core peak, f32_floor_ms, with the share of it
+               each kernel reaches); the layouts' density, LUT width and
+               longest row and column; the work lists' fwd_group_busy (the
+               forward's list is dQ's), dq_group_busy and dkv_group_busy
+               beside four consecutive query (key) blocks', their items,
+               cut lines and partials.
 
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -234,7 +241,8 @@ from deepspeed_tpu_torch.ops.flash_attention import (flash_bwd_dkv,
                                                      flash_fwd_parts,
                                                      flash_fwd_parts_plain)
 from deepspeed_tpu_torch.ops import get_op_builder
-from deepspeed_tpu_torch.ops.int8_matmul import (int8_matmul, int8_matmul_dma,
+from deepspeed_tpu_torch.ops.int8_matmul import (grid_plan, int8_matmul,
+                                                 int8_matmul_dma,
                                                  int8_matmul_plain)
 from deepspeed_tpu_torch.ops.int8_matmul import plan as int8_plan
 from deepspeed_tpu_torch.ops.kernel_check import (block_step_inputs,
@@ -314,7 +322,7 @@ KERNELS = {
         "replaces": "deepspeed_tpu/ops/sparse_attention/block_sparse.py:168 "
                     "(_bwd_dkv_kernel)"},
     "int8_matmul": {
-        "source": "deepspeed_tpu_torch/csrc/int8_matmul.cu",
+        "source": "deepspeed_tpu_torch/csrc/int8_matmul_grid.cu",
         "replaces": "deepspeed_tpu/ops/int8_matmul.py:44 (_kernel)"},
 }
 WRAPPERS = {"fused_decode_step": fused_decode_step,
@@ -347,9 +355,10 @@ FLASH_DECODE_TOL = {torch.bfloat16: 2e-2, torch.float16: 4e-3,
                     torch.float32: 1e-5}
 # block-sparse outputs and grads against their plain versions and the dense
 # oracle, per row (kernel_check.rel_err): both sides compute in f32 and
-# round once, so bf16 is held to two ulps of the row's largest element and
-# f32 to summation order; lse within LSE_TOL absolute
-SPARSE_TOL = {torch.bfloat16: 1.6e-2, torch.float32: 1e-5}
+# round once, so bf16 (2^-7) and fp16 (2^-10) are held to two ulps of the
+# row's largest element and f32 to summation order; lse within LSE_TOL
+# absolute
+SPARSE_TOL = {torch.bfloat16: 1.6e-2, torch.float16: 2e-3, torch.float32: 1e-5}
 # f32 gradients against autograd of the dense oracle (softmax's backward in
 # another form and order)
 SPARSE_ORACLE_GRAD_TOL = 1e-4
@@ -415,26 +424,37 @@ FLASH_SASS = ("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
 FLASH_DECODE_SASS = re.compile(
     r"flash_decode_gqa(?:I13__nv_bfloat16|I6__half|<__nv_bfloat16|<__half)")
 FLASH_DECODE_16BIT = 12
-# the 16-bit instantiations of kernel 2: bf16 and fp16 at 1-4 n-tiles
+# the 16-bit instantiations of the int8 matmul's tensor-core body: bf16 and
+# fp16 at 1-4 n-tiles and 128 columns (kernel 2), 32 and 64 (the gridded
+# form, each with a 96 KB and a 200 KB ring); the column tile is the third
+# template argument
 INT8_MATMUL_SASS = re.compile(
-    r"int8_matmul_tc(?:I13__nv_bfloat16|I6__half|<__nv_bfloat16|<__half)")
-INT8_MATMUL_16BIT = 8
+    r"int8_matmul_tc(?:I(?:13__nv_bfloat16|6__half)Li\d+ELi(\d+)E"
+    r"|<(?:__nv_bfloat16|__half), \d+, (\d+)[,>])")
+INT8_MATMUL_COLS = {128: 8, 32: 16, 64: 16}
+# the 16-bit instantiations of the block-sparse forward's tensor-core form
+# (q.k^T on mma.sync): bf16 and fp16 at Dh 64 and 128 and blocks 16, 32, 64
+SPARSE_FWD_SASS = re.compile(
+    r"block_sparse_fwd_tc(?:I(?:13__nv_bfloat16|6__half)|<(?:__nv_bfloat16|__half))")
+SPARSE_FWD_16BIT = 12
 
 
 def sass_counts(lib_path) -> dict:
     """HGMMA (wgmma) and HMMA (mma.sync) instructions in the SASS of the
     built library (``cuobjdump -sass``): each 16-bit flash kernel's, summed
-    over its instantiations, and each 16-bit GQA flash-decode and kernel 2
-    instantiation's. Fails unless every flash kernel issues HGMMA and no
-    HMMA, and every flash-decode and kernel 2 instantiation HMMA (their
-    products on the tensor cores; the kernels they replaced issued none)."""
+    over its instantiations, and each 16-bit GQA flash-decode, int8
+    matmul tensor-core (kernel 2 and the gridded form, by column tile) and
+    block-sparse forward tensor-core instantiation's. Fails unless every
+    flash kernel issues HGMMA and no HMMA, and every flash-decode, int8
+    matmul and sparse forward instantiation HMMA (their products on the
+    tensor cores; the kernels they replaced issued none)."""
     cuobjdump = (shutil.which("cuobjdump")
                  or str(Path(cuda_build._nvcc()).with_name("cuobjdump")))
     sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
     flash = {name: {"HGMMA": 0, "HMMA": 0} for name in FLASH_SASS}
-    decode, matmul = {}, {}
+    decode, matmul, sparse = {}, {}, {}
     current = None
     for line in sass.splitlines():
         if "Function : " in line:
@@ -442,8 +462,13 @@ def sass_counts(lib_path) -> dict:
             current = next((flash[n] for n in FLASH_SASS if n in fn), None)
             if current is None and FLASH_DECODE_SASS.search(fn):
                 current = decode.setdefault(fn, {"HGMMA": 0, "HMMA": 0})
-            if current is None and INT8_MATMUL_SASS.search(fn):
-                current = matmul.setdefault(fn, {"HGMMA": 0, "HMMA": 0})
+            if current is None and SPARSE_FWD_SASS.search(fn):
+                current = sparse.setdefault(fn, {"HGMMA": 0, "HMMA": 0})
+            tc = INT8_MATMUL_SASS.search(fn) if current is None else None
+            if tc:
+                current = matmul.setdefault(fn, {
+                    "cols": int(tc.group(1) or tc.group(2)), "HGMMA": 0,
+                    "HMMA": 0})
         elif current is not None:
             for op in ("HGMMA", "HMMA"):
                 if f" {op}." in line:
@@ -451,11 +476,14 @@ def sass_counts(lib_path) -> dict:
     for name, c in flash.items():
         assert c["HGMMA"] > 0 and c["HMMA"] == 0, (name, c)
     assert len(decode) == FLASH_DECODE_16BIT, sorted(decode)
-    assert len(matmul) == INT8_MATMUL_16BIT, sorted(matmul)
-    for name, c in list(decode.items()) + list(matmul.items()):
+    assert len(sparse) == SPARSE_FWD_16BIT, sorted(sparse)
+    cols = [c["cols"] for c in matmul.values()]
+    assert {w: cols.count(w) for w in INT8_MATMUL_COLS} == INT8_MATMUL_COLS \
+        and len(cols) == sum(INT8_MATMUL_COLS.values()), sorted(matmul)
+    for name, c in [*decode.items(), *matmul.items(), *sparse.items()]:
         assert c["HMMA"] > 0 or c["HGMMA"] > 0, (name, c)
     return {"flash": flash, "flash_decode_gqa": decode,
-            "int8_matmul_tc": matmul}
+            "int8_matmul_tc": matmul, "block_sparse_fwd_tc": sparse}
 
 
 def phase_device() -> dict:
@@ -580,11 +608,12 @@ MATMUL_RTOLS = {torch.bfloat16: MATMUL_RTOL, torch.float16: 1e-3,
 
 
 def check_int8_matmul(n, d, e, seed=0):
-    """Kernel 2 (``int8_matmul_dma``) on the last of enough stacked layers
+    """Kernel 2 (``int8_matmul_dma``) and the gridded form (``int8_matmul``,
+    on the same layer's [D, E] view) on the last of enough stacked layers
     that one rotation exceeds the L2: in bf16, fp16 and f32 against the
     plain version, each row's result the same bits at batch 1 and in a
-    second launch; the gridded form on the same layer (bf16). Times (bf16
-    x): kernel 2, the gridded form, the plain version,
+    second launch. Times (bf16 x): kernel 2, the gridded form (also with
+    f32 x), the plain version,
     ``torch._weight_int8pack_mm`` (library_ms) and a bf16 ``torch.matmul``
     of the same values (bf16_matmul_ms), both yardsticks only."""
     dev = "cuda"
@@ -595,7 +624,7 @@ def check_int8_matmul(n, d, e, seed=0):
                       dtype=torch.int8)
     s = (torch.rand((layers, 1, e), generator=g, device=dev) * 0.02)
     x32 = torch.randn((n, d), generator=g, device=dev)
-    errs = {}
+    errs, grid_errs = {}, {}
     for dtype in INT8_DTYPES:
         xd = x32.to(dtype)
         out = int8_matmul_dma(xd, q, s, layers - 1)
@@ -604,7 +633,8 @@ def check_int8_matmul(n, d, e, seed=0):
         err = (out.float() - ref.float()).abs()
         name = str(dtype).split(".")[-1]
         assert torch.isfinite(out.float()).all()
-        assert (err <= MATMUL_RTOLS[dtype] * ref.float().abs() + 1e-3).all(), \
+        bound = MATMUL_RTOLS[dtype] * ref.float().abs() + 1e-3
+        assert (err <= bound).all(), \
             f"int8_matmul_dma {name} {n}x{d}x{e} err {err.max()}"
         assert torch.equal(int8_matmul_dma(xd, q, s, layers - 1), out), \
             f"int8_matmul_dma {name} {n}x{d}x{e} not bit-identical run to run"
@@ -612,19 +642,27 @@ def check_int8_matmul(n, d, e, seed=0):
                                            layers - 1), out[-1:]), \
             f"int8_matmul_dma {name} {n}x{d}x{e}: the last row differs at batch 1"
         errs[name] = err.max().item()
+        # the gridded form (unrouted) on the same layer's [D, E] view and
+        # [1, E] scales: the same function, so the same plain version and
+        # bound
+        grid = int8_matmul(xd, q[layers - 1], s[layers - 1])
+        torch.cuda.synchronize()
+        grid_err = (grid.float() - ref.float()).abs()
+        assert torch.isfinite(grid.float()).all()
+        assert (grid_err <= bound).all(), \
+            f"int8_matmul (gridded) {name} {n}x{d}x{e} err {grid_err.max()}"
+        assert torch.equal(int8_matmul(xd, q[layers - 1], s[layers - 1]), grid), \
+            f"int8_matmul (gridded) {name} {n}x{d}x{e} not bit-identical run to run"
+        assert torch.equal(int8_matmul(xd[-1:].contiguous(), q[layers - 1],
+                                       s[layers - 1]), grid[-1:]), \
+            f"int8_matmul (gridded) {name} {n}x{d}x{e}: the last row differs at batch 1"
+        grid_errs[name] = grid_err.max().item()
         if dtype == torch.bfloat16:
-            x, ref_bf16, bound = xd, ref, MATMUL_RTOL * ref.float().abs() + 1e-3
-    ref = ref_bf16
-    # the gridded form (unrouted) on the same layer's [D, E] view and [1, E]
-    # scales: the same function, so the same plain version and bound
-    grid = int8_matmul(x, q[layers - 1], s[layers - 1])
-    torch.cuda.synchronize()
-    grid_err = (grid.float() - ref.float()).abs()
-    assert torch.isfinite(grid.float()).all()
-    assert (grid_err <= bound).all(), \
-        f"int8_matmul (gridded) {n}x{d}x{e} err {grid_err.max()}"
+            x = xd
+    x_f32 = x32
     kernel_ms = time_ms(lambda i: int8_matmul_dma(x, q, s, i), layers)
     grid_ms = time_ms(lambda i: int8_matmul(x, q[i], s[i]), layers)
+    grid_f32_ms = time_ms(lambda i: int8_matmul(x_f32, q[i], s[i]), layers)
     plain_ms = time_ms(lambda i: int8_matmul_plain(x, q, s, i), layers)
     # yardsticks only: PyTorch's weight-only int8 matmul takes the weight as
     # [E, D] and bf16 scales, so it gets its own copies of the same values;
@@ -640,6 +678,7 @@ def check_int8_matmul(n, d, e, seed=0):
     del wb
     nbytes = d * e + n * d * 2 + e * 4 + n * e * 2
     flops = 2 * n * d * e
+    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
     return {"n": n, "d": d, "e": e, "plan": list(int8_plan(d, e)),
             "max_abs_err": max(errs.values()), "max_abs_err_by_dtype": errs,
             "tol": f"rtol {MATMUL_RTOL} (bf16), 1e-3 (fp16), 1e-5 (f32) "
@@ -647,13 +686,16 @@ def check_int8_matmul(n, d, e, seed=0):
             "bit_identical_run_to_run_and_at_batch_1": True,
             "kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "grid": {"kernel_ms": grid_ms, "dma_kernel_ms": kernel_ms,
-                     "max_abs_err": grid_err.max().item()},
+                     "plan": list(grid_plan(d, e)),
+                     "bound_share": bound_ms / grid_ms,
+                     "f32_kernel_ms": grid_f32_ms,
+                     "max_abs_err": max(grid_errs.values()),
+                     "max_abs_err_by_dtype": grid_errs},
             "library_ms": library_ms, "library": "torch._weight_int8pack_mm",
             "bf16_matmul_ms": bf16_matmul_ms,
             "bytes": nbytes,
             "flops": flops,
-            "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                                  flops / BF16_FLOP_PER_S),
+            "bound_ms": bound_ms,
             "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                          >= flops / BF16_FLOP_PER_S else "operations")}
 
@@ -1273,6 +1315,9 @@ def _sparse_configs(sa) -> list:
         ("c_block64_bigbird", sa.BigBirdSparsityConfig(
             num_heads=4, block=64, different_layout_per_head=True, seed=2),
          2, 1024, 4, 128, torch.bfloat16, None, False, True),
+        # fp16, its global rows (128 entries) cut in parts of the work list
+        ("c_fp16_bigbird", sa.BigBirdSparsityConfig(num_heads=8, block=16),
+         2, 2048, 8, 64, torch.float16, None, False, True),
         ("c_masked_row", masked_row_layout(4, 16),
          2, 256, 4, 64, torch.bfloat16, True, False, True),
     ]
@@ -1367,12 +1412,20 @@ def check_sparse_row(sa, name, cfg, b, t, h, dh, dtype, causal, timed, oracle,
                  for key, gr, p in zip(("dq", "dk", "dv"), grads, plain[2:])}
     assert max(main_errs.values()) <= tol, (name, "main path grads", main_errs)
     # the work lists' balance, and that of four consecutive query (key)
-    # blocks to a CUDA block (the first form of each backward kernel)
+    # blocks to a CUDA block (the first form of each kernel)
     groups = row_groups(block)
     row = {"row": name, "dtype": str(dtype).split(".")[-1], "b": b, "t": t,
            "h": h, "dh": dh, "block": block, "causal": causal,
            "config": type(cfg).__name__ if mod is not None else "hand-made",
            **_layout_stats(layout),
+           # the forward's work list is dQ's (one table, one row geometry)
+           "fwd_group_busy": group_busy(luts.fwd_items[:, 2].cpu().numpy(),
+                                        groups),
+           "fwd_group_busy_consecutive": group_busy(
+               luts.cnt_q.cpu().numpy().reshape(-1), groups),
+           "fwd_items": luts.fwd_items.shape[0],
+           "fwd_split_rows": luts.fwd_merge.shape[0],
+           "fwd_partials": luts.fwd_slots,
            "dq_group_busy": group_busy(luts.dq_items[:, 2].cpu().numpy(),
                                        groups),
            "dq_group_busy_consecutive": group_busy(
@@ -1469,23 +1522,29 @@ def _time_sparse(qf, kf, vf, dof, luts, layout, kw, b, h, t, dh, dtype, seed):
     esz = qf.element_size()
     big = b * h * t * dh * esz                          # one [BH, T, Dh]
     vec = b * h * t * 4                                 # one f32 row vector
-    lut = 4 * (luts.lut_q.numel() + luts.cnt_q.numel())  # fwd table
     lut_dq = 4 * (luts.lut_q.numel() + luts.dq_items.numel()
-                  + luts.dq_merge.numel())              # dq table, work list
+                  + luts.dq_merge.numel())              # fwd/dq table, work list
     lut_t = 4 * (luts.lut_k.numel() + luts.dkv_items.numel()
                  + luts.dkv_merge.numel())              # dk/dv table, work list
     rate = BF16_FLOP_PER_S if dtype != torch.float32 else F32_FLOP_PER_S
+    def f32_floor(ms, products):
+        # the reference's f32 contract on the CUDA cores: 2 * block^2 * Dh
+        # FLOP per product and active tile at the f32 peak, and the share of
+        # it the kernel reaches
+        floor = 1e3 * 2 * products * tile * active / F32_FLOP_PER_S
+        return {"f32_floor_ms": floor, "f32_floor_share": floor / ms}
+
     return {
         "fwd": {"kernel_ms": fwd, "plain_ms": p_fwd, "library_ms": lib_fwd,
-                **_bound(4 * big + vec + lut, 4 * tile * active, rate)},
+                **_bound(4 * big + vec + lut_dq, 4 * tile * active, rate),
+                **f32_floor(fwd, 2)},
         "dq": {"kernel_ms": dq, "plain_ms": p_dq, "library_ms": lib_bwd,
                **_bound(5 * big + 2 * vec + lut_dq, 6 * tile * active, rate),
-               # the reference's f32 contract on the CUDA cores
-               "f32_floor_ms": 1e3 * 6 * tile * active / F32_FLOP_PER_S},
+               **f32_floor(dq, 3)},
         "dkv": {"kernel_ms": dkv, "plain_ms": p_dkv, "library_ms": lib_bwd,
                 **_bound(6 * big + 2 * vec + lut_t, 8 * tile * active, rate),
-                # the reference's f32 contract on the CUDA cores
-                "f32_floor_ms": 1e3 * 8 * tile * active / F32_FLOP_PER_S},
+                **f32_floor(dkv, 4)},
+        "total_ms": fwd + dq + dkv,
         "library": "scaled_dot_product_attention over the dense element "
                    "mask: forward (fwd), backward of dQ, dK and dV together "
                    "(dq, dkv rows)",

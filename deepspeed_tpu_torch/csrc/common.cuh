@@ -1,12 +1,15 @@
-// Shared helpers of the port's kernels: element-type conversions and
-// warp reductions. Element types are named by a small integer code that the
-// Python wrappers pass through the C interface (0 = f32, 1 = f16, 2 = bf16).
+// Shared helpers of the port's kernels: element-type conversions, warp
+// reductions, cp.async copies and the 16-bit tensor-core product. Element
+// types are named by a small integer code that the Python wrappers pass
+// through the C interface (0 = f32, 1 = f16, 2 = bf16).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace dst {
 
@@ -63,6 +66,27 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// One m16n8k16 product of bf16 or fp16 operands with f32 accumulation
+// (mma.sync, sm_80+): c (+)= a . b in the PTX ISA's per-warp fragment
+// layouts (a four registers, b two).
+template <typename T>
+__device__ __forceinline__ void mma_m16n8k16(float* c, const uint32_t* a, uint32_t b0,
+                                             uint32_t b1) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value || std::is_same<T, __half>::value);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 enum DType { kF32 = 0, kF16 = 1, kBF16 = 2 };

@@ -111,13 +111,6 @@ template <typename T>
 struct Tc;
 template <>
 struct Tc<__nv_bfloat16> {
-  __device__ static __forceinline__ void mma(float* d, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
   __device__ static __forceinline__ uint32_t pack(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
@@ -125,13 +118,6 @@ struct Tc<__nv_bfloat16> {
 };
 template <>
 struct Tc<__half> {
-  __device__ static __forceinline__ void mma(float* d, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
   __device__ static __forceinline__ uint32_t pack(float lo, float hi) {
     __half2 v = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
@@ -408,7 +394,8 @@ __device__ __forceinline__ void attend_tc(const T* __restrict__ q_rows, const Ro
       uint32_t a[4];
       ldsm_x4(a, ks + ((lane & 7) + (lane & 8)) * STR + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) Tc<T>::mma(sc[nt], a, qf[kk][nt]);
+      for (int nt = 0; nt < NT; ++nt)
+        mma_m16n8k16<T>(sc[nt], a, qf[kk][nt][0], qf[kk][nt][1]);
     }
     if constexpr (RAW) {
       __syncwarp();  // every lane has read K from the tile
@@ -451,7 +438,7 @@ __device__ __forceinline__ void attend_tc(const T* __restrict__ q_rows, const Ro
         acc[mt][nt][1] *= corr[nt][1];
         acc[mt][nt][2] *= corr[nt][0];
         acc[mt][nt][3] *= corr[nt][1];
-        Tc<T>::mma(acc[mt][nt], a, pb[nt]);
+        mma_m16n8k16<T>(acc[mt][nt], a, pb[nt][0], pb[nt][1]);
       }
     }
   }

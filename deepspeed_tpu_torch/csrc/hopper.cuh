@@ -158,16 +158,18 @@ static inline EncodeTiled encode_tiled() {
 }
 
 // A rank-`rank` tensor map over ptr (dims and box innermost first, strides
-// in bytes of every dim but the first), 128-byte swizzled, zero-filled past
-// each dim's edge.
-static inline cudaError_t swizzled_map(CUtensorMap* map, CUtensorMapDataType type,
-                                       cuuint32_t rank, const void* ptr, const cuuint64_t* dims,
-                                       const cuuint64_t* strides, const cuuint32_t* box) {
+// in bytes of every dim but the first), swizzled (128 bytes unless told
+// otherwise: the box's inner dim must span no more bytes than the swizzle),
+// zero-filled past each dim's edge.
+static inline cudaError_t swizzled_map(
+    CUtensorMap* map, CUtensorMapDataType type, cuuint32_t rank, const void* ptr,
+    const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   const CUresult r = encode(map, type, rank, const_cast<void*>(ptr), dims, strides, box, elem,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

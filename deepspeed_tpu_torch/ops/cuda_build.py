@@ -115,7 +115,8 @@ def kernels() -> ctypes.CDLL:
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dst_int8_matmul.argtypes = [
             vp, vp, vp, vp, vp,          # x, w, s, out, f32 partials
-            i32, i32, i32, i32, i32,     # n, d, e, layer, layers
+            i32, i32, i32, i32,          # n, d, x's row stride, e
+            i32, i32,                    # layer, layers
             i32, i32, i32, vp]           # splits, slab, dtype code, stream
         lib.dst_int8_matmul.restype = i32
         lib.dst_fused_decode_step.argtypes = [
@@ -159,10 +160,13 @@ def kernels() -> ctypes.CDLL:
         lib.dst_flash_decode.restype = i32
         lib.dst_int8_matmul_grid.argtypes = [
             vp, vp, vp, vp,              # x, w, s, out
-            i32, i32, i32, i32, vp]      # n, d, e, dtype code, stream
+            i32, i32, i32, i32,          # n, d, x's row stride, e
+            i32, i32, i32, vp]           # column tile, big ring, dtype code, stream
         lib.dst_int8_matmul_grid.restype = i32
         lib.dst_block_sparse_fwd.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp,  # q, k, v, out, lse, lut, count
+            vp, vp, vp, vp, vp, vp,      # q, k, v, out, lse, lut
+            vp, vp, vp,                  # work items, merge list, partials
+            i32, i32, i32,               # items, merges, partial slots
             i32, i32, i32, i32, i32,     # bh, h, t, dh, block
             i32, i32, f32, i32, vp]      # lut width, causal, scale, dtype, stream
         lib.dst_block_sparse_fwd.restype = i32

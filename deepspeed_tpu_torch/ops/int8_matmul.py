@@ -16,8 +16,11 @@ cannot take raises.
 
 :func:`int8_matmul` is the gridded form of the same function (replaces the
 TPU kernel ``ops/int8_matmul.py:_kernel``): one block per column tile walks
-the whole of D, with no split and no partials. It is unrouted, as in the
-reference: ``models/base.qdot`` calls :func:`int8_matmul_dma`.
+the whole of D, with no split and no partials. For bf16/fp16 x it runs
+kernel 2's tensor-core body over :func:`grid_plan`'s column tiles (32 or 64
+columns, narrow enough to fill the SMs); f32 x stays on the CUDA cores. It
+is unrouted, as in the reference: ``models/base.qdot`` calls
+:func:`int8_matmul_dma`.
 """
 
 from __future__ import annotations
@@ -74,6 +77,26 @@ def plan(d: int, e: int):
     return best[1], best[2]
 
 
+GRID_COLS = (32, 64)  # the gridded form's column tiles (int8_matmul_grid.cu)
+WIDE_BLOCKS = 80      # the fewest 64-column blocks at which 64 beats 32
+
+
+def grid_plan(d: int, e: int):
+    """``(cols, big)`` of the gridded form for bf16/fp16 x: one block per
+    ``cols``-column tile walks the whole of D (no split), so the tile width
+    alone sets the block count. 64 columns where that gives at least
+    :data:`WIDE_BLOCKS` blocks (0.6 of the 132 SMs), else 32: on an H100
+    the 64-column tile took 0.72-0.90 of the 32-column tile's time at
+    every decode matmul of LLaMA-7B, CodeLlama-34B and GPT-2 774M where it
+    has 80 or more blocks, and 0.89-1.55 where it has fewer (PERF.md).
+    ``big`` when the blocks fit one wave, so each
+    takes a ring of up to 200 KB (one block an SM) where more blocks share
+    an SM's 96 KB rings. A function of (D, E) only, so a row's result
+    never depends on the batch, the card or the run."""
+    cols = 64 if -(-e // 64) >= WIDE_BLOCKS else 32
+    return cols, -(-e // cols) <= WAVE_SMS
+
+
 def _check(what: str, x, q, s, nl: int):
     """Validate CUDA operands (q ``[D, E]`` or ``[nl, D, E]``, ``nl * E``
     scales); returns ``(n, d, e)``."""
@@ -85,9 +108,6 @@ def _check(what: str, x, q, s, nl: int):
         raise ValueError(f"{what} takes 1..{MAX_ROWS} rows, got {n}")
     if e % 16:
         raise ValueError(f"{what} needs E % 16 == 0, got {e}")
-    if x.dtype != torch.float32 and d % 8 and what == "int8_matmul_dma":
-        raise ValueError(f"{what} needs D % 8 == 0 for 16-bit x (x's rows "
-                         f"feed a tensor map in 16-byte strides), got {d}")
     if q.dtype != torch.int8 or s.dtype != torch.float32:
         raise TypeError(f"{what}: q {q.dtype} (int8), s {s.dtype} (float32)")
     if s.shape[-1] != e or s.numel() != nl * e:
@@ -98,6 +118,17 @@ def _check(what: str, x, q, s, nl: int):
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} is not 16-byte aligned")
     return n, d, e
+
+
+def _x_rows(x: torch.Tensor):
+    """``(x, ldx)``: 16-bit x's rows feed a tensor map in 16-byte strides,
+    so a D that is not a multiple of 8 is copied into rows of ``ldx``
+    elements (the columns past D lie outside the map and read as zeros);
+    f32 x is passed as it is."""
+    d = x.shape[1]
+    if x.dtype == torch.float32 or d % 8 == 0:
+        return x, d
+    return torch.nn.functional.pad(x, (0, -d % 8)), d + -d % 8
 
 
 def int8_matmul_dma(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
@@ -135,6 +166,7 @@ def _launch_dma(x, q, s, layer: int) -> torch.Tensor:
     code = cuda_build.dtype_code(x.dtype)
     lib = cuda_build.kernels()
     out = torch.empty((n, e), dtype=x.dtype, device=x.device)
+    x, ldx = _x_rows(x)
     part = None
     if x.dtype == torch.float32:
         splits, slab = k_splits(d), 128
@@ -144,7 +176,7 @@ def _launch_dma(x, q, s, layer: int) -> torch.Tensor:
         splits, slab = plan(d, e)
     err = lib.dst_int8_matmul(
         x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), n, d, e, layer, nl,
+        None if part is None else part.data_ptr(), n, d, ldx, e, layer, nl,
         splits, slab, code, torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, err, "int8_matmul_dma")
     return out
@@ -160,15 +192,24 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tens
         raise ValueError(f"int8_matmul: unsupported device {x.device}")
     if q.ndim != 2:
         raise ValueError(f"int8_matmul: q {tuple(q.shape)} is not [D, E]")
+    out = _launch_grid(x, q, s)
+    int8_matmul.launches += 1
+    return out
+
+
+def _launch_grid(x, q, s) -> torch.Tensor:
+    """Checks the operands and launches the gridded kernel (16-bit x over
+    :func:`grid_plan`'s column tiles)."""
     n, d, e = _check("int8_matmul", x, q, s, 1)
     lib = cuda_build.kernels()
     out = torch.empty((n, e), dtype=x.dtype, device=x.device)
+    cols, big = grid_plan(d, e)
+    x, ldx = _x_rows(x)
     err = lib.dst_int8_matmul_grid(
-        x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), n, d, e,
-        cuda_build.dtype_code(x.dtype),
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), n, d, ldx, e,
+        cols, int(big), cuda_build.dtype_code(x.dtype),
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, err, "int8_matmul")
-    int8_matmul.launches += 1
     return out
 
 

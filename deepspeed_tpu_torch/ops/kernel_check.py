@@ -3,7 +3,8 @@ shared by ``chip_smoke.py`` and the card tests
 (tests/test_torch_cuda_kernels.py): the block decode kernel
 (ops/decode_step.py), the flash attention kernels
 (ops/flash_attention.py) and the block-sparse attention kernels
-(ops/sparse_attention/block_sparse.py).
+(ops/sparse_attention/block_sparse.py; their work lists' part-wise plain
+sums: :func:`fwd_by_parts`, :func:`dq_by_parts`, :func:`dkv_by_parts`).
 
 Pools are ``[L, N+1, Hkv, bs, Dh]`` in the compute type, or ``{"q", "s"}``
 int8/fp8 pools quantized from random values (serving/kv_quant.py). Row
@@ -19,7 +20,8 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops.sparse_attention.block_sparse import (
-    block_sparse_bwd_dkv_plain, block_sparse_bwd_dq_plain, work_list)
+    _fwd_finish, _fwd_state, block_sparse_bwd_dkv_plain,
+    block_sparse_bwd_dq_plain, fwd_merge_plain, work_list)
 from deepspeed_tpu_torch.serving.kv_quant import kv_quantize
 
 
@@ -162,6 +164,25 @@ def _part_luts(lut: np.ndarray, counts: np.ndarray, part: int, drop=()):
             if first == p * part and (line, p) not in drop:
                 lut_p[line, :count] = flat[line, first:first + count]
         yield lut_p.reshape(h, nb, part)
+
+
+def fwd_by_parts(qf, kf, vf, luts, *, block: int, causal: bool, part: int,
+                 drop=()):
+    """``(out, lse)`` as the forward kernel computes them from its work list
+    (block_sparse.work_list over the rows, ``part`` entries per item at
+    most): each part's ``(acc, m, l)`` from the plain version in f32, the
+    parts of a row merged in part order (``fwd_merge_plain``; a line with
+    fewer parts sees an empty part, which adds nothing), then divided and
+    rounded once to ``qf``'s dtype. ``drop`` lists ``(row, part index)``
+    pairs left out, as a kernel that lost one partial would (row = h * nb +
+    query block)."""
+    f32 = [x.float() for x in (qf, kf, vf)]
+    states = [
+        _fwd_state(*f32, luts._replace(lut_q=torch.from_numpy(lut_p).to(qf.device)),
+                   block=block, causal=causal)
+        for lut_p in _part_luts(luts.lut_q.cpu().numpy(), luts.cnt_q.cpu().numpy(),
+                                part, drop)]
+    return _fwd_finish(*fwd_merge_plain(states), qf)
 
 
 def dq_by_parts(qf, kf, vf, dof, lse, delta, luts, *, block: int,

@@ -21,12 +21,14 @@ each, with a launch counter:
 * :func:`block_sparse_bwd_dkv` (replaces ``_bwd_dkv_kernel``) over the
   transposed table.
 
-The two backward kernels run work lists built with the tables
-(:func:`work_list`): each query block's row (dQ) or key block's column
+All three kernels run work lists built with the tables (:func:`work_list`):
+each query block's row (the forward and dQ, one list) or key block's column
 (dK/dV) is cut into parts of at most ``_PART`` entries, the parts sorted by
 length so that the row groups of one CUDA block get near-equal work, and a
-row or column cut in several parts is summed from f32 partials by a second
-launch, in part order.
+row or column cut in several parts is combined from f32 partials by a
+second launch, in part order: the forward's parts leave their unnormalised
+``acc`` with their running max ``m`` and sum ``l``, merged as
+:func:`fwd_merge_plain` does; dQ's and dK/dV's are summed.
 
 :func:`block_sparse_attention` on ``[B, T, H, Dh]`` wires them as a
 ``torch.autograd.Function``; delta stays plain torch, as the reference
@@ -35,14 +37,18 @@ computes it outside its kernels.
 The numeric contract is the reference's, f32 throughout: q, k, v and dO are
 read as f32, q is scaled in f32 before q.k^T, p and dS stay f32 (never
 rounded to the storage dtype, unlike the flash kernels), dQ is scaled once
-at the end and dK comes from dS^T.(scaled q). Scores outside the layout, or
+at the end and dK comes from dS^T.(scaled q). One departure, within the
+tolerances the card checks hold: for bf16 and fp16 inputs the forward's
+kernel forms q.k^T on the tensor cores from the stored values (exact in 16
+bits, f32 accumulation) and scales the f32 score, so the scale rounds on the
+score where the reference rounds it on q. Scores outside the layout, or
 above the diagonal under ``causal`` (absolute positions), are -1e30 and give
 p = 0. A row with no visible key (``causal`` over a bidirectional layout can
 leave one) gives out 0 and lse -1e30 + log(1e-20), and contributes nothing
 to the gradients.
 
-CUDA tensors launch the kernels (bf16 and f32; block 16, 32 or 64; Dh 64 or
-128; T a multiple of the block) or raise ``ValueError``. CPU tensors run the
+CUDA tensors launch the kernels (bf16, fp16 and f32; block 16, 32 or 64; Dh
+64 or 128; T a multiple of the block) or raise ``ValueError``. CPU tensors run the
 plain versions, which take any block and head width (the reference's tests
 use block 8). Each plain version walks the table's columns the way the TPU
 grid's last axis does: one gathered K/V (or Q/dO) block for every
@@ -60,11 +66,11 @@ import torch
 from deepspeed_tpu_torch.ops import cuda_build
 
 _NEG_INF = -1e30
-_PART = 64              # table entries per backward work item at most
-_GROUP_ROWS = 64        # rows per CUDA block of the backward kernels
+_PART = 64              # table entries per work item at most
+_GROUP_ROWS = 64        # rows per CUDA block of the kernels
 _BLOCKS = (16, 32, 64)
 _HEAD_DIMS = (64, 128)
-_DTYPES = (torch.float32, torch.bfloat16)
+_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 
 
 # ------------------------------------------------------------------ layouts
@@ -96,9 +102,9 @@ def _build_luts(layout: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def work_list(counts: np.ndarray, part: int = _PART):
-    """A backward kernel's work, from the entry counts ``[H, nb]`` of its
-    table's lines: the rows of the table for dQ (``cnt_q``), the columns,
-    i.e. the rows of the transposed table, for dK/dV (``cnt_k``).
+    """A kernel's work, from the entry counts ``[H, nb]`` of its table's
+    lines: the rows of the table for the forward and dQ (``cnt_q``), the
+    columns, i.e. the rows of the transposed table, for dK/dV (``cnt_k``).
 
     Each line (head h, block i) is cut into parts of at most ``part``
     entries, in table order (an empty line is one empty part: its output
@@ -132,7 +138,7 @@ def work_list(counts: np.ndarray, part: int = _PART):
 
 
 def row_groups(block: int) -> int:
-    """Row groups (one work item each) of a backward kernel's CUDA block."""
+    """Row groups (one work item each) of a kernel's CUDA block."""
     return _GROUP_ROWS // block
 
 
@@ -153,7 +159,9 @@ class SparseLuts(NamedTuple):
     ``cnt_q [H, nb]``; the transposed ``lut_k [H, nb, Bc]`` and ``cnt_k``;
     the dQ work list over ``cnt_q`` (:func:`work_list`) ``dq_items``,
     ``dq_merge`` and its partial count ``dq_slots``; the dK/dV work list
-    over ``cnt_k``, ``dkv_items``, ``dkv_merge`` and ``dkv_slots``."""
+    over ``cnt_k``, ``dkv_items``, ``dkv_merge`` and ``dkv_slots``. The
+    forward walks the same table as dQ with the same row groups, so its
+    list (``fwd_items``, ``fwd_merge``, ``fwd_slots``) is dQ's."""
     lut_q: torch.Tensor
     cnt_q: torch.Tensor
     lut_k: torch.Tensor
@@ -164,6 +172,18 @@ class SparseLuts(NamedTuple):
     dkv_items: torch.Tensor
     dkv_merge: torch.Tensor
     dkv_slots: int
+
+    @property
+    def fwd_items(self) -> torch.Tensor:
+        return self.dq_items
+
+    @property
+    def fwd_merge(self) -> torch.Tensor:
+        return self.dq_merge
+
+    @property
+    def fwd_slots(self) -> int:
+        return self.dq_slots
 
 
 _TABLES = ("lut_q", "cnt_q", "lut_k", "cnt_k", "dq_items", "dq_merge",
@@ -247,15 +267,16 @@ def _positions(luts: SparseLuts, block: int, device):
     return torch.arange(nb, device=device)[:, None] * block + col, col
 
 
-def block_sparse_fwd_plain(qf, kf, vf, luts: SparseLuts, *, block: int,
-                           causal: bool, scale: Optional[float] = None):
-    """Plain version of :func:`block_sparse_fwd`."""
+def _fwd_state(qf, kf, vf, luts: SparseLuts, *, block: int, causal: bool,
+               scale: Optional[float] = None):
+    """The forward's online softmax over the table's columns, before the
+    division: ``(acc [B, H, nb, block, Dh], m, l [B, H, nb, block])``."""
     h = luts.lut_q.shape[0]
     sc = _scale(scale, qf.shape[-1])
     q = _blocks(qf, h, block) * sc
     k, v = _blocks(kf, h, block), _blocks(vf, h, block)
     pos, col = _positions(luts, block, qf.device)
-    m = torch.full(q.shape[:-1], _NEG_INF, device=qf.device)
+    m = torch.full(q.shape[:-1], _NEG_INF, device=qf.device, dtype=q.dtype)
     l = torch.zeros_like(m)
     acc = torch.zeros_like(q)
     for j in range(luts.lut_q.shape[2]):
@@ -268,10 +289,39 @@ def block_sparse_fwd_plain(qf, kf, vf, luts: SparseLuts, *, block: int,
         l = l * corr + p.sum(-1)
         acc = acc * corr[..., None] + torch.matmul(p, _gather(v, kjc))
         m = m_new
+    return acc, m, l
+
+
+def _fwd_finish(acc, m, l, qf):
+    """``out = acc / max(l, 1e-20)`` (0 where ``l`` is 0), cast once, and
+    ``lse = m + log(max(l, 1e-20))``, on flat shapes."""
     l_safe = l.clamp_min(1e-20)
     out = torch.where(l[..., None] > 0, acc / l_safe[..., None], 0.0)
     return (out.reshape(qf.shape).to(qf.dtype),
             (m + torch.log(l_safe)).reshape(qf.shape[:2]))
+
+
+def fwd_merge_plain(states):
+    """The forward merge of a cut row's parts, ``[(acc, m, l), ...]`` in part
+    order, as ``block_sparse_fwd_merge`` computes it: ``M = max m_j``, ``L =
+    sum e^(m_j - M) l_j``, ``acc = sum e^(m_j - M) acc_j``. A part that saw
+    no key (``m`` -1e30, ``l`` 0, ``acc`` 0) adds nothing."""
+    mm = states[0][1]
+    for _, m, _ in states[1:]:
+        mm = torch.maximum(mm, m)
+    acc, ll = 0.0, 0.0
+    for a, m, l in states:
+        w = torch.exp(m - mm)
+        ll = ll + w * l
+        acc = acc + w[..., None] * a
+    return acc, mm, ll
+
+
+def block_sparse_fwd_plain(qf, kf, vf, luts: SparseLuts, *, block: int,
+                           causal: bool, scale: Optional[float] = None):
+    """Plain version of :func:`block_sparse_fwd`."""
+    return _fwd_finish(*_fwd_state(qf, kf, vf, luts, block=block,
+                                   causal=causal, scale=scale), qf)
 
 
 def block_sparse_bwd_dq_plain(qf, kf, vf, dof, lse, delta, luts: SparseLuts, *,
@@ -344,7 +394,8 @@ def _check(what: str, luts: SparseLuts, block: int, tensors) -> Tuple[int, ...]:
         raise ValueError(
             f"{what}: unsupported geometry BH={bh} T={t} Dh={dh} block={block} "
             f"{qf.dtype} with a [{h}, {nb}, {nb}] layout (block in {_BLOCKS}, "
-            f"Dh in {_HEAD_DIMS}, bf16/f32, T = nb * block, BH a multiple of H)")
+            f"Dh in {_HEAD_DIMS}, bf16/fp16/f32, T = nb * block, BH a multiple "
+            "of H)")
     for name, x in tensors:
         rows = name in ("lse", "delta")
         want = (bh, t) if rows else (bh, t, dh)
@@ -375,7 +426,9 @@ def _cuda_only(what: str, qf) -> None:
 def block_sparse_fwd(qf, kf, vf, luts: SparseLuts, *, block: int, causal: bool,
                      scale: Optional[float] = None):
     """Kernel-level forward on flat operands: q/k/v ``[BH, T, Dh]`` →
-    ``(out [BH, T, Dh], lse f32 [BH, T])``."""
+    ``(out [BH, T, Dh], lse f32 [BH, T])``, from the cached work list (cut
+    rows through f32 partials from ``torch.empty``, merged by a second
+    launch)."""
     if qf.device.type == "cpu":
         return block_sparse_fwd_plain(qf, kf, vf, luts, block=block,
                                       causal=causal, scale=scale)
@@ -385,10 +438,16 @@ def block_sparse_fwd(qf, kf, vf, luts: SparseLuts, *, block: int, causal: bool,
     lib = cuda_build.kernels()
     out = torch.empty_like(qf)
     lse = torch.empty((bh, t), dtype=torch.float32, device=qf.device)
+    part = None
+    if luts.fwd_slots:
+        part = torch.empty((bh // h, luts.fwd_slots, block * (dh + 2)),
+                           dtype=torch.float32, device=qf.device)
     err = lib.dst_block_sparse_fwd(
         qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), luts.lut_q.data_ptr(), luts.cnt_q.data_ptr(), bh, h, t,
-        dh, block, luts.lut_q.shape[2], int(bool(causal)),
+        lse.data_ptr(), luts.lut_q.data_ptr(), luts.fwd_items.data_ptr(),
+        luts.fwd_merge.data_ptr(), None if part is None else part.data_ptr(),
+        luts.fwd_items.shape[0], luts.fwd_merge.shape[0], luts.fwd_slots,
+        bh, h, t, dh, block, luts.lut_q.shape[2], int(bool(causal)),
         _scale(scale, dh), cuda_build.dtype_code(qf.dtype), _stream(qf))
     cuda_build.check(lib, err, "block_sparse_fwd")
     block_sparse_fwd.launches += 1

@@ -41,16 +41,18 @@ S - 1, S and past it) for rep 2 to 16, Dh 64 to 256 and every element
 type, replayed from a CUDA graph after the device idx changes, and equal
 bit for bit to the fused decode step (kernel B, the same body) on the same
 cache under the same plan. Block-sparse attention (forward, backward dQ, backward dK/dV):
-bf16 and f32 at block 16, 32 and 64 and Dh 64 and 128, causal and not,
+bf16, f16 and f32 at block 16, 32 and 64 and Dh 64 and 128, causal and not,
 over Fixed, BigBird and Longformer layouts (global rows much longer than
 the others) and a hand-made layout whose rows of one block see no key under
 causal (zeros, lse -1e30), held row by row against the plain versions and
 bit for bit across two launches; dK/dV at layouts whose global columns and
-dQ at layouts whose global rows are cut in parts of the work list (summed
-by the merge launch), bit for bit on a repeat; the autograd
+the forward and dQ at layouts whose global rows are cut in parts of the
+work list (combined by the merge launch), bit for bit on a repeat, the
+forward with its merge replayed from a CUDA graph; the autograd
 path's launch counts; the dense oracle. The gridded int8 matmul against its plain version at ragged
-shapes, and the wrappers' input checks (a shape the kernels do not take
-raises and launches nothing: there is no fallback).
+shapes and at every N from 1 to 32 (ragged D 384 and 1408), each row the
+same bits whatever the batch, and the wrappers' input checks (a shape the
+kernels do not take raises and launches nothing: there is no fallback).
 
 Tolerances: caches bit-identical (block pools: every row but the garbage
 row, which several inactive slots may write at once); flash outputs and
@@ -65,9 +67,10 @@ running maxima, the plain version at the row maximum; f32 differs in
 summation order only); int8 matmul
 outputs within one ulp of the output type (rtol 8e-3 bf16, 1e-3 f16,
 1e-5 f32) plus 1e-3 absolute. Block-sparse outputs and grads, row by row,
-within 1.6e-2 (bf16: two ulps of the row's largest element; kernel and
-plain version both compute in f32 and round once, so they differ by at most
-one) and 1e-5 (f32: summation order only); lse within 1e-4 absolute.
+within 1.6e-2 (bf16) and 2e-3 (f16): two ulps of the row's largest element
+(kernel and plain version both compute in f32 and round once, so they
+differ by at most one), and 1e-5 (f32: summation order only); lse within
+1e-4 absolute.
 """
 
 import pytest
@@ -94,7 +97,7 @@ from deepspeed_tpu_torch.ops.int8_matmul import (int8_matmul,
                                                  int8_matmul_plain)
 from deepspeed_tpu_torch.ops.kernel_check import (block_step_inputs,
                                                   capture_graph, clone_pool,
-                                                  dq_by_parts,
+                                                  dq_by_parts, fwd_by_parts,
                                                   flash_delta, flash_inputs,
                                                   graph_replay,
                                                   masked_row_layout,
@@ -425,7 +428,7 @@ def _mm_inputs(dev, dtype, n, d, e, layers=2, seed=0):
                                    torch.float32])
 @pytest.mark.parametrize("n,d,e", [(1, 512, 1408), (3, 640, 256),
                                    (8, 4096, 4096), (17, 384, 2048),
-                                   (32, 1024, 11008)])
+                                   (32, 1024, 11008), (5, 1001, 656)])
 def test_int8_matmul_matches_plain(cuda, dtype, n, d, e):
     x, q, s = _mm_inputs(cuda, dtype, n, d, e)
     out = int8_matmul_dma(x, q, s, 1)
@@ -479,9 +482,6 @@ def test_int8_matmul_rejects_bad_inputs(cuda):
         int8_matmul_dma(x[:4].contiguous(), q, s)
     with pytest.raises(TypeError):      # bf16 scales
         int8_matmul_dma(x[:4].contiguous(), q, s.to(torch.bfloat16), 0)
-    with pytest.raises(ValueError):     # 16-bit x with D % 8 != 0
-        int8_matmul_dma(x[:4, :252].contiguous(), q[:, :252].contiguous(), s,
-                        0)
     assert int8_matmul_dma.launches == n0
 
 
@@ -820,7 +820,7 @@ def test_flash_decode_counts_launches_and_rejects_bad_inputs(cuda):
                                                                   m0 + 1)
 
 
-SPARSE_TOL = {torch.bfloat16: 1.6e-2, torch.float32: 1e-5}
+SPARSE_TOL = {torch.bfloat16: 1.6e-2, torch.float16: 2e-3, torch.float32: 1e-5}
 
 
 def _sparse_layout(kind, h, nb, block):
@@ -856,7 +856,7 @@ def _sparse_run(cuda, dtype, b, h, nb, block, dh, kind, causal, seed=0):
     return got, want
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("block", [16, 32, 64])
 @pytest.mark.parametrize("dh", [64, 128])
 @pytest.mark.parametrize("kind,causal", [("fixed", True), ("bigbird", False),
@@ -883,7 +883,7 @@ def test_block_sparse_kernels_repeat_bit_for_bit(cuda):
     assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("block,nb,dh", [(16, 160, 128), (16, 160, 64),
                                          (32, 144, 64), (64, 136, 128)])
 def test_block_sparse_dkv_columns_past_the_part_cap(cuda, dtype, block, nb, dh):
@@ -908,7 +908,7 @@ def test_block_sparse_dkv_columns_past_the_part_cap(cuda, dtype, block, nb, dh):
         assert torch.equal(a, c), name
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("block,nb,dh", [(16, 160, 128), (16, 160, 64),
                                          (32, 144, 64), (64, 136, 128)])
 @pytest.mark.parametrize("kind,causal", [("bigbird", False),
@@ -933,6 +933,50 @@ def test_block_sparse_dq_rows_past_the_part_cap(cuda, dtype, block, nb, dh,
     assert torch.isfinite(got.float()).all()
     assert rel_err(got, want) <= SPARSE_TOL[dtype], rel_err(got, want)
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("block,nb,dh", [(16, 160, 128), (16, 160, 64),
+                                         (32, 144, 64), (64, 136, 128)])
+@pytest.mark.parametrize("kind,causal", [("bigbird", False),
+                                         ("longformer", True)])
+def test_block_sparse_fwd_rows_past_the_part_cap(cuda, dtype, block, nb, dh,
+                                                 kind, causal):
+    """The forward at layouts whose global rows (BigBird's, Longformer's)
+    hold more key blocks than one work item takes (nb > 64), so they are
+    cut in parts whose (acc, m, l) the merge launch combines: out row by row
+    and lse against the plain version and against the plain parts merged in
+    part order (``fwd_by_parts``), and bit for bit on a repeat."""
+    layout = _sparse_layout(kind, 2, nb, block)
+    luts = sparse_luts(layout, cuda)
+    assert luts.fwd_slots > 0 and luts.fwd_merge.shape[0] > 0
+    q, k, v, _ = flash_inputs(cuda, dtype, 2 * 2, nb * block, dh, seed=block)
+    kw = dict(block=block, causal=causal)
+    out, lse = block_sparse_fwd(q, k, v, luts, **kw)
+    again = block_sparse_fwd(q, k, v, luts, **kw)
+    ref, ref_lse = block_sparse_fwd_plain(q, k, v, luts, **kw)
+    parts, parts_lse = fwd_by_parts(q, k, v, luts, part=64, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert rel_err(out, ref) <= SPARSE_TOL[dtype], rel_err(out, ref)
+    assert rel_err(out, parts) <= SPARSE_TOL[dtype], rel_err(out, parts)
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    assert (lse - parts_lse).abs().max().item() <= 1e-4
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_block_sparse_fwd_replays_in_a_cuda_graph(cuda, dtype):
+    """The forward and its merge (a programmatic dependent launch) captured
+    in a CUDA graph: the replay writes the eager launch's bits."""
+    layout = _sparse_layout("bigbird", 2, 80, 16)
+    luts = sparse_luts(layout, cuda)
+    assert luts.fwd_merge.shape[0] > 0
+    q, k, v, _ = flash_inputs(cuda, dtype, 2 * 2, 80 * 16, 64, seed=3)
+    kw = dict(block=16, causal=False)
+    eager = block_sparse_fwd(q, k, v, luts, **kw)
+    replay = graph_replay(lambda: block_sparse_fwd(q, k, v, luts, **kw))
+    assert torch.equal(replay[0], eager[0]) and torch.equal(replay[1], eager[1])
 
 
 # f32 dQ against an f64 run of the same arithmetic (as the CPU test of the
@@ -999,8 +1043,8 @@ def test_block_sparse_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="Dh=96"):
         block_sparse_fwd(*flash_inputs(cuda, torch.bfloat16, 4, 128, 96)[:3],
                          luts, block=16, causal=False)
-    with pytest.raises(ValueError):                      # f16
-        block_sparse_fwd(q.half(), k.half(), v.half(), luts, block=16,
+    with pytest.raises(ValueError):                      # f64
+        block_sparse_fwd(q.double(), k.double(), v.double(), luts, block=16,
                          causal=False)
     with pytest.raises(ValueError):                      # T != nb * block
         block_sparse_fwd(*flash_inputs(cuda, torch.bfloat16, 4, 144, 64)[:3],
@@ -1035,6 +1079,33 @@ def test_gridded_int8_matmul_matches_plain(cuda, dtype, n, d, e):
     assert (err <= MATMUL_RTOL[dtype] * ref.float().abs() + 1e-3).all(), \
         err.max().item()
     assert torch.equal(int8_matmul(x, q, s), out)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_gridded_int8_matmul_every_batch_width(cuda, dtype):
+    """Every N from 1 to 32 (the 16-bit body's n-tiles: 1-8, 9-16, 17-24,
+    25-32) at ragged D (384 and 1408: a block's walk ends on a short stage
+    or none; 1001: 16-bit x copied into rows of 1008) and E (a last column
+    tile cut short), at both column tiles (64 where E gives 80 or more
+    such blocks: E 5136 and CodeLlama-34B's 8192 with the big ring, 11008
+    without), against the plain version; each row's result is the same
+    bits at every batch width (the plan depends on (D, E) alone) and on a
+    repeat."""
+    for d, e in ((384, 2064), (1408, 640), (1001, 656), (1001, 5136),
+                 (8192, 8192), (384, 11008)):
+        x, q, s = _mm_inputs(cuda, dtype, 32, d, e, layers=1, seed=d)
+        q, s = q[0], s[0]
+        full = int8_matmul(x, q, s)
+        assert torch.equal(int8_matmul(x, q, s), full), (d, e)
+        for n in range(1, 33):
+            xn = x[:n].contiguous()
+            out = int8_matmul(xn, q, s)
+            ref = int8_matmul_plain(xn, q, s)
+            err = (out.float() - ref.float()).abs()
+            assert (err <= MATMUL_RTOL[dtype] * ref.float().abs() + 1e-3).all(), \
+                (d, e, n, err.max().item())
+            assert torch.equal(out, full[:n]), (d, e, n)
 
 
 def test_gridded_int8_matmul_rejects_bad_inputs(cuda):

@@ -7,6 +7,11 @@ On the CPU the port's ``int8_matmul_dma`` and its gridded form
 (``(x.float() @ q.float()) * s`` cast once); the JAX side runs its Pallas
 kernel in interpret mode. Inputs come from one numpy seed.
 
+The CUDA paths' arguments (kernel 2's split plan, the gridded form's
+column tile) are traced on meta tensors with the library replaced, and both
+plans are pinned as functions of (D, E) over every routed LLaMA-7B,
+CodeLlama-34B and GPT-2 774M shape.
+
 Tolerances: ``quantize_int8`` must be bit-identical (same f32 scale,
 division and round-half-to-even). The matmuls accumulate exact products in
 f32 in different orders and cast once to bf16, so they agree to one bf16
@@ -27,8 +32,10 @@ from deepspeed_tpu.ops.int8_matmul import int8_matmul as jax_int8_matmul
 from deepspeed_tpu.ops.int8_matmul import int8_matmul_dma as jax_int8_matmul_dma
 from deepspeed_tpu_torch.compression.quantize import dequantize_int8, quantize_int8
 from deepspeed_tpu_torch.models.base import layer_view, qdot
-from deepspeed_tpu_torch.ops.int8_matmul import (int8_matmul, int8_matmul_dma,
-                                                 k_splits, plan)
+from deepspeed_tpu_torch.ops.int8_matmul import (GRID_COLS, WIDE_BLOCKS,
+                                                 grid_plan, int8_matmul,
+                                                 int8_matmul_dma, k_splits,
+                                                 plan)
 
 
 def _mk(n, d, e, l=None, seed=0):
@@ -159,9 +166,33 @@ def test_k_splits_depends_on_shape_only(d, e):
         assert k_splits(d) == 86
 
 
+@pytest.mark.parametrize("d,e", ROUTED_SHAPES)
+def test_grid_plan_depends_on_shape_only(d, e):
+    """The gridded form's column tile from (D, E) alone: one of the
+    kernel's widths (32 or 64 columns), its tiles covering E once in at
+    most 65535 blocks, 64 exactly when that gives WIDE_BLOCKS blocks or
+    more, and the big ring exactly when the blocks fit one wave."""
+    cols, big = grid_plan(d, e)
+    assert cols in GRID_COLS == (32, 64) and grid_plan(d, e) == (cols, big)
+    blocks = -(-e // cols)
+    assert (blocks - 1) * cols < e <= blocks * cols and blocks <= 65535
+    assert big == (blocks <= 132)
+    assert (cols == 64) == (-(-e // 64) >= WIDE_BLOCKS == 80)
+    expect = {4096: (32, True), 11008: (64, False), 1024: (32, True),
+              8192: (64, True), 22016: (64, False), 3840: (32, True),
+              1280: (32, True), 5120: (64, True)}
+    assert (cols, big) == expect[e]
+
+
+def _ldx(dtype, d):
+    """x's row stride as the wrappers pass it: D, rounded up to a multiple
+    of 8 for 16-bit x."""
+    return d if dtype == torch.float32 else -(-d // 8) * 8
+
+
 class _FakeLib:
-    """Stands in for the kernel library: records dst_int8_matmul's
-    arguments and returns success."""
+    """Stands in for the kernel library: records the arguments of
+    dst_int8_matmul and dst_int8_matmul_grid and returns success."""
 
     def __init__(self):
         self.calls = []
@@ -170,17 +201,21 @@ class _FakeLib:
         self.calls.append(args)
         return 0
 
+    dst_int8_matmul_grid = dst_int8_matmul
+
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
 @pytest.mark.parametrize("n,d,e,layers", [(8, 4096, 4096, 3),
                                           (1, 4096, 11008, 2),
-                                          (32, 11008, 4096, 1)])
+                                          (32, 11008, 4096, 1),
+                                          (4, 1001, 656, 2)])
 def test_wrapper_launches_with_its_plan(monkeypatch, dtype, n, d, e, layers):
     """The CUDA path's arguments, traced on meta tensors with the library
     replaced: 16-bit x launches under :func:`plan` with no partials, f32 x
     under :func:`k_splits` with [splits, N, E] f32 partials; the stacked
-    weight goes through whole, with its layer count and the layer index."""
+    weight goes through whole, with its layer count and the layer index;
+    16-bit x's rows are whole multiples of 8 elements."""
     from deepspeed_tpu_torch.ops import cuda_build
     from deepspeed_tpu_torch.ops import int8_matmul as tmm
 
@@ -194,8 +229,34 @@ def test_wrapper_launches_with_its_plan(monkeypatch, dtype, n, d, e, layers):
     out = tmm._launch_dma(x, q, s, layers - 1)
     assert out.shape == (n, e) and out.dtype == dtype
     (args,) = lib.calls
-    assert args[5:10] == (n, d, e, layers - 1, layers)
+    assert args[5:11] == (n, d, _ldx(dtype, d), e, layers - 1, layers)
     if dtype == torch.float32:
-        assert args[10] == k_splits(d) and args[4] is not None
+        assert args[11] == k_splits(d) and args[4] is not None
     else:
-        assert tuple(args[10:12]) == plan(d, e) and args[4] is None
+        assert tuple(args[11:13]) == plan(d, e) and args[4] is None
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("n,d,e", [(8, 4096, 4096), (1, 4096, 11008),
+                                   (32, 8192, 22016), (4, 1001, 656)])
+def test_gridded_wrapper_launches_with_its_plan(monkeypatch, dtype, n, d, e):
+    """The gridded form's CUDA arguments, traced on meta tensors with the
+    library replaced: ``grid_plan``'s column tile and ring, the shape, x's
+    row stride (a multiple of 8 elements for 16-bit x) and the dtype."""
+    from deepspeed_tpu_torch.ops import cuda_build
+    from deepspeed_tpu_torch.ops import int8_matmul as tmm
+
+    lib = _FakeLib()
+    monkeypatch.setattr(cuda_build, "kernels", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    x = torch.empty((n, d), dtype=dtype, device="meta")
+    q = torch.empty((d, e), dtype=torch.int8, device="meta")
+    s = torch.empty((1, e), dtype=torch.float32, device="meta")
+    out = tmm._launch_grid(x, q, s)
+    assert out.shape == (n, e) and out.dtype == dtype
+    (args,) = lib.calls
+    cols, big = grid_plan(d, e)
+    assert args[4:11] == (n, d, _ldx(dtype, d), e, cols, int(big),
+                          cuda_build.dtype_code(dtype))

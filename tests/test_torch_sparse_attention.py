@@ -21,19 +21,25 @@ Inputs come from numpy with a seed and go to both packages. Cases:
 * bf16 operands: the port's output within 8e-3 relative + 1e-2 absolute of
   JAX's. Both read bf16, compute in f32 and round the output once, so they
   differ by at most one bf16 ulp (2^-8 relative) of O(1) values;
-* the backward kernels' work lists (``work_list``): over the transposed
-  table (dK/dV) and over the table itself (dQ) each covers every (head,
-  block, block) entry exactly once, in table order within a line, with a
-  cut line's parts on consecutive partial slots in part order and an empty
-  line as one empty part, over the fourteen layout cases (with a cap that
-  cuts their lines) and the chip run's two full-size layouts; the plain
-  dK/dV, and the plain dQ, summed part by part in part order equal the
-  plain versions within 1e-6 relative in f32, and that dQ equals JAX's
-  (``_bwd_dq_kernel`` in interpret mode) within the gradient bounds above;
-  the group-busy share the dK/dV list gives at the chip run's layout (a)
-  is at least 0.9, where four consecutive key blocks to a CUDA block (the
-  first form of the kernel) give 0.259, and the dQ list's at layout (b)
-  at least 0.95, where four consecutive query blocks give 0.668;
+* the kernels' work lists (``work_list``): over the transposed table
+  (dK/dV) and over the table itself (dQ, and the forward, whose list is
+  dQ's) each covers every (head, block, block) entry exactly once, in
+  table order within a line, with a cut line's parts on consecutive
+  partial slots in part order and an empty line as one empty part, over
+  the fourteen layout cases (with a cap that cuts their lines) and the chip
+  run's two full-size layouts; the plain dK/dV, and the plain dQ, summed
+  part by part in part order equal the plain versions within 1e-6 relative
+  in f32, and that dQ equals JAX's (``_bwd_dq_kernel`` in interpret mode)
+  within the gradient bounds above; the plain forward computed part by
+  part and merged in part order (each part's acc, m and l) equals the plain
+  version within 1e-6 relative (lse within 1e-6 absolute) and JAX's
+  ``_fwd_kernel`` in interpret mode within the forward bounds above, at
+  Fixed, BigBird (also under causal, so whole parts see no key) and
+  Longformer layouts with cuts forced and at a row with no visible key; the
+  group-busy share the dK/dV list gives at the chip run's layout (a) is at
+  least 0.9, where four consecutive key blocks to a CUDA block (the first
+  form of the kernel) give 0.259, and the dQ (forward) list's at layout
+  (b) at least 0.95 (0.9), where four consecutive query blocks give 0.668;
 * ``SparseSelfAttention``: the causal default from the config, the layout
   cache per sequence length, ``pad_to_block_size`` and
   ``unpad_sequence_output``;
@@ -55,7 +61,7 @@ from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.errors import NotPortedError
 from deepspeed_tpu_torch.ops import all_ops, get_op_builder
 from deepspeed_tpu_torch.ops.kernel_check import (dkv_by_parts, dq_by_parts,
-                                                  flash_inputs,
+                                                  flash_inputs, fwd_by_parts,
                                                   masked_row_layout, rel_err)
 from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as tbs
 import deepspeed_tpu_torch.ops.sparse_attention as tsa
@@ -364,6 +370,23 @@ def test_dq_work_list_covers_the_table(name, which, part):
     _check_work_list(_work_layout(which), part)
 
 
+@pytest.mark.parametrize("name,which,part", WORK_CASES,
+                         ids=[c[0] + f"-p{c[2]}" for c in WORK_CASES])
+def test_fwd_work_list_covers_the_table(name, which, part):
+    """The forward walks the table's rows with dQ's row groups, so its work
+    list is dQ's: it covers the table (as the dQ test checks), and
+    ``sparse_luts`` hands out the dQ list under the forward's names."""
+    layout = _work_layout(which)
+    _check_work_list(layout, part)
+    if part == tbs._PART:
+        luts = tbs.sparse_luts(layout, "cpu")
+        items, merge, slots = tbs.work_list(luts.cnt_q.numpy(), part)
+        assert luts.fwd_items is luts.dq_items and luts.fwd_merge is luts.dq_merge
+        np.testing.assert_array_equal(luts.fwd_items.numpy(), items)
+        np.testing.assert_array_equal(luts.fwd_merge.numpy(), merge)
+        assert luts.fwd_slots == luts.dq_slots == slots
+
+
 def test_luts_carry_both_work_lists():
     """``sparse_luts`` caches the dQ list over the row counts and the dK/dV
     list over the column counts, as ``work_list`` builds them."""
@@ -457,6 +480,57 @@ def test_dq_parts_sum_to_the_plain_version_and_jax(which, part, causal):
     assert rel_err(got, ref) <= 1e-6
     np.testing.assert_allclose(_np(tbs._unshape_bh(got, 2, h)), _np(jdq),
                                rtol=5e-4, atol=5e-5)
+
+
+@pytest.mark.parametrize("which,part,causal", [
+    ("fixed_unidirectional", 3, True), ("bigbird", 2, False),
+    ("bigbird", 2, True), ("longformer", 4, False), ("masked", 1, True)])
+def test_fwd_parts_merge_to_the_plain_version_and_jax(which, part, causal):
+    """The plain forward computed part by part (each part's acc, m and l)
+    and merged in part order, as the forward kernel's merge launch combines
+    its partials, equals the plain version within 1e-6 relative in f32 (lse
+    within 1e-6 absolute: only the order of the f32 sums differs), and JAX's
+    forward (``_fwd_kernel`` in interpret mode) within the reference test's
+    2e-4 / 2e-5. BigBird under causal cuts rows whose later parts see no
+    key (they must add nothing); the masked layout's query block 1 sees no
+    key at all (out 0, lse -1e30 on both sides)."""
+    t, blk, h, dh = 128, 8, 2, 16
+    nb = t // blk
+    layout = {"fixed_unidirectional": lambda: tsa.FixedSparsityConfig(
+                  num_heads=h, block=blk, num_local_blocks=2,
+                  attention="unidirectional").make_layout(t),
+              "bigbird": lambda: tsa.BigBirdSparsityConfig(
+                  num_heads=h, block=blk, seed=1).make_layout(t),
+              "longformer": lambda: tsa.BSLongformerSparsityConfig(
+                  num_heads=h, block=blk, global_block_indices=[0, 9]).make_layout(t),
+              "masked": lambda: masked_row_layout(h, nb)}[which]()
+    luts = tbs.sparse_luts(layout, "cpu")
+    assert tbs.work_list(luts.cnt_q.numpy(), part)[2] > 0   # cuts happen
+    q, k, v = _qkv(b=2, t=t, h=h, dh=dh, seed=14)
+    jout, (_, _, _, _, jlse, _) = jbs._sparse_attention_fwd(
+        *map(jnp.asarray, (q, k, v)), layout, blk, causal, None, True)
+    flat = [tbs._reshape_bh(torch.from_numpy(x)) for x in (q, k, v)]
+    ref, ref_lse = tbs.block_sparse_fwd_plain(*flat, luts, block=blk,
+                                              causal=causal)
+    got, lse = fwd_by_parts(*flat, luts, block=blk, causal=causal, part=part)
+    assert rel_err(got, ref) <= 1e-6
+    assert (lse - ref_lse).abs().max().item() <= 1e-6
+    np.testing.assert_allclose(_np(tbs._unshape_bh(got, 2, h)), _np(jout),
+                               rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(_np(lse), _np(jlse)[..., 0], rtol=2e-4, atol=2e-5)
+    if which == "masked":
+        rows = slice(blk, 2 * blk)
+        assert (got[:, rows] == 0).all() and (lse[:, rows] <= -1e30).all()
+
+
+def test_fwd_group_busy_at_layout_b():
+    """The forward's work list (dQ's) keeps at least 0.9 of the row groups
+    busy at layout (b), BigBird at T 4096, where the first form of the
+    forward, four consecutive query blocks to a CUDA block, keeps 0.668."""
+    luts = tbs.sparse_luts(_layout_b(), "cpu")
+    groups = tbs.row_groups(16)
+    assert round(tbs.group_busy(luts.cnt_q.numpy().reshape(-1), groups), 3) == 0.668
+    assert tbs.group_busy(luts.fwd_items[:, 2].numpy(), groups) >= 0.9
 
 
 def test_dq_group_busy_at_layout_b():
