@@ -1578,7 +1578,7 @@ def phase_reference() -> dict:
     rng = np.random.RandomState(7)
     reqs = poisson_trace(rng, 6, rate=1e3, prompt_lens=[5, 40, 100],
                          max_new_choices=[6, 12], vocab_size=512)
-    out = {}
+    out, programs = {}, {}
     for quant in (False, True):
         toks, params = {}, None
         for device in ("cpu", "cuda"):
@@ -1596,9 +1596,11 @@ def phase_reference() -> dict:
             if device == "cuda":
                 assert fused_decode_step.launches > 0
                 assert (int8_matmul_dma.launches > 0) == quant
+                programs["int8" if quant else "fp32"] = serving_programs(srv)
         assert toks["cpu"] == toks["cuda"], (quant, toks)
         out["int8" if quant else "fp32"] = sum(map(len, toks["cpu"].values()))
     res = {"phase": "reference", "tokens_compared": out, "identical": True,
+           "programs": programs,
            "block_paged": _reference_block(cfg, fp32_params)}
     emit(res)
     return res
@@ -1637,6 +1639,7 @@ def _reference_block(cfg: dict, params) -> dict:
             if device == "cuda":
                 assert fused_block_decode_step.launches > 0
                 assert fused_decode_step.launches == 0
+                programs = serving_programs(srv)
             if kv is None:
                 slot = ServingEngine(eng, **kw)
                 assert serve(slot) == toks[device][0], \
@@ -1646,7 +1649,8 @@ def _reference_block(cfg: dict, params) -> dict:
         out[kv or "fp32"] = {
             "tokens": 2 * sum(map(len, toks["cpu"][0].values())),
             "prefill_tokens": counters["cpu"][0],
-            "hit_tokens": counters["cpu"][1], "forks": counters["cpu"][2]}
+            "hit_tokens": counters["cpu"][1], "forks": counters["cpu"][2],
+            "programs": programs}
     return out
 
 
@@ -1654,6 +1658,88 @@ def _tree_to(node, device):
     if isinstance(node, dict):
         return {k: _tree_to(v, device) for k, v in node.items()}
     return node.to(device)
+
+
+# ---------------------------------------------------- compile-once contract
+class VirtualClock:
+    """A serving clock that advances per read, so two engines that read it
+    alike admit and finish alike, however long their steps take."""
+
+    def __init__(self, dt=0.001):
+        self.t, self.dt = 0.0, dt
+
+    def __call__(self):
+        self.t += self.dt
+        return self.t
+
+
+def serving_programs(srv) -> dict:
+    """A ServingEngine's compile-once contract after its whole trace: every
+    program has one entry (the decode step one CUDA graph, captured once)
+    and nothing recompiled."""
+    info = {"program_count": srv.program_count,
+            "program_cache_sizes": srv.program_cache_sizes(),
+            "recompile_count": srv.recompile_count(),
+            "decode_captures": srv._decode.captures}
+    assert set(info["program_cache_sizes"].values()) == {1}, info
+    assert info["recompile_count"] == 0 and info["decode_captures"] == 1, info
+    return info
+
+
+def engine_programs(eng) -> dict:
+    """An InferenceEngine's programs after its phase (jit_cache_sizes: one
+    entry each, so no recompile; each generate step shape's token step
+    captured once, evicted states included)."""
+    sizes = eng.jit_cache_sizes()
+    captures = eng.decode_captures()
+    info = {"programs": len(sizes), "jit_cache_sizes": sizes,
+            "recompile_count": sum(max(0, v - 1) for v in sizes.values()),
+            "decode_captures": captures}
+    assert set(sizes.values()) == {1} and info["recompile_count"] == 0, info
+    assert captures and set(captures.values()) == {1}, info
+    return info
+
+
+def eager_server(srv, **kw) -> ServingEngine:
+    """A ServingEngine like ``srv`` (over its own KV store, recording no
+    telemetry) whose decode step runs the captured program's eager
+    closure."""
+    twin = ServingEngine(srv.engine, num_slots=srv.num_slots,
+                         max_len=srv.max_len, buckets=srv.buckets,
+                         telemetry=False, **kw)
+    twin._decode = twin._decode.eager
+    return twin
+
+
+def replayed_vs_eager(graph_tokens: dict, eager_tokens: dict) -> dict:
+    """Replayed tokens against the eager closure's, bit for bit."""
+    assert graph_tokens == eager_tokens, "replayed tokens != eager tokens"
+    return {"requests": len(graph_tokens),
+            "tokens": sum(map(len, graph_tokens.values())),
+            "bit_identical": True}
+
+
+def _step_state(eng, b: int, t: int, max_new: int, do_sample=False,
+                top_k=0, top_p=1.0):
+    """The decode state (cache and token step) generate() runs this shape
+    on."""
+    return eng._decode_state(b, -(-(t + max_new) // 128) * 128, do_sample,
+                             top_k, float(top_p))
+
+
+def eager_generate(eng, prompt, max_new: int = None, **kw):
+    """generate() with its decode state's token step run by the eager
+    closure (the tokens must equal the replayed ones)."""
+    max_new = kw.pop("max_new_tokens", max_new)
+    b, t = prompt.shape
+    state = _step_state(eng, b, t, max_new, kw.get("do_sample", False),
+                        kw.get("top_k", 0), kw.get("top_p", 1.0))
+    step = state.step
+    state.step = step.eager
+    try:
+        return eng.generate(prompt, max_new_tokens=max_new, **kw)
+    finally:
+        state.step = step
 
 
 # ------------------------------------------------------------ phases 4-5
@@ -1755,6 +1841,27 @@ def kv_perturbation(eng, probe, served, kv_dtype: str) -> dict:
                 (flips & (margin > 2 * diff)).sum())}
 
 
+def device_time(pr):
+    """``(us by kernel name, busy us, summed us)`` of a profile's CUDA
+    kernels. Busy time is the union of the kernels' intervals: a
+    programmatic dependent launch starts while the kernel before it runs
+    (and waits for it inside), which a CUDA graph's back-to-back replay
+    exposes, so summed durations count that overlap twice."""
+    kernels, spans = {}, []
+    for ev in pr.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[ev.name] = (kernels.get(ev.name, 0.0)
+                                + ev.time_range.elapsed_us())
+            spans.append((ev.time_range.start, ev.time_range.end))
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    assert busy > 0, "the profiler saw no device time"
+    return kernels, busy, sum(kernels.values())
+
+
 def profile_decode(srv, reqs, steps: int = 5) -> dict:
     """Device time of a serving step against its host wall time, over
     ``steps`` steps with every slot holding a live request: the first
@@ -1762,14 +1869,23 @@ def profile_decode(srv, reqs, steps: int = 5) -> dict:
     the profile, are admitted and prefilled by one step first, so the
     profiled steps only decode (block-paged: through the slots' real
     tables). The engine is drained afterwards. Also the five kernels that
-    take the most device time."""
+    take the most device time. The device time of a replayed step is that
+    of the kernels in its CUDA graph, which the profiler reports one by
+    one, as it does an eager step's launches (busy time: their union,
+    :func:`device_time`). ``steps`` steps before the profiled ones are
+    timed without the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     n = srv.num_slots
     for r in reqs[:n]:
-        srv.submit(Request(r.rid, r.prompt, steps + 3))
+        srv.submit(Request(r.rid, r.prompt, 2 * steps + 3))
     srv.step()                       # admits and prefills every request
     assert srv.scheduler.waiting == 0 and srv.pending == n, srv.pending
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        assert not srv.step()        # decode only: nothing finishes
+    unprofiled = time.perf_counter() - t0
     steps0 = srv.decode_steps
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
@@ -1780,16 +1896,12 @@ def profile_decode(srv, reqs, steps: int = 5) -> dict:
     assert srv.decode_steps - steps0 == steps and srv.pending == n
     while srv.pending:
         srv.step()
-    kernels = {}
-    for ev in pr.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[ev.name] = (kernels.get(ev.name, 0.0)
-                                + ev.time_range.elapsed_us())
-    busy_us = sum(kernels.values())
-    assert busy_us > 0, "the profiler saw no device time"
+    kernels, busy_us, sum_us = device_time(pr)
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
     return {"steps": steps, "host_ms_per_step": 1e3 * wall / steps,
+            "host_ms_per_step_unprofiled": 1e3 * unprofiled / steps,
             "device_ms_per_step": busy_us / 1e3 / steps,
+            "kernel_ms_sum_per_step": sum_us / 1e3 / steps,
             "device_busy_share": busy_us / 1e6 / wall,
             "top_kernels_ms_per_step": {k[:60]: v / 1e3 / steps for k, v in top}}
 
@@ -1840,6 +1952,19 @@ def phase_serve(dtype: str, smi: str):
 
     check = check_probe(eng, probe, by_rid[probe.rid].tokens, LOGIT_TOL[dtype])
     prof = profile_decode(srv, reqs)
+    # the same trace through the decode program's eager closure
+    twin = eager_server(srv)
+    twin.warmup()
+    eager = {r.rid: r.tokens for r in twin.run(
+        [Request(r.rid, r.prompt, r.max_new_tokens,
+                 arrival_time=r.arrival_time) for r in reqs], warmup=False)}
+    vs_eager = replayed_vs_eager({rid: r.tokens for rid, r in by_rid.items()},
+                                 eager)
+    vs_eager["ms_per_decode_step_eager"] = \
+        1e3 * twin.decode_wall / twin.decode_steps
+    prof_eager = profile_decode(twin, reqs)
+    del twin
+    programs = serving_programs(srv)
 
     gen = sum(len(r.tokens) for r in results)
     lat = [r.latency for r in results]
@@ -1860,7 +1985,10 @@ def phase_serve(dtype: str, smi: str):
             "ttft_p50_s": _pct(ttft, 50), "ttft_p95_s": _pct(ttft, 95),
             "tpot_p50_ms": 1e3 * _pct(tpot, 50),
             "solo_identical": True, "probe": check, "decode_profile": prof,
-            "init_s": init_s, "warmup_s": warm_s,
+            "replayed_vs_eager": vs_eager, "decode_profile_eager": prof_eager,
+            "device_ms_replayed_over_eager": prof["device_ms_per_step"]
+            / prof_eager["device_ms_per_step"],
+            "programs": programs, "init_s": init_s, "warmup_s": warm_s,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(info)
     return info, eng
@@ -1873,6 +2001,38 @@ def _block_trace():
     return shared_prefix_trace(np.random.RandomState(4321), 16, rate=20.0,
                                prefix_len=392, suffix_lens=range(8, 101),
                                max_new_tokens=32, vocab_size=32000)
+
+
+def block_replay_vs_eager(srv, kv_dtype, reqs):
+    """The block trace on two fresh block-paged engines beside ``srv``,
+    under virtual clocks (so both admit, hit and fork alike): one replays
+    its own capture of the decode program's closure, the other runs the
+    closure eagerly. Their tokens must be bit-identical. Returns the check
+    and the eager engine (for its profile)."""
+    kw = dict(prefix_cache=True, block_size=srv.cache.block_size,
+              kv_dtype=kv_dtype)
+    graph = ServingEngine(srv.engine, num_slots=srv.num_slots,
+                          max_len=srv.max_len, buckets=srv.buckets,
+                          time_fn=VirtualClock(), **kw)
+    eager = eager_server(srv, time_fn=VirtualClock(), **kw)
+    toks, counters = {}, {}
+    for name, s in (("graph", graph), ("eager", eager)):
+        toks[name] = {r.rid: r.tokens for r in s.run(
+            [Request(r.rid, r.prompt, r.max_new_tokens,
+                     arrival_time=r.arrival_time) for r in reqs])}
+        counters[name] = (s.prefix.hit_tokens, s.prefix.blocks_cowed,
+                          s.decode_steps)
+    assert counters["graph"] == counters["eager"], counters
+    info = replayed_vs_eager(toks["graph"], toks["eager"])
+    info.update(decode_steps=counters["graph"][2],
+                hit_tokens=counters["graph"][0],
+                forks=counters["graph"][1],
+                decode_captures=graph._decode.captures,
+                ms_per_decode_step_replayed=1e3 * graph.decode_wall
+                / graph.decode_steps,
+                ms_per_decode_step_eager=1e3 * eager.decode_wall
+                / eager.decode_steps)
+    return info, eager
 
 
 def phase_serve_block(eng, kv_dtype, smi: str, baseline=None):
@@ -1930,6 +2090,10 @@ def phase_serve_block(eng, kv_dtype, smi: str, baseline=None):
     check = check_probe(eng, probe, warm["results"][probe.rid].tokens,
                         LOGIT_TOL["bf16"], block_kv=kv_dtype)
     prof = profile_decode(srv, reqs)
+    vs_eager, eager = block_replay_vs_eager(srv, kv_dtype, reqs)
+    prof_eager = profile_decode(eager, reqs)
+    del eager
+    programs = serving_programs(srv)
     info = {"phase": name, "card": smi,
             "model": "llama_7b, phase 4's engine (bf16, random weights "
                      "seed 0)",
@@ -1939,6 +2103,10 @@ def phase_serve_block(eng, kv_dtype, smi: str, baseline=None):
             "blocks_cowed": srv.prefix.blocks_cowed,
             "launches": launches, "decode_steps": steps,
             "probe": check, "decode_profile": prof,
+            "replayed_vs_eager": vs_eager, "decode_profile_eager": prof_eager,
+            "device_ms_replayed_over_eager": prof["device_ms_per_step"]
+            / prof_eager["device_ms_per_step"],
+            "programs": programs,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     for run, r in runs.items():
         info[run] = {k: v for k, v in r.items() if k != "results"}
@@ -2053,7 +2221,10 @@ def phase_reference_generate() -> dict:
     prompt = rng.randint(0, 32000, size=(1, 40))
     a = engs["cuda"].generate(prompt, **kw)
     assert torch.equal(a, engs["cuda"].generate(prompt, **kw)), "sampling"
+    assert torch.equal(a, eager_generate(engs["cuda"], prompt, **kw)), \
+        "sampled replay != eager"
     res["sampled_repeats"] = True
+    res["programs"] = engine_programs(engs["cuda"])
     del engs
     gcfg = GPT2Config(vocab_size=2048, max_seq_len=256, num_layers=2,
                       hidden_size=256, num_heads=4)
@@ -2117,30 +2288,35 @@ def check_generate_probe(eng, tokens, plen: int, tol: float, exact: bool,
             "margin_safe_tokens_checked": int(sum(safe))}
 
 
-def profile_generate(eng, b: int, prompt_len: int, steps: int = 5) -> dict:
+def profile_generate(eng, b: int, prompt_len: int, steps: int = 5,
+                     eager: bool = False) -> dict:
     """Device time of ``steps`` decode steps of generate's decode program
-    against their host wall time (the prefill runs before the window), by
-    kernel, with the flash-decode kernels' share."""
+    (replayed, or with ``eager`` its step's eager closure) against their
+    host wall time (the prefill runs before the window), by kernel, with
+    the flash-decode kernels' share."""
     from torch.profiler import ProfilerActivity, profile
 
     prefill, decode = eng.programs(b, prompt_len, steps + 1)
     ids = torch.randint(0, eng.module.config.vocab_size, (b, prompt_len),
                         generator=torch.Generator().manual_seed(5))
     gen = torch.Generator(device=eng.device).manual_seed(0)
+    state = _step_state(eng, b, prompt_len, steps + 1)
+    step = state.step
+    assert step.captures == 1, "profile a step shape captured before"
+    if eager:
+        state.step = step.eager
     tok, cache = prefill(eng.params, ids.to(eng.device), 1.0, gen)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
-        t0 = time.perf_counter()
-        decode(eng.params, tok, cache, 1.0, gen)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = {}
-    for ev in pr.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[ev.name] = (kernels.get(ev.name, 0.0)
-                                + ev.time_range.elapsed_us())
-    busy_us = sum(kernels.values())
-    assert busy_us > 0, "the profiler saw no device time"
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as pr:
+            t0 = time.perf_counter()
+            decode(eng.params, tok, cache, 1.0, gen)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        state.step = step
+    kernels, busy_us, sum_us = device_time(pr)
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
     flash_us = sum(us for k, us in kernels.items() if "flash_decode" in k)
     # kernel B is two launches: the split walk and the merge (merge_splits;
@@ -2149,6 +2325,7 @@ def profile_generate(eng, b: int, prompt_len: int, steps: int = 5) -> dict:
                    if "fused_decode_step" in k or "merge_splits" in k)
     return {"steps": steps, "host_ms_per_token": 1e3 * wall / steps,
             "device_ms_per_token": busy_us / 1e3 / steps,
+            "kernel_ms_sum_per_token": sum_us / 1e3 / steps,
             "device_busy_share": busy_us / 1e6 / wall,
             "flash_decode_ms_per_token": flash_us / 1e3 / steps,
             "fused_decode_step_ms_per_token": fused_us / 1e3 / steps,
@@ -2159,8 +2336,15 @@ def profile_generate(eng, b: int, prompt_len: int, steps: int = 5) -> dict:
 def _timed_generate(eng, prompt, max_new: int) -> dict:
     """generate() through the public entry point with the launch counters
     zeroed just before it, then generate's own prefill program alone, so
-    the decode share of the wall time can be split off."""
+    the decode share of the wall time can be split off; then generate()
+    again with the decode step's eager closure, whose tokens must be the
+    replayed ones bit for bit."""
     b, t = prompt.shape
+    # the decode state's token step captured off the clock, by a 2-token
+    # generate of the same prompt (it pads to the same cache)
+    assert -(-(t + 2) // 128) == -(-(t + max_new) // 128)
+    eng.generate(prompt, max_new_tokens=2)
+    assert _step_state(eng, b, t, max_new).step.captures == 1
     torch.cuda.synchronize()
     reset_counts()                       # the main path starts here
     t0 = time.perf_counter()
@@ -2181,9 +2365,17 @@ def _timed_generate(eng, prompt, max_new: int) -> dict:
     assert ((toks >= 0) & (toks < vocab)).all()
     assert torch.equal(toks[:, :t], torch.as_tensor(prompt).long())
     decode_s = wall - pf
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = eager_generate(eng, prompt, max_new)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0 - pf
+    assert torch.equal(eager, toks), "replayed tokens != eager tokens"
     return {"tokens": toks, "launches": launches, "wall_s": wall,
             "prefill_ms": 1e3 * pf,
             "host_ms_per_decode_token": 1e3 * decode_s / (max_new - 1),
+            "host_ms_per_decode_token_eager": 1e3 * eager_s / (max_new - 1),
+            "replayed_equals_eager": True,
             "decode_tokens_per_s": b * (max_new - 1) / decode_s,
             "tokens_per_s": b * max_new / wall}
 
@@ -2226,6 +2418,7 @@ def phase_generate_34b(smi: str) -> dict:
     probe = check_generate_probe(eng, b1["tokens"], 512, GENERATE_LOGIT_TOL,
                                  exact=True)
     prof1 = profile_generate(eng, 1, 512)
+    prof1_eager = profile_generate(eng, 1, 512, eager=True)
     peak_b1 = torch.cuda.max_memory_allocated()
 
     prompt4 = np.repeat(prompt1, 4, axis=0)          # the same prompt, B 4
@@ -2233,12 +2426,16 @@ def phase_generate_34b(smi: str) -> dict:
     assert b4["launches"]["fused_decode_step"] == steps, b4["launches"]
     assert b4["launches"]["flash_decode"] == 0, b4["launches"]
     prof4 = profile_generate(eng, 4, 512)
+    prof4_eager = profile_generate(eng, 4, 512, eager=True)
 
     kw = dict(max_new_tokens=32, do_sample=True, top_k=50, top_p=0.9,
               temperature=0.8, seed=1)
     s1 = eng.generate(prompt1, **kw)
     s2 = eng.generate(prompt1, **kw)
     assert torch.equal(s1, s2), "sampled generate did not repeat"
+    assert torch.equal(s1, eager_generate(eng, prompt1, **kw)), \
+        "sampled replay != eager"
+    programs = engine_programs(eng)
     weight_bound_ms = 1e3 * n_params * 2 / HBM_BYTES_PER_S
     info = {"phase": "generate_34b", "card": smi,
             "model": "codellama_34b (48 layers, hidden 8192, 64/8 heads, "
@@ -2248,12 +2445,18 @@ def phase_generate_34b(smi: str) -> dict:
             "memory_before_init": held, "init_s": init_s,
             "b1": {k: v for k, v in b1.items() if k != "tokens"},
             "b1_probe": probe, "b1_profile": prof1,
+            "b1_profile_eager": prof1_eager,
+            "b1_device_ms_replayed_over_eager":
+                prof1["device_ms_per_token"] / prof1_eager["device_ms_per_token"],
             "b1_peak_mem_gb": peak_b1 / 1e9,
             "b4": {k: v for k, v in b4.items() if k != "tokens"},
             # not asserted: batch 4 runs other GEMM shapes than batch 1
             "b4_rows_equal_to_b1": [torch.equal(row, b1["tokens"][0])
                                     for row in b4["tokens"]],
-            "b4_profile": prof4,
+            "b4_profile": prof4, "b4_profile_eager": prof4_eager,
+            "b4_device_ms_replayed_over_eager":
+                prof4["device_ms_per_token"] / prof4_eager["device_ms_per_token"],
+            "programs": programs,
             "weight_stream_bound_ms_per_token": weight_bound_ms,
             "sampled_repeats": True,
             "sampled_tokens": s1[0, 512:].tolist(),
@@ -2284,11 +2487,16 @@ def phase_generate_gpt2(smi: str) -> dict:
     probe = check_generate_probe(eng, run["tokens"], 128, GENERATE_LOGIT_TOL,
                                  exact=False)
     prof = profile_generate(eng, 4, 128)
+    prof_eager = profile_generate(eng, 4, 128, eager=True)
     info = {"phase": "generate_gpt2", "card": smi,
             "model": "gpt2_774m (36 layers, hidden 1280, 20 heads of Dh 64, "
                      "vocab 50257), bf16, random init seed 0",
             **{k: v for k, v in run.items() if k != "tokens"},
             "probe": probe, "decode_profile": prof,
+            "decode_profile_eager": prof_eager,
+            "device_ms_replayed_over_eager": prof["device_ms_per_token"]
+            / prof_eager["device_ms_per_token"],
+            "programs": engine_programs(eng),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(info)
     del eng
@@ -2487,6 +2695,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     # fp32 matmuls in full fp32 on the card, as on the CPU (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2523,6 +2732,7 @@ def main() -> int:
                 big["b4"]["launches"]):
         for k in ("fused_decode_step", "flash_decode", "flash_decode_mha"):
             launches[k] += run[k]
+    emit({"phase": "run", "wall_s": time.perf_counter() - t_start})
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": kernel_summary(kern, launches, sparse)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],

@@ -13,13 +13,21 @@ sampling from a ``torch.Generator``, and the EOS early exit), and the
 programs the continuous-batching server drives: the slot-paged prefill and
 decode step, and their block-paged analogs (suffix prefill, decode through
 the block table, the copy-on-write block copy). JAX ``jit`` programs become
-plain closures; the caches are updated in place instead of being donated.
-The serving programs pick greedily (argmax, first index on ties); their
-sampling is not ported.
+closures counted by signature as jit counts its entries
+(inference/programs.py), and each decode program (the slot and block
+serving steps, generate's token step) is captured once per signature as a
+CUDA graph on the card and replayed every token, by the owner of the
+buffers the graph reads: the serving engine over its KV store, and for
+generate one decode state per step shape (its cache; the most recently
+used ``MAX_DECODE_STATES`` are kept). The caches are updated in place
+instead of being donated. :meth:`InferenceEngine.jit_cache_sizes` reads
+the entry counts. The serving programs pick greedily (argmax, first
+index on ties); their sampling is not ported.
 """
 
 from __future__ import annotations
 
+from collections import Counter, OrderedDict
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -27,6 +35,8 @@ import torch
 from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.compression.quantize import quantize_int8
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+from deepspeed_tpu_torch.inference.programs import (GraphPool, GraphProgram,
+                                                    Program)
 from deepspeed_tpu_torch.ops.attention import write_slot_prefix
 from deepspeed_tpu_torch.utils.logging import log_dist
 
@@ -68,6 +78,10 @@ class InferenceEngine:
     :class:`~deepspeed_tpu_torch.models.gpt2.GPT2Model` on one device (the
     card unless ``device="cpu"`` is asked for)."""
 
+    # generate's decode states kept at once (each holds a stacked cache and
+    # its step's CUDA graph)
+    MAX_DECODE_STATES = 2
+
     def __init__(self, model, config=None, *, params=None, device=None):
         if not isinstance(config, DeepSpeedInferenceConfig):
             config = DeepSpeedInferenceConfig.from_dict(config or {})
@@ -102,7 +116,15 @@ class InferenceEngine:
             self.params = self._adopt(params, in_blocks=False)
         if self.weight_quant:
             self.params = self._maybe_quantize_embedding(self.params)
-        self._programs: Dict[Tuple, Callable] = {}
+        # the reference's compiled programs, by its keys, counted by
+        # signature; a decode program's CUDA graphs belong to the owner of
+        # the buffers they read (a ServingEngine, a generate decode state)
+        # and share one memory pool
+        self._programs: Dict[Tuple, Program] = {}
+        self._graph_pool = GraphPool()
+        # generate's decode states by step shape, least recently used first
+        self._decode_states: "OrderedDict[Tuple, _DecodeState]" = OrderedDict()
+        self._evicted_captures: Counter = Counter()
         # generate(seed=None) advances this one; seed=k draws from a fresh
         # generator seeded with k
         self._gen_rng = torch.Generator(device=self.device).manual_seed(
@@ -227,67 +249,175 @@ class InferenceEngine:
     def _build_generate(self, b: int, t: int, max_new: int, *,
                         do_sample: bool, top_k: int, top_p: float,
                         eos_token_id: Optional[int], pad_token_id: int):
-        """The prefill and the decode loop, composed on the host. The cache
-        is padded to a multiple of 128 positions (the reference's allocation,
-        which its flash-decode gate needs: ops/attention.decode_route);
-        masking by the index keeps the padding inert."""
-        prefill, decode = self._generate_programs(b, t, max_new, do_sample,
-                                                  top_k, top_p)
-        if eos_token_id is None:
-            def gen(params, ids, temp, rng):
-                tok, cache = prefill(params, ids, temp, rng)
-                return decode(params, tok, cache, temp, rng)
+        """The prefill and the decode loop, composed on the host (the
+        reference's ``gen`` closure). The cache is padded to a multiple of
+        128 positions (the reference's allocation, which its flash-decode
+        gate needs: ops/attention.decode_route); masking by the index keeps
+        the padding inert."""
+        prefill, decode = self._generate_programs(
+            b, t, max_new, do_sample, top_k, top_p, eos_token_id, pad_token_id)
 
-            return gen
-        pick = self._make_pick(do_sample, top_k, top_p)
-        model = self.module
+        def gen(params, ids, temp, rng):
+            tok, cache = prefill(params, ids, temp, rng)
+            return decode(params, tok, cache, temp, rng)
+
+        return gen
+
+    def _generate_programs(self, b: int, t: int, max_new: int,
+                           do_sample: bool, top_k: int, top_p: float,
+                           eos_token_id: Optional[int] = None,
+                           pad_token_id: int = 0):
+        """``(prefill, decode)`` of one generate shape: the reference's
+        ``pf`` program and its ``dec`` (or, with ``eos_token_id``,
+        ``dec_eos``) program, each counted by signature under the
+        reference's key. Prefill writes the cache of the shape's decode
+        state (:meth:`_decode_state`) and returns it stamped with the
+        state's generation; decode is a host loop over the state's captured
+        token step, and raises on a cache that a later prefill overwrote or
+        whose state was evicted."""
+        total = t + max_new
+        cache_len = (total + 127) // 128 * 128
+        state_key = (b, cache_len, do_sample, top_k, top_p)
+        pf_key = ("pf", b, t, total, do_sample, top_k, top_p)
+        if eos_token_id is None:
+            dec_key = ("dec", b, total, max_new, do_sample, top_k, top_p)
+        else:
+            dec_key = ("dec_eos", b, total, max_new, do_sample, top_k, top_p,
+                       eos_token_id, pad_token_id)
+        if pf_key not in self._programs:
+            model = self.module
+            pick = self._make_pick(do_sample, top_k, top_p)
+
+            @torch.no_grad()
+            def prefill_fn(params, ids, temp, rng, k, v):
+                cache = {"k": k, "v": v, "index": 0}
+                logits, _ = model.forward_with_cache(params, ids, cache)
+                return pick(logits[:, -1], temp, rng)
+
+            self._programs[pf_key] = Program(prefill_fn, "prefill")
+        pf = self._programs[pf_key]
+
+        def prefill(params, ids, temp, rng):
+            state = self._decode_state(*state_key)
+            tok = pf(params, ids, temp, rng, state.k, state.v)
+            state.generation += 1
+            return tok, {"k": state.k, "v": state.v, "index": t,
+                         "generation": state.generation}
+
+        if dec_key not in self._programs:
+            if eos_token_id is None:
+                loop = self._decode_loop(state_key, max_new)
+            else:
+                loop = self._decode_loop_eos(state_key, max_new, eos_token_id,
+                                             pad_token_id)
+            self._programs[dec_key] = Program(loop, "decode")
+        return prefill, self._programs[dec_key]
+
+    def _decode_loop(self, state_key: Tuple, max_new: int):
+        """The ``dec`` program: ``max_new - 1`` replays of the token step."""
+        b = state_key[0]
 
         @torch.no_grad()
-        def gen_eos(params, ids, temp, rng):
-            tok, cache = prefill(params, ids, temp, rng)
+        def decode(params, tok, cache, temp, rng):
+            state = self._state_of(state_key, cache, tok, temp)
+            out = torch.empty((b, max_new), dtype=torch.int32,
+                              device=tok.device)
+            out[:, 0] = state.tok
+            for i in range(1, max_new):
+                state.step(params, state.k, state.v, state.index, state.tok,
+                           state.temp, rng)
+                out[:, i] = state.tok
+            return out
+
+        return decode
+
+    def _decode_loop_eos(self, state_key: Tuple, max_new: int,
+                         eos_token_id: int, pad_token_id: int):
+        """The ``dec_eos`` program: a row emits ``pad_token_id`` after its
+        EOS, and the loop ends once every row has emitted EOS."""
+        b = state_key[0]
+
+        @torch.no_grad()
+        def decode(params, tok, cache, temp, rng):
+            state = self._state_of(state_key, cache, tok, temp)
+            tok = state.tok.clone()
             done = tok == eos_token_id
+            pad = torch.full_like(tok, pad_token_id)
             buf = torch.full((b, max_new), pad_token_id, dtype=torch.int32,
                              device=tok.device)
             for i in range(max_new):
                 buf[:, i] = tok
-                # one host read of a device flag per token: the loop ends
-                # once every row has emitted EOS (the reference's
-                # while_loop condition), and the last token needs no step
+                # one host read of a device flag per token, after the step:
+                # the loop ends once every row has emitted EOS (the
+                # reference's while_loop condition), and the last token
+                # needs no step
                 if i + 1 == max_new or bool(done.all()):
                     break
-                logits, cache = model.forward_with_cache(
-                    params, tok[:, None].long(), cache)
-                tok = torch.where(done, torch.full_like(tok, pad_token_id),
-                                  pick(logits[:, -1], temp, rng))
+                state.step(params, state.k, state.v, state.index, state.tok,
+                           state.temp, rng)
+                tok = torch.where(done, pad, state.tok)
+                state.tok.copy_(tok)
                 done = done | (tok == eos_token_id)
             return buf
 
-        return gen_eos
+        return decode
 
-    def _generate_programs(self, b: int, t: int, max_new: int,
-                           do_sample: bool, top_k: int, top_p: float):
-        model, dtype = self.module, self.dtype
+    def _state_of(self, state_key: Tuple, cache: dict, tok, temp
+                  ) -> "_DecodeState":
+        """The decode state that ``cache`` (a prefill's) is the cache of,
+        set to start decoding it: the index at the prompt's end, the first
+        token and the temperature in the step's buffers. Raises if a later
+        prefill overwrote the cache or its state was evicted."""
+        state = self._decode_states.get(state_key)
+        if state is None or cache["k"] is not state.k:
+            raise RuntimeError(
+                "generate decode: this cache's decode state was evicted by "
+                "other generate shapes; run its prefill again")
+        if cache["generation"] != state.generation:
+            raise RuntimeError(
+                "generate decode: a later prefill of this shape overwrote "
+                "the cache; run its prefill again before decoding")
+        self._decode_states.move_to_end(state_key)
+        state.index.fill_(cache["index"])
+        if tok.data_ptr() != state.tok.data_ptr():
+            state.tok.copy_(tok)
+        state.temp.fill_(temp)
+        return state
+
+    def _decode_state(self, b: int, cache_len: int, do_sample: bool,
+                      top_k: int, top_p: float) -> "_DecodeState":
+        """The decode state of one generate step shape (made on first use,
+        the most recently used kept): its stacked cache, token buffer,
+        device index and temperature, and its token step, a
+        :class:`GraphProgram` over them (one token, in place: write the
+        token's K/V at the index, pick the next token into the token
+        buffer, advance the index). Every generate shape that pads to the
+        same cache, with or without EOS, shares it. At most
+        ``MAX_DECODE_STATES`` are kept: making another evicts the least
+        recently used, its cache and its graph."""
+        key = (b, cache_len, do_sample, top_k, top_p)
+        if key in self._decode_states:
+            self._decode_states.move_to_end(key)
+            return self._decode_states[key]
+        while len(self._decode_states) >= self.MAX_DECODE_STATES:
+            old_key, old = self._decode_states.popitem(last=False)
+            self._evicted_captures[old_key] += old.step.captures
+        model = self.module
         pick = self._make_pick(do_sample, top_k, top_p)
-        cache_len = (t + max_new + 127) // 128 * 128
 
         @torch.no_grad()
-        def prefill(params, ids, temp, rng):
-            cache = model.init_cache(b, cache_len, dtype=dtype,
-                                     device=ids.device)
-            logits, cache = model.forward_with_cache(params, ids, cache)
-            return pick(logits[:, -1], temp, rng), cache
+        def step(params, k, v, index, tok, temp, rng):
+            cache = {"k": k, "v": v, "index": index}
+            logits, _ = model.forward_with_cache(
+                params, tok[:, None].long(), cache)
+            tok.copy_(pick(logits[:, -1], temp, rng))
+            index.add_(1)
 
-        @torch.no_grad()
-        def decode(params, tok, cache, temp, rng):
-            toks = [tok]
-            for _ in range(max_new - 1):
-                logits, cache = model.forward_with_cache(
-                    params, tok[:, None].long(), cache)
-                tok = pick(logits[:, -1], temp, rng)
-                toks.append(tok)
-            return torch.stack(toks, dim=1)
-
-        return prefill, decode
+        state = _DecodeState(model, b, cache_len, self.dtype, self.device,
+                             GraphProgram(Program(step, f"decode step {key}"),
+                                          self._graph_pool))
+        self._decode_states[key] = state
+        return state
 
     @staticmethod
     def _make_pick(do_sample: bool, top_k: int = 0, top_p: float = 1.0):
@@ -319,8 +449,13 @@ class InferenceEngine:
 
         ``prefill(params, ids [B, T], temp, gen) -> (first_token [B],
         cache)``; ``decode(params, first_token, cache, temp, gen) -> tokens
-        [B, max_new]``. decode writes the cache in place: run prefill again
-        before each decode call."""
+        [B, max_new]``. The cache is the shape's decode state's own (its
+        step's CUDA graph on the card reads it there, captured at the first
+        decode step) and ``cache["index"]`` the prompt length; decode
+        starts from that index and writes the cache in place. A later
+        prefill of any shape that shares the state overwrites the cache,
+        and decoding the older cache then raises, as it does once
+        ``MAX_DECODE_STATES`` other shapes evicted its state."""
         return self._generate_programs(batch, prompt_len, max_new, do_sample,
                                        top_k, float(top_p))
 
@@ -352,7 +487,7 @@ class InferenceEngine:
                 last = logits[:, int(length) - 1]                 # [1, V]
                 return k_slots, v_slots, lengths, greedy_pick(last)[0]
 
-            self._programs[key] = prefill
+            self._programs[key] = Program(prefill, f"slot prefill {bucket_len}")
         return self._programs[key]
 
     def slot_decode_program(self, num_slots: int, max_len: int, *,
@@ -362,7 +497,10 @@ class InferenceEngine:
         fused decode kernel; the host never waits on it). Inactive slots keep
         their length and emit ``pad_token_id``; their masked garbage write
         lands at their stale length (dropped if that is past the cache) and
-        is overwritten by the next prefill into the slot.
+        is overwritten by the next prefill into the slot. ``lengths``
+        advances in place. Its per-step inputs are ``tokens`` and
+        ``active``: the serving engine that owns the slot cache captures
+        it in its own :class:`GraphProgram` on :meth:`graph_pool`.
 
         Signature: ``(params, k_slots, v_slots, lengths[B], tokens[B],
         active[B] bool) -> (k_slots, v_slots, lengths, next_tokens[B])``."""
@@ -377,15 +515,17 @@ class InferenceEngine:
                     params, tokens[:, None].long(), cache)
                 pad = torch.full_like(tokens, pad_token_id)
                 nxt = torch.where(active, greedy_pick(logits[:, -1]), pad)
-                lengths = torch.where(active, lengths + 1, lengths)
+                lengths.add_(active.to(lengths.dtype))
                 return cache["k"], cache["v"], lengths, nxt
 
-            self._programs[key] = decode
+            self._programs[key] = Program(decode, "slot decode",
+                                          inputs=(4, 5))
         return self._programs[key]
 
     # ------------------------------------------ block-paged serving programs
     def block_prefill_program(self, bucket_len: int, num_slots: int,
-                              max_blocks: int) -> Callable:
+                              max_blocks: int, *,
+                              kv_dtype: Optional[str] = None) -> Callable:
         """Suffix prefill against the block pool: run ONE request's
         bucket-padded unmatched suffix through the pool with the slot's
         ``[1, MB]`` table row. The suffix attends over the radix-matched
@@ -396,8 +536,9 @@ class InferenceEngine:
 
         Signature: ``(params, k_pool, v_pool, lengths, ids[1, bucket],
         table_row[1, MB], slot, start, length) -> (k_pool, v_pool, lengths,
-        first_token[])``; the pools are updated in place."""
-        key = ("blk_pf", bucket_len, num_slots, max_blocks)
+        first_token[])``; the pools are updated in place. One program per
+        pool type ``kv_dtype`` (None: the compute dtype)."""
+        key = ("blk_pf", bucket_len, num_slots, max_blocks, kv_dtype)
         if key not in self._programs:
             model = self.module
 
@@ -413,20 +554,26 @@ class InferenceEngine:
                 last = logits[:, int(length) - 1]                 # [1, V]
                 return cache["k"], cache["v"], lengths, greedy_pick(last)[0]
 
-            self._programs[key] = prefill
+            self._programs[key] = Program(prefill, f"block prefill {bucket_len}")
         return self._programs[key]
 
     def block_decode_program(self, num_slots: int, max_blocks: int, *,
-                             pad_token_id: int = 0) -> Callable:
+                             pad_token_id: int = 0,
+                             kv_dtype: Optional[str] = None) -> Callable:
         """Block-paged decode step: one token for every slot, K/V addressed
         through the full ``[B, MB]`` block table (single-token steps on the
         card run the block decode kernel, ops/decode_step). Inactive slots
         carry sentinel tables: their writes land in the pool's garbage row.
+        ``lengths`` advances in place; the table is a persistent operand.
+        One program per pool type ``kv_dtype`` (None: the compute dtype),
+        whose per-step inputs are ``tokens`` and ``active``: the serving
+        engine that owns the pool captures it in its own
+        :class:`GraphProgram` on :meth:`graph_pool`.
 
         Signature: ``(params, k_pool, v_pool, lengths[B], tables[B, MB],
         tokens[B], active[B] bool) -> (k_pool, v_pool, lengths,
         next_tokens[B])``."""
-        key = ("blk_dec", num_slots, max_blocks, pad_token_id)
+        key = ("blk_dec", num_slots, max_blocks, pad_token_id, kv_dtype)
         if key not in self._programs:
             model = self.module
 
@@ -439,27 +586,76 @@ class InferenceEngine:
                     params, tokens[:, None].long(), cache)
                 pad = torch.full_like(tokens, pad_token_id)
                 nxt = torch.where(active, greedy_pick(logits[:, -1]), pad)
-                lengths = torch.where(active, lengths + 1, lengths)
+                lengths.add_(active.to(lengths.dtype))
                 return cache["k"], cache["v"], lengths, nxt
 
-            self._programs[key] = decode
+            self._programs[key] = Program(decode, "block decode",
+                                          inputs=(5, 6))
         return self._programs[key]
 
-    @staticmethod
-    def block_copy_program() -> Callable:
+    def block_copy_program(self, num_blocks: int, block_size: int, *,
+                           kv_dtype: str = "compute") -> Callable:
         """Copy-on-write fork: duplicate pool block ``src`` into ``dst`` in
         both pools across every layer, payload and scales of a quantized
         pool alike, so the fork dequantizes bit-identically to the shared
         original. A plain tensor copy (the reference has no kernel for it).
 
-        Signature: ``(k_pool, v_pool, src, dst) -> (k_pool, v_pool)``."""
+        Signature: ``(k_pool, v_pool, src, dst) -> (k_pool, v_pool)``; one
+        program per pool (the reference's key)."""
+        key = ("blk_copy", num_blocks, block_size, kv_dtype)
+        if key not in self._programs:
 
-        @torch.no_grad()
-        def copy(k_pool, v_pool, src, dst):
-            for pool in (k_pool, v_pool):
-                leaves = pool.values() if isinstance(pool, dict) else (pool,)
-                for leaf in leaves:
-                    leaf[:, int(dst)].copy_(leaf[:, int(src)])
-            return k_pool, v_pool
+            @torch.no_grad()
+            def copy(k_pool, v_pool, src, dst):
+                for pool in (k_pool, v_pool):
+                    leaves = pool.values() if isinstance(pool, dict) else (pool,)
+                    for leaf in leaves:
+                        leaf[:, int(dst)].copy_(leaf[:, int(src)])
+                return k_pool, v_pool
 
-        return copy
+            self._programs[key] = Program(copy, "block copy")
+        return self._programs[key]
+
+    # ------------------------------------------------------------ contract
+    @property
+    def graph_pool(self) -> GraphPool:
+        """The CUDA graph memory pool every decode graph over this engine
+        shares (they never run at once)."""
+        return self._graph_pool
+
+    def decode_captures(self) -> Dict[str, int]:
+        """CUDA graphs captured per generate step shape ``(batch, cache
+        length, do_sample, top_k, top_p)``, those of evicted states
+        included: above 1, a shape was captured again after its state was
+        evicted (or its operands' signature varied). Nothing is captured on
+        the CPU."""
+        out = Counter(self._evicted_captures)
+        for key, state in self._decode_states.items():
+            out[key] += state.step.captures
+        return {str(key): n for key, n in out.items()}
+
+    def jit_cache_sizes(self) -> Dict[str, int]:
+        """Entry count per program this engine has built, by the
+        reference's keys (``str(key)``): recompile accounting for telemetry
+        (a program whose count keeps growing is recompiling; on the card
+        each entry of a decode program is one captured CUDA graph)."""
+        return {str(key): prog._cache_size()
+                for key, prog in self._programs.items()}
+
+
+class _DecodeState:
+    """What one generate step shape owns: the stacked cache ``[L, B, Hkv,
+    S, Dh]`` that its prefills write, the token buffer ``[B]``, the 0-dim
+    int32 index on the device, the 0-dim temperature, and ``step``, the
+    token step whose CUDA graph reads and writes these addresses.
+    ``generation`` counts the prefills written into the cache."""
+
+    def __init__(self, model, b: int, cache_len: int, dtype, device,
+                 step: GraphProgram):
+        cache = model.init_cache(b, cache_len, dtype=dtype, device=device)
+        self.k, self.v = cache["k"], cache["v"]
+        self.index = torch.zeros((), dtype=torch.int32, device=device)
+        self.tok = torch.zeros((b,), dtype=torch.int32, device=device)
+        self.temp = torch.ones((), dtype=torch.float32, device=device)
+        self.generation = 0
+        self.step = step

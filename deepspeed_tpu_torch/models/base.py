@@ -111,10 +111,13 @@ def tied_logits(hidden, wte):
 
 
 def cache_positions(index, t: int, device=None):
-    """Query positions for a cache step: ``[t]`` for a scalar index, ``[B, t]``
-    for a per-slot ``[B]`` tensor."""
-    if isinstance(index, torch.Tensor) and index.ndim == 1:
-        return index.to(torch.long)[:, None] + torch.arange(t, device=index.device)
+    """Query positions for a cache step: ``[t]`` for a scalar index (a python
+    int, or a 0-dim tensor that stays on its device), ``[B, t]`` for a
+    per-slot ``[B]`` tensor."""
+    if isinstance(index, torch.Tensor):
+        pos = index.to(torch.long)
+        ar = torch.arange(t, device=index.device)
+        return pos[:, None] + ar if index.ndim == 1 else pos + ar
     return int(index) + torch.arange(t, device=device)
 
 

@@ -43,6 +43,12 @@ def _kv_pack_factor(dh: int) -> int:
     return 1 if dh >= 128 or 128 % dh else 128 // dh
 
 
+def scalar_index(idx) -> bool:
+    """Whether a cache index is the scalar one (a python int, or a 0-dim
+    tensor read on its device) rather than a per-slot ``[B]`` vector."""
+    return not isinstance(idx, torch.Tensor) or idx.ndim == 0
+
+
 def decode_route(b: int, t: int, hq: int, hkv: int, s: int, dh: int,
                  itemsize: int, scalar_idx: bool) -> str:
     """Which kernel takes a step of ``t`` query tokens over a ``[L, B, Hkv,
@@ -143,7 +149,7 @@ def cached_attention(q, k_full, v_full, k_new, v_new, layer: int,
     b, t, hq, dh = q.shape
     _, _, hkv, s_max, _ = k_full.shape
     route = decode_route(b, t, hq, hkv, s_max, dh, k_full.element_size(),
-                         not isinstance(idx, torch.Tensor))
+                         scalar_index(idx))
     if route == "fused":
         # the kernel (or its wrapper's ValueError) on CUDA, its plain
         # version on the CPU
@@ -158,22 +164,32 @@ def cached_attention(q, k_full, v_full, k_new, v_new, layer: int,
 
 def write_kv_cache(k_full, v_full, k_new, v_new, layer: int, idx):
     """Write one block's new K/V ``[B, T, Hkv, Dh]`` into the stacked caches
-    at ``(layer, idx)`` in place. A per-slot ``[B]`` idx scatters row b's
+    at ``(layer, idx)`` in place. A per-slot ``[B]`` idx writes row b's
     token j to position ``idx[b] + j`` and drops positions past the
     allocation (``mode="drop"``: an inactive slot's stale length may equal
     max_len). A scalar idx is one slice write whose start is clamped so the
-    block fits (``dynamic_update_slice`` semantics). Returns
-    ``(k_full, v_full, k_layer, v_layer)`` with ``[B, Hkv, S, Dh]`` views."""
+    block fits (``dynamic_update_slice`` semantics); a 0-dim tensor idx is
+    clamped and written on its device. Every form has a fixed shape, so
+    none reads the index on the host. Returns ``(k_full, v_full, k_layer,
+    v_layer)`` with ``[B, Hkv, S, Dh]`` views."""
     kl, vl = k_full[layer], v_full[layer]
-    b, t = k_new.shape[0], k_new.shape[1]
+    t = k_new.shape[1]
     s_max = k_full.shape[3]
     if isinstance(idx, torch.Tensor) and idx.ndim == 1:
-        pos = idx.to(torch.long)[:, None] + torch.arange(t, device=idx.device)
-        rows = torch.arange(b, device=idx.device)[:, None].expand(b, t)
-        keep = (pos >= 0) & (pos < s_max)
-        r, p = rows[keep], pos[keep]
-        kl[r, :, p] = k_new[keep].to(k_full.dtype)
-        vl[r, :, p] = v_new[keep].to(v_full.dtype)
+        # every cache position takes the new token that lands on it, else
+        # keeps its value: positions past the allocation are never named
+        j = (torch.arange(s_max, device=idx.device)[None, :]
+             - idx.to(torch.long)[:, None])                        # [B, S]
+        hit = ((j >= 0) & (j < t))[:, None, :, None]
+        src = j.clamp(0, t - 1)[:, :, None, None]
+        for full, lay, new in ((k_full, kl, k_new), (v_full, vl, v_new)):
+            rows = torch.take_along_dim(new.to(full.dtype), src, dim=1)
+            lay.copy_(torch.where(hit, rows.transpose(1, 2), lay))
+    elif isinstance(idx, torch.Tensor):
+        pos = (idx.to(torch.long).clamp(0, s_max - t)
+               + torch.arange(t, device=idx.device))
+        kl.index_copy_(2, pos, k_new.transpose(1, 2).to(k_full.dtype))
+        vl.index_copy_(2, pos, v_new.transpose(1, 2).to(v_full.dtype))
     else:
         start = min(max(int(idx), 0), s_max - t)
         kl[:, :, start:start + t] = k_new.transpose(1, 2).to(k_full.dtype)
@@ -312,7 +328,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         valid = pos[None, None, :] <= q_pos                   # [B, T, S]
         valid = valid[:, None, None]
     else:
-        valid = pos[None, :] <= (int(cache_index) + tt)[:, None]  # [T, S]
+        if not isinstance(cache_index, torch.Tensor):
+            cache_index = int(cache_index)
+        valid = pos[None, :] <= (cache_index + tt)[:, None]   # [T, S]
     logits = logits.masked_fill(~valid, _F32_MIN)
     probs = torch.softmax(logits, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bkrts,bksd->btkrd", probs, v_cache)

@@ -106,6 +106,8 @@ def supports(hq: int, hkv: int, s_max: int, dh: int, itemsize: int = 2) -> bool:
 
 
 def _idx_vector(idx, b: int, device) -> torch.Tensor:
+    """The per-slot index as a ``[B]`` long tensor; a 0-dim tensor is
+    broadcast on its device, never read by the host."""
     if isinstance(idx, torch.Tensor):
         return idx.to(device=device, dtype=torch.long).reshape(-1).expand(b)
     return torch.full((b,), int(idx), dtype=torch.long, device=device)
@@ -172,9 +174,11 @@ def fused_decode_step(q: torch.Tensor, k_full: torch.Tensor,
     k_full/v_full: [L, B, Hkv, S, Dh] stacked caches, updated in place
     k_new/v_new:   [B, 1, Hkv, Dh]  the new token's K/V (not yet written)
     layer:         python int
-    idx:           python int (every slot) or an int32 ``[B]`` tensor on the
-                   same device of per-slot write positions / valid lengths;
-                   read by the kernel, never by the host.
+    idx:           python int (every slot), a 0-dim int32 tensor on the
+                   same device (every slot; expanded to ``[B]`` there) or an
+                   int32 ``[B]`` tensor of per-slot write positions / valid
+                   lengths; a tensor is read by the kernel, never by the
+                   host.
 
     Returns ``(attn [B, 1, Hq, Dh], k_full, v_full)``; the returned caches
     are the inputs, written in place."""
@@ -202,6 +206,8 @@ def fused_decode_step(q: torch.Tensor, k_full: torch.Tensor,
                       ("k_new", k_new), ("v_new", v_new)):
         _check_tensor("fused_decode_step", name, tns, dtype, q.device)
     if isinstance(idx, torch.Tensor):
+        if idx.ndim == 0 and idx.device == q.device and idx.dtype == torch.int32:
+            idx = idx.reshape(1).expand(b).contiguous()
         if (idx.device != q.device or idx.dtype != torch.int32
                 or idx.shape != (b,) or not idx.is_contiguous()):
             raise ValueError(f"fused_decode_step: idx must be an int32 [{b}] "

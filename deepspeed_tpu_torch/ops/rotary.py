@@ -27,7 +27,8 @@ def apply_rotary_pos_emb(x: torch.Tensor, cos: torch.Tensor,
     """x: [B, T, H, Dh]; cos/sin: [T_max, Dh/2]. Pairs (x[2i], x[2i+1])
     are rotated by the position angle (the interleaved convention the JAX
     package uses). ``position_offset`` may be a per-slot ``[B]`` tensor:
-    each batch row is then rotated at its own position. Positions past
+    each batch row is then rotated at its own position; a 0-dim tensor is
+    the scalar offset, read on its device. Positions past
     the table are clamped to its last row, as JAX's gather clamps (an
     inactive serving slot's stale length may sit at the table's end)."""
     b, t, h, dh = x.shape
@@ -39,7 +40,11 @@ def apply_rotary_pos_emb(x: torch.Tensor, cos: torch.Tensor,
         c = cos[pos][:, :, None, :]
         s = sin[pos][:, :, None, :]
     else:
-        pos = (int(position_offset) + ar).clamp(0, t_max - 1)
+        if isinstance(position_offset, torch.Tensor):
+            pos = position_offset.to(torch.long) + ar
+        else:
+            pos = int(position_offset) + ar
+        pos = pos.clamp(0, t_max - 1)
         c = cos[pos][None, :, None, :]
         s = sin[pos][None, :, None, :]
     x1 = x[..., 0::2].to(torch.float32)

@@ -21,10 +21,25 @@ Two KV stores:
   unmatched suffix only, bucketed by suffix length. ``kv_dtype`` "int8" or
   "fp8" stores the pool quantized (serving/kv_quant.py).
 
+The compile-once contract of the JAX engine: every serving program is
+counted by operand signature (inference/programs.py), and the decode step
+is captured as one CUDA graph on the card at :meth:`ServingEngine.warmup`,
+held by this engine (the graph reads its KV store), and replayed every
+iteration, its per-step inputs (tokens, active mask)
+copied from pinned host buffers into persistent device buffers.
+:attr:`ServingEngine.program_count`,
+:meth:`ServingEngine.program_cache_sizes` and
+:meth:`ServingEngine.recompile_count` read it, as in the reference.
+
+``telemetry`` (True: the global registry; a registry; None/False: off)
+records the reference's serving metrics: finished requests, prefills,
+deadline sheds, latency / queue-wait / TTFT / TPOT histograms, and per
+run the rates and the contract's gauges (``serving/compiled_programs``,
+``serving/jit_cache_entries``, ``serving/recompiles``).
+
 Options the JAX engine has and this port does not yet (speculative
 decoding, preemption, chunked prefill, tracing, SLO control, tenants,
-sampling in the serving programs) raise :class:`EngineConfigError`; the
-``telemetry`` argument is accepted and ignored.
+sampling in the serving programs) raise :class:`EngineConfigError`.
 """
 
 from __future__ import annotations
@@ -35,6 +50,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.inference.programs import GraphProgram
 from deepspeed_tpu_torch.serving.errors import (EmptyPromptError,
                                                 EngineConfigError,
                                                 EngineInvariantError,
@@ -47,6 +63,7 @@ from deepspeed_tpu_torch.serving.kv_slots import SlotKVCache
 from deepspeed_tpu_torch.serving.radix import PrefixCache
 from deepspeed_tpu_torch.serving.scheduler import (Request, RequestResult,
                                                    SlotScheduler, pick_bucket)
+from deepspeed_tpu_torch.telemetry.registry import get_registry, metric_label
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 _NOT_PORTED = ("speculative", "preemption", "prefill_token_budget", "tracer",
@@ -82,6 +99,9 @@ class ServingEngine:
         every slot can hold a full ``max_len`` request, nothing shared).
     kv_dtype: None (the compute dtype), "int8" or "fp8": the block pool's
         storage (needs ``prefix_cache``).
+    telemetry: True (default) records into the global registry
+        (telemetry/registry.py), a registry records there, None/False
+        records nothing.
     """
 
     def __init__(self, engine, *, num_slots: int = 8, max_len: int = 1024,
@@ -109,6 +129,8 @@ class ServingEngine:
                     f"ServingEngine option {name}={requested[name]!r} is not "
                     f"ported to the PyTorch engine yet ({what})")
         self.engine = engine
+        self.telemetry = get_registry() if telemetry is True else (
+            telemetry or None)
         mcfg = engine.module.config
         if max_len > mcfg.max_seq_len:
             raise EngineConfigError(
@@ -128,11 +150,12 @@ class ServingEngine:
                                      kv_dtype=self.kv_dtype,
                                      device=engine.device)
             self.prefix: Optional[PrefixCache] = PrefixCache(self.cache)
-            self._copy_fn = engine.block_copy_program()
+            self._copy_fn = self.cache.copy_program(engine)
         else:
             self.cache = SlotKVCache(engine.module, num_slots, max_len,
                                      dtype=engine.dtype, device=engine.device)
             self.prefix = None
+            self._copy_fn = None
         if (torch.device(engine.device).type == "cuda"
                 and not self.cache.decode_kernel_supports(mcfg.num_heads)):
             # the card runs every decode step through the kernel: refuse a
@@ -141,7 +164,10 @@ class ServingEngine:
                 f"the decode kernel does not take {self.cache!r} with "
                 f"{mcfg.num_heads} query heads (ops/decode_step.py "
                 "supports / supports_block)")
-        self._decode = self.cache.decode_program(engine, pad_token_id)
+        # the decode step's CUDA graphs read this engine's KV store, so
+        # they are this engine's (on the inference engine's graph pool)
+        self._decode = GraphProgram(
+            self.cache.decode_program(engine, pad_token_id), engine.graph_pool)
         self.buckets = tuple(sorted({min(b, max_len) for b in buckets}))
         if not self.buckets:
             raise EngineConfigError(f"no prefill buckets given: {buckets}")
@@ -150,6 +176,18 @@ class ServingEngine:
         self.eos_token_id = eos_token_id
         self.pad_token_id = pad_token_id
         self.device = engine.device
+        # the decode step's per-step inputs: host arrays (pinned on the
+        # card) copied into persistent device buffers, the addresses the
+        # step's CUDA graph reads
+        pin = torch.device(self.device).type == "cuda"
+        self._toks_host = torch.zeros((num_slots,), dtype=torch.int32,
+                                      pin_memory=pin)
+        self._active_host = torch.zeros((num_slots,), dtype=torch.bool,
+                                        pin_memory=pin)
+        self._toks = torch.zeros((num_slots,), dtype=torch.int32,
+                                 device=self.device)
+        self._active = torch.zeros((num_slots,), dtype=torch.bool,
+                                   device=self.device)
         self._time = time_fn or time.monotonic
         # a wall clock advances with real time, so idle gaps sleep; injected
         # virtual clocks advance per call and must not
@@ -163,6 +201,8 @@ class ServingEngine:
         self.decode_steps = 0
         self.decode_wall = 0.0
         self.prefill_calls = 0
+        self.tokens_generated = 0
+        self._active_slot_iterations = 0
         # prompt tokens run through a prefill (the unmatched suffixes in
         # block-paged mode: radix-matched tokens never reach the device)
         self.prefill_tokens_computed = 0
@@ -176,11 +216,38 @@ class ServingEngine:
                                                                bucket)
         return self._prefill[bucket]
 
+    @property
+    def program_count(self) -> int:
+        """Serving programs built so far: one prefill per bucket used, the
+        decode step, and with the prefix cache the copy-on-write block copy
+        (``len(buckets) + 1`` after warm-up, + 1 block-paged), as the
+        reference counts them."""
+        return len(self._prefill) + 1 + (self._copy_fn is not None)
+
+    def program_cache_sizes(self) -> Dict[str, int]:
+        """Entry count per serving program, by the reference's names: each
+        must stay 1 after any trace (a second entry means an operand's
+        shape or dtype varied; on the card, a second capture)."""
+        out = {"decode": self._decode._cache_size()}
+        for b, fn in self._prefill.items():
+            out[f"prefill_{b}"] = fn._cache_size()
+        if self._copy_fn is not None:
+            out["block_copy"] = self._copy_fn._cache_size()
+        return out
+
+    def recompile_count(self) -> int:
+        """Entries past the first across the serving programs: any value
+        above 0 means a program recompiled (was captured again) after
+        warm-up."""
+        return sum(max(0, v - 1) for v in self.program_cache_sizes().values())
+
     def warmup(self) -> None:
         """Run every bucket's prefill and the decode step once on dummy
-        data (this builds the CUDA kernels and warms the libraries), then
-        reset the slot lengths. Block-paged warm-up prefills through a
-        sentinel table row, so its writes land in the garbage row."""
+        data (block-paged: and the block copy, the garbage row onto itself),
+        then reset the slot lengths. The decode call builds the CUDA
+        kernels and captures the step's CUDA graph, off the served trace.
+        Block-paged warm-up prefills through a sentinel table row, so its
+        writes land in the garbage row."""
         if self._warm:
             return
         params = self.engine.params
@@ -189,13 +256,15 @@ class ServingEngine:
             out = self._prefill_fn(b)(params, *self.cache.carry(), ids,
                                       *self.cache.prefill_args(0, 0, 1))
             self.cache.update(*out[:3])
-        toks = torch.zeros((self.num_slots,), dtype=torch.int32,
-                           device=self.device)
-        active = torch.zeros((self.num_slots,), dtype=torch.bool,
-                             device=self.device)
+        self._active.zero_()
         out = self._decode(params, *self.cache.carry(),
-                           *self.cache.decode_args(), toks, active)
+                           *self.cache.decode_args(), self._toks, self._active)
         self.cache.update(*out[:3])
+        if self._copy_fn is not None:
+            # the copy-on-write program: the garbage row onto itself
+            self.cache.update_kv(*self._copy_fn(
+                self.cache.k, self.cache.v, self.cache.sentinel,
+                self.cache.sentinel))
         self.cache.lengths.zero_()
         self._warm = True
 
@@ -241,6 +310,18 @@ class ServingEngine:
             # insert-on-finish: the prompt's full blocks go to the radix
             # index, the rest are freed, the table row parks at the sentinel
             self.prefix.finish(slot)
+        if self.telemetry is not None:
+            res, reg = st.result, self.telemetry
+            reg.counter("serving/finished_requests").inc()
+            reg.histogram("serving/latency_ms").observe(res.latency * 1e3)
+            # decode-phase iterations only: TTFT covers the prefill
+            if res.decode_calls > 0:
+                tpot = max(res.finish_time - res.first_token_time,
+                           0.0) / res.decode_calls * 1e3
+                reg.histogram("serving/tpot_ms").observe(tpot)
+                reg.histogram(
+                    f"serving/tpot_ms/p{metric_label(res.priority)}"
+                ).observe(tpot)
         return st.result
 
     def _maybe_finish(self, slot: int, now: float) -> Optional[RequestResult]:
@@ -282,9 +363,15 @@ class ServingEngine:
             res.finish_time = self._now(now)
             res.finish_reason = "shed_deadline"
             finished.append(res)
+            if self.telemetry is not None:
+                self.telemetry.counter("serving/shed_deadline").inc()
             return
         st = _SlotState(req, res, last_token=0)
         self._slots[slot] = st
+        if self.telemetry is not None:
+            self.telemetry.counter("serving/prefills").inc()
+            self.telemetry.histogram("serving/queue_wait_ms").observe(
+                max(now - req.arrival_time, 0.0) * 1e3)
         start = 0
         if self.prefix is not None:
             start, copies = self.prefix.admit(slot, req.prompt,
@@ -303,6 +390,7 @@ class ServingEngine:
         self.cache.update(*out[:3])
         tok = int(out[3])          # the token must reach the host stream
         self.prefill_calls += 1
+        self.tokens_generated += 1
         self.prefill_tokens_computed += n
         res.prefill_chunks += 1
         st.last_token = tok
@@ -310,6 +398,11 @@ class ServingEngine:
         t_emit = self._now(now)
         res.first_token_time = t_emit
         res.token_times.append(t_emit)
+        if self.telemetry is not None:
+            ttft = max(t_emit - req.arrival_time, 0.0) * 1e3
+            self.telemetry.histogram("serving/ttft_ms").observe(ttft)
+            self.telemetry.histogram(
+                f"serving/ttft_ms/p{metric_label(req.priority)}").observe(ttft)
         self._stream(st, [tok])
         done = self._maybe_finish(slot, now)
         if done is not None:
@@ -342,20 +435,27 @@ class ServingEngine:
 
     def _plain_step(self, now: float, active_slots: List[int],
                     finished: List[RequestResult]) -> List[RequestResult]:
-        toks = np.full((self.num_slots,), self.pad_token_id, np.int32)
+        # the previous step's read of its picks synchronized the stream, so
+        # the pinned host buffers are free to write
+        toks, active = self._toks_host.numpy(), self._active_host.numpy()
+        toks.fill(self.pad_token_id)
+        active.fill(False)
         for i in active_slots:
             toks[i] = self._slots[i].last_token
-        active = np.zeros((self.num_slots,), bool)
         active[active_slots] = True
         t0 = time.perf_counter()
+        self._toks.copy_(self._toks_host, non_blocking=True)
+        self._active.copy_(self._active_host, non_blocking=True)
         out = self._decode(self.engine.params, *self.cache.carry(),
-                           *self.cache.decode_args(),
-                           torch.from_numpy(toks).to(self.device),
-                           torch.from_numpy(active).to(self.device))
+                           *self.cache.decode_args(), self._toks,
+                           self._active)
         self.cache.update(*out[:3])
-        nxt = out[3].cpu().numpy()   # decode's picks feed the host streams
+        # the stream's one host read per step: the picks feed the streams
+        nxt = out[3].cpu().numpy()
         self.decode_wall += time.perf_counter() - t0
         self.decode_steps += 1
+        self._active_slot_iterations += len(active_slots)
+        self.tokens_generated += len(active_slots)
         t_emit = self._now(now)
         for i in active_slots:
             st = self._slots[i]
@@ -381,6 +481,7 @@ class ServingEngine:
             self.warmup()
         t0 = self._time()
         self._run_t0 = t0
+        tokens_before = self.tokens_generated
         results: List[RequestResult] = []
         stall = 0
         while self.pending:
@@ -399,4 +500,38 @@ class ServingEngine:
                     continue
             stall = 0
             results.extend(self.step(now))
+        if self.telemetry is not None:
+            self._record_run_telemetry(len(results), self._time() - t0,
+                                       self.tokens_generated - tokens_before)
         return results
+
+    def _record_run_telemetry(self, n_finished: int, elapsed: float,
+                              run_tokens: int) -> None:
+        """The reference's per-run gauges: rates over this run, the queue's
+        peak, the compile-once contract, batch fill and, block-paged, the
+        pool and prefix-cache gauges."""
+        reg = self.telemetry
+        reg.gauge("serving/run_elapsed_s").set(elapsed)
+        if elapsed > 0:
+            reg.gauge("serving/finished_requests_per_sec").set(
+                n_finished / elapsed)
+            reg.gauge("serving/tokens_per_sec").set(run_tokens / elapsed)
+        reg.gauge("serving/peak_queue_depth").set(
+            self.scheduler.peak_queue_depth)
+        reg.gauge("serving/compiled_programs").set(self.program_count)
+        reg.gauge("serving/jit_cache_entries").set(
+            sum(self.program_cache_sizes().values()))
+        reg.gauge("serving/recompiles").set(self.recompile_count())
+        if self.decode_steps:
+            reg.gauge("serving/mean_batch_fill_ratio").set(
+                self._active_slot_iterations
+                / (self.decode_steps * self.num_slots))
+        if self.prefix is not None:
+            reg.gauge("serving/kv_pool_bytes").set(self.cache.hbm_bytes())
+            reg.gauge("serving/kv_blocks_per_mib").set(
+                self.cache.blocks_per_mib())
+            reg.gauge("serving/prefix_hit_rate").set(self.prefix.hit_rate())
+            reg.gauge("serving/prefix_pool_occupancy").set(
+                self.cache.occupancy())
+            reg.gauge("serving/prefix_cached_blocks").set(
+                self.prefix.cached_blocks())

@@ -18,7 +18,9 @@ table width are written there too.
 
 Host-side bookkeeping (free list, pin refcounts, the tables) is numpy; the
 device sees the pool tensors, the per-slot lengths and the table, whose
-device copy is uploaded only after a host-side edit.
+persistent device buffer is refreshed in place only after a host-side
+edit. Every device tensor keeps its address for the pool's life: the
+decode program's CUDA graph reads them there.
 
 With ``kv_dtype`` "int8" or "fp8" the pools are ``{"q": payload, "s":
 scales}`` dicts (serving/kv_quant.py); the write paths quantize on store
@@ -96,7 +98,9 @@ class BlockKVPool:
                               self.sentinel, np.int32)
         self._free: List[int] = list(range(num_blocks - 1, -1, -1))
         self.ref = np.zeros((num_blocks,), np.int64)
-        self._tables_dev = None  # device mirror, see table_array()
+        # device mirror, refreshed in place (see table_array())
+        self._tables_dev = torch.from_numpy(self.tables.copy()).to(device)
+        self._tables_stale = False
 
     # ------------------------------------------------------------- carry
     def carry(self) -> Tuple:
@@ -105,24 +109,28 @@ class BlockKVPool:
         return self.k, self.v, self.lengths
 
     def update(self, k, v, lengths) -> None:
-        self.k, self.v, self.lengths = k, v, lengths
+        """Adopt a serving program's returned pools (written in place);
+        ``lengths`` stays the same tensor."""
+        self.k, self.v = k, v
+        if lengths is not self.lengths:
+            self.lengths.copy_(lengths)
 
     def update_kv(self, k, v) -> None:
         self.k, self.v = k, v
 
     def table_array(self) -> torch.Tensor:
-        """The full ``[num_slots, MB]`` int32 block table on the device,
-        cached between calls: tables change only at admit/finish
-        (PrefixCache calls :meth:`invalidate_tables`), so decode steps reuse
-        one upload."""
-        if self._tables_dev is None:
-            self._tables_dev = torch.from_numpy(self.tables.copy()).to(
-                self.device)
+        """The full ``[num_slots, MB]`` int32 block table on the device: one
+        persistent buffer, copied from the host tables only after they
+        changed (at admit/finish, PrefixCache calls
+        :meth:`invalidate_tables`), so decode steps reuse one upload."""
+        if self._tables_stale:
+            self._tables_dev.copy_(torch.from_numpy(self.tables))
+            self._tables_stale = False
         return self._tables_dev
 
     def invalidate_tables(self) -> None:
-        """Drop the device mirror after a host-side table edit."""
-        self._tables_dev = None
+        """Mark the device mirror stale after a host-side table edit."""
+        self._tables_stale = True
 
     def table_row(self, slot: int) -> torch.Tensor:
         """One slot's ``[1, MB]`` table row (the suffix prefill's
@@ -133,12 +141,18 @@ class BlockKVPool:
     # ---------------------------------------------------------- programs
     def prefill_program(self, engine, bucket: int):
         return engine.block_prefill_program(bucket, self.num_slots,
-                                            self.max_blocks_per_slot)
+                                            self.max_blocks_per_slot,
+                                            kv_dtype=self.kv_dtype)
+
+    def copy_program(self, engine):
+        return engine.block_copy_program(self.num_blocks, self.block_size,
+                                         kv_dtype=self.kv_dtype or "compute")
 
     def decode_program(self, engine, pad_token_id: int):
         return engine.block_decode_program(self.num_slots,
                                            self.max_blocks_per_slot,
-                                           pad_token_id=pad_token_id)
+                                           pad_token_id=pad_token_id,
+                                           kv_dtype=self.kv_dtype)
 
     def prefill_args(self, slot: int, start: int, n: int) -> Tuple:
         """The suffix prefill's addressing operands after the ids: the

@@ -5,7 +5,8 @@ One persistent ``[L, B_slots, Hkv, S_max, Dh]`` cache pair whose batch
 dimension is the page table, plus a per-slot int32 ``lengths`` vector on
 the device. Allocated once for the worst case and updated in place by the
 serving programs; a finished request's slot is reused by the next prefill
-with no reshaping. The port keeps the logical unpacked layout, so the
+with no reshaping. Every tensor keeps its address for the cache's life:
+the decode program's CUDA graph reads them there. The port keeps the logical unpacked layout, so the
 token-pair pack factor is always 1."""
 
 from __future__ import annotations
@@ -40,8 +41,11 @@ class SlotKVCache:
         return self.k, self.v, self.lengths
 
     def update(self, k, v, lengths) -> None:
-        """Adopt a serving program's returned tensors."""
-        self.k, self.v, self.lengths = k, v, lengths
+        """Adopt a serving program's returned caches (the programs write in
+        place and return them); ``lengths`` stays the same tensor."""
+        self.k, self.v = k, v
+        if lengths is not self.lengths:
+            self.lengths.copy_(lengths)
 
     # ---------------------------------------------------------- programs
     def prefill_program(self, engine, bucket: int):

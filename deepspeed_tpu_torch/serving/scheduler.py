@@ -90,11 +90,13 @@ class SlotScheduler:
         self._free: deque = deque(range(num_slots))
         self._queues: Dict[int, deque] = {}   # class -> deque[(seq, Request)]
         self._seq = 0
+        self.peak_queue_depth = 0
 
     def submit(self, request: Request) -> None:
         q = self._queues.setdefault(request.priority, deque())
         q.append((self._seq, request))
         self._seq += 1
+        self.peak_queue_depth = max(self.peak_queue_depth, self.waiting)
 
     @property
     def waiting(self) -> int:

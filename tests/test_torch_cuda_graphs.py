@@ -1,0 +1,252 @@
+"""The compile-once contract on the card: the port's decode programs
+replayed from their CUDA graphs (deepspeed_tpu_torch/inference/programs.py).
+
+Marked ``cuda``: each test skips (in its fixture) where no CUDA device is
+present. This file imports neither jax nor the JAX package:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_graphs.py
+
+* The slot decode step (bf16 and int8 block weights), the block decode
+  step over bf16, int8 and fp8 pools, and generate's token step (batch 1 on
+  flash-decode, batch 2 on the fused step, greedy, with EOS and sampled)
+  give tokens bit-identical to the same programs' eager closures, with the
+  same launch counts, and each program is captured once.
+* A persistent operand (the slot lengths) that moved raises.
+* Two sampled generates from the engine's generator draw differently; a
+  seed repeats.
+* An eager decode step under ``torch.cuda.set_sync_debug_mode("error")``
+  reads nothing back to the host.
+* Serving engines with the same shapes on one inference engine each
+  capture their own decode graph and serve alike.
+* The call that captures a graph runs its step once, not twice.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import deepspeed_tpu_torch
+from deepspeed_tpu_torch.inference.programs import (GraphPool, GraphProgram,
+                                                    Program, launch_counters)
+from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from deepspeed_tpu_torch.serving import (Request, ServingEngine,
+                                         poisson_trace, shared_prefix_trace)
+
+pytestmark = pytest.mark.cuda
+
+# Dh 128 routes every kernel; 16 / 2 heads is GQA rep 8 (flash-decode at
+# batch 1 over a thin cache)
+SERVE_CFG = dict(vocab_size=512, max_seq_len=256, num_layers=2,
+                 hidden_size=256, num_heads=2, num_kv_heads=2,
+                 intermediate_size=512)
+GEN_CFG = dict(vocab_size=1024, max_seq_len=512, num_layers=2,
+               hidden_size=2048, num_heads=16, num_kv_heads=2,
+               intermediate_size=1024)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _counts():
+    return {f.__name__: f.launches for f in launch_counters()}
+
+
+def _reset():
+    for f in launch_counters():
+        f.launches = 0
+
+
+def _serve(eng, reqs, eager: bool, **kw):
+    """Serve ``reqs``; with ``eager`` through the decode program's eager
+    closure. Returns the tokens by rid, the launch counts and the engine."""
+    srv = ServingEngine(eng, num_slots=4, max_len=256, buckets=(32, 64),
+                        telemetry=False, **kw)
+    if eager:
+        srv._decode = srv._decode.eager
+    srv.warmup()
+    _reset()
+    out = {r.rid: r.tokens for r in srv.run(
+        [Request(r.rid, r.prompt, r.max_new_tokens) for r in reqs],
+        warmup=False)}
+    torch.cuda.synchronize()
+    return out, _counts(), srv
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_slot_decode_replay_matches_eager(cuda, dtype):
+    eng = deepspeed_tpu_torch.init_inference(LlamaModel(LlamaConfig(**SERVE_CFG)),
+                                             dtype=dtype, seed=3)
+    reqs = poisson_trace(np.random.RandomState(5), 6, rate=1e3,
+                         prompt_lens=[5, 20, 60], max_new_choices=[6, 12],
+                         vocab_size=512)
+    graph, n_graph, srv = _serve(eng, reqs, eager=False)
+    eager, n_eager, _ = _serve(eng, reqs, eager=True)
+    assert graph == eager
+    assert n_graph == n_eager and n_graph["fused_decode_step"] > 0
+    assert (n_graph["int8_matmul_dma"] > 0) == (dtype == "int8")
+    assert srv._decode.captures == 1
+    assert set(srv.program_cache_sizes().values()) == {1}
+    assert srv.recompile_count() == 0
+
+
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"])
+def test_block_decode_replay_matches_eager(cuda, kv):
+    eng = deepspeed_tpu_torch.init_inference(LlamaModel(LlamaConfig(**SERVE_CFG)),
+                                             dtype="bf16", seed=3)
+    reqs = shared_prefix_trace(np.random.RandomState(11), 8, rate=1e3,
+                               prefix_len=41, suffix_lens=(3, 9, 20),
+                               max_new_tokens=8, vocab_size=512)
+    kw = dict(prefix_cache=True, block_size=16, kv_dtype=kv)
+    graph, n_graph, srv = _serve(eng, reqs, eager=False, **kw)
+    eager, n_eager, _ = _serve(eng, reqs, eager=True, **kw)
+    assert graph == eager
+    assert n_graph == n_eager and n_graph["fused_block_decode_step"] > 0
+    assert srv.prefix.blocks_cowed > 0
+    assert set(srv.program_cache_sizes().values()) == {1}
+    assert srv.recompile_count() == 0
+
+
+def test_moved_persistent_operand_raises(cuda):
+    eng = deepspeed_tpu_torch.init_inference(LlamaModel(LlamaConfig(**SERVE_CFG)),
+                                             dtype="bf16", seed=3)
+    srv = ServingEngine(eng, num_slots=4, max_len=256, buckets=(32,),
+                        telemetry=False)
+    srv.warmup()
+    srv.cache.lengths = srv.cache.lengths.clone()
+    srv.submit(Request(0, [1, 2, 3], 4))
+    with pytest.raises(RuntimeError, match="persistent operand"):
+        srv.step()
+
+
+def _generate_both(eng, prompt, max_new, **kw):
+    """generate() replayed, then through the token step's eager closure;
+    the tokens and launch counts of each."""
+    b, t = prompt.shape
+    key = (b, -(-(t + max_new) // 128) * 128, kw.get("do_sample", False),
+           kw.get("top_k", 0), float(kw.get("top_p", 1.0)))
+    out = {}
+    for mode in ("graph", "eager"):
+        state = eng._decode_state(*key) if mode == "eager" else None
+        if state is not None:
+            step = state.step
+            state.step = step.eager
+        _reset()
+        toks = eng.generate(prompt, max_new_tokens=max_new, **kw)
+        out[mode] = (toks, _counts())
+        if state is not None:
+            state.step = step
+    return out
+
+
+@pytest.mark.parametrize("b,route", [(1, "flash_decode"), (2, "fused_decode_step")])
+def test_generate_replay_matches_eager(cuda, b, route):
+    eng = deepspeed_tpu_torch.init_inference(LlamaModel(LlamaConfig(**GEN_CFG)),
+                                             dtype="bf16", seed=3)
+    prompt = np.random.RandomState(17).randint(0, 1024, size=(b, 40))
+    runs = _generate_both(eng, prompt, 12)
+    assert torch.equal(runs["graph"][0], runs["eager"][0])
+    assert runs["graph"][1] == runs["eager"][1]
+    assert runs["graph"][1][route] == 2 * 11
+    eos = int(runs["graph"][0][0, 40 + 3])
+    runs = _generate_both(eng, prompt, 12, eos_token_id=eos, pad_token_id=0)
+    assert torch.equal(runs["graph"][0], runs["eager"][0])
+    assert set(eng.jit_cache_sizes().values()) == {1}
+
+
+def test_sampled_replays_draw_differently(cuda):
+    eng = deepspeed_tpu_torch.init_inference(LlamaModel(LlamaConfig(**GEN_CFG)),
+                                             dtype="bf16", seed=3)
+    prompt = np.random.RandomState(17).randint(0, 1024, size=(2, 40))
+    kw = dict(max_new_tokens=16, do_sample=True, temperature=2.0)
+    a = eng.generate(prompt, **kw)
+    b = eng.generate(prompt, **kw)
+    assert not torch.equal(a[:, 41:], b[:, 41:]), "replays drew the same bits"
+    runs = _generate_both(eng, prompt, 16, do_sample=True, temperature=2.0,
+                          top_k=50, seed=7)
+    assert torch.equal(runs["graph"][0], runs["eager"][0])
+    assert torch.equal(eng.generate(prompt, **kw, top_k=50, seed=7),
+                       runs["graph"][0])
+    assert set(eng.jit_cache_sizes().values()) == {1}
+
+
+def test_gpt2_generate_replay_matches_eager(cuda):
+    cfg = GPT2Config(vocab_size=2048, max_seq_len=256, num_layers=2,
+                     hidden_size=256, num_heads=4)
+    eng = deepspeed_tpu_torch.init_inference(GPT2Model(cfg), dtype="bf16",
+                                             seed=4)
+    prompt = np.random.RandomState(3).randint(0, 2048, size=(2, 30))
+    runs = _generate_both(eng, prompt, 12)
+    assert torch.equal(runs["graph"][0], runs["eager"][0])
+    assert runs["graph"][1]["fused_decode_step"] == 2 * 11
+
+
+def test_eager_decode_steps_read_nothing_back(cuda):
+    eng = deepspeed_tpu_torch.init_inference(LlamaModel(LlamaConfig(**SERVE_CFG)),
+                                             dtype="int8", seed=3)
+    srv = ServingEngine(eng, num_slots=4, max_len=256, buckets=(32,),
+                        telemetry=False)
+    srv.warmup()
+    gen = deepspeed_tpu_torch.init_inference(
+        LlamaModel(LlamaConfig(**GEN_CFG)), dtype="bf16", seed=3)
+    gen.generate(np.zeros((1, 8), np.int64), max_new_tokens=2)
+    [state] = gen._decode_states.values()
+    rng = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        srv._decode.eager(eng.params, *srv.cache.carry(), srv._toks,
+                          srv._active)
+        state.step.eager(gen.params, state.k, state.v, state.index,
+                         state.tok, state.temp, rng)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("prefix_cache", [False, True],
+                         ids=["slot_paged", "block_paged"])
+def test_two_serving_engines_with_one_shape_both_replay(cuda, prefix_cache):
+    """Two serving engines with the same shapes on one inference engine,
+    the second made after the first served and was dropped, and a third
+    beside it: each captures its own graph over its own KV store, and each
+    serves the trace with the eager closure's tokens."""
+    eng = deepspeed_tpu_torch.init_inference(LlamaModel(LlamaConfig(**SERVE_CFG)),
+                                             dtype="bf16", seed=3)
+    reqs = shared_prefix_trace(np.random.RandomState(12), 6, rate=1e3,
+                               prefix_len=41, suffix_lens=(3, 9, 20),
+                               max_new_tokens=8, vocab_size=512)
+    kw = dict(prefix_cache=True, block_size=16) if prefix_cache else {}
+    eager, _, _ = _serve(eng, reqs, eager=True, **kw)
+    first, _, srv = _serve(eng, reqs, eager=False, **kw)
+    del srv
+    second, _, srv2 = _serve(eng, reqs, eager=False, **kw)
+    third, _, srv3 = _serve(eng, reqs, eager=False, **kw)
+    assert first == second == third == eager
+    assert srv2._decode.captures == srv3._decode.captures == 1
+    assert set(eng.jit_cache_sizes().values()) == {1}
+
+
+def test_first_call_runs_the_step_once(cuda):
+    """The call that captures runs the step once (the set-up run is the
+    real step, the capture runs nothing); replays run it once each."""
+    x = torch.zeros((4,), device="cuda")
+
+    def bump(v):
+        v.add_(1)
+        return v * 2
+
+    prog = GraphProgram(Program(bump, "bump"), GraphPool())
+    out = prog(x)
+    torch.cuda.synchronize()
+    assert prog.captures == 1
+    assert x.tolist() == [1.0] * 4 and out.tolist() == [2.0] * 4
+    for n in (2, 3):
+        out = prog(x)
+        torch.cuda.synchronize()
+        assert x.tolist() == [float(n)] * 4 and out.tolist() == [2.0 * n] * 4
+    assert prog.captures == 1 and prog._cache_size() == 1
