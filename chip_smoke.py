@@ -66,6 +66,26 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                tokens; forks taken; the probe check on the longest request,
                replayed through the same pool type; the decode profile,
                its slots on real block tables.
+   serve_preempt_chunked — phase 4's bf16 engine (LLaMA-7B) greedy with
+               chunked prefill (buckets 128 / 512, a 512-token budget)
+               and priority preemption with host KV swap, 8 slots,
+               max_len 2048: 8 class-1 requests at t = 0 (prompts
+               1100-1800, 128 new tokens), a burst of 12 class-0 ones at
+               0.5 s (prompts 16-200, 32-64 new), seeded; slot-paged in
+               bf16 (kernel B), then block-paged over an int8 pool of 480
+               blocks, which binds before the slots (kernel C). Each run:
+               every request finishes; the decode kernel launches 32 x
+               decode steps (the chunk and swap programs launch none); at
+               least one preemption and the swap buffer drained; every
+               program one entry, no recompile; each request's tokens
+               equal its solo run on an engine of the same shapes (through
+               16 tokens past its last preemption, at least 16); on a
+               virtual clock (outputs cut to 24 tokens), replayed tokens
+               equal the eager closure's, greedy and sampled (temperature
+               0.8, top-p 0.9), and the sampled run repeats. Reported:
+               TTFT and TPOT by class, swap traffic and peak host bytes,
+               and the same trace on a monolithic engine (buckets 128 /
+               512 / 2048, no budget, no preemption).
 6. probe_fp32 — LLaMA-7B in fp32: the trace's longest request served alone,
                its kernel-cached replay held to the no-cache forward within
                1e-3 of max |logit|, and its served tokens to the replay.
@@ -2129,6 +2149,231 @@ def phase_serve_block(eng, kv_dtype, smi: str, baseline=None):
     return info, {rid: r.tokens for rid, r in cold["results"].items()}
 
 
+# ------------------------------------------------ serve_preempt_chunked
+PREEMPT_SERVE = dict(num_slots=8, max_len=2048, buckets=(128, 512),
+                     prefill_token_budget=512, preemption="swap")
+# block-paged over an int8 pool: 480 blocks of 16 tokens hold four or five
+# of the 1100-1800-token requests (77-121 blocks each), so the pool binds
+# before the 8 slots do
+PREEMPT_BLOCK = dict(prefix_cache=True, block_size=16, num_blocks=480,
+                     kv_dtype="int8")
+
+
+def _preempt_trace():
+    """8 class-1 requests at t = 0 (prompts 1100-1800 tokens: 3-4 chunks of
+    512; 128 new tokens), then a burst of 12 class-0 requests at 0.5 s
+    (prompts 16-200, 32-64 new tokens), seeded."""
+    rng = np.random.RandomState(2468)
+    reqs = [Request(i, rng.randint(0, 32000, size=int(rng.randint(
+        1100, 1801))).tolist(), 128, arrival_time=0.0, priority=1)
+        for i in range(8)]
+    reqs += [Request(8 + j, rng.randint(0, 32000, size=int(rng.randint(
+        16, 201))).tolist(), int(rng.randint(32, 65)), arrival_time=0.5,
+        priority=0) for j in range(12)]
+    return reqs
+
+
+def _copy_reqs(reqs, max_new=None):
+    return [Request(r.rid, r.prompt, min(r.max_new_tokens, max_new or
+                                         r.max_new_tokens),
+                    arrival_time=r.arrival_time, priority=r.priority)
+            for r in reqs]
+
+
+def _record_preemptions(srv) -> dict:
+    """rid -> the tokens the request had emitted at each of its
+    preemptions (the solo runs must reach past them)."""
+    seen, inner = {}, srv._preempt
+
+    def preempt(slot, now):
+        st = srv._slots[slot]
+        seen.setdefault(st.request.rid, []).append(len(st.result.tokens))
+        inner(slot, now)
+
+    srv._preempt = preempt
+    return seen
+
+
+def _latency_by_class(results) -> dict:
+    """TTFT p50/p95 (s) and TPOT p50/p95 (ms; the engine's TPOT: decode
+    time less the time preempted after the first token, per decode step)
+    by priority class."""
+    out = {}
+    for pri in sorted({r.priority for r in results}):
+        rs = [r for r in results if r.priority == pri]
+        ttft = [r.first_token_latency for r in rs]
+        tpot = [1e3 * max(r.finish_time - r.first_token_time
+                          - r.decode_preempted_wall, 0.0) / r.decode_calls
+                for r in rs if r.decode_calls]
+        out[f"class{pri}"] = {
+            "requests": len(rs), "ttft_p50_s": _pct(ttft, 50),
+            "ttft_p95_s": _pct(ttft, 95), "tpot_p50_ms": _pct(tpot, 50),
+            "tpot_p95_ms": _pct(tpot, 95),
+            "preemptions": sum(r.preemptions for r in rs),
+            "preempted_wall_s": sum(r.preempted_wall for r in rs)}
+    return out
+
+
+def _virtual_tokens(eng, kw, reqs, eager: bool, **sample) -> dict:
+    """The trace (outputs cut to 24 tokens) on a fresh engine under a
+    virtual clock of 0.01 s a read, so the burst lands while the class-1
+    prompts still prefill; with ``eager`` through the decode program's
+    eager closure (as :func:`eager_server`). Returns the tokens by rid."""
+    gc.collect()                         # the previous run's engine
+    srv = ServingEngine(eng, telemetry=False, time_fn=VirtualClock(0.01),
+                        **kw, **sample)
+    if eager:
+        srv._decode = srv._decode.eager
+    toks = {r.rid: r.tokens for r in srv.run(_copy_reqs(reqs, 24))}
+    assert srv.preemptions >= 1, "the virtual-clock run did not preempt"
+    if not eager:
+        serving_programs(srv)
+    return toks
+
+
+def _preempt_run(eng, mode: str, smi: str) -> dict:
+    """One store of the phase (see :func:`phase_serve_preempt_chunked`)."""
+    kw = dict(PREEMPT_SERVE, **(PREEMPT_BLOCK if mode == "block_int8" else {}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    srv = ServingEngine(eng, **kw)
+    t0 = time.perf_counter()
+    srv.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    reqs = _preempt_trace()
+    parked = _record_preemptions(srv)
+
+    reset_counts()                       # the main path starts here
+    t0 = time.perf_counter()
+    results = srv.run(_copy_reqs(reqs), warmup=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+
+    by_rid = {r.rid: r for r in results}
+    assert sorted(by_rid) == [r.rid for r in reqs]
+    for r in reqs:
+        assert len(by_rid[r.rid].tokens) == r.max_new_tokens, r.rid
+    steps, layers = srv.decode_steps, eng.module.config.num_layers
+    kernel = ("fused_block_decode_step" if mode == "block_int8"
+              else "fused_decode_step")
+    other = ("fused_decode_step" if mode == "block_int8"
+             else "fused_block_decode_step")
+    assert launches[kernel] == layers * steps, (launches, steps)
+    assert launches[other] == 0 and launches["int8_matmul_dma"] == 0, launches
+    assert srv.preemptions >= 1, "no preemption"
+    assert len(srv.swap) == 0 and srv.swap.bytes_stored == 0, srv.swap
+    assert srv.swapped_blocks_in >= 1 and srv.swap.peak_bytes > 0
+    programs = serving_programs(srv)
+    assert {"swap_out", "swap_in"} <= set(programs["program_cache_sizes"])
+    swap = {"preemptions": srv.preemptions,
+            "swapped_blocks_out": srv.swapped_blocks_out,
+            "swapped_blocks_in": srv.swapped_blocks_in,
+            "peak_bytes": srv.swap.peak_bytes, "len": len(srv.swap),
+            "bytes_stored": srv.swap.bytes_stored,
+            "tokens_at_preemption": {str(k): v for k, v in parked.items()}}
+    chunks = srv.prefill_chunks
+    decode_ms = 1e3 * srv.decode_wall / steps
+    del srv
+    gc.collect()                         # _record_preemptions' cycle
+
+    # every request alone on an engine of the same shapes (one request at
+    # a time: no neighbour, no radix hit), its tokens through at least 16
+    # past its last preemption
+    t0 = time.perf_counter()
+    solo_srv = ServingEngine(eng, **kw)
+    solo_srv.warmup()
+    cut = {}
+    for r in reqs:
+        n = min(r.max_new_tokens, max([16] + [p + 16 for p in
+                                              parked.get(r.rid, [])]))
+        [res] = solo_srv.run([Request(r.rid, r.prompt, n)], warmup=False)
+        assert res.tokens == by_rid[r.rid].tokens[:n], \
+            f"rid {r.rid}: solo != served ({mode})"
+        cut[r.rid] = n
+    solo_s = time.perf_counter() - t0
+    del solo_srv
+
+    # replayed against eager under a virtual clock: greedy, then sampled
+    # (temperature 0.8, top-p 0.9, the engine's seed) twice and eager
+    t0 = time.perf_counter()
+    graph = _virtual_tokens(eng, kw, reqs, eager=False)
+    vs_eager = replayed_vs_eager(graph, _virtual_tokens(eng, kw, reqs,
+                                                        eager=True))
+    sample = dict(do_sample=True, temperature=0.8, top_p=0.9)
+    sampled = [_virtual_tokens(eng, kw, reqs, eager=False, **sample)
+               for _ in range(2)]
+    assert sampled[0] == sampled[1], "a sampled run did not repeat"
+    assert sampled[0] != graph, "sampled tokens equal the greedy ones"
+    s_eager = _virtual_tokens(eng, kw, reqs, eager=True, **sample)
+    vs_eager_sampled = replayed_vs_eager(sampled[0], s_eager)
+    virtual_s = time.perf_counter() - t0
+
+    gen = sum(len(r.tokens) for r in results)
+    info = {"store": mode, "card": smi, "requests": len(results),
+            "tokens_generated": gen, "decode_steps": steps,
+            "prefill_chunks": chunks, "launches": launches,
+            "wall_s": wall, "tokens_per_s": gen / wall,
+            "ms_per_decode_step": decode_ms,
+            "ttft_p50_s": _pct([r.first_token_latency for r in results], 50),
+            "ttft_p95_s": _pct([r.first_token_latency for r in results], 95),
+            "by_class": _latency_by_class(results), "swap": swap,
+            "solo_identical": True, "solo_tokens_compared": cut,
+            "replayed_vs_eager": vs_eager,
+            "sampled": {"repeat_identical": True, **vs_eager_sampled},
+            "programs": programs, "warmup_s": warm_s, "solo_s": solo_s,
+            "virtual_runs_s": virtual_s,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return info
+
+
+def phase_serve_preempt_chunked(eng, smi: str) -> dict:
+    """LLaMA-7B (phase 4's bf16 engine: published widths and depth, random
+    weights) greedy behind a ServingEngine with chunked prefill (buckets
+    128 / 512, a 512-token budget) and priority preemption with host swap,
+    8 slots, max_len 2048, on :func:`_preempt_trace`: once slot-paged in
+    bf16 (kernel B), once block-paged over an int8 pool that binds before
+    the slots (kernel C). Each run (:func:`_preempt_run`) holds: every
+    request finishes; the decode kernel launched layers x decode steps;
+    at least one preemption, the swap buffer drained; every program one
+    entry, the chunk and swap programs included, no recompile; every
+    request's tokens equal to its solo run on an engine of the same shapes;
+    replayed tokens equal to the eager closure's (greedy, then sampled at
+    temperature 0.8 and top-p 0.9, the sampled run repeating). Reported,
+    not held: TTFT and TPOT by class, and the same trace on a monolithic
+    engine (buckets 128 / 512 / 2048, no budget, no preemption) in the same
+    call."""
+    t0 = time.perf_counter()
+    runs = {mode: _preempt_run(eng, mode, smi)
+            for mode in ("slot_bf16", "block_int8")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    mono = ServingEngine(eng, num_slots=8, max_len=2048,
+                         buckets=(128, 512, 2048))
+    mono.warmup()
+    t1 = time.perf_counter()
+    results = mono.run(_copy_reqs(_preempt_trace()), warmup=False)
+    torch.cuda.synchronize()
+    monolithic = {"wall_s": time.perf_counter() - t1,
+                  "decode_steps": mono.decode_steps,
+                  "ms_per_decode_step": 1e3 * mono.decode_wall
+                  / mono.decode_steps,
+                  "by_class": _latency_by_class(results)}
+    del mono
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in WRAPPERS}
+    info = {"phase": "serve_preempt_chunked", "card": smi,
+            "model": "llama_7b, phase 4's engine (bf16, random weights "
+                     "seed 0)",
+            "config": {**PREEMPT_SERVE, "block": PREEMPT_BLOCK},
+            **runs, "monolithic": monolithic, "launches": launches,
+            "phase_wall_s": time.perf_counter() - t0}
+    emit(info)
+    return info
+
+
 def phase_probe_fp32() -> dict:
     """LLaMA-7B in fp32 (both kernels take f32): the trace's longest request
     served alone, then its logits checked as in the serving phases, with the
@@ -2717,7 +2962,8 @@ def main() -> int:
         if dtype == "bf16":
             blk, bf16_tokens = phase_serve_block(eng, None, dev["nvidia_smi"])
             runs += [blk, phase_serve_block(eng, "int8", dev["nvidia_smi"],
-                                            baseline=bf16_tokens)[0]]
+                                            baseline=bf16_tokens)[0],
+                     phase_serve_preempt_chunked(eng, dev["nvidia_smi"])]
         for run in runs:
             for k in launches:
                 if k not in FLASH:

@@ -10,9 +10,10 @@ weight-only int8 quantization of the stacked block matmul weights
 forward, ``generate`` (a prefill and a decode loop over a stacked cache
 padded to a multiple of 128, with greedy, temperature / top-k / top-p
 sampling from a ``torch.Generator``, and the EOS early exit), and the
-programs the continuous-batching server drives: the slot-paged prefill and
-decode step, and their block-paged analogs (suffix prefill, decode through
-the block table, the copy-on-write block copy). JAX ``jit`` programs become
+programs the continuous-batching server drives: the slot-paged prefill,
+chunk prefill and decode step, their block-paged analogs (suffix or chunk
+prefill, decode through the block table, the copy-on-write block copy),
+and both stores' preemption swap-out and swap-in. JAX ``jit`` programs become
 closures counted by signature as jit counts its entries
 (inference/programs.py), and each decode program (the slot and block
 serving steps, generate's token step) is captured once per signature as a
@@ -21,8 +22,8 @@ buffers the graph reads: the serving engine over its KV store, and for
 generate one decode state per step shape (its cache; the most recently
 used ``MAX_DECODE_STATES`` are kept). The caches are updated in place
 instead of being donated. :meth:`InferenceEngine.jit_cache_sizes` reads
-the entry counts. The serving programs pick greedily (argmax, first
-index on ties); their sampling is not ported.
+the entry counts. The serving programs pick as ``generate`` does: greedily
+(argmax, first index on ties) or by sampling from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -37,7 +38,11 @@ from deepspeed_tpu_torch.compression.quantize import quantize_int8
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.inference.programs import (GraphPool, GraphProgram,
                                                     Program)
-from deepspeed_tpu_torch.ops.attention import write_slot_prefix
+from deepspeed_tpu_torch.ops.attention import (extract_slot_kv,
+                                               gather_pool_blocks,
+                                               insert_slot_kv,
+                                               scatter_pool_blocks,
+                                               write_slot_prefix)
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 
@@ -460,8 +465,12 @@ class InferenceEngine:
                                        top_k, float(top_p))
 
     # ----------------------------------------- continuous-batching programs
+    # Every serving program picks as generate does (greedy, or sampled with
+    # the temperature ``temp`` and the generator ``rng``; greedy takes
+    # ``None``), one program per sampling setting (the reference's keys).
     def slot_prefill_program(self, bucket_len: int, num_slots: int,
-                             max_len: int) -> Callable:
+                             max_len: int, *, do_sample: bool = False,
+                             top_k: int = 0, top_p: float = 1.0) -> Callable:
         """Slot-insert prefill for the serving runtime: run ONE request's
         bucket-padded prompt through a fresh bucket-sized cache, copy the
         prefix K/V into slot ``slot`` of the persistent cache, set the slot's
@@ -470,14 +479,17 @@ class InferenceEngine:
         invisible).
 
         Signature: ``(params, k_slots, v_slots, lengths, ids[1, bucket],
-        slot, length) -> (k_slots, v_slots, lengths, first_token[])``; the
-        slot tensors are updated in place."""
-        key = ("slot_pf", bucket_len, num_slots, max_len)
+        slot, length, temp, rng) -> (k_slots, v_slots, lengths,
+        first_token[])``; the slot tensors are updated in place."""
+        key = ("slot_pf", bucket_len, num_slots, max_len, do_sample, top_k,
+               float(top_p))
         if key not in self._programs:
             model, dtype = self.module, self.dtype
+            pick = self._make_pick(do_sample, top_k, float(top_p))
 
             @torch.no_grad()
-            def prefill(params, k_slots, v_slots, lengths, ids, slot, length):
+            def prefill(params, k_slots, v_slots, lengths, ids, slot, length,
+                        temp, rng):
                 cache = model.init_cache(1, bucket_len, dtype=dtype,
                                          device=k_slots.device)
                 logits, cache = model.forward_with_cache(params, ids, cache)
@@ -485,12 +497,14 @@ class InferenceEngine:
                                   int(slot))
                 lengths[int(slot)] = int(length)
                 last = logits[:, int(length) - 1]                 # [1, V]
-                return k_slots, v_slots, lengths, greedy_pick(last)[0]
+                return k_slots, v_slots, lengths, pick(last, temp, rng)[0]
 
             self._programs[key] = Program(prefill, f"slot prefill {bucket_len}")
         return self._programs[key]
 
     def slot_decode_program(self, num_slots: int, max_len: int, *,
+                            do_sample: bool = False, top_k: int = 0,
+                            top_p: float = 1.0,
                             pad_token_id: int = 0) -> Callable:
         """Persistent-cache decode step: ONE token for every slot against the
         slot cache with the per-slot length vector (read on the device by the
@@ -500,21 +514,26 @@ class InferenceEngine:
         is overwritten by the next prefill into the slot. ``lengths``
         advances in place. Its per-step inputs are ``tokens`` and
         ``active``: the serving engine that owns the slot cache captures
-        it in its own :class:`GraphProgram` on :meth:`graph_pool`.
+        it in its own :class:`GraphProgram` on :meth:`graph_pool` (a
+        sampling step's generator registered with the graph).
 
         Signature: ``(params, k_slots, v_slots, lengths[B], tokens[B],
-        active[B] bool) -> (k_slots, v_slots, lengths, next_tokens[B])``."""
-        key = ("slot_dec", num_slots, max_len, pad_token_id)
+        active[B] bool, temp, rng) -> (k_slots, v_slots, lengths,
+        next_tokens[B])``."""
+        key = ("slot_dec", num_slots, max_len, do_sample, top_k, float(top_p),
+               pad_token_id)
         if key not in self._programs:
             model = self.module
+            pick = self._make_pick(do_sample, top_k, float(top_p))
 
             @torch.no_grad()
-            def decode(params, k_slots, v_slots, lengths, tokens, active):
+            def decode(params, k_slots, v_slots, lengths, tokens, active,
+                       temp, rng):
                 cache = {"k": k_slots, "v": v_slots, "index": lengths}
                 logits, cache = model.forward_with_cache(
                     params, tokens[:, None].long(), cache)
                 pad = torch.full_like(tokens, pad_token_id)
-                nxt = torch.where(active, greedy_pick(logits[:, -1]), pad)
+                nxt = torch.where(active, pick(logits[:, -1], temp, rng), pad)
                 lengths.add_(active.to(lengths.dtype))
                 return cache["k"], cache["v"], lengths, nxt
 
@@ -522,29 +541,104 @@ class InferenceEngine:
                                           inputs=(4, 5))
         return self._programs[key]
 
-    # ------------------------------------------ block-paged serving programs
-    def block_prefill_program(self, bucket_len: int, num_slots: int,
-                              max_blocks: int, *,
-                              kv_dtype: Optional[str] = None) -> Callable:
-        """Suffix prefill against the block pool: run ONE request's
-        bucket-padded unmatched suffix through the pool with the slot's
-        ``[1, MB]`` table row. The suffix attends over the radix-matched
-        prefix already in the pool (``start`` = matched length) and its K/V
-        scatter through the table; pad positions land in the slot's private
-        blocks or the garbage row, never in a shared block (those lie below
-        ``start``). The slot's length becomes ``start + length``.
+    def slot_chunk_prefill_program(self, bucket_len: int, num_slots: int,
+                                   max_len: int, *, do_sample: bool = False,
+                                   top_k: int = 0,
+                                   top_p: float = 1.0) -> Callable:
+        """Mid-prompt chunk prefill against the slot cache: ONE request's
+        bucket-padded chunk runs over slot ``slot``'s own row (a batch-1
+        view, :func:`extract_slot_kv`), so its queries attend over the
+        ``start`` tokens already prefilled there plus the chunk's own causal
+        block, and its K/V land at ``start ..`` in place (the per-slot write
+        path; pad positions past the row are dropped, and those within it
+        lie past the slot's length). The pick at the chunk's true last
+        position is the first token only for the last chunk (the engine
+        reads it then).
 
-        Signature: ``(params, k_pool, v_pool, lengths, ids[1, bucket],
-        table_row[1, MB], slot, start, length) -> (k_pool, v_pool, lengths,
-        first_token[])``; the pools are updated in place. One program per
-        pool type ``kv_dtype`` (None: the compute dtype)."""
-        key = ("blk_pf", bucket_len, num_slots, max_blocks, kv_dtype)
+        Signature: ``(params, k_slots, v_slots, lengths, ids[1, bucket],
+        slot, start, length, temp, rng) -> (k_slots, v_slots, lengths,
+        token[])``."""
+        key = ("slot_chunk_pf", bucket_len, num_slots, max_len, do_sample,
+               top_k, float(top_p))
         if key not in self._programs:
             model = self.module
+            pick = self._make_pick(do_sample, top_k, float(top_p))
+
+            @torch.no_grad()
+            def chunk(params, k_slots, v_slots, lengths, ids, slot, start,
+                      length, temp, rng):
+                k_row, v_row = extract_slot_kv(k_slots, v_slots, int(slot))
+                idx = torch.full((1,), int(start), dtype=torch.int32,
+                                 device=ids.device)
+                logits, _ = model.forward_with_cache(
+                    params, ids, {"k": k_row, "v": v_row, "index": idx})
+                lengths[int(slot)] = int(start) + int(length)
+                last = logits[:, int(length) - 1]                 # [1, V]
+                return k_slots, v_slots, lengths, pick(last, temp, rng)[0]
+
+            self._programs[key] = Program(chunk,
+                                          f"slot chunk prefill {bucket_len}")
+        return self._programs[key]
+
+    def slot_swap_out_program(self, num_slots: int, max_len: int) -> Callable:
+        """Preemption swap-out for the slot cache: slot ``slot``'s row pair
+        (views; the engine copies them to the host). Reads only.
+
+        Signature: ``(k_slots, v_slots, slot) -> (k_row, v_row)``, rows
+        ``[L, 1, Hkv, S, Dh]``."""
+        key = ("slot_swap_out", num_slots, max_len)
+        if key not in self._programs:
+            self._programs[key] = Program(
+                lambda k, v, slot: extract_slot_kv(k, v, int(slot)),
+                "slot swap out")
+        return self._programs[key]
+
+    def slot_swap_in_program(self, num_slots: int, max_len: int) -> Callable:
+        """Preemption swap-in for the slot cache: write a parked row pair
+        (host tensors, pinned on the card) back into slot ``slot`` and
+        restore its length, in place.
+
+        Signature: ``(k_slots, v_slots, k_row, v_row, lengths, slot,
+        length) -> (k_slots, v_slots, lengths)``."""
+        key = ("slot_swap_in", num_slots, max_len)
+        if key not in self._programs:
+
+            @torch.no_grad()
+            def swap_in(k_slots, v_slots, k_row, v_row, lengths, slot, length):
+                insert_slot_kv(k_slots, v_slots, k_row, v_row, int(slot))
+                lengths[int(slot)] = int(length)
+                return k_slots, v_slots, lengths
+
+            self._programs[key] = Program(swap_in, "slot swap in")
+        return self._programs[key]
+
+    # ------------------------------------------ block-paged serving programs
+    def block_prefill_program(self, bucket_len: int, num_slots: int,
+                              max_blocks: int, *, do_sample: bool = False,
+                              top_k: int = 0, top_p: float = 1.0,
+                              kv_dtype: Optional[str] = None) -> Callable:
+        """Suffix prefill against the block pool: run ONE request's
+        bucket-padded unmatched suffix (or a chunk of it: ``start`` is then
+        the chunk's offset) through the pool with the slot's ``[1, MB]``
+        table row. The suffix attends over the prefix already in the pool
+        (``start`` tokens) and its K/V scatter through the table; pad
+        positions land in the slot's private blocks or the garbage row,
+        never in a shared block (those lie below ``start``). The slot's
+        length becomes ``start + length``.
+
+        Signature: ``(params, k_pool, v_pool, lengths, ids[1, bucket],
+        table_row[1, MB], slot, start, length, temp, rng) -> (k_pool,
+        v_pool, lengths, first_token[])``; the pools are updated in place.
+        One program per pool type ``kv_dtype`` (None: the compute dtype)."""
+        key = ("blk_pf", bucket_len, num_slots, max_blocks, do_sample, top_k,
+               float(top_p), kv_dtype)
+        if key not in self._programs:
+            model = self.module
+            pick = self._make_pick(do_sample, top_k, float(top_p))
 
             @torch.no_grad()
             def prefill(params, k_pool, v_pool, lengths, ids, table_row, slot,
-                        start, length):
+                        start, length, temp, rng):
                 idx = torch.full((1,), int(start), dtype=torch.int32,
                                  device=ids.device)
                 cache = {"k": k_pool, "v": v_pool, "index": idx,
@@ -552,13 +646,15 @@ class InferenceEngine:
                 logits, cache = model.forward_with_cache(params, ids, cache)
                 lengths[int(slot)] = int(start) + int(length)
                 last = logits[:, int(length) - 1]                 # [1, V]
-                return cache["k"], cache["v"], lengths, greedy_pick(last)[0]
+                return (cache["k"], cache["v"], lengths,
+                        pick(last, temp, rng)[0])
 
             self._programs[key] = Program(prefill, f"block prefill {bucket_len}")
         return self._programs[key]
 
     def block_decode_program(self, num_slots: int, max_blocks: int, *,
-                             pad_token_id: int = 0,
+                             do_sample: bool = False, top_k: int = 0,
+                             top_p: float = 1.0, pad_token_id: int = 0,
                              kv_dtype: Optional[str] = None) -> Callable:
         """Block-paged decode step: one token for every slot, K/V addressed
         through the full ``[B, MB]`` block table (single-token steps on the
@@ -571,21 +667,23 @@ class InferenceEngine:
         :class:`GraphProgram` on :meth:`graph_pool`.
 
         Signature: ``(params, k_pool, v_pool, lengths[B], tables[B, MB],
-        tokens[B], active[B] bool) -> (k_pool, v_pool, lengths,
+        tokens[B], active[B] bool, temp, rng) -> (k_pool, v_pool, lengths,
         next_tokens[B])``."""
-        key = ("blk_dec", num_slots, max_blocks, pad_token_id, kv_dtype)
+        key = ("blk_dec", num_slots, max_blocks, do_sample, top_k,
+               float(top_p), pad_token_id, kv_dtype)
         if key not in self._programs:
             model = self.module
+            pick = self._make_pick(do_sample, top_k, float(top_p))
 
             @torch.no_grad()
             def decode(params, k_pool, v_pool, lengths, tables, tokens,
-                       active):
+                       active, temp, rng):
                 cache = {"k": k_pool, "v": v_pool, "index": lengths,
                          "block_table": tables}
                 logits, cache = model.forward_with_cache(
                     params, tokens[:, None].long(), cache)
                 pad = torch.full_like(tokens, pad_token_id)
-                nxt = torch.where(active, greedy_pick(logits[:, -1]), pad)
+                nxt = torch.where(active, pick(logits[:, -1], temp, rng), pad)
                 lengths.add_(active.to(lengths.dtype))
                 return cache["k"], cache["v"], lengths, nxt
 
@@ -614,6 +712,43 @@ class InferenceEngine:
                 return k_pool, v_pool
 
             self._programs[key] = Program(copy, "block copy")
+        return self._programs[key]
+
+    def block_swap_out_program(self, num_blocks: int, max_blocks: int, *,
+                               kv_dtype: str = "compute") -> Callable:
+        """Preemption swap-out for the block pool: the contents of the
+        blocks one slot's table row ``[MB]`` names, ``[L, MB, ...]`` per
+        pool leaf (sentinel entries gather the garbage row; the engine
+        parks only the blocks the request used). Reads only.
+
+        Signature: ``(k_pool, v_pool, table[MB]) -> (k_blocks,
+        v_blocks)``."""
+        key = ("blk_swap_out", num_blocks, max_blocks, kv_dtype)
+        if key not in self._programs:
+            self._programs[key] = Program(
+                torch.no_grad()(gather_pool_blocks), "block swap out")
+        return self._programs[key]
+
+    def block_swap_in_program(self, num_blocks: int, max_blocks: int, *,
+                              kv_dtype: str = "compute") -> Callable:
+        """Preemption swap-in for the block pool: scatter uploaded block
+        contents into the pool rows ``dst`` ``[MB]`` names (the entries the
+        restore skips, re-matched shared blocks and unwritten tails, name
+        the garbage row) and restore the slot's length, in place.
+
+        Signature: ``(k_pool, v_pool, k_blocks, v_blocks, dst[MB],
+        lengths, slot, length) -> (k_pool, v_pool, lengths)``."""
+        key = ("blk_swap_in", num_blocks, max_blocks, kv_dtype)
+        if key not in self._programs:
+
+            @torch.no_grad()
+            def swap_in(k_pool, v_pool, k_blocks, v_blocks, dst, lengths,
+                        slot, length):
+                scatter_pool_blocks(k_pool, v_pool, k_blocks, v_blocks, dst)
+                lengths[int(slot)] = int(length)
+                return k_pool, v_pool, lengths
+
+            self._programs[key] = Program(swap_in, "block swap in")
         return self._programs[key]
 
     # ------------------------------------------------------------ contract

@@ -42,6 +42,7 @@ again on every replay.
 
 from __future__ import annotations
 
+import weakref
 from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
@@ -139,15 +140,26 @@ class Program:
 
 class GraphPool:
     """The CUDA graph memory pool that one engine's graph programs share
-    (they never run at once); made at the first capture."""
+    (they never run at once); made at the first capture.
+
+    A capture may join a pool only while a graph captured into it lives:
+    once every such graph is freed, PyTorch's allocator keeps the pool
+    until its memory is released and refuses to capture into it (an
+    internal assert). So the handle is renewed when no graph of the pool is
+    alive (a serving engine dropped before the next one captures)."""
 
     def __init__(self):
         self._handle = None
+        self._graphs: "weakref.WeakSet" = weakref.WeakSet()
 
     def handle(self):
-        if self._handle is None:
+        if self._handle is None or not len(self._graphs):
             self._handle = torch.cuda.graph_pool_handle()
         return self._handle
+
+    def add(self, graph) -> None:
+        """Record a graph captured into the pool."""
+        self._graphs.add(graph)
 
 
 class _Captured:
@@ -242,6 +254,7 @@ class GraphProgram(Program):
         for f, n in zip(counters, before):
             f.launches = n
         entry.graph = graph
+        self.pool.add(graph)
         entry.addresses = [
             (i, j, x.data_ptr()) for i, leaves in enumerate(per_arg)
             if i not in self.inputs

@@ -28,6 +28,7 @@ from deepspeed_tpu_torch.ops.flash_decode import flash_decode
 from deepspeed_tpu_torch.serving.kv_quant import (is_quantized_pool,
                                                   kv_dequantize, kv_dtype_of,
                                                   kv_quantize, pool_payload)
+from deepspeed_tpu_torch.utils.tree import tree_map
 
 _F32_MIN = torch.finfo(torch.float32).min
 
@@ -206,6 +207,60 @@ def write_slot_prefix(k_full, v_full, k_pref, v_pref, slot: int):
     k_full[:, slot:slot + 1, :, :t_b] = k_pref.to(k_full.dtype)
     v_full[:, slot:slot + 1, :, :t_b] = v_pref.to(v_full.dtype)
     return k_full, v_full
+
+
+def extract_slot_kv(k_full, v_full, slot: int):
+    """Slot ``slot``'s row pair of the slot caches as a batch-1 stacked
+    cache ``[L, 1, Hkv, S, Dh]``: views, so the chunk prefill writes the
+    slot in place through them, and the preemption swap-out copies them to
+    the host."""
+    return k_full[:, slot:slot + 1], v_full[:, slot:slot + 1]
+
+
+def insert_slot_kv(k_full, v_full, k_row, v_row, slot: int):
+    """Write a batch-1 row pair (what :func:`extract_slot_kv` gave, on any
+    device: a pinned host row is copied without a sync) back into slot
+    ``slot`` of the slot caches, in place: the preemption swap-in."""
+    k_full[:, slot:slot + 1].copy_(k_row, non_blocking=True)
+    v_full[:, slot:slot + 1].copy_(v_row, non_blocking=True)
+    return k_full, v_full
+
+
+def _bytes(leaf: torch.Tensor) -> torch.Tensor:
+    """An fp8 payload as its bytes (the same bits; index kernels take them)."""
+    if leaf.dtype == torch.float8_e4m3fn:
+        return leaf.view(torch.uint8)
+    return leaf
+
+
+def gather_pool_blocks(k_pool, v_pool, table: torch.Tensor):
+    """The contents of the pool blocks ``table`` ``[MB]`` names, ``[L, MB,
+    ...]`` per pool leaf (payload and scales of a quantized pool alike, so a
+    round trip moves the stored bytes): the preemption swap-out. Sentinel
+    entries gather the garbage row, which the engine does not park."""
+    tbl = table.to(torch.long)
+
+    def g(leaf):
+        return _bytes(leaf).index_select(1, tbl).view(leaf.dtype)
+
+    return tree_map(g, k_pool), tree_map(g, v_pool)
+
+
+def scatter_pool_blocks(k_pool, v_pool, k_blocks, v_blocks,
+                        dst: torch.Tensor):
+    """Write ``[L, MB, ...]`` block contents into the pool rows ``dst``
+    ``[MB]`` names, in place: the preemption swap-in. Entries the restore
+    skips name the garbage row, so the operands' shapes never vary with
+    what is uploaded (which of several writes to the garbage row lands
+    there does not matter)."""
+    idx = dst.to(torch.long)
+
+    def s(leaf, blk):
+        _bytes(leaf).index_copy_(1, idx, _bytes(blk))
+
+    tree_map(s, k_pool, k_blocks)
+    tree_map(s, v_pool, v_blocks)
+    return k_pool, v_pool
 
 
 def pool_block_size(k_pool) -> int:

@@ -1,5 +1,5 @@
 """Continuous-batching serving engine of the PyTorch port (port of the
-greedy slot-paged and block-paged paths of deepspeed_tpu/serving/engine.py).
+slot-paged and block-paged paths of deepspeed_tpu/serving/engine.py).
 
 Between decode iterations the scheduler admits waiting requests into free
 slots; each admission prefills its prompt in the smallest bucket that holds
@@ -31,15 +31,43 @@ copied from pinned host buffers into persistent device buffers.
 :meth:`ServingEngine.program_cache_sizes` and
 :meth:`ServingEngine.recompile_count` read it, as in the reference.
 
+Under overload (the reference's SLO-aware scheduling):
+
+* chunked prefill (``prefill_token_budget``): each iteration prefills at
+  most that many bucket-padded prompt tokens, in chunks of the largest
+  bucket the budget holds, between decode steps; prompts longer than the
+  largest bucket become servable, and TTFT is stamped at the last chunk.
+  Slot-paged chunks run the chunk prefill over the slot's own row,
+  block-paged chunks the suffix prefill from the chunk's offset.
+* priority preemption with host swap (``preemption="swap"``): an arrived
+  request of a strictly better class that cannot be placed swaps the
+  worst lower-class slot's KV out to a host buffer (serving/swap.py,
+  capped by ``swap_max_bytes``); the request is requeued at its original
+  place and swapped back in later, finishing with the tokens of an
+  uninterrupted run.
+* the TPOT guard (``tpot_slo_ms``, ``slo_max_defer``): while the decode
+  gap's moving average exceeds the budget, prefill is deferred for at
+  most ``slo_max_defer`` iterations in a row.
+* sampling (``do_sample``, ``temperature``, ``top_k``, ``top_p``) in every
+  serving program, from a generator seeded from the inference engine's
+  ``config.seed + 1``; a sampled decode step replays from its CUDA graph
+  with the generator registered there.
+* :meth:`ServingEngine.cancel` withdraws a queued, preempted or running
+  request.
+
+The chunk and swap programs run eagerly (counted, not captured), like the
+prefills: they write the KV store and the lengths in place, so the decode
+graph's addresses never move.
+
 ``telemetry`` (True: the global registry; a registry; None/False: off)
 records the reference's serving metrics: finished requests, prefills,
-deadline sheds, latency / queue-wait / TTFT / TPOT histograms, and per
-run the rates and the contract's gauges (``serving/compiled_programs``,
+prefill chunks, deadline sheds, preemptions and swap traffic, latency /
+queue-wait / TTFT / TPOT histograms, and per run the rates and the
+contract's gauges (``serving/compiled_programs``,
 ``serving/jit_cache_entries``, ``serving/recompiles``).
 
 Options the JAX engine has and this port does not yet (speculative
-decoding, preemption, chunked prefill, tracing, SLO control, tenants,
-sampling in the serving programs) raise :class:`EngineConfigError`.
+decoding, tracing, SLO control, tenants) raise :class:`EngineConfigError`.
 """
 
 from __future__ import annotations
@@ -56,28 +84,57 @@ from deepspeed_tpu_torch.serving.errors import (EmptyPromptError,
                                                 EngineInvariantError,
                                                 InvalidMaxNewTokensError,
                                                 PromptTooLongError,
-                                                SlotCapacityError)
+                                                SlotCapacityError,
+                                                SwapCapacityError)
 from deepspeed_tpu_torch.serving.kv_blocks import BlockKVPool
 from deepspeed_tpu_torch.serving.kv_quant import normalize_kv_dtype
 from deepspeed_tpu_torch.serving.kv_slots import SlotKVCache
 from deepspeed_tpu_torch.serving.radix import PrefixCache
 from deepspeed_tpu_torch.serving.scheduler import (Request, RequestResult,
                                                    SlotScheduler, pick_bucket)
+from deepspeed_tpu_torch.serving.swap import HostSwapBuffer
 from deepspeed_tpu_torch.telemetry.registry import get_registry, metric_label
 from deepspeed_tpu_torch.utils.logging import log_dist
 
-_NOT_PORTED = ("speculative", "preemption", "prefill_token_budget", "tracer",
-               "slo", "tenants", "do_sample")
+_NOT_PORTED = ("speculative", "tracer", "slo", "tenants")
 
 
 class _SlotState:
-    __slots__ = ("request", "result", "last_token")
+    """Host-side state of one occupied slot. The slot is in its prefill
+    phase while ``prefill_pos < prefill_total`` (chunked prefill): it
+    spends prefill budget, emits nothing and sits the decode steps out; its
+    first token comes with the last chunk. ``order`` is the engine's
+    admission sequence (chunks continue in class, then admission order)."""
+
+    __slots__ = ("request", "result", "last_token", "prefill_pos",
+                 "prefill_total", "order")
 
     def __init__(self, request: Request, result: RequestResult,
-                 last_token: int):
+                 last_token: int, prefill_pos: int, prefill_total: int,
+                 order: int):
         self.request = request
         self.result = result
         self.last_token = last_token
+        self.prefill_pos = prefill_pos
+        self.prefill_total = prefill_total
+        self.order = order
+
+    @property
+    def prefilling(self) -> bool:
+        return self.prefill_pos < self.prefill_total
+
+
+class _Preempted:
+    """A swapped-out request: its slot state (reattached on resume), the
+    KV length it had computed, and the engine-clock instant it left the
+    slots (the preempted interval is queue wait, not decode latency)."""
+
+    __slots__ = ("state", "length", "since")
+
+    def __init__(self, state: _SlotState, length: int, since: float):
+        self.state = state
+        self.length = length
+        self.since = since
 
 
 class ServingEngine:
@@ -91,6 +148,8 @@ class ServingEngine:
         max_len.
     eos_token_id: finish a request when it emits this token (kept in the
         output).
+    do_sample, temperature, top_k, top_p: token selection of every serving
+        program, as ``InferenceEngine.generate``'s (greedy by default).
     time_fn: clock for arrivals and latency; time.monotonic by default,
         tests inject a virtual clock.
     priority_aging_sec: scheduler aging (one class per this many seconds).
@@ -99,6 +158,12 @@ class ServingEngine:
         every slot can hold a full ``max_len`` request, nothing shared).
     kv_dtype: None (the compute dtype), "int8" or "fp8": the block pool's
         storage (needs ``prefix_cache``).
+    prefill_token_budget: chunked prefill: bucket-padded prompt tokens
+        prefilled per iteration (None: each prompt in one prefill).
+    preemption: "swap" for priority preemption with host KV swap.
+    swap_max_bytes: cap on the host swap buffer's bytes (None: unbounded);
+        a preemption that would pass it is declined.
+    tpot_slo_ms, slo_max_defer: the TPOT guard (needs the budget).
     telemetry: True (default) records into the global registry
         (telemetry/registry.py), a registry records there, None/False
         records nothing.
@@ -107,27 +172,27 @@ class ServingEngine:
     def __init__(self, engine, *, num_slots: int = 8, max_len: int = 1024,
                  buckets: Sequence[int] = (128, 512, 2048),
                  eos_token_id: Optional[int] = None, pad_token_id: int = 0,
+                 do_sample: bool = False, temperature: float = 1.0,
+                 top_k: int = 0, top_p: float = 1.0,
                  time_fn: Optional[Callable[[], float]] = None,
-                 telemetry=True, priority_aging_sec: Optional[float] = None,
+                 telemetry=True, speculative=None,
                  prefix_cache: bool = False, block_size: int = 16,
-                 num_blocks: Optional[int] = None, speculative=None,
+                 num_blocks: Optional[int] = None,
+                 kv_dtype: Optional[str] = None,
+                 prefill_token_budget: Optional[int] = None,
                  preemption: Optional[str] = None,
-                 prefill_token_budget: Optional[int] = None, tracer=None,
-                 slo=None, tenants: Optional[bool] = None,
-                 kv_dtype: Optional[str] = None, do_sample: bool = False):
+                 swap_max_bytes: Optional[int] = None,
+                 priority_aging_sec: Optional[float] = None,
+                 tpot_slo_ms: Optional[float] = None,
+                 slo_max_defer: int = 4, tracer=None, slo=None,
+                 tenants: Optional[bool] = None):
         requested = {"speculative": speculative not in (None, "off"),
-                     "preemption": preemption, "prefill_token_budget":
-                     prefill_token_budget, "tracer": tracer, "slo": slo,
-                     "tenants": tenants, "do_sample": do_sample}
+                     "tracer": tracer, "slo": slo, "tenants": tenants}
         for name in _NOT_PORTED:
             if requested[name]:
-                what = ("sampling in the serving programs (InferenceEngine."
-                        "generate samples; the slot and block programs pick "
-                        "greedily)" if name == "do_sample" else
-                        "greedy slot-paged and block-paged serving only")
                 raise EngineConfigError(
                     f"ServingEngine option {name}={requested[name]!r} is not "
-                    f"ported to the PyTorch engine yet ({what})")
+                    "ported to the PyTorch engine yet")
         self.engine = engine
         self.telemetry = get_registry() if telemetry is True else (
             telemetry or None)
@@ -164,10 +229,6 @@ class ServingEngine:
                 f"the decode kernel does not take {self.cache!r} with "
                 f"{mcfg.num_heads} query heads (ops/decode_step.py "
                 "supports / supports_block)")
-        # the decode step's CUDA graphs read this engine's KV store, so
-        # they are this engine's (on the inference engine's graph pool)
-        self._decode = GraphProgram(
-            self.cache.decode_program(engine, pad_token_id), engine.graph_pool)
         self.buckets = tuple(sorted({min(b, max_len) for b in buckets}))
         if not self.buckets:
             raise EngineConfigError(f"no prefill buckets given: {buckets}")
@@ -176,6 +237,53 @@ class ServingEngine:
         self.eos_token_id = eos_token_id
         self.pad_token_id = pad_token_id
         self.device = engine.device
+        self.do_sample = do_sample
+        self._temp = max(float(temperature), 1e-6)
+        self._sample_kw = dict(do_sample=do_sample, top_k=top_k,
+                               top_p=float(top_p))
+        # sampled picks draw from this generator (the reference's
+        # PRNGKey(seed + 1)); greedy programs take None
+        self._rng = torch.Generator(device=self.device).manual_seed(
+            engine.config.seed + 1) if do_sample else None
+        # the decode step's CUDA graphs read this engine's KV store, so
+        # they are this engine's (on the inference engine's graph pool)
+        self._decode = GraphProgram(
+            self.cache.decode_program(engine, pad_token_id, **self._sample_kw),
+            engine.graph_pool)
+
+        # ---- SLO-aware scheduling
+        if prefill_token_budget is not None:
+            if prefill_token_budget < self.buckets[0]:
+                raise EngineConfigError(
+                    f"prefill_token_budget {prefill_token_budget} below the "
+                    f"smallest prefill bucket {self.buckets[0]}: no chunk "
+                    f"program could ever run under it")
+            # chunks are the largest bucket the budget holds (the chunk
+            # count is data, the bucket set fixed)
+            self._chunk_max: Optional[int] = max(
+                b for b in self.buckets if b <= prefill_token_budget)
+        else:
+            self._chunk_max = None
+        self.prefill_token_budget = prefill_token_budget
+        if preemption not in (None, "swap"):
+            raise EngineConfigError(f"preemption policy must be None or "
+                                    f"'swap', got {preemption!r}")
+        self.preemption = preemption
+        self.swap = HostSwapBuffer(max_bytes=swap_max_bytes) \
+            if preemption else None
+        self._preempted: Dict[int, _Preempted] = {}
+        if tpot_slo_ms is not None and prefill_token_budget is None:
+            raise EngineConfigError(
+                "tpot_slo_ms needs prefill_token_budget: the SLO guard "
+                "defers budgeted prefill work, and monolithic admission "
+                "has no budget to defer")
+        self.tpot_slo_ms = tpot_slo_ms
+        self._slo_max_defer = slo_max_defer
+        self._defer_streak = 0
+        self._decode_gap_ema: Optional[float] = None
+        self._last_decode_t: Optional[float] = None
+        self._admit_seq = 0
+
         # the decode step's per-step inputs: host arrays (pinned on the
         # card) copied into persistent device buffers, the addresses the
         # step's CUDA graph reads
@@ -198,6 +306,11 @@ class ServingEngine:
         self._warm = False
         self._run_t0: Optional[float] = None
         self._prefill: Dict[int, Callable] = {}
+        # slot-paged chunk prefills (block-paged chunks run the suffix
+        # prefill from their offset)
+        self._chunk_prefill: Dict[int, Callable] = {}
+        self._swap_out_fn: Optional[Callable] = None
+        self._swap_in_fn: Optional[Callable] = None
         self.decode_steps = 0
         self.decode_wall = 0.0
         self.prefill_calls = 0
@@ -206,23 +319,49 @@ class ServingEngine:
         # prompt tokens run through a prefill (the unmatched suffixes in
         # block-paged mode: radix-matched tokens never reach the device)
         self.prefill_tokens_computed = 0
+        self.prefill_chunks = 0
+        self.preemptions = 0
+        # swap traffic in pool blocks (block-paged) or slot pages (the
+        # slot's whole row, one per trip)
+        self.swapped_blocks_out = 0
+        self.swapped_blocks_in = 0
+        self.swap_capacity_rejections = 0
+        self.slo_deferred_steps = 0
         log_dist(f"ServingEngine: slots={num_slots} max_len={max_len} "
                  f"buckets={self.buckets} cache={self.cache!r}", ranks=[0])
 
     # ---------------------------------------------------------- programs
     def _prefill_fn(self, bucket: int):
         if bucket not in self._prefill:
-            self._prefill[bucket] = self.cache.prefill_program(self.engine,
-                                                               bucket)
+            self._prefill[bucket] = self.cache.prefill_program(
+                self.engine, bucket, **self._sample_kw)
         return self._prefill[bucket]
+
+    def _chunk_fn(self, bucket: int):
+        """Slot-paged mid-prompt chunk prefill (it starts at an offset into
+        the slot's own row, where the monolithic prefill starts at 0)."""
+        if bucket not in self._chunk_prefill:
+            self._chunk_prefill[bucket] = self.cache.chunk_program(
+                self.engine, bucket, **self._sample_kw)
+        return self._chunk_prefill[bucket]
+
+    def _build_swap_programs(self) -> None:
+        """The preemption swap-out and swap-in programs (built at warm-up
+        when the policy is on, so a first preemption builds nothing)."""
+        if self._swap_out_fn is None:
+            self._swap_out_fn, self._swap_in_fn = \
+                self.cache.swap_programs(self.engine)
 
     @property
     def program_count(self) -> int:
-        """Serving programs built so far: one prefill per bucket used, the
-        decode step, and with the prefix cache the copy-on-write block copy
-        (``len(buckets) + 1`` after warm-up, + 1 block-paged), as the
-        reference counts them."""
-        return len(self._prefill) + 1 + (self._copy_fn is not None)
+        """Serving programs built so far, as the reference counts them: one
+        prefill per bucket used, the decode step, the slot-paged chunk
+        prefills, the swap-out and swap-in pair, and with the prefix cache
+        the copy-on-write block copy (``len(buckets) + 1`` after warm-up
+        with no option, + 1 block-paged)."""
+        return (len(self._prefill) + 1 + len(self._chunk_prefill)
+                + 2 * (self._swap_out_fn is not None)
+                + (self._copy_fn is not None))
 
     def program_cache_sizes(self) -> Dict[str, int]:
         """Entry count per serving program, by the reference's names: each
@@ -231,6 +370,11 @@ class ServingEngine:
         out = {"decode": self._decode._cache_size()}
         for b, fn in self._prefill.items():
             out[f"prefill_{b}"] = fn._cache_size()
+        for b, fn in self._chunk_prefill.items():
+            out[f"chunk_prefill_{b}"] = fn._cache_size()
+        if self._swap_out_fn is not None:
+            out["swap_out"] = self._swap_out_fn._cache_size()
+            out["swap_in"] = self._swap_in_fn._cache_size()
         if self._copy_fn is not None:
             out["block_copy"] = self._copy_fn._cache_size()
         return out
@@ -242,23 +386,41 @@ class ServingEngine:
         return sum(max(0, v - 1) for v in self.program_cache_sizes().values())
 
     def warmup(self) -> None:
-        """Run every bucket's prefill and the decode step once on dummy
-        data (block-paged: and the block copy, the garbage row onto itself),
-        then reset the slot lengths. The decode call builds the CUDA
-        kernels and captures the step's CUDA graph, off the served trace.
-        Block-paged warm-up prefills through a sentinel table row, so its
-        writes land in the garbage row."""
+        """Run every serving program once on dummy data: each bucket's
+        prefill (slot-paged under a budget: and its chunk prefill, for the
+        buckets a chunk can take), with preemption the swap round trip, the
+        decode step (block-paged: and the block copy, the garbage row onto
+        itself), then reset the slot lengths. The decode call builds the
+        CUDA kernels and captures the step's CUDA graph, off the served
+        trace. Block-paged warm-up prefills and swaps through sentinel
+        table rows, so its writes land in the garbage row. A sampling
+        engine warms up on a generator of its own: the served trace's draws
+        start from the engine's seed."""
         if self._warm:
             return
         params = self.engine.params
+        paged = self.prefix is not None
+        rng = (torch.Generator(device=self.device).manual_seed(0)
+               if self.do_sample else None)
         for b in self.buckets:
             ids = torch.zeros((1, b), dtype=torch.long, device=self.device)
             out = self._prefill_fn(b)(params, *self.cache.carry(), ids,
-                                      *self.cache.prefill_args(0, 0, 1))
+                                      *self.cache.prefill_args(0, 0, 1),
+                                      self._temp, rng)
             self.cache.update(*out[:3])
+            if (self._chunk_max is not None and not paged
+                    and b <= self._chunk_max):
+                out = self._chunk_fn(b)(params, *self.cache.carry(), ids,
+                                        *self.cache.chunk_args(0, 0, 1),
+                                        self._temp, rng)
+                self.cache.update(*out[:3])
+        if self.preemption is not None:
+            self._build_swap_programs()
+            self.cache.warm_swap(self._swap_out_fn, self._swap_in_fn)
         self._active.zero_()
         out = self._decode(params, *self.cache.carry(),
-                           *self.cache.decode_args(), self._toks, self._active)
+                           *self.cache.decode_args(), self._toks, self._active,
+                           self._temp, rng)
         self.cache.update(*out[:3])
         if self._copy_fn is not None:
             # the copy-on-write program: the garbage row onto itself
@@ -278,10 +440,12 @@ class ServingEngine:
             raise InvalidMaxNewTokensError(
                 f"request {request.rid}: max_new_tokens must be >= 1, "
                 f"got {request.max_new_tokens}")
-        if pick_bucket(plen, self.buckets) is None:
+        if self._chunk_max is None and pick_bucket(plen, self.buckets) is None:
             raise PromptTooLongError(
                 f"request {request.rid}: prompt length {plen} exceeds the "
-                f"largest prefill bucket {self.buckets[-1]}")
+                f"largest prefill bucket {self.buckets[-1]} (set "
+                f"prefill_token_budget to serve longer prompts via "
+                f"chunked prefill)")
         if not self.cache.capacity_for(plen, request.max_new_tokens):
             raise SlotCapacityError(
                 f"request {request.rid}: prompt {plen} + max_new "
@@ -289,12 +453,39 @@ class ServingEngine:
                 f"{self.max_len}")
         self.scheduler.submit(request)
 
+    def cancel(self, rid: int) -> bool:
+        """Withdraw a request wherever it is. Queued: removed from the
+        scheduler (a preempted request's parked KV is dropped, not counted
+        as a swap-in). Running: its slot is freed; block-paged, the blocks
+        it computed are donated to the radix index (valid prefixes; an
+        unwritten tail is not) and the rest freed. False when the rid is
+        unknown or finished; a cancelled request emits no result."""
+        if self.scheduler.remove(rid):
+            if self._preempted.pop(rid, None) is not None:
+                self.swap.discard(rid)
+            return True
+        for i, st in enumerate(self._slots):
+            if st is not None and st.request.rid == rid:
+                self._slots[i] = None
+                self.scheduler.release(i)
+                if self.prefix is not None:
+                    # the computed length caps the donation (a host read)
+                    self.prefix.finish(i, donate_upto=int(
+                        self.cache.lengths[i]))
+                return True
+        return False
+
     @property
     def pending(self) -> int:
         """Requests not yet finished (queued + in flight)."""
         return self.scheduler.waiting + sum(s is not None for s in self._slots)
 
     # --------------------------------------------------------- iteration
+    def _next_rng(self) -> Optional[torch.Generator]:
+        """The generator a program call draws from (None when greedy); each
+        draw advances it."""
+        return self._rng
+
     def _now(self, fallback: float) -> float:
         if self._run_t0 is None:
             return fallback
@@ -314,9 +505,11 @@ class ServingEngine:
             res, reg = st.result, self.telemetry
             reg.counter("serving/finished_requests").inc()
             reg.histogram("serving/latency_ms").observe(res.latency * 1e3)
-            # decode-phase iterations only: TTFT covers the prefill
+            # decode-phase iterations only: TTFT covers the prefill, and
+            # time preempted after the first token is queue wait
             if res.decode_calls > 0:
-                tpot = max(res.finish_time - res.first_token_time,
+                tpot = max(res.finish_time - res.first_token_time
+                           - res.decode_preempted_wall,
                            0.0) / res.decode_calls * 1e3
                 reg.histogram("serving/tpot_ms").observe(tpot)
                 reg.histogram(
@@ -334,9 +527,12 @@ class ServingEngine:
         return None
 
     def _admit_fits(self, req: Request) -> bool:
-        """The scheduler's ``fits`` hook: block-paged admission needs the
+        """The scheduler's ``fits`` hook: slot-paged, a free slot suffices;
+        block-paged admission (a fresh request or a resume alike) needs the
         request's unmatched blocks (prompt + max_new, minus radix-matched
         full blocks) from free + evictable pool blocks."""
+        if self.prefix is None:
+            return True
         return self.prefix.fits(req.prompt,
                                 len(req.prompt) + req.max_new_tokens)
 
@@ -347,31 +543,116 @@ class ServingEngine:
             for t in tokens:
                 cb(int(t))
 
+    def _iteration_prefill_budget(self, now: float) -> Optional[int]:
+        """Prefill tokens this iteration may spend (None: unlimited,
+        monolithic). With ``tpot_slo_ms``, an iteration whose decode-gap
+        average exceeds it while decode-phase slots exist defers all
+        prefill (returns 0), at most ``slo_max_defer`` times in a row. The
+        streak counts only iterations with prefill work to defer (a chunked
+        prompt in flight or an arrived fresh head)."""
+        budget = self.prefill_token_budget
+        if budget is None:
+            return None
+        at_risk = (self.tpot_slo_ms is not None
+                   and self._decode_gap_ema is not None
+                   and self._decode_gap_ema * 1e3 > self.tpot_slo_ms
+                   and any(s is not None and not s.prefilling
+                           for s in self._slots))
+        if not at_risk:
+            self._defer_streak = 0
+            return budget
+        head = self.scheduler.peek(now)
+        work = (any(s is not None and s.prefilling for s in self._slots)
+                or (head is not None and head.rid not in self._preempted))
+        if not work:
+            return budget       # nothing to defer; streak untouched
+        if self._defer_streak >= self._slo_max_defer:
+            self._defer_streak = 0
+            return budget
+        self._defer_streak += 1
+        self.slo_deferred_steps += 1
+        if self.telemetry is not None:
+            self.telemetry.counter("serving/slo_deferred_steps").inc()
+        return 0
+
+    def _schedule(self, now: float, finished: List[RequestResult]) -> None:
+        """The admit/prefill side of one iteration, under its prefill
+        budget: in-flight chunked prefills first (class, then admission
+        order), except those the queue head strictly outranks, whose share
+        is yielded to it; then admissions one request per scheduler call
+        (each takes resources the next ``fits`` check must see), preempting
+        lower-class slots when the policy allows; then any leftover budget
+        back to the prefills still in flight. A resume is a copy, not
+        prefill compute, so it spends no budget."""
+        budget = self._iteration_prefill_budget(now)
+        spent = self._continue_prefills(now, budget, 0, finished,
+                                        yield_to_head=True)
+        while True:
+            if budget is not None and spent >= budget:
+                head = self.scheduler.peek(now)
+                if head is None or head.rid not in self._preempted:
+                    break
+            pairs = self.scheduler.admit(now, fits=self._admit_fits, limit=1)
+            if not pairs:
+                if not self._try_preempt(now):
+                    break
+                continue
+            (req, slot), = pairs
+            if req.rid in self._preempted:
+                self._resume(slot, req, now)
+                continue
+            spent += self._admit_one(
+                slot, req, now, None if budget is None else budget - spent,
+                finished)
+        self._continue_prefills(now, budget, spent, finished,
+                                yield_to_head=False)
+
+    def _continue_prefills(self, now: float, budget: Optional[int],
+                           spent: int, finished: List[RequestResult],
+                           yield_to_head: bool) -> int:
+        """Advance in-flight chunked prefills in (class, admission) order
+        under the remaining budget. With ``yield_to_head``, a slot that the
+        best arrived queue head strictly outranks (raw class and aged
+        priority, preemption's guard) is skipped: its share goes to the
+        head. Returns the budget spent so far."""
+        head = self.scheduler.peek(now) if yield_to_head else None
+        eff = self.scheduler.effective_priority
+        pre = sorted((i for i, s in enumerate(self._slots)
+                      if s is not None and s.prefilling),
+                     key=lambda i: (self._slots[i].request.priority,
+                                    self._slots[i].order))
+        for slot in pre:
+            if budget is not None and spent >= budget:
+                break
+            st = self._slots[slot]
+            if (head is not None and head.priority < st.request.priority
+                    and eff(head, now) < eff(st.request, now)):
+                continue
+            spent += self._run_prefill_chunks(
+                slot, now, None if budget is None else budget - spent,
+                finished)
+        return spent
+
     def _admit_one(self, slot: int, req: Request, now: float,
-                   finished: List[RequestResult]) -> None:
-        """Admit one request into ``slot``: shed it if its deadline passed,
-        else (block-paged: match the prompt against the radix index and run
-        the copy-on-write forks) prefill the prompt, or its unmatched
-        suffix, in the smallest bucket that holds it, and commit the first
-        token."""
+                   budget_left: Optional[int],
+                   finished: List[RequestResult]) -> int:
+        """Admit one fresh request into ``slot``: shed it if its deadline
+        passed, else (block-paged: match the prompt against the radix index
+        and run the copy-on-write forks) prefill as much of the prompt, or
+        of its unmatched suffix, as the budget allows. Returns the prefill
+        tokens spent."""
         plen = len(req.prompt)
-        res = RequestResult(rid=req.rid, prompt_len=plen,
-                            arrival_time=req.arrival_time,
-                            admitted_time=now, priority=req.priority)
         if req.deadline is not None and now > req.deadline:
             self.scheduler.release(slot)
+            res = RequestResult(rid=req.rid, prompt_len=plen,
+                                arrival_time=req.arrival_time,
+                                admitted_time=now, priority=req.priority)
             res.finish_time = self._now(now)
             res.finish_reason = "shed_deadline"
             finished.append(res)
             if self.telemetry is not None:
                 self.telemetry.counter("serving/shed_deadline").inc()
-            return
-        st = _SlotState(req, res, last_token=0)
-        self._slots[slot] = st
-        if self.telemetry is not None:
-            self.telemetry.counter("serving/prefills").inc()
-            self.telemetry.histogram("serving/queue_wait_ms").observe(
-                max(now - req.arrival_time, 0.0) * 1e3)
+            return 0
         start = 0
         if self.prefix is not None:
             start, copies = self.prefix.admit(slot, req.prompt,
@@ -379,59 +660,212 @@ class ServingEngine:
             for src, dst in copies:
                 self.cache.update_kv(*self._copy_fn(
                     self.cache.k, self.cache.v, src, dst))
-        n = plen - start
-        bucket = pick_bucket(n, self.buckets)
-        ids = np.full((1, bucket), self.pad_token_id, np.int64)
-        ids[0, :n] = np.asarray(req.prompt[start:], np.int64)
-        ids = torch.from_numpy(ids).to(self.device)
-        out = self._prefill_fn(bucket)(self.engine.params, *self.cache.carry(),
-                                       ids,
-                                       *self.cache.prefill_args(slot, start, n))
-        self.cache.update(*out[:3])
-        tok = int(out[3])          # the token must reach the host stream
-        self.prefill_calls += 1
-        self.tokens_generated += 1
-        self.prefill_tokens_computed += n
-        res.prefill_chunks += 1
-        st.last_token = tok
-        res.tokens.append(tok)
-        t_emit = self._now(now)
-        res.first_token_time = t_emit
-        res.token_times.append(t_emit)
+        res = RequestResult(rid=req.rid, prompt_len=plen,
+                            arrival_time=req.arrival_time,
+                            admitted_time=now, priority=req.priority)
+        self._slots[slot] = _SlotState(req, res, last_token=0,
+                                       prefill_pos=start, prefill_total=plen,
+                                       order=self._admit_seq)
+        self._admit_seq += 1
         if self.telemetry is not None:
-            ttft = max(t_emit - req.arrival_time, 0.0) * 1e3
-            self.telemetry.histogram("serving/ttft_ms").observe(ttft)
-            self.telemetry.histogram(
-                f"serving/ttft_ms/p{metric_label(req.priority)}").observe(ttft)
-        self._stream(st, [tok])
-        done = self._maybe_finish(slot, now)
-        if done is not None:
-            finished.append(done)
+            self.telemetry.counter("serving/prefills").inc()
+            self.telemetry.histogram("serving/queue_wait_ms").observe(
+                max(now - req.arrival_time, 0.0) * 1e3)
+        return self._run_prefill_chunks(slot, now, budget_left, finished)
 
-    def _schedule(self, now: float, finished: List[RequestResult]) -> None:
-        """Admit one request per scheduler call: each block-paged admission
-        takes pool blocks that the next ``fits`` check must see."""
-        fits = self._admit_fits if self.prefix is not None else None
-        while True:
-            pairs = self.scheduler.admit(now, fits=fits, limit=1)
-            if not pairs:
-                return
-            (req, slot), = pairs
-            self._admit_one(slot, req, now, finished)
+    def _run_prefill_chunks(self, slot: int, now: float,
+                            budget_left: Optional[int],
+                            finished: List[RequestResult]) -> int:
+        """Advance slot ``slot``'s prefill by whole chunks until its prompt
+        is done or the budget is spent (monolithic: one chunk, the whole
+        prompt). Budget is charged in bucket-padded tokens, the compute
+        dispatched. Only the last chunk's pick is read (the first token,
+        which stamps TTFT)."""
+        st = self._slots[slot]
+        req = st.request
+        spent = 0
+        while st.prefilling and (budget_left is None or spent < budget_left):
+            remaining = st.prefill_total - st.prefill_pos
+            chunk = remaining if self._chunk_max is None \
+                else min(remaining, self._chunk_max)
+            last = st.prefill_pos + chunk == st.prefill_total
+            bucket = pick_bucket(chunk, self.buckets)
+            ids = np.full((1, bucket), self.pad_token_id, np.int64)
+            ids[0, :chunk] = np.asarray(
+                req.prompt[st.prefill_pos:st.prefill_pos + chunk], np.int64)
+            ids = torch.from_numpy(ids).to(self.device)
+            pos = st.prefill_pos
+            if self.prefix is None and (pos > 0 or not last):
+                # a chunk of the prompt, from its offset in the slot's row
+                fn, args = self._chunk_fn(bucket), self.cache.chunk_args(
+                    slot, pos, chunk)
+            else:
+                # the whole prompt at once (slot-paged), or a suffix or a
+                # chunk of it from its offset (block-paged)
+                fn, args = self._prefill_fn(bucket), self.cache.prefill_args(
+                    slot, pos, chunk)
+            out = fn(self.engine.params, *self.cache.carry(), ids, *args,
+                     self._temp, self._next_rng())
+            self.cache.update(*out[:3])
+            st.prefill_pos += chunk
+            spent += bucket
+            self.prefill_tokens_computed += chunk
+            self.prefill_chunks += 1
+            st.result.prefill_chunks += 1
+            if self.telemetry is not None:
+                self.telemetry.counter("serving/prefill_chunks").inc()
+            if last:
+                tok = int(out[3])      # the token must reach the host stream
+                self.prefill_calls += 1
+                self.tokens_generated += 1
+                st.last_token = tok
+                st.result.tokens.append(tok)
+                t_emit = self._now(now)
+                st.result.first_token_time = t_emit
+                st.result.token_times.append(t_emit)
+                if self.telemetry is not None:
+                    ttft = max(t_emit - req.arrival_time, 0.0) * 1e3
+                    self.telemetry.histogram("serving/ttft_ms").observe(ttft)
+                    self.telemetry.histogram(
+                        f"serving/ttft_ms/p{metric_label(req.priority)}"
+                    ).observe(ttft)
+                self._stream(st, [tok])
+                done = self._maybe_finish(slot, now)
+                if done is not None:
+                    finished.append(done)
+        return spent
+
+    # -------------------------------------------------------- preemption
+    def _try_preempt(self, now: float) -> bool:
+        """Make room for the best waiting request by swapping out one
+        running slot of a strictly worse class, once admission came up
+        empty. The victim's raw class and its aged priority must both be
+        worse than the candidate's (else, requeued, it would rank ahead of
+        the candidate and swap straight back in). Victim: the worst class,
+        and within it the latest admitted (the least sunk work). Returns
+        True if a slot was freed."""
+        if self.preemption is None:
+            return False
+        cand = self.scheduler.peek(now)
+        if cand is None:
+            return False
+        eff = self.scheduler.effective_priority
+        cand_eff = eff(cand, now)
+        victims = [i for i, s in enumerate(self._slots)
+                   if s is not None and s.request.priority > cand.priority
+                   and eff(s.request, now) > cand_eff]
+        if not victims:
+            return False
+        victim = max(victims, key=lambda i: (self._slots[i].request.priority,
+                                             self._slots[i].order))
+        try:
+            self._preempt(victim, now)
+        except SwapCapacityError:
+            # the buffer is at its cap: declined before any engine state
+            # changed; the candidate waits for a slot to free
+            self.swap_capacity_rejections += 1
+            if self.telemetry is not None:
+                self.telemetry.counter(
+                    "serving/swap_capacity_rejections").inc()
+            return False
+        return True
+
+    def _preempt(self, slot: int, now: float) -> None:
+        """Swap slot ``slot``'s KV out to the host buffer and requeue its
+        request at its original place. Its slot state (emitted tokens,
+        chunk progress) is parked and reattached on resume, so it finishes
+        with the tokens of an uninterrupted run."""
+        st = self._slots[slot]
+        self._build_swap_programs()
+        # the length the slot computed bounds what is parked (a host read)
+        length = int(self.cache.lengths[slot])
+        host_k, host_v, n_used = self.cache.swap_out(self._swap_out_fn, slot,
+                                                     length)
+        self.swap.put(st.request.rid, host_k, host_v)
+        if self.prefix is not None:
+            # the computed full prompt blocks go to the radix index (a
+            # resume usually re-matches them and skips their upload); the
+            # cap keeps a mid-prefill slot's unwritten blocks out
+            self.prefix.finish(slot, donate_upto=length)
+        self.swapped_blocks_out += n_used
+        self._slots[slot] = None
+        self.scheduler.release(slot)
+        self.scheduler.resubmit(st.request)
+        st.result.preemptions += 1
+        self._preempted[st.request.rid] = _Preempted(st, length,
+                                                     self._now(now))
+        self.preemptions += 1
+        if self.telemetry is not None:
+            reg = self.telemetry
+            reg.counter("serving/preemptions").inc()
+            reg.counter("serving/swapped_blocks_out").inc(n_used)
+
+    def _resume(self, slot: int, req: Request, now: float) -> None:
+        """Swap a preempted request back into ``slot``: upload its parked
+        KV, restore its length and reattach its slot state. Block-paged,
+        the prompt is re-matched first: still-cached full prefix blocks are
+        re-pinned and not uploaded (a longer prefix cached meanwhile moves
+        a mid-prefill resume past it)."""
+        rec = self._preempted.pop(req.rid)
+        st = rec.state
+        host_k, host_v = self.swap.pop(req.rid)
+        length = rec.length
+        shared = 0
+        if self.prefix is not None:
+            shared = self.prefix.readmit(slot, req.prompt,
+                                         len(req.prompt) + req.max_new_tokens)
+            length = max(length, min(shared * self.cache.block_size,
+                                     st.prefill_total))
+            if st.prefilling:
+                st.prefill_pos = max(st.prefill_pos, length)
+        swapped_in = self.cache.swap_in(self._swap_in_fn, host_k, host_v,
+                                        slot, length, shared)
+        gap = max(self._now(now) - rec.since, 0.0)
+        st.result.preempted_wall += gap
+        if st.result.tokens:
+            # after the first token: left out of the TPOT span at finish (a
+            # mid-prefill park fell before TTFT)
+            st.result.decode_preempted_wall += gap
+        st.order = self._admit_seq
+        self._admit_seq += 1
+        self._slots[slot] = st
+        self.swapped_blocks_in += swapped_in
+        if self.telemetry is not None:
+            reg = self.telemetry
+            reg.counter("serving/swapped_blocks_in").inc(swapped_in)
+            # the preempted interval is queue wait
+            reg.histogram("serving/queue_wait_ms").observe(gap * 1e3)
 
     def step(self, now: Optional[float] = None) -> List[RequestResult]:
-        """One serving iteration: admissions (with their prefills), then one
-        decode step for every occupied slot. Returns requests finished."""
+        """One serving iteration: the budgeted admit/prefill side (chunk
+        continuations, admissions, preemptions), then one decode step for
+        every decode-phase slot (slots still prefilling sit it out).
+        Returns requests finished."""
         if not self._warm:
             self.warmup()
         if now is None:
             now = self._time()
         finished: List[RequestResult] = []
         self._schedule(now, finished)
-        active_slots = [i for i, s in enumerate(self._slots) if s is not None]
+        active_slots = [i for i, s in enumerate(self._slots)
+                        if s is not None and not s.prefilling]
         if not active_slots:
+            # no decode ran: a later gap would fold idle time into the
+            # TPOT guard's average
+            self._last_decode_t = None
             return finished
+        self._note_decode_gap()
         return self._plain_step(now, active_slots, finished)
+
+    def _note_decode_gap(self) -> None:
+        """Moving average of the host wall time between decode steps: the
+        signal the ``tpot_slo_ms`` guard watches."""
+        t = time.perf_counter()
+        if self._last_decode_t is not None:
+            gap = t - self._last_decode_t
+            self._decode_gap_ema = gap if self._decode_gap_ema is None \
+                else 0.7 * self._decode_gap_ema + 0.3 * gap
+        self._last_decode_t = t
 
     def _plain_step(self, now: float, active_slots: List[int],
                     finished: List[RequestResult]) -> List[RequestResult]:
@@ -448,7 +882,7 @@ class ServingEngine:
         self._active.copy_(self._active_host, non_blocking=True)
         out = self._decode(self.engine.params, *self.cache.carry(),
                            *self.cache.decode_args(), self._toks,
-                           self._active)
+                           self._active, self._temp, self._next_rng())
         self.cache.update(*out[:3])
         # the stream's one host read per step: the picks feed the streams
         nxt = out[3].cpu().numpy()
@@ -508,8 +942,8 @@ class ServingEngine:
     def _record_run_telemetry(self, n_finished: int, elapsed: float,
                               run_tokens: int) -> None:
         """The reference's per-run gauges: rates over this run, the queue's
-        peak, the compile-once contract, batch fill and, block-paged, the
-        pool and prefix-cache gauges."""
+        peak, the compile-once contract, batch fill, the swap buffer and,
+        block-paged, the pool and prefix-cache gauges."""
         reg = self.telemetry
         reg.gauge("serving/run_elapsed_s").set(elapsed)
         if elapsed > 0:
@@ -526,6 +960,13 @@ class ServingEngine:
             reg.gauge("serving/mean_batch_fill_ratio").set(
                 self._active_slot_iterations
                 / (self.decode_steps * self.num_slots))
+        if self.swap is not None:
+            reg.gauge("serving/swap_buffer_bytes").set(self.swap.bytes_stored)
+            reg.gauge("serving/swap_buffer_peak_bytes").set(
+                self.swap.peak_bytes)
+            if self.swap.max_bytes is not None:
+                reg.gauge("serving/swap_buffer_max_bytes").set(
+                    self.swap.max_bytes)
         if self.prefix is not None:
             reg.gauge("serving/kv_pool_bytes").set(self.cache.hbm_bytes())
             reg.gauge("serving/kv_blocks_per_mib").set(

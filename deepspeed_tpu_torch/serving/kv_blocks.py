@@ -42,6 +42,8 @@ from deepspeed_tpu_torch.serving.kv_quant import (normalize_kv_dtype,
                                                   pool_payload,
                                                   quantized_pool_like,
                                                   tree_nbytes)
+from deepspeed_tpu_torch.serving.swap import to_device, to_host
+from deepspeed_tpu_torch.utils.tree import tree_leaves
 
 
 class BlockKVPool:
@@ -139,20 +141,30 @@ class BlockKVPool:
             self.device)
 
     # ---------------------------------------------------------- programs
-    def prefill_program(self, engine, bucket: int):
+    # ``sample``: the serving engine's do_sample / top_k / top_p. A chunk of
+    # a prompt runs the suffix prefill from its offset: no program of its own
+    def prefill_program(self, engine, bucket: int, **sample):
         return engine.block_prefill_program(bucket, self.num_slots,
                                             self.max_blocks_per_slot,
-                                            kv_dtype=self.kv_dtype)
+                                            kv_dtype=self.kv_dtype, **sample)
 
     def copy_program(self, engine):
         return engine.block_copy_program(self.num_blocks, self.block_size,
                                          kv_dtype=self.kv_dtype or "compute")
 
-    def decode_program(self, engine, pad_token_id: int):
+    def decode_program(self, engine, pad_token_id: int, **sample):
         return engine.block_decode_program(self.num_slots,
                                            self.max_blocks_per_slot,
                                            pad_token_id=pad_token_id,
-                                           kv_dtype=self.kv_dtype)
+                                           kv_dtype=self.kv_dtype, **sample)
+
+    def swap_programs(self, engine) -> Tuple:
+        """The preemption swap-out and swap-in programs."""
+        kw = dict(kv_dtype=self.kv_dtype or "compute")
+        return (engine.block_swap_out_program(self.num_blocks,
+                                              self.max_blocks_per_slot, **kw),
+                engine.block_swap_in_program(self.num_blocks,
+                                             self.max_blocks_per_slot, **kw))
 
     def prefill_args(self, slot: int, start: int, n: int) -> Tuple:
         """The suffix prefill's addressing operands after the ids: the
@@ -171,6 +183,45 @@ class BlockKVPool:
         payload = pool_payload(self.k)
         _, _, hkv, bs, dh = payload.shape
         return supports_block(num_heads, hkv, bs, dh, payload.element_size())
+
+    # -------------------------------------------------------------- swap
+    def _row(self, entries) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(entries, np.int32)).to(
+            self.device)
+
+    def swap_out(self, fn, slot: int, length: int) -> Tuple:
+        """Park the blocks slot ``slot`` computed into (``length`` tokens:
+        payload and scales of a quantized pool, the stored bytes) on the
+        host: ``(host_k, host_v, blocks)``. The caller frees the blocks."""
+        n_used = self.blocks_for(length)
+        k_blk, v_blk = fn(self.k, self.v, self._row(self.tables[slot]))
+        return to_host(k_blk, n_used), to_host(v_blk, n_used), n_used
+
+    def swap_in(self, fn, host_k, host_v, slot: int, length: int,
+                shared: int = 0) -> int:
+        """Write parked blocks back through slot ``slot``'s (rebuilt) table
+        row at length ``length``, skipping its first ``shared`` blocks (the
+        radix index re-pinned them: the same tokens at the same positions).
+        Returns the blocks uploaded."""
+        mb = self.max_blocks_per_slot
+        n_used = tree_leaves(host_k)[0].shape[1]
+        dst = np.full((mb,), self.sentinel, np.int32)
+        dst[shared:n_used] = self.tables[slot][shared:n_used]
+        up_k = to_device(host_k, self.device, mb)
+        up_v = to_device(host_v, self.device, mb)
+        self.update(*fn(self.k, self.v, up_k, up_v, self._row(dst),
+                        self.lengths, slot, length))
+        return max(n_used - shared, 0)
+
+    def warm_swap(self, out_fn, in_fn) -> None:
+        """Both swap programs once, through a sentinel row: every write
+        lands in the garbage row."""
+        sent = self._row(np.full((self.max_blocks_per_slot,), self.sentinel))
+        k_blk, v_blk = out_fn(self.k, self.v, sent)
+        self.update(*in_fn(self.k, self.v, to_device(to_host(k_blk),
+                                                     self.device),
+                           to_device(to_host(v_blk), self.device), sent,
+                           self.lengths, 0, 0))
 
     # ------------------------------------------------------------ blocks
     def blocks_for(self, tokens: int) -> int:

@@ -17,6 +17,7 @@ import torch
 
 from deepspeed_tpu_torch.ops.decode_step import supports
 from deepspeed_tpu_torch.serving.errors import EngineConfigError
+from deepspeed_tpu_torch.serving.swap import to_host
 
 
 class SlotKVCache:
@@ -48,18 +49,51 @@ class SlotKVCache:
             self.lengths.copy_(lengths)
 
     # ---------------------------------------------------------- programs
-    def prefill_program(self, engine, bucket: int):
+    # ``sample``: the serving engine's do_sample / top_k / top_p
+    def prefill_program(self, engine, bucket: int, **sample):
         return engine.slot_prefill_program(bucket, self.num_slots,
-                                           self.max_len)
+                                           self.max_len, **sample)
 
-    def decode_program(self, engine, pad_token_id: int):
+    def chunk_program(self, engine, bucket: int, **sample):
+        return engine.slot_chunk_prefill_program(bucket, self.num_slots,
+                                                 self.max_len, **sample)
+
+    def decode_program(self, engine, pad_token_id: int, **sample):
         return engine.slot_decode_program(self.num_slots, self.max_len,
-                                          pad_token_id=pad_token_id)
+                                          pad_token_id=pad_token_id, **sample)
+
+    def swap_programs(self, engine) -> Tuple:
+        """The preemption swap-out and swap-in programs."""
+        return (engine.slot_swap_out_program(self.num_slots, self.max_len),
+                engine.slot_swap_in_program(self.num_slots, self.max_len))
 
     def prefill_args(self, slot: int, start: int, n: int) -> Tuple:
         """The prefill program's addressing operands after the ids: the slot
         and its new length (``start`` is 0: nothing is shared)."""
         return slot, start + n
+
+    def chunk_args(self, slot: int, start: int, n: int) -> Tuple:
+        """The chunk prefill's addressing operands after the ids."""
+        return slot, start, n
+
+    # -------------------------------------------------------------- swap
+    def swap_out(self, fn, slot: int, length: int) -> Tuple:
+        """Park slot ``slot``'s whole row on the host (the reference's swap
+        unit, one page): ``(host_k, host_v, pages)``."""
+        k_row, v_row = fn(self.k, self.v, slot)
+        return to_host(k_row), to_host(v_row), 1
+
+    def swap_in(self, fn, host_k, host_v, slot: int, length: int,
+                shared: int = 0) -> int:
+        """Write a parked row back into slot ``slot`` at length ``length``;
+        returns the pages uploaded."""
+        self.update(*fn(self.k, self.v, host_k, host_v, self.lengths, slot,
+                        length))
+        return 1
+
+    def warm_swap(self, out_fn, in_fn) -> None:
+        """Both swap programs once (slot 0 out and back, length 0)."""
+        self.swap_in(in_fn, *self.swap_out(out_fn, 0, 0)[:2], 0, 0)
 
     def decode_args(self) -> Tuple:
         """The decode program's addressing operands: none beyond the carry."""

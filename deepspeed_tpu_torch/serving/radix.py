@@ -1,5 +1,5 @@
 """Radix-tree prefix index with copy-on-write sharing (port of
-deepspeed_tpu/serving/radix.py, without the preemption ``readmit``).
+deepspeed_tpu/serving/radix.py).
 
 A trie over token sequences at block granularity on top of the block pool
 (serving/kv_blocks.py): each node owns one full pool block of
@@ -19,6 +19,9 @@ absolute position).
     are freed.
   * LRU eviction: when admission needs more blocks than the free list
     holds, unpinned leaves are evicted oldest first.
+  * readmit: a preempted request's resume re-pins whatever full prompt
+    blocks the trie still holds (the swap-in skips them) and allocates
+    the rest.
 
 All host-side policy over integers; the only device work is the one-block
 copy the engine runs per fork (inference/engine.block_copy_program).
@@ -225,15 +228,7 @@ class PrefixCache:
         # (the partial COW source needs no pin: even if evicted and
         # reallocated, nothing writes it before the copy the engine issues
         # right after this call, and the device runs work in issue order)
-        for node in full:
-            pool.pin(node.block)
-        self._evict_lru(n_total - len(full))
-        table = pool.tables[slot]
-        table[:] = pool.sentinel
-        for j, node in enumerate(full):
-            table[j] = node.block
-        if full:
-            self._touch(full[-1])
+        table = self._pin_evict_build(slot, full, n_total)
         owned: List[int] = []
         copies: List[Tuple[int, int]] = []
         matched = len(full) * bs
@@ -246,22 +241,72 @@ class PrefixCache:
             matched += p
             self.blocks_cowed += 1
             self._touch(node)
-        for j in range(len(full) + len(owned), n_total):
-            blk = pool.alloc_block()
-            table[j] = blk
-            owned.append(blk)
+        owned.extend(self._alloc_rest(table, len(full) + len(owned), n_total))
         self._records[slot] = _SlotRecord(prompt, full, owned)
         pool.invalidate_tables()
         self.hit_tokens += matched
         self.miss_tokens += len(prompt) - matched
         return matched, copies
 
+    def _pin_evict_build(self, slot: int, full: List[RadixNode],
+                         n_total: int):
+        """Admit's and readmit's table: pin the matched chain before
+        evicting (a matched unpinned leaf must not be evicted for its own
+        admission), make room, write the matched blocks at the head of the
+        slot's table row and touch the chain. Returns the host row."""
+        pool = self.pool
+        for node in full:
+            pool.pin(node.block)
+        self._evict_lru(n_total - len(full))
+        table = pool.tables[slot]
+        table[:] = pool.sentinel
+        for j, node in enumerate(full):
+            table[j] = node.block
+        if full:
+            self._touch(full[-1])
+        return table
+
+    def _alloc_rest(self, table, start_j: int, n_total: int) -> List[int]:
+        """Private blocks for table positions ``start_j .. n_total``."""
+        owned: List[int] = []
+        for j in range(start_j, n_total):
+            blk = self.pool.alloc_block()
+            table[j] = blk
+            owned.append(blk)
+        return owned
+
+    def readmit(self, slot: int, prompt: Sequence[int],
+                total_tokens: int) -> int:
+        """Rebuild a preempted request's table on resume: re-pin the full
+        prompt-prefix blocks the trie still holds (the same tokens at the
+        same positions, so the swap-in skips them), allocate private blocks
+        for the rest, and record the slot so a later finish or preemption
+        donates as usual. No fork (a partly shared block comes back from
+        the host copy) and no hit/miss accounting (a re-match saves an
+        upload, not prefill compute). Returns the number of re-pinned
+        leading blocks: the caller uploads the blocks from there on."""
+        pool = self.pool
+        prompt = list(prompt)
+        full, _partial = self._match_memoized(prompt)
+        self._match_memo = None
+        n_total = pool.blocks_for(total_tokens)
+        table = self._pin_evict_build(slot, full, n_total)
+        owned = self._alloc_rest(table, len(full), n_total)
+        self._records[slot] = _SlotRecord(prompt, full, owned)
+        pool.invalidate_tables()
+        return len(full)
+
     # ----------------------------------------------------------- finish
-    def finish(self, slot: int) -> None:
+    def finish(self, slot: int, donate_upto: Optional[int] = None) -> None:
         """Release slot ``slot``: unpin its shared prefix, donate its
         prompt's full private blocks to the trie, and free everything else
         (the partial prompt tail and every decode block: matching runs
-        against prompts only)."""
+        against prompts only).
+
+        ``donate_upto`` caps the donation at the tokens the slot computed:
+        a request preempted or cancelled mid chunked prefill has written
+        only that many positions, and a block with an unwritten tail would
+        serve garbage to every later match."""
         rec = self._records.pop(slot, None)
         if rec is None:
             return
@@ -272,7 +317,9 @@ class PrefixCache:
         parent = rec.matched_nodes[-1] if rec.matched_nodes else self.root
         j = len(rec.matched_nodes)
         owned = list(rec.owned)
-        while owned and (j + 1) * bs <= len(rec.prompt):
+        cap = len(rec.prompt) if donate_upto is None \
+            else min(len(rec.prompt), donate_upto)
+        while owned and (j + 1) * bs <= cap:
             blk = owned.pop(0)
             key = tuple(rec.prompt[j * bs:(j + 1) * bs])
             child = parent.children.get(key)

@@ -1,7 +1,6 @@
 """Iteration-level (continuous-batching) request scheduler (port of
 deepspeed_tpu/serving/scheduler.py: ``Request``, ``RequestResult``,
-``pick_bucket``, ``SlotScheduler``, ``poisson_trace``,
-``shared_prefix_trace``).
+``pick_bucket``, ``SlotScheduler`` and the trace generators).
 
 Orca-style: the unit of scheduling is one decode iteration. Between decode
 steps waiting requests are admitted into free slots, so a drained slot is
@@ -14,6 +13,8 @@ from __future__ import annotations
 import dataclasses
 from collections import deque
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+from deepspeed_tpu_torch.serving.errors import EngineConfigError
 
 
 @dataclasses.dataclass
@@ -52,7 +53,15 @@ class RequestResult:
     priority: int = 0
     # engine-clock time of every committed token (token_times[0] is TTFT's)
     token_times: List[float] = dataclasses.field(default_factory=list)
+    # prefill program calls the prompt took (1 = monolithic)
     prefill_chunks: int = 0
+    # times swapped out, and the time spent off the slot set (swap-out to
+    # swap-in): queue wait, not decode latency. The part after the first
+    # token (decode_preempted_wall) is left out of the engine's TPOT; a
+    # park during the chunked prefill falls before TTFT.
+    preemptions: int = 0
+    preempted_wall: float = 0.0
+    decode_preempted_wall: float = 0.0
 
     @property
     def latency(self) -> float:
@@ -64,7 +73,10 @@ class RequestResult:
 
     @property
     def queue_wait(self) -> float:
-        return max(self.admitted_time - self.arrival_time, 0.0)
+        """Time runnable but not running: the initial wait plus every
+        preempted interval (a preempted request is back in the queue)."""
+        return (max(self.admitted_time - self.arrival_time, 0.0)
+                + self.preempted_wall)
 
 
 def pick_bucket(prompt_len: int, buckets: Sequence[int]) -> Optional[int]:
@@ -90,17 +102,46 @@ class SlotScheduler:
         self._free: deque = deque(range(num_slots))
         self._queues: Dict[int, deque] = {}   # class -> deque[(seq, Request)]
         self._seq = 0
+        # rid -> original submission seq, kept after admission so that a
+        # preempted request's resubmit restores its exact position
+        self._seq_of: Dict[int, int] = {}
+        self.admissions_per_slot = [0] * num_slots
         self.peak_queue_depth = 0
 
     def submit(self, request: Request) -> None:
         q = self._queues.setdefault(request.priority, deque())
         q.append((self._seq, request))
+        self._seq_of[request.rid] = self._seq
         self._seq += 1
+        self.peak_queue_depth = max(self.peak_queue_depth, self.waiting)
+
+    def resubmit(self, request: Request) -> None:
+        """Re-queue a preempted request under its original submission
+        sequence, at its original place in its class (ahead of every
+        same-class entry first submitted after it, equal-arrival bursts
+        included): a swap-out costs compute, never queue position."""
+        seq = self._seq_of.get(request.rid)
+        if seq is None:          # never submitted here
+            seq = self._seq
+            self._seq_of[request.rid] = seq
+            self._seq += 1
+        q = self._queues.setdefault(request.priority, deque())
+        items = list(q)
+        i = 0
+        while i < len(items) and ((items[i][1].arrival_time, items[i][0])
+                                  < (request.arrival_time, seq)):
+            i += 1
+        items.insert(i, (seq, request))
+        self._queues[request.priority] = deque(items)
         self.peak_queue_depth = max(self.peak_queue_depth, self.waiting)
 
     @property
     def waiting(self) -> int:
         return sum(len(q) for q in self._queues.values())
+
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)
 
     def next_arrival(self) -> Optional[float]:
         """Earliest arrival over the class heads (the next instant admit()
@@ -127,6 +168,12 @@ class SlotScheduler:
                 best = (key, q, seq, req)
         return best[1:] if best is not None else None
 
+    def peek(self, now: float) -> Optional[Request]:
+        """The request admit() would take next (arrived class heads only):
+        preemption compares its class with the running slots'."""
+        head = self._best_head(now)
+        return head[2] if head is not None else None
+
     def admit(self, now: float, fits: Optional[Callable[[Request], bool]] = None,
               limit: Optional[int] = None) -> List[Tuple[Request, int]]:
         """Pop (request, slot) pairs: arrived requests into free slots,
@@ -148,8 +195,22 @@ class SlotScheduler:
             q.popleft()
             if not q:
                 del self._queues[req.priority]
-            out.append((req, self._free.popleft()))
+            slot = self._free.popleft()
+            self.admissions_per_slot[slot] += 1
+            out.append((req, slot))
         return out
+
+    def remove(self, rid: int) -> bool:
+        """Withdraw a waiting request (the engine's cancel). False when
+        ``rid`` is not queued; slots are the engine's to free."""
+        for pri, q in list(self._queues.items()):
+            for i, (_seq, req) in enumerate(q):
+                if req.rid == rid:
+                    del q[i]
+                    if not q:
+                        del self._queues[pri]
+                    return True
+        return False
 
     def release(self, slot: int) -> None:
         assert slot not in self._free, f"slot {slot} double-released"
@@ -202,4 +263,117 @@ def shared_prefix_trace(rng, n_requests: int, *, rate: float,
             prompt=prefixes[int(rng.randint(len(prefixes)))] + suffix,
             max_new_tokens=max_new_tokens,
             arrival_time=t))
+    return reqs
+
+
+def templated_trace(rng, n_requests: int, *, rate: float,
+                    pattern_len: int, repeats: int,
+                    max_new_tokens: int, vocab_size: int,
+                    n_templates: int = 4,
+                    start_rid: int = 0) -> List[Request]:
+    """Templated trace: each prompt is one of ``n_templates`` random
+    ``pattern_len``-token n-grams repeated ``repeats`` times (form letters,
+    code stubs: the traffic prompt-lookup drafting finds continuations in).
+    Poisson arrivals like :func:`poisson_trace`."""
+    patterns = [rng.randint(0, vocab_size, size=pattern_len).tolist()
+                for _ in range(max(n_templates, 1))]
+    reqs: List[Request] = []
+    t = 0.0
+    for i in range(n_requests):
+        t += float(rng.exponential(1.0 / rate)) if rate > 0 else 0.0
+        reqs.append(Request(
+            rid=start_rid + i,
+            prompt=patterns[int(rng.randint(len(patterns)))] * repeats,
+            max_new_tokens=max_new_tokens,
+            arrival_time=t))
+    return reqs
+
+
+def _rand_prompt(rng, plen: int, vocab_size: int) -> List[int]:
+    return rng.randint(0, vocab_size, size=int(plen)).astype("int32").tolist()
+
+
+def bursty_poisson_trace(rng, n_requests: int, *, burst_size: int,
+                         burst_rate: float, prompt_lens: Sequence[int],
+                         max_new_choices: Sequence[int], vocab_size: int,
+                         priorities: Sequence[int] = (0,),
+                         start_rid: int = 0) -> List[Request]:
+    """Bursty trace: burst start times are Poisson at ``burst_rate``
+    bursts/s and each burst lands ``burst_size`` requests at one instant
+    (the flash-crowd shape); prompt lengths, output budgets and priority
+    classes are drawn per request from their choice sets."""
+    reqs: List[Request] = []
+    t = 0.0
+    while len(reqs) < n_requests:
+        t += float(rng.exponential(1.0 / burst_rate)) if burst_rate > 0 \
+            else 0.0
+        for _ in range(min(burst_size, n_requests - len(reqs))):
+            reqs.append(Request(
+                rid=start_rid + len(reqs),
+                prompt=_rand_prompt(rng, rng.choice(list(prompt_lens)),
+                                    vocab_size),
+                max_new_tokens=int(rng.choice(list(max_new_choices))),
+                arrival_time=t,
+                priority=int(rng.choice(list(priorities)))))
+    return reqs
+
+
+def bimodal_trace(rng, n_requests: int, *, rate: float,
+                  short_lens: Sequence[int], long_lens: Sequence[int],
+                  long_frac: float, short_new: Sequence[int],
+                  long_new: Sequence[int], vocab_size: int,
+                  short_priority: int = 0, long_priority: int = 1,
+                  start_rid: int = 0) -> List[Request]:
+    """Bimodal trace: mostly short prompts at the latency-critical class,
+    a ``long_frac`` share of long prompts at a lower class (the mix where
+    a monolithic long prefill stalls every decoding request). Poisson
+    arrivals at ``rate`` requests/s like :func:`poisson_trace`."""
+    reqs: List[Request] = []
+    t = 0.0
+    for i in range(n_requests):
+        t += float(rng.exponential(1.0 / rate)) if rate > 0 else 0.0
+        long = bool(rng.rand() < long_frac)
+        reqs.append(Request(
+            rid=start_rid + i,
+            prompt=_rand_prompt(
+                rng, rng.choice(list(long_lens if long else short_lens)),
+                vocab_size),
+            max_new_tokens=int(rng.choice(
+                list(long_new if long else short_new))),
+            arrival_time=t,
+            priority=long_priority if long else short_priority))
+    return reqs
+
+
+def straggler_trace(rng, n_requests: int, *, rate: float,
+                    prompt_lens: Sequence[int],
+                    max_new_choices: Sequence[int],
+                    straggler_every: int, straggler_prompt_len: int,
+                    straggler_max_new: int, vocab_size: int,
+                    straggler_priority: int = 1,
+                    start_rid: int = 0) -> List[Request]:
+    """Short traffic with a long-context straggler every
+    ``straggler_every``-th request (``straggler_prompt_len`` prompt,
+    ``straggler_max_new`` outputs, a lower class). Poisson arrivals at
+    ``rate`` like :func:`poisson_trace`."""
+    if straggler_every < 1:
+        raise EngineConfigError(f"straggler_every must be >= 1, "
+                                f"got {straggler_every}")
+    reqs: List[Request] = []
+    t = 0.0
+    for i in range(n_requests):
+        t += float(rng.exponential(1.0 / rate)) if rate > 0 else 0.0
+        if (i + 1) % straggler_every == 0:
+            reqs.append(Request(
+                rid=start_rid + i,
+                prompt=_rand_prompt(rng, straggler_prompt_len, vocab_size),
+                max_new_tokens=straggler_max_new,
+                arrival_time=t, priority=straggler_priority))
+        else:
+            reqs.append(Request(
+                rid=start_rid + i,
+                prompt=_rand_prompt(rng, rng.choice(list(prompt_lens)),
+                                    vocab_size),
+                max_new_tokens=int(rng.choice(list(max_new_choices))),
+                arrival_time=t))
     return reqs

@@ -19,6 +19,14 @@ present. This file imports neither jax nor the JAX package:
 * Serving engines with the same shapes on one inference engine each
   capture their own decode graph and serve alike.
 * The call that captures a graph runs its step once, not twice.
+* A capture after every graph of the engine's pool was freed gets a new
+  pool (PyTorch refuses to capture into a pool no live graph holds).
+* Chunked prefill with priority preemption and host swap, slot-paged and
+  over bf16, int8 and fp8 pools: replayed tokens equal the eager closure's,
+  every request's tokens its solo run's on an engine of the same shapes,
+  the swap buffer drains, and the chunk and swap programs keep one entry;
+  a swap round trip moves a pool's bytes out and back unchanged; a sampled
+  engine replays the eager draws and repeats with its seed.
 """
 
 import numpy as np
@@ -200,7 +208,7 @@ def test_eager_decode_steps_read_nothing_back(cuda):
     torch.cuda.set_sync_debug_mode("error")
     try:
         srv._decode.eager(eng.params, *srv.cache.carry(), srv._toks,
-                          srv._active)
+                          srv._active, srv._temp, srv._next_rng())
         state.step.eager(gen.params, state.k, state.v, state.index,
                          state.tok, state.temp, rng)
     finally:
@@ -250,3 +258,127 @@ def test_first_call_runs_the_step_once(cuda):
         torch.cuda.synchronize()
         assert x.tolist() == [float(n)] * 4 and out.tolist() == [2.0 * n] * 4
     assert prog.captures == 1 and prog._cache_size() == 1
+
+
+def test_capture_after_the_pool_lost_its_graphs(cuda):
+    import gc
+
+    pool = GraphPool()
+    x = torch.zeros((4,), device="cuda")
+
+    def bump(v):
+        v.add_(1)
+        return v * 2
+
+    first = GraphProgram(Program(bump, "bump"), pool)
+    first(x)
+    handle = pool.handle()
+    del first
+    gc.collect()
+    second = GraphProgram(Program(bump, "bump"), pool)
+    out = second(x)
+    second(x)
+    torch.cuda.synchronize()
+    assert second.captures == 1 and pool.handle() != handle
+    assert x.tolist() == [3.0] * 4 and out.tolist() == [4.0] * 4
+
+
+# ------------------------------------------- chunked prefill and preemption
+def _preempt_trace():
+    """Two class-1 requests of 4-5 chunks at t = 0, then three class-0 ones
+    at 0.012 s (virtual clock: a few iterations in), seeded."""
+    rng = np.random.RandomState(21)
+    reqs = [Request(i, rng.randint(0, 512, size=n).tolist(), 16, priority=1)
+            for i, n in ((0, 150), (1, 100))]
+    reqs += [Request(2 + j, rng.randint(0, 512, size=n).tolist(), 6,
+                     arrival_time=0.012, priority=0)
+             for j, n in enumerate((9, 30, 17))]
+    return reqs
+
+
+def _preempt_serve(eng, reqs, eager: bool, **kw):
+    srv = ServingEngine(eng, num_slots=2, max_len=256, buckets=(32, 64),
+                        prefill_token_budget=32, preemption="swap",
+                        telemetry=False, time_fn=_Clock(), **kw)
+    if eager:
+        srv._decode = srv._decode.eager
+    out = {r.rid: r.tokens for r in srv.run(
+        [Request(r.rid, r.prompt, r.max_new_tokens,
+                 arrival_time=r.arrival_time, priority=r.priority)
+         for r in reqs])}
+    torch.cuda.synchronize()
+    return out, srv
+
+
+class _Clock:
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        self.t += 0.001
+        return self.t
+
+
+@pytest.mark.parametrize("kv", ["slot", None, "int8", "fp8"])
+def test_preempted_chunked_serving_replays_and_matches_solo(cuda, kv):
+    eng = deepspeed_tpu_torch.init_inference(LlamaModel(LlamaConfig(**SERVE_CFG)),
+                                             dtype="bf16", seed=3)
+    kw = {} if kv == "slot" else dict(prefix_cache=True, block_size=16,
+                                      num_blocks=24, kv_dtype=kv)
+    reqs = _preempt_trace()
+    graph, srv = _preempt_serve(eng, reqs, eager=False, **kw)
+    eager, _ = _preempt_serve(eng, reqs, eager=True, **kw)
+    assert graph == eager
+    assert srv.preemptions >= 1 and srv.swapped_blocks_in >= 1
+    assert len(srv.swap) == 0 and srv.swap.bytes_stored == 0
+    sizes = srv.program_cache_sizes()
+    assert {"swap_out", "swap_in"} <= set(sizes) and set(sizes.values()) == {1}
+    assert srv._decode.captures == 1
+    solo = ServingEngine(eng, num_slots=2, max_len=256, buckets=(32, 64),
+                         prefill_token_budget=32, preemption="swap",
+                         telemetry=False, **kw)
+    for r in reqs:
+        [res] = solo.run([Request(r.rid, r.prompt, r.max_new_tokens)])
+        assert res.tokens == graph[r.rid], r.rid
+
+
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"])
+def test_block_swap_round_trip_on_the_card(cuda, kv):
+    from deepspeed_tpu_torch.serving.swap import to_device, to_host
+
+    eng = deepspeed_tpu_torch.init_inference(LlamaModel(LlamaConfig(**SERVE_CFG)),
+                                             dtype="bf16", seed=3)
+    srv = ServingEngine(eng, num_slots=2, max_len=256, buckets=(32, 64),
+                        prefix_cache=True, block_size=16, kv_dtype=kv,
+                        telemetry=False)
+    srv.run([Request(0, list(range(1, 40)), 8)])
+    pool = srv.cache
+    out_fn, in_fn = pool.swap_programs(eng)
+    table = torch.arange(pool.max_blocks_per_slot, dtype=torch.int32,
+                         device=cuda)
+    leaves = lambda p: list(p.values()) if isinstance(p, dict) else [p]
+    before = [t.clone() for t in leaves(pool.k) + leaves(pool.v)]
+    k_blk, v_blk = out_fn(pool.k, pool.v, table)
+    host_k, host_v = to_host(k_blk), to_host(v_blk)
+    assert all(t.is_pinned() for t in leaves(host_k))
+    for t in leaves(pool.k) + leaves(pool.v):
+        t[:, :pool.max_blocks_per_slot].view(torch.uint8).zero_()
+    in_fn(pool.k, pool.v, to_device(host_k, cuda), to_device(host_v, cuda),
+          table, pool.lengths, 0, 0)
+    torch.cuda.synchronize()
+    for a, b in zip(leaves(pool.k) + leaves(pool.v), before):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def test_sampled_serving_replays_the_eager_draws(cuda):
+    eng = deepspeed_tpu_torch.init_inference(LlamaModel(LlamaConfig(**SERVE_CFG)),
+                                             dtype="bf16", seed=3)
+    reqs = _preempt_trace()
+    sample = dict(do_sample=True, temperature=0.8, top_p=0.9)
+    first, srv = _preempt_serve(eng, reqs, eager=False, **sample)
+    again, _ = _preempt_serve(eng, reqs, eager=False, **sample)
+    eager, _ = _preempt_serve(eng, reqs, eager=True, **sample)
+    greedy, _ = _preempt_serve(eng, reqs, eager=False)
+    assert first == again == eager != greedy
+    assert srv._decode.captures == 1
+    assert set(srv.program_cache_sizes().values()) == {1}

@@ -301,7 +301,7 @@ def test_serving_engines_own_their_decode_graphs(engines):
     assert out[0] == out[1]
     assert srvs[0]._decode is not srvs[1]._decode
     assert srvs[0]._decode.program is srvs[1]._decode.program
-    key = str(("slot_dec", SLOTS, MAX_LEN, 0))
+    key = str(("slot_dec", SLOTS, MAX_LEN, False, 0, 1.0, 0))
     assert teng.jit_cache_sizes()[key] == 1
     assert all(s.program_cache_sizes()["decode"] == 1 for s in srvs)
 

@@ -148,14 +148,22 @@ def test_teacher_forced_logits_and_margin_safe_tokens_match_jax(dtype):
 def test_unported_options_and_bad_requests_raise_typed_errors():
     teng = deepspeed_tpu_torch.init_inference(
         LlamaModel(LlamaConfig.tiny()), dtype="fp32", device="cpu")
-    # kv_dtype needs prefix_cache: quantized KV lives in the block pool
-    for kw in ({"speculative": "ngram"}, {"preemption": "swap"},
-               {"prefill_token_budget": 64}, {"kv_dtype": "int8"},
+    # kv_dtype needs prefix_cache: quantized KV lives in the block pool; a
+    # budget must hold a bucket, and the TPOT guard needs a budget
+    for kw in ({"speculative": "ngram"}, {"preemption": "lru"},
+               {"tpot_slo_ms": 5.0}, {"kv_dtype": "int8"},
                {"prefix_cache": True, "kv_dtype": "int4"},
-               {"do_sample": True}, {"tracer": object()}, {"slo": object()},
+               {"tracer": object()}, {"slo": object()},
                {"tenants": True}):
         with pytest.raises(EngineConfigError):
             ServingEngine(teng, num_slots=2, max_len=64, buckets=(16,), **kw)
+    with pytest.raises(EngineConfigError, match="smallest prefill bucket"):
+        ServingEngine(teng, num_slots=2, max_len=64, buckets=(16,),
+                      prefill_token_budget=8)
+    ServingEngine(teng, num_slots=2, max_len=64, buckets=(16,),
+                  prefill_token_budget=16, preemption="swap",
+                  swap_max_bytes=1 << 20, tpot_slo_ms=5.0, slo_max_defer=2,
+                  do_sample=True, temperature=0.8, top_k=8, top_p=0.9)
     srv = ServingEngine(teng, num_slots=2, max_len=64, buckets=(16,))
     with pytest.raises(PromptTooLongError):
         srv.submit(Request(rid=0, prompt=[1] * 17, max_new_tokens=1))
