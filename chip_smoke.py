@@ -86,12 +86,42 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                TTFT and TPOT by class, swap traffic and peak host bytes,
                and the same trace on a monolithic engine (buckets 128 /
                512 / 2048, no budget, no preemption).
+   serve_spec — speculative decoding on phase 4's bf16 engine (runs a-c2)
+               and phase 5's int8 engine (runs d, d2), 8 slots, max_len
+               1024, adaptive k: (a) self-drafting (120-token window,
+               k-buckets 2/4/8) and (b) a TinyLlama-1.1B-shaped draft model
+               (random weights; kernel B at Dh 64, rep 8) on 16 Poisson
+               requests (prompts 16-64, 48 new tokens); (c) n-gram over an
+               int8 block pool with the prefix cache and (d) n-gram at
+               k-bucket 2 on the int8 engine (kernel 2 at 24 rows), on 16
+               templated requests, and (c2, d2) the same stores and trace
+               self-drafting (prompt lookup seldom drafts on a random
+               model; these emit accepted blocks). Each run: every request
+               finishes; verify steps and drafts happen; the decode kernel
+               launches layers x plain steps (+ draft layers x rollout
+               steps), kernel 2 7 x layers x steps on the int8 engine (+ 7
+               x layers x rollout steps of an int8 draft); one entry a
+               program, each verify and draft graph captured once; the
+               probe; a self-drafting run emits a multi-token block, and
+               (a) accepts at least half its drafts. Runs (a) and (c2) on
+               virtual clocks: replayed tokens equal the eager closures',
+               greedy and sampled, the sampled run repeating; (c2)
+               tracer-armed tokens equal bare ones. The kernels phase adds
+               kernel B at both drafts' rollouts (B 8, S 128: 32 / 4 heads
+               at Dh 64, 32 / 32 at Dh 128) and kernel 2 at 24 rows; the
+               reference phase, n-gram and draft-model speculation on the
+               small fp32 LLaMA, slot- and block-paged, whose tokens equal
+               the plain engine's and the CPU's.
 6. probe_fp32 — LLaMA-7B in fp32: the trace's longest request served alone,
                its kernel-cached replay held to the no-cache forward within
                1e-3 of max |logit|, and its served tokens to the replay.
                Then block-paged: template + suffix A served cold, then the
                probe, template + suffix B, warm (a suffix-only prefill over
-               shared blocks plus a fork), held the same way.
+               shared blocks plus a fork), held the same way. Then
+               serve_spec's self-drafting on this engine (runs e, e2:
+               slot-paged and over an fp32 block pool), each accepting at
+               least 0.9 of its drafts: in fp32 the draft computes the
+               target's own function.
 
 Training (phases added after ``reference``, before the serving phases):
 
@@ -279,7 +309,10 @@ from deepspeed_tpu_torch.ops.sparse_attention.block_sparse import (
     group_busy, layout_to_dense_mask, row_groups, sparse_luts)
 from deepspeed_tpu_torch.utils.tree import tree_leaves
 from deepspeed_tpu_torch.serving import (BlockKVPool, Request, ServingEngine,
-                                         poisson_trace, shared_prefix_trace)
+                                         poisson_trace, shared_prefix_trace,
+                                         templated_trace)
+from deepspeed_tpu_torch.serving.speculative import DraftModelDrafter
+from deepspeed_tpu_torch.telemetry import MetricsRegistry, SpanTracer
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12      # dense bf16 tensor-core peak
@@ -1160,9 +1193,11 @@ def phase_kernels() -> dict:
                                                  bidx, seed=2))
             edges.append(check_block_decode_edges(hkv, kv, graph=True))
             torch.cuda.empty_cache()
+    # N 24: the int8 engine's verify at k-bucket 2 (8 slots x 3 rows: one
+    # full 16-row tile, one partly filled)
     matmul = []
     for d, e in ((4096, 4096), (4096, 11008), (11008, 4096)):
-        for n in (1, 8, 32):
+        for n in (1, 8, 24, 32):
             matmul.append(check_int8_matmul(n, d, e))
             torch.cuda.empty_cache()
     flash = [check_flash(torch.bfloat16, 8, 20, 1024, 64, True),
@@ -1199,6 +1234,18 @@ def phase_kernels() -> dict:
                                  layers=8, seed=3),
                check_decode_step(4, 20, 20, 256, 64, [0, 127, 128, 255],
                                  layers=16, seed=4)]
+    # kernel B at the TinyLlama-width draft model's rollout (serve_spec run
+    # b): 8 slots, 32 / 4 heads (rep 8) at Dh 64 over the 128-position
+    # draft cache; 64 layers rotate past the L2
+    decode.append(check_decode_step(8, 32, 4, 128, 64,
+                                    [0, 127, 128, 64, 17, 100, 1, 126],
+                                    layers=64, seed=5))
+    # and at the self-drafting rollout (serve_spec runs a, c2, d2): LLaMA-7B
+    # MHA (32 / 32 heads, Dh 128) over the same 128-position draft cache;
+    # 8 layers rotate past the L2
+    decode.append(check_decode_step(8, 32, 32, 128, 128,
+                                    [0, 127, 128, 64, 17, 100, 1, 126],
+                                    layers=8, seed=6))
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "fused_decode_step": decode,
           "fused_block_decode_step": block,
@@ -1621,7 +1668,8 @@ def phase_reference() -> dict:
         out["int8" if quant else "fp32"] = sum(map(len, toks["cpu"].values()))
     res = {"phase": "reference", "tokens_compared": out, "identical": True,
            "programs": programs,
-           "block_paged": _reference_block(cfg, fp32_params)}
+           "block_paged": _reference_block(cfg, fp32_params),
+           "speculative": _reference_spec(cfg, fp32_params)}
     emit(res)
     return res
 
@@ -1671,6 +1719,67 @@ def _reference_block(cfg: dict, params) -> dict:
             "prefill_tokens": counters["cpu"][0],
             "hit_tokens": counters["cpu"][1], "forks": counters["cpu"][2],
             "programs": programs}
+    return out
+
+
+def _reference_spec(cfg: dict, params) -> dict:
+    """The same small fp32 LLaMA with speculation (k-buckets 2, 4, 8):
+    prompt lookup, and a draft model of the same shape from another seed
+    (made on the CPU, so both devices draft with the same weights; a
+    120-token window), each slot-paged and block-paged with the prefix
+    cache. On each device the speculative greedy tokens equal the plain
+    engine's; the card's tokens, drafts and acceptances equal the CPU's."""
+    reqs = poisson_trace(np.random.RandomState(21), 6, rate=1e3,
+                         prompt_lens=[5, 40, 100], max_new_choices=[12, 20],
+                         vocab_size=512)
+    draft_params = deepspeed_tpu_torch.init_inference(
+        LlamaModel(LlamaConfig(**cfg)), dtype="fp32", device="cpu",
+        seed=4).params
+    kw = dict(num_slots=4, max_len=256, buckets=(128,))
+    out = {}
+    for store, skw in (("slot", {}),
+                       ("block", dict(prefix_cache=True, block_size=16))):
+        for mode in ("ngram", "draft"):
+            toks, stats = {}, {}
+            for device in ("cpu", "cuda"):
+                eng = deepspeed_tpu_torch.init_inference(
+                    LlamaModel(LlamaConfig(**cfg)), dtype="fp32",
+                    device=device, params=_tree_to(params, device))
+                spec = dict(mode=mode, k_buckets=(2, 4, 8))
+                if mode == "draft":
+                    spec.update(draft_window=120,
+                                draft_engine=deepspeed_tpu_torch.init_inference(
+                                    LlamaModel(LlamaConfig(**cfg)),
+                                    dtype="fp32", device=device,
+                                    params=_tree_to(draft_params, device)))
+                reset_counts()
+                srv = ServingEngine(eng, speculative=spec, **kw, **skw)
+                toks[device] = {r.rid: r.tokens for r in srv.run(
+                    [Request(r.rid, r.prompt, r.max_new_tokens)
+                     for r in reqs])}
+                launches = read_counts()
+                plain = ServingEngine(eng, **kw, **skw)
+                assert toks[device] == {r.rid: r.tokens for r in plain.run(
+                    [Request(r.rid, r.prompt, r.max_new_tokens)
+                     for r in reqs])}, f"spec != plain ({store} {mode} " \
+                    f"{device})"
+                stats[device] = (srv.spec_drafted_tokens,
+                                 srv.spec_accepted_tokens, srv.decode_steps)
+                assert srv.spec_drafted_tokens > 0
+                if device == "cuda":
+                    # the draft model's rollout runs the decode kernel; a
+                    # block-paged n-gram engine runs it nowhere
+                    if mode == "draft":
+                        assert launches["fused_decode_step"] > 0, launches
+                    elif skw:
+                        assert launches["fused_decode_step"] == 0, launches
+                    programs = spec_programs(srv)
+            assert toks["cpu"] == toks["cuda"], (store, mode, toks)
+            assert stats["cpu"] == stats["cuda"], (store, mode, stats)
+            out[f"{store}_{mode}"] = {
+                "tokens": sum(map(len, toks["cpu"].values())),
+                "drafted": stats["cpu"][0], "accepted": stats["cpu"][1],
+                "decode_steps": stats["cpu"][2], "programs": programs}
     return out
 
 
@@ -1785,7 +1894,9 @@ def check_probe(eng, probe, served, tol: float, block_kv="slot") -> dict:
     pool of that type (the block decode step, 16-token blocks). Their
     logits agree within ``tol`` of max |logit|, and every served token whose
     replay top-2 margin exceeds twice the measured difference is the
-    replay's argmax."""
+    replay's argmax. Also reported: the steps at which the two forms'
+    argmaxes differ, and at which the served token is not the no-cache
+    forward's argmax (how often rounding alone picks another token)."""
     plen = len(probe.prompt)
     seq = torch.tensor([list(probe.prompt) + served[:-1]], device=eng.device)
     with torch.no_grad():
@@ -1800,11 +1911,16 @@ def check_probe(eng, probe, served, tol: float, block_kv="slot") -> dict:
     picks = replay.argmax(-1).tolist()
     for step, (ok, want, got) in enumerate(zip(safe, picks, served)):
         assert not ok or want == got, f"served token {step}: {got} != {want}"
+    ref_picks = ref.argmax(-1).tolist()
     return {"rid": probe.rid, "prompt_len": plen, "tokens": len(served),
             "replay": block_kv if block_kv == "slot" else
             "block pool " + (block_kv or str(eng.dtype).split(".")[-1]),
             "logit_max_abs_err": err, "logit_max_abs": scale,
-            "tol": tol, "margin_safe_tokens_checked": int(sum(safe))}
+            "tol": tol, "margin_safe_tokens_checked": int(sum(safe)),
+            "argmax_replay_vs_no_cache_differ": sum(
+                a != b for a, b in zip(picks, ref_picks)),
+            "served_not_no_cache_argmax": sum(
+                a != b for a, b in zip(served, ref_picks))}
 
 
 def _replay(eng, seq, plen: int, block_kv="slot",
@@ -2374,10 +2490,395 @@ def phase_serve_preempt_chunked(eng, smi: str) -> dict:
     return info
 
 
-def phase_probe_fp32() -> dict:
+# ------------------------------------------------------------ serve_spec
+SPEC_SERVE = dict(num_slots=8, max_len=1024, buckets=(128, 512))
+SPEC_K = (2, 4, 8)
+# TinyLlama/TinyLlama-1.1B-Chat-v1.0 config.json: hidden 2048, intermediate
+# 5632, 22 layers, 32 heads, 4 KV heads (Dh 64, GQA rep 8), vocab 32000,
+# max_position_embeddings 2048, rms_norm_eps 1e-5
+TINYLLAMA_1B = dict(vocab_size=32000, max_seq_len=2048, num_layers=22,
+                    hidden_size=2048, num_heads=32, num_kv_heads=4,
+                    intermediate_size=5632, eps=1e-5)
+SPEC_BLOCK = dict(prefix_cache=True, block_size=16, kv_dtype="int8")
+# the draft window: 120 + k_max 8 = a 128-position draft cache
+SPEC_WINDOW = 120
+
+
+def _spec_trace():
+    """16 requests, Poisson at 20/s, prompts 16-64 tokens, 48 new tokens
+    (seeded): every history fits the 120-token draft window."""
+    return poisson_trace(np.random.RandomState(1357), 16, rate=20.0,
+                         prompt_lens=list(range(16, 65)),
+                         max_new_choices=[48], vocab_size=32000)
+
+
+def _templated_spec_trace():
+    """16 requests at 20/s, each prompt one of 4 random 8-token patterns
+    repeated 6 times (48 tokens: prompt lookup finds continuations, and
+    the prefix cache shares the templates), 48 new tokens (seeded)."""
+    return templated_trace(np.random.RandomState(2468), 16, rate=20.0,
+                           pattern_len=8, repeats=6, max_new_tokens=48,
+                           vocab_size=32000)
+
+
+# run -> (trace, store, drafter: None (n-gram) / "self" / "tinyllama",
+# k-buckets). A random model seldom re-walks its context, so prompt lookup
+# drafts little in (c) and (d) and has yet to emit an accepted block; c2
+# and d2 serve the same traces on the same stores with the target drafting
+# for itself, which does (multi-token emission through the int8 pool's
+# quantizing verify write, and kernel 2 at 24 rows on every verify step).
+SPEC_RUNS = {
+    "a_self_draft": (_spec_trace, {}, "self", SPEC_K),
+    "b_tinyllama_draft": (_spec_trace, {}, "tinyllama", SPEC_K),
+    "c_ngram_block_int8_pool": (_templated_spec_trace, SPEC_BLOCK, None,
+                                SPEC_K),
+    "c2_self_draft_block_int8_pool": (_templated_spec_trace, SPEC_BLOCK,
+                                      "self", SPEC_K),
+    "d_ngram_int8_weights": (_templated_spec_trace, {}, None, (2,)),
+    "d2_self_draft_int8_weights": (_templated_spec_trace, {}, "self", (2,)),
+    # phase probe_fp32's engine: in fp32 the draft and the verify differ
+    # by far less than a top-2 margin, so self-drafting accepts nearly all
+    "e_self_draft_fp32": (_spec_trace, {}, "self", SPEC_K),
+    "e2_self_draft_fp32_block": (_spec_trace, dict(prefix_cache=True,
+                                                   block_size=16),
+                                 "self", SPEC_K),
+}
+# the least acceptance of the runs whose draft computes the target's own
+# function in the same arithmetic (c2 and d2 do not: the int8 pool's
+# quantized K/V, and the draft's dequantized window prefill, stand between)
+SELF_DRAFT_ACCEPTANCE = {"a_self_draft": 0.5, "e_self_draft_fp32": 0.9,
+                         "e2_self_draft_fp32_block": 0.9}
+
+
+def _spec_kw(run: str, draft_eng) -> dict:
+    _, store, drafter, k_buckets = SPEC_RUNS[run]
+    spec = dict(mode="ngram", k_buckets=k_buckets, adaptive=True)
+    if drafter is not None:
+        spec.update(mode="draft", draft_engine=draft_eng,
+                    draft_window=SPEC_WINDOW)
+    return dict(SPEC_SERVE, speculative=spec, **store)
+
+
+def _record_draft_rounds(srv) -> list:
+    """The k-bucket of every drafting round (a draft model's program runs
+    kb - 1 single-token rollout steps)."""
+    rounds, inner = [], srv._drafter.propose
+
+    def propose(histories, want, kb):
+        rounds.append(kb)
+        return inner(histories, want, kb)
+
+    srv._drafter.propose = propose
+    return rounds
+
+
+def spec_eager(srv) -> ServingEngine:
+    """``srv`` (not yet warmed up) with its decode, verify and draft
+    programs replaced by their eager closures."""
+    srv._decode = srv._decode.eager
+    for kb in srv.spec.k_buckets:
+        srv._verify[kb] = srv._verify_fn(kb).eager
+        if isinstance(srv._drafter, DraftModelDrafter):
+            srv._drafter._programs[kb] = srv._drafter._program(kb).eager
+    return srv
+
+
+def spec_programs(srv) -> dict:
+    """:func:`serving_programs` of a speculative engine, and every verify
+    and draft graph captured once."""
+    info = serving_programs(srv)
+    names = set(info["program_cache_sizes"])
+    assert {f"verify_{kb}" for kb in srv.spec.k_buckets} <= names, info
+    graphs = dict(srv._verify)
+    if isinstance(srv._drafter, DraftModelDrafter):
+        assert {f"draft_{kb}" for kb in srv.spec.k_buckets} <= names, info
+        graphs.update({f"draft_{kb}": p
+                       for kb, p in srv._drafter._programs.items()})
+    info["spec_captures"] = {str(k): p.captures for k, p in graphs.items()}
+    assert set(info["spec_captures"].values()) == {1}, info
+    return info
+
+
+def _events_ms(fn, reps: int = 10) -> float:
+    """ms per call of ``fn`` between CUDA events over ``reps`` calls back
+    to back, after one call (a replayed graph: its device time, the host
+    launching faster than the card runs it)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def profile_verify(srv, kb: int, reps: int = 3) -> dict:
+    """Device time of ``reps`` replays of the verify graph of bucket
+    ``kb`` (no slot active: the same work) under the profiler: busy ms per
+    replay (the union of kernel intervals, :func:`device_time`) and the
+    six kernels that take the most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    srv._verify_call(kb, srv._next_rng())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as pr:
+        for _ in range(reps):
+            srv._verify_call(kb, srv._next_rng())
+        torch.cuda.synchronize()
+    kernels, busy_us, sum_us = device_time(pr)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    return {"device_ms": busy_us / 1e3 / reps,
+            "kernel_ms_sum": sum_us / 1e3 / reps,
+            "top_kernels_ms": {k[:70]: v / 1e3 / reps for k, v in top}}
+
+
+def _spec_virtual(eng, kw, reqs, eager: bool, tracer=None, **sample):
+    """The trace's first 8 requests (one per slot), arriving at once and
+    cut to 24 new tokens, on a fresh speculative engine under a virtual
+    clock; with ``eager``
+    through the eager closures of its decode, verify and draft programs.
+    Returns the tokens by rid, the run's wall seconds (warm-up excluded)
+    and the drafted tokens."""
+    gc.collect()                         # the previous run's engine
+    srv = ServingEngine(eng, telemetry=False, time_fn=VirtualClock(),
+                        tracer=tracer, **kw, **sample)
+    if eager:
+        spec_eager(srv)
+    srv.warmup()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = {r.rid: r.tokens for r in srv.run(
+        [Request(r.rid, r.prompt, min(r.max_new_tokens, 24))
+         for r in reqs[:8]], warmup=False)}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert srv.spec_drafted_tokens > 0
+    if not eager:
+        spec_programs(srv)
+    return toks, wall, srv.spec_drafted_tokens
+
+
+def _spec_replays(eng, kw, reqs, traced: bool) -> dict:
+    """Replayed against eager under a virtual clock: greedy, then sampled
+    (temperature 0.8, top-p 0.9, the engine's seed) twice and eager; with
+    ``traced`` a tracer-armed greedy run too, whose tokens equal the bare
+    run's, with its span counts and its wall over the bare run's (a
+    self-drafting engine: a random model's 24 tokens, and its samples, give
+    prompt lookup little or nothing to draft)."""
+    t0 = time.perf_counter()
+    greedy, bare_s, drafted = _spec_virtual(eng, kw, reqs, eager=False)
+    eager, eager_s, _ = _spec_virtual(eng, kw, reqs, eager=True)
+    info = {"drafter": kw["speculative"]["mode"],
+            "greedy": {**replayed_vs_eager(greedy, eager),
+                       "drafted_tokens": drafted, "replayed_run_s": bare_s,
+                       "eager_run_s": eager_s}}
+    sample = dict(do_sample=True, temperature=0.8, top_p=0.9)
+    sampled = [_spec_virtual(eng, kw, reqs, eager=False, **sample)
+               for _ in range(2)]
+    assert sampled[0][0] == sampled[1][0], "a sampled run did not repeat"
+    assert sampled[0][0] != greedy, "sampled tokens equal the greedy ones"
+    info["sampled"] = {"repeat_identical": True,
+                       "drafted_tokens": sampled[0][2], **replayed_vs_eager(
+                           sampled[0][0], _spec_virtual(
+                               eng, kw, reqs, eager=True, **sample)[0])}
+    if traced:
+        tracer = SpanTracer()
+        armed, armed_s, _ = _spec_virtual(eng, kw, reqs, eager=False,
+                                          tracer=tracer)
+        assert armed == greedy, "tracer-armed tokens != bare tokens"
+        counts = {}
+        for s in tracer.spans:
+            counts[s.name] = counts.get(s.name, 0) + 1
+        assert {"request", "queue_wait", "prefill_chunk", "decode_segment",
+                "spec_draft", "spec_verify"} <= set(counts), counts
+        info["traced"] = {"tokens_identical_to_bare": True,
+                          "spans_by_name": counts, "dropped": tracer.dropped,
+                          "armed_wall_s": armed_s, "bare_wall_s": bare_s,
+                          "armed_over_bare_wall": armed_s / bare_s}
+    info["wall_s"] = time.perf_counter() - t0
+    return info
+
+
+def _spec_run(eng, run: str, smi: str, draft_eng=None) -> dict:
+    """One run of :func:`phase_serve_spec`."""
+    trace, store, drafter, k_buckets = SPEC_RUNS[run]
+    kw = _spec_kw(run, draft_eng)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reg = MetricsRegistry()
+    srv = ServingEngine(eng, telemetry=reg, **kw)
+    t0 = time.perf_counter()
+    srv.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    rounds = _record_draft_rounds(srv)
+    reqs = trace()
+
+    reset_counts()                       # the main path starts here
+    t0 = time.perf_counter()
+    results = srv.run(_copy_reqs(reqs), warmup=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+
+    by_rid = {r.rid: r for r in results}
+    assert sorted(by_rid) == [r.rid for r in reqs]
+    for r in reqs:
+        assert len(by_rid[r.rid].tokens) == r.max_new_tokens, r.rid
+    snap = reg.snapshot()
+    verify_steps = snap["counters"].get("serving/spec_verify_steps", 0)
+    steps = srv.decode_steps
+    plain_steps = steps - verify_steps
+    assert verify_steps > 0 and srv.spec_drafted_tokens > 0, (run, snap)
+    layers = eng.module.config.num_layers
+    rollout = (sum(kb - 1 for kb in rounds) if drafter is not None else 0)
+    draft_layers = (draft_eng.module.config.num_layers
+                    if drafter is not None else 0)
+    # the target's plain steps run the store's decode kernel; the draft's
+    # rollout runs kernel B on the drafter's own slot cache
+    plain_b = 0 if store else layers * plain_steps
+    assert launches["fused_decode_step"] == (
+        plain_b + draft_layers * rollout), \
+        (run, launches, plain_steps, rollout)
+    assert launches["fused_block_decode_step"] == (
+        layers * plain_steps if store else 0), (run, launches, plain_steps)
+    # kernel 2: every target step (8 rows plain, 8 (kb + 1) rows verify)
+    # and, on an int8 draft, every rollout step (8 rows); the draft's
+    # window prefill (8 x 120 rows) takes the dequant path
+    want_mm = 7 * layers * steps if eng.weight_quant else 0
+    if drafter is not None and draft_eng.weight_quant:
+        want_mm += 7 * draft_layers * rollout
+    assert launches["int8_matmul_dma"] == want_mm, (run, launches, steps)
+    programs = spec_programs(srv)
+    acceptance = srv.spec_accepted_tokens / srv.spec_drafted_tokens
+    # requests that took more than one token from some verify step
+    multi = sum(len(r.tokens) - 1 > r.decode_calls for r in results)
+    kind = ("int8" if eng.weight_quant else
+            "fp32" if eng.dtype == torch.float32 else "bf16")
+    assert acceptance >= SELF_DRAFT_ACCEPTANCE.get(run, 0.0), \
+        f"{run}: self-draft acceptance {acceptance}"
+    assert drafter != "self" or multi > 0, f"{run}: no multi-token emission"
+    hist = snap["histograms"]["serving/accepted_tokens_per_step"]
+    plain_wall = srv.decode_wall - srv._draft_wall - srv._verify_wall
+    # the verify graph of the largest bucket and the decode graph replayed
+    # with no slot active (the same work: every row is computed)
+    kb_max = k_buckets[-1]
+    srv._active_host.zero_()
+    srv._draft_len_host.zero_()
+    verify_ms = _events_ms(lambda: srv._verify_call(kb_max, srv._next_rng()))
+    srv._active.zero_()
+    decode_ms = _events_ms(lambda: srv._decode(
+        eng.params, *srv.cache.carry(), *srv.cache.decode_args(), srv._toks,
+        srv._active, srv._temp, srv._next_rng()))
+    verify_prof = profile_verify(srv, kb_max)
+    probe = max(reqs, key=lambda r: len(r.prompt))
+    check = check_probe(eng, probe, by_rid[probe.rid].tokens, LOGIT_TOL[kind],
+                        block_kv=store.get("kv_dtype") if store else "slot")
+    info = {"run": run, "card": smi, "engine": kind,
+            "store": ("block pool " + store.get("kv_dtype", kind)
+                      if store else "slot"),
+            "drafter": drafter or "ngram", "k_buckets": list(k_buckets),
+            "requests": len(results),
+            "tokens_generated": sum(len(r.tokens) for r in results),
+            "decode_steps": steps, "verify_steps": verify_steps,
+            "plain_steps": plain_steps, "draft_rounds": len(rounds),
+            "draft_rollout_steps": rollout, "launches": launches,
+            "drafted_tokens": srv.spec_drafted_tokens,
+            "accepted_tokens": srv.spec_accepted_tokens,
+            "acceptance_rate": acceptance,
+            "requests_with_multi_token_emission": multi,
+            "tokens_per_verify_step": hist["sum"] / verify_steps,
+            "tokens_per_slot_verify": hist["mean"],
+            "wall_s": wall, "decode_wall_s": srv.decode_wall,
+            "ms_per_verify_step_host": 1e3 * srv._verify_wall / verify_steps,
+            "ms_per_plain_step_host": (1e3 * plain_wall / plain_steps
+                                       if plain_steps else None),
+            "draft_ms_per_round_host": 1e3 * srv._draft_wall / len(rounds),
+            "verify_graph_ms_events_k%d" % kb_max: verify_ms,
+            "decode_graph_ms_events": decode_ms,
+            "verify_profile_k%d" % kb_max: verify_prof,
+            "probe": check, "programs": programs, "warmup_s": warm_s}
+    gen = {rid: r.tokens for rid, r in by_rid.items()}
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same engine's plain greedy run on the same trace
+    plain = ServingEngine(eng, telemetry=False, **SPEC_SERVE, **store)
+    plain.warmup()
+    ptoks = {r.rid: r.tokens for r in plain.run(_copy_reqs(reqs),
+                                                warmup=False)}
+    del plain
+    info["requests_equal_to_plain_greedy"] = sum(
+        ptoks[rid] == toks for rid, toks in gen.items())
+    if run in ("a_self_draft", "c2_self_draft_block_int8_pool"):
+        t0 = time.perf_counter()
+        info["replayed_vs_eager"] = _spec_replays(
+            eng, kw, reqs, traced=run == "c2_self_draft_block_int8_pool")
+        info["virtual_runs_s"] = time.perf_counter() - t0
+    info["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return info
+
+
+def phase_serve_spec(eng, smi: str, runs) -> dict:
+    """Speculative decoding on the LLaMA-7B engines of phases 4 (bf16:
+    runs a-c2) and 5 (int8 weights: runs d, d2), 8 slots, max_len 1024,
+    buckets 128 / 512, adaptive k: (a) self-drafting (the target's own
+    engine as the draft model, a 120-token window), (b) a
+    TinyLlama-1.1B-shaped draft (random weights, seed 7; kernel B at Dh 64,
+    GQA rep 8, over its 128-position cache), both on :func:`_spec_trace`;
+    (c) n-gram over an int8 block pool with the prefix cache and (d) n-gram
+    on the int8 engine at k-bucket 2 only (kernel 2 at 24 rows), both on
+    :func:`_templated_spec_trace`, and (c2, d2) the same stores and trace
+    self-drafting. Each run holds: every request finishes; verify steps and
+    drafted tokens > 0; the store's decode kernel launched layers x plain
+    steps, kernel B also draft layers x the rollout steps of every draft
+    round, kernel 2 7 x layers x decode steps on the int8 engine (+ 7 x
+    layers x rollout steps of the int8 self-draft), no other decode kernel;
+    every program one entry and every verify and draft graph captured
+    once; the probe (the longest request's served tokens against a
+    no-cache forward, margin-safe steps); a self-drafting run emits a
+    multi-token block, and (a) accepts at least half its drafts. (a) and (c2)
+    also: replayed tokens equal the eager closures', greedy and sampled,
+    the sampled run repeating; (c2) a tracer-armed run gives the bare
+    run's tokens. Reported: acceptance, tokens per verify step, host ms
+    per verify and plain step, draft ms per round, the verify and decode
+    graphs' ms, and how many requests
+    equal the plain engine's greedy tokens."""
+    t0 = time.perf_counter()
+    out = {}
+    for run in runs:
+        draft = None
+        if SPEC_RUNS[run][2] == "self":
+            draft = eng
+        elif SPEC_RUNS[run][2] == "tinyllama":
+            draft = deepspeed_tpu_torch.init_inference(
+                LlamaModel(LlamaConfig(**TINYLLAMA_1B)), dtype="bf16", seed=7)
+        out[run] = _spec_run(eng, run, smi, draft)
+        del draft
+    launches = {k: sum(r["launches"][k] for r in out.values())
+                for k in WRAPPERS}
+    info = {"phase": "serve_spec", "card": smi,
+            "model": "llama_7b, phase %s's engine (%s, random weights seed 0)"
+                     % (("4", "bf16") if not eng.weight_quant else ("5", "int8")),
+            **out, "launches": launches,
+            "phase_wall_s": time.perf_counter() - t0}
+    emit(info)
+    return info
+
+
+def phase_probe_fp32(smi: str) -> dict:
     """LLaMA-7B in fp32 (both kernels take f32): the trace's longest request
     served alone, then its logits checked as in the serving phases, with the
-    tight fp32 bound (the kernels' arithmetic at full width and depth)."""
+    tight fp32 bound (the kernels' arithmetic at full width and depth).
+    Then serve_spec's self-drafting runs on this engine, slot-paged and over
+    an fp32 block pool (runs e, e2): with rounding too small to flip an
+    argmax, the draft computes the target's own function, and each run
+    accepts at least 0.9 of its drafts."""
     eng = deepspeed_tpu_torch.init_inference(
         LlamaModel(LlamaConfig.llama_7b()), dtype="fp32", seed=0)
     srv = ServingEngine(eng, num_slots=8, max_len=1024, buckets=(128, 512))
@@ -2409,6 +2910,9 @@ def phase_probe_fp32() -> dict:
         "hit_tokens": srv.prefix.hit_tokens, "forks": srv.prefix.blocks_cowed,
         **check_probe(eng, probe_b, res.tokens, LOGIT_TOL["fp32"],
                       block_kv=None)}
+    del srv
+    for run in ("e_self_draft_fp32", "e2_self_draft_fp32_block"):
+        info[run] = _spec_run(eng, run, smi, eng)
     emit(info)
     return info
 
@@ -2963,7 +3467,15 @@ def main() -> int:
             blk, bf16_tokens = phase_serve_block(eng, None, dev["nvidia_smi"])
             runs += [blk, phase_serve_block(eng, "int8", dev["nvidia_smi"],
                                             baseline=bf16_tokens)[0],
-                     phase_serve_preempt_chunked(eng, dev["nvidia_smi"])]
+                     phase_serve_preempt_chunked(eng, dev["nvidia_smi"]),
+                     phase_serve_spec(eng, dev["nvidia_smi"],
+                                      ("a_self_draft", "b_tinyllama_draft",
+                                       "c_ngram_block_int8_pool",
+                                       "c2_self_draft_block_int8_pool"))]
+        else:
+            runs.append(phase_serve_spec(eng, dev["nvidia_smi"],
+                                         ("d_ngram_int8_weights",
+                                          "d2_self_draft_int8_weights")))
         for run in runs:
             for k in launches:
                 if k not in FLASH:
@@ -2971,7 +3483,7 @@ def main() -> int:
         del eng
         gc.collect()                     # free this engine before the next
         torch.cuda.empty_cache()
-    phase_probe_fp32()
+    phase_probe_fp32(dev["nvidia_smi"])
     gpt2 = phase_generate_gpt2(dev["nvidia_smi"])
     big = phase_generate_34b(dev["nvidia_smi"])
     for run in (gpt2["launches"], big["b1"]["launches"],

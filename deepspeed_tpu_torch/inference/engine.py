@@ -13,12 +13,15 @@ sampling from a ``torch.Generator``, and the EOS early exit), and the
 programs the continuous-batching server drives: the slot-paged prefill,
 chunk prefill and decode step, their block-paged analogs (suffix or chunk
 prefill, decode through the block table, the copy-on-write block copy),
-and both stores' preemption swap-out and swap-in. JAX ``jit`` programs become
+both stores' preemption swap-out and swap-in, the speculative verify step
+over either store and a draft model's drafting program. JAX ``jit``
+programs become
 closures counted by signature as jit counts its entries
 (inference/programs.py), and each decode program (the slot and block
-serving steps, generate's token step) is captured once per signature as a
-CUDA graph on the card and replayed every token, by the owner of the
-buffers the graph reads: the serving engine over its KV store, and for
+serving steps and verify steps, the drafting program, generate's token
+step) is captured once per signature as a CUDA graph on the card and
+replayed every token, by the owner of the buffers the graph reads: the
+serving engine over its KV store, the drafter over its draft cache, and for
 generate one decode state per step shape (its cache; the most recently
 used ``MAX_DECODE_STATES`` are kept). The caches are updated in place
 instead of being donated. :meth:`InferenceEngine.jit_cache_sizes` reads
@@ -541,6 +544,98 @@ class InferenceEngine:
                                           inputs=(4, 5))
         return self._programs[key]
 
+    def slot_verify_program(self, num_slots: int, max_len: int, k: int, *,
+                            do_sample: bool = False, top_k: int = 0,
+                            top_p: float = 1.0,
+                            pad_token_id: int = 0) -> Callable:
+        """Speculative verify step over the slot cache
+        (serving/speculative.py): score ``k`` drafts per slot in one
+        forward and emit each slot's accepted prefix plus one token.
+
+        The ``[B, k+1]`` block (the last committed token, then the drafts)
+        runs through the decode step's ``forward_with_cache``: per-slot
+        positions from the length vector, the block's K/V written at
+        ``lengths[b] ..`` (ops/attention.write_kv_cache, B x (k+1) rows),
+        the per-slot prefix plus the block's causal part visible
+        (ops/attention.decode_attention; the reference runs no Pallas kernel
+        here either). Then :func:`~deepspeed_tpu_torch.serving.speculative.
+        speculative_acceptance` on the device, and ``lengths`` advances in
+        place by ``n_emit`` (0 for an inactive slot, whose writes lie past
+        its length). Rejected entries stay behind the length mask and the
+        next block overwrites them. One program per k-bucket, per-step
+        inputs ``tokens``, ``draft_len`` and ``active`` (the serving engine
+        captures it in its own :class:`GraphProgram`).
+
+        Signature: ``(params, k_slots, v_slots, lengths[B], tokens[B, k+1],
+        draft_len[B], active[B] bool, temp, rng) -> (k_slots, v_slots,
+        lengths, emitted[B, k+2])``: ``emitted`` is serving/speculative.
+        pack_emitted's int32 tensor (``out_tokens[B, k+1]``, then
+        ``n_emit``), which its ``verify_to_host`` reads in one copy; row b
+        emits ``out_tokens[b, :n_emit[b]]``."""
+        key = ("slot_ver", num_slots, max_len, k, do_sample, top_k,
+               float(top_p), pad_token_id)
+        if key not in self._programs:
+            model = self.module
+            accept = _acceptance(do_sample, top_k, float(top_p), pad_token_id)
+
+            @torch.no_grad()
+            def verify(params, k_slots, v_slots, lengths, tokens, draft_len,
+                       active, temp, rng):
+                cache = {"k": k_slots, "v": v_slots, "index": lengths}
+                logits, cache = model.forward_with_cache(
+                    params, tokens.long(), cache)
+                return (cache["k"], cache["v"]) + accept(
+                    logits, tokens, draft_len, active, lengths, temp, rng)
+
+            self._programs[key] = Program(verify, f"slot verify {k}",
+                                          inputs=(4, 5, 6))
+        return self._programs[key]
+
+    def slot_draft_program(self, window_len: int, num_slots: int,
+                           k: int) -> Callable:
+        """Greedy drafting by a DRAFT model (serving/speculative.
+        DraftModelDrafter): prefill each slot's right-padded trailing
+        ``window_len`` history tokens into the draft cache from position 0,
+        pick the first draft at each row's true last window position, then
+        roll ``k - 1`` greedy single-token steps forward at ``wlen + j`` (on
+        the card the fused decode kernel, per-slot index). Nothing persists
+        between calls: the prefill writes positions below ``window_len``
+        and each rollout step writes ``wlen + j`` before the mask exposes
+        it, so the cache needs no zeroing. One program per ``(window, k)``;
+        its per-step inputs are ``window`` and ``wlen``, and the drafter
+        that owns the cache captures it in its own :class:`GraphProgram`.
+
+        Signature: ``(params, k_cache, v_cache, window[B, window_len],
+        wlen[B] >= 1) -> drafts[B, k]`` int32, the cache ``[L, B, Hkv, S,
+        Dh]`` with ``S >= window_len + k``."""
+        key = ("slot_draft", window_len, num_slots, k)
+        if key not in self._programs:
+            model = self.module
+
+            @torch.no_grad()
+            def draft(params, k_cache, v_cache, window, wlen):
+                zeros = torch.zeros((num_slots,), dtype=torch.int32,
+                                    device=window.device)
+                logits, cache = model.forward_with_cache(
+                    params, window.long(),
+                    {"k": k_cache, "v": v_cache, "index": zeros})
+                last = (wlen.long() - 1)[:, None, None]
+                tok = greedy_pick(torch.take_along_dim(logits, last,
+                                                       dim=1)[:, 0])
+                out, idx = [tok], wlen
+                for _ in range(k - 1):
+                    logits, cache = model.forward_with_cache(
+                        params, tok[:, None].long(),
+                        {"k": cache["k"], "v": cache["v"], "index": idx})
+                    tok = greedy_pick(logits[:, -1])
+                    out.append(tok)
+                    idx = idx + 1
+                return torch.stack(out, dim=1)
+
+            self._programs[key] = Program(draft, f"slot draft {k}",
+                                          inputs=(3, 4))
+        return self._programs[key]
+
     def slot_chunk_prefill_program(self, bucket_len: int, num_slots: int,
                                    max_len: int, *, do_sample: bool = False,
                                    top_k: int = 0,
@@ -691,6 +786,44 @@ class InferenceEngine:
                                           inputs=(5, 6))
         return self._programs[key]
 
+    def block_verify_program(self, num_slots: int, max_blocks: int, k: int,
+                             *, do_sample: bool = False, top_k: int = 0,
+                             top_p: float = 1.0, pad_token_id: int = 0,
+                             kv_dtype: Optional[str] = None) -> Callable:
+        """Speculative verify step over the block pool, the block-table
+        analog of :meth:`slot_verify_program`: the block's K/V scatter
+        through the table (ops/attention.write_kv_blocks, quantized on
+        store in an int8 or fp8 pool; a position past the table goes to the
+        garbage row), then the gather and the einsum attention. Rejected
+        entries stay behind the length in the slot's private blocks (a
+        shared prefix block lies below every length), and the next block
+        overwrites them through the same table. One program per k-bucket
+        and pool type ``kv_dtype``; the table is a persistent operand.
+
+        Signature: ``(params, k_pool, v_pool, lengths[B], tables[B, MB],
+        tokens[B, k+1], draft_len[B], active[B] bool, temp, rng) ->
+        (k_pool, v_pool, lengths, emitted[B, k+2])``, ``emitted`` as
+        :meth:`slot_verify_program`'s."""
+        key = ("blk_ver", num_slots, max_blocks, k, do_sample, top_k,
+               float(top_p), pad_token_id, kv_dtype)
+        if key not in self._programs:
+            model = self.module
+            accept = _acceptance(do_sample, top_k, float(top_p), pad_token_id)
+
+            @torch.no_grad()
+            def verify(params, k_pool, v_pool, lengths, tables, tokens,
+                       draft_len, active, temp, rng):
+                cache = {"k": k_pool, "v": v_pool, "index": lengths,
+                         "block_table": tables}
+                logits, cache = model.forward_with_cache(
+                    params, tokens.long(), cache)
+                return (cache["k"], cache["v"]) + accept(
+                    logits, tokens, draft_len, active, lengths, temp, rng)
+
+            self._programs[key] = Program(verify, f"block verify {k}",
+                                          inputs=(5, 6, 7))
+        return self._programs[key]
+
     def block_copy_program(self, num_blocks: int, block_size: int, *,
                            kv_dtype: str = "compute") -> Callable:
         """Copy-on-write fork: duplicate pool block ``src`` into ``dst`` in
@@ -776,6 +909,29 @@ class InferenceEngine:
         each entry of a decode program is one captured CUDA graph)."""
         return {str(key): prog._cache_size()
                 for key, prog in self._programs.items()}
+
+
+def _acceptance(do_sample: bool, top_k: int, top_p: float,
+                pad_token_id: int):
+    """The verify programs' tail: ``accept(logits, tokens, draft_len,
+    active, lengths, temp, rng) -> (lengths, emitted)``, the acceptance
+    rule with inactive rows emitting nothing (pad tokens, n_emit 0),
+    ``lengths`` advanced in place, the tokens and counts packed by
+    serving/speculative.pack_emitted."""
+    from deepspeed_tpu_torch.serving.speculative import (
+        pack_emitted, speculative_acceptance)
+
+    def accept(logits, tokens, draft_len, active, lengths, temp, rng):
+        out, n_emit = speculative_acceptance(
+            logits, tokens, draft_len, temp, rng, do_sample=do_sample,
+            top_k=top_k, top_p=top_p, pad_token_id=pad_token_id)
+        n_emit = torch.where(active, n_emit, torch.zeros_like(n_emit))
+        out = torch.where(active[:, None], out,
+                          torch.full_like(out, pad_token_id))
+        lengths.add_(n_emit.to(lengths.dtype))
+        return lengths, pack_emitted(out, n_emit)
+
+    return accept
 
 
 class _DecodeState:

@@ -168,24 +168,18 @@ def write_kv_cache(k_full, v_full, k_new, v_new, layer: int, idx):
     at ``(layer, idx)`` in place. A per-slot ``[B]`` idx writes row b's
     token j to position ``idx[b] + j`` and drops positions past the
     allocation (``mode="drop"``: an inactive slot's stale length may equal
-    max_len). A scalar idx is one slice write whose start is clamped so the
-    block fits (``dynamic_update_slice`` semantics); a 0-dim tensor idx is
-    clamped and written on its device. Every form has a fixed shape, so
-    none reads the index on the host. Returns ``(k_full, v_full, k_layer,
-    v_layer)`` with ``[B, Hkv, S, Dh]`` views."""
+    max_len); it moves only B x T rows (:func:`_write_slot_rows`). A scalar
+    idx is one slice write whose start is clamped so the block fits
+    (``dynamic_update_slice`` semantics); a 0-dim tensor idx is clamped and
+    written on its device. Every form has a fixed shape, so none reads the
+    index on the host. Returns ``(k_full, v_full, k_layer, v_layer)`` with
+    ``[B, Hkv, S, Dh]`` views."""
     kl, vl = k_full[layer], v_full[layer]
     t = k_new.shape[1]
     s_max = k_full.shape[3]
     if isinstance(idx, torch.Tensor) and idx.ndim == 1:
-        # every cache position takes the new token that lands on it, else
-        # keeps its value: positions past the allocation are never named
-        j = (torch.arange(s_max, device=idx.device)[None, :]
-             - idx.to(torch.long)[:, None])                        # [B, S]
-        hit = ((j >= 0) & (j < t))[:, None, :, None]
-        src = j.clamp(0, t - 1)[:, :, None, None]
-        for full, lay, new in ((k_full, kl, k_new), (v_full, vl, v_new)):
-            rows = torch.take_along_dim(new.to(full.dtype), src, dim=1)
-            lay.copy_(torch.where(hit, rows.transpose(1, 2), lay))
+        _write_slot_rows(kl, k_new.to(k_full.dtype), idx)
+        _write_slot_rows(vl, v_new.to(v_full.dtype), idx)
     elif isinstance(idx, torch.Tensor):
         pos = (idx.to(torch.long).clamp(0, s_max - t)
                + torch.arange(t, device=idx.device))
@@ -196,6 +190,29 @@ def write_kv_cache(k_full, v_full, k_new, v_new, layer: int, idx):
         kl[:, :, start:start + t] = k_new.transpose(1, 2).to(k_full.dtype)
         vl[:, :, start:start + t] = v_new.transpose(1, 2).to(v_full.dtype)
     return k_full, v_full, kl, vl
+
+
+def _write_slot_rows(lay: torch.Tensor, new: torch.Tensor, idx: torch.Tensor):
+    """``lay`` ``[B, Hkv, S, Dh]``, in place: row b's new token j lands at
+    position ``idx[b] + j``, and a position past the allocation is never
+    written. Each row reads and writes one fixed window of ``min(T, S)``
+    positions starting at ``clamp(idx[b], 0, S - min(T, S))``: a window
+    position takes the new token that lands on it, else keeps its value.
+    The window covers every position a new token lands on below S, so this
+    equals a ``where`` over the whole layer, at B x T rows of traffic; the
+    positions of one row are distinct, so the scatter is deterministic."""
+    b, t = new.shape[0], new.shape[1]
+    s_max = lay.shape[2]
+    w = min(t, s_max)
+    iv = idx.to(torch.long)
+    pos = (iv.clamp(0, s_max - w)[:, None]
+           + torch.arange(w, device=idx.device))                   # [B, W]
+    j = pos - iv[:, None]                       # which new token lands there
+    hit = ((j >= 0) & (j < t))[:, :, None, None]
+    rows = torch.arange(b, device=idx.device)[:, None]
+    src = torch.take_along_dim(new, j.clamp(0, t - 1)[:, :, None, None],
+                               dim=1)                              # [B, W, Hkv, Dh]
+    lay[rows, :, pos] = torch.where(hit, src, lay[rows, :, pos])
 
 
 def write_slot_prefix(k_full, v_full, k_pref, v_pref, slot: int):

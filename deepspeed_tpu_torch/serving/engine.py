@@ -55,6 +55,25 @@ Under overload (the reference's SLO-aware scheduling):
 * :meth:`ServingEngine.cancel` withdraws a queued, preempted or running
   request.
 
+Speculative decoding (``speculative``, serving/speculative.py): each
+iteration drafts up to k tokens per decode-phase slot (prompt lookup, or a
+draft model through its own inference engine), verifies them all in one
+target forward and emits each slot's accepted prefix plus one token, so the
+greedy tokens are the plain decode's. Verify programs are one per k-bucket
+(like the prefill buckets), each captured as a CUDA graph at warm-up and
+replayed, its per-step inputs (the ``[B, k+1]`` block, the draft lengths,
+the active mask) copied from pinned host buffers, its accepted tokens and
+counts read back in one copy; a draft model's program per k-bucket is its
+drafter's graph. A step where nothing was drafted runs the plain decode
+step. Slots reserve ``k_max`` lookahead rows at admission for the verify's
+writes before acceptance.
+
+Span tracing (``tracer``, a telemetry/spans.SpanTracer): each request's
+queue wait, prefill chunks, decode segments, swaps and cancel, and the
+engine's decode, draft and verify steps, are stamped on the host at
+instants the loop already holds; an armed run issues the same device work
+as a bare one.
+
 The chunk and swap programs run eagerly (counted, not captured), like the
 prefills: they write the KV store and the lengths in place, so the decode
 graph's addresses never move.
@@ -66,8 +85,8 @@ queue-wait / TTFT / TPOT histograms, and per run the rates and the
 contract's gauges (``serving/compiled_programs``,
 ``serving/jit_cache_entries``, ``serving/recompiles``).
 
-Options the JAX engine has and this port does not yet (speculative
-decoding, tracing, SLO control, tenants) raise :class:`EngineConfigError`.
+Options the JAX engine has and this port does not yet (SLO control,
+tenants) raise :class:`EngineConfigError`.
 """
 
 from __future__ import annotations
@@ -92,11 +111,20 @@ from deepspeed_tpu_torch.serving.kv_slots import SlotKVCache
 from deepspeed_tpu_torch.serving.radix import PrefixCache
 from deepspeed_tpu_torch.serving.scheduler import (Request, RequestResult,
                                                    SlotScheduler, pick_bucket)
+from deepspeed_tpu_torch.serving.speculative import (AdaptiveK,
+                                                     DraftModelDrafter,
+                                                     NgramDrafter,
+                                                     normalize_speculative,
+                                                     pick_k_bucket,
+                                                     verify_to_host)
 from deepspeed_tpu_torch.serving.swap import HostSwapBuffer
 from deepspeed_tpu_torch.telemetry.registry import get_registry, metric_label
 from deepspeed_tpu_torch.utils.logging import log_dist
 
-_NOT_PORTED = ("speculative", "tracer", "slo", "tenants")
+_NOT_PORTED = ("slo", "tenants")
+# tokens-per-step histograms count small integers (1 .. k + 1): unit-wide
+# buckets keep their percentiles exact
+_TOKENS_PER_STEP_BUCKETS = tuple(float(x) for x in range(1, 34))
 
 
 class _SlotState:
@@ -137,6 +165,27 @@ class _Preempted:
         self.since = since
 
 
+class _ReqTrace:
+    """The span bookkeeping of one request: its trace id, the span its
+    lifecycle spans hang under (the engine's root span, or the caller's
+    ``parent_span``), and its open decode-segment and swapped spans.
+    ``submitted_t``: for a request that arrived with trace context, where
+    its queue wait starts (the first step after its submit; the caller's
+    own span covers the time before)."""
+
+    __slots__ = ("trace_id", "root", "root_span", "decode_span",
+                 "swap_span", "submitted_t")
+
+    def __init__(self, trace_id: str, root: Optional[str], root_span=None,
+                 submitted_t: Optional[float] = None):
+        self.trace_id = trace_id
+        self.root = root
+        self.root_span = root_span
+        self.decode_span = None
+        self.swap_span = None
+        self.submitted_t = submitted_t
+
+
 class ServingEngine:
     """Drives an :class:`InferenceEngine`'s slot programs with an
     iteration-level scheduler.
@@ -164,6 +213,11 @@ class ServingEngine:
     swap_max_bytes: cap on the host swap buffer's bytes (None: unbounded);
         a preemption that would pass it is declined.
     tpot_slo_ms, slo_max_defer: the TPOT guard (needs the budget).
+    speculative: None/"off", "ngram" or "draft", a dict of
+        :class:`~deepspeed_tpu_torch.serving.speculative.SpeculativeConfig`
+        fields, or a config: speculative decoding.
+    tracer: a :class:`~deepspeed_tpu_torch.telemetry.spans.SpanTracer`
+        (None: untraced).
     telemetry: True (default) records into the global registry
         (telemetry/registry.py), a registry records there, None/False
         records nothing.
@@ -186,8 +240,7 @@ class ServingEngine:
                  tpot_slo_ms: Optional[float] = None,
                  slo_max_defer: int = 4, tracer=None, slo=None,
                  tenants: Optional[bool] = None):
-        requested = {"speculative": speculative not in (None, "off"),
-                     "tracer": tracer, "slo": slo, "tenants": tenants}
+        requested = {"slo": slo, "tenants": tenants}
         for name in _NOT_PORTED:
             if requested[name]:
                 raise EngineConfigError(
@@ -250,6 +303,51 @@ class ServingEngine:
         self._decode = GraphProgram(
             self.cache.decode_program(engine, pad_token_id, **self._sample_kw),
             engine.graph_pool)
+        pin = torch.device(self.device).type == "cuda"
+
+        # ---- speculative decoding
+        self.spec = normalize_speculative(speculative)
+        self._verify: Dict[int, GraphProgram] = {}
+        # k-bucket -> the verify block's pinned host and device buffers
+        self._verify_tokens: Dict[int, tuple] = {}
+        self._drafter = None
+        self._adaptive = None
+        self._lookahead = 0
+        if self.spec is not None:
+            # the verify writes the k drafts' K/V before acceptance: the
+            # lookahead rows are reserved at admission
+            self._lookahead = self.spec.k_max
+            if max_len <= self._lookahead:
+                raise EngineConfigError(
+                    f"speculative k_max {self._lookahead} leaves no slot "
+                    f"capacity at max_len {max_len}")
+            if self.spec.mode == "draft":
+                self._drafter = DraftModelDrafter(
+                    self.spec, num_slots, pad_token_id=pad_token_id,
+                    device=self.device)
+            else:
+                self._drafter = NgramDrafter(self.spec)
+            if self.spec.adaptive:
+                self._adaptive = AdaptiveK(self.spec, num_slots)
+            # the verify steps' per-step draft lengths (pinned host, device)
+            self._draft_len_host = torch.zeros((num_slots,),
+                                               dtype=torch.int32,
+                                               pin_memory=pin)
+            self._draft_len = torch.zeros((num_slots,), dtype=torch.int32,
+                                          device=self.device)
+        self.spec_drafted_tokens = 0
+        self.spec_accepted_tokens = 0
+        self._draft_wall = 0.0
+        self._verify_wall = 0.0
+
+        # ---- span tracing
+        self.tracer = tracer
+        self._rtraces: Dict[int, _ReqTrace] = {}
+        self._engine_trace: Optional[str] = None   # iteration spans' trace
+        self._last_step_now = 0.0     # cancel() takes no clock argument
+        # context-carrying records awaiting their submit-time stamp (the
+        # next step's)
+        self._pending_submit_stamps: List[_ReqTrace] = []
 
         # ---- SLO-aware scheduling
         if prefill_token_budget is not None:
@@ -286,8 +384,7 @@ class ServingEngine:
 
         # the decode step's per-step inputs: host arrays (pinned on the
         # card) copied into persistent device buffers, the addresses the
-        # step's CUDA graph reads
-        pin = torch.device(self.device).type == "cuda"
+        # step's CUDA graph reads (the verify steps read ``_active`` too)
         self._toks_host = torch.zeros((num_slots,), dtype=torch.int32,
                                       pin_memory=pin)
         self._active_host = torch.zeros((num_slots,), dtype=torch.bool,
@@ -352,16 +449,49 @@ class ServingEngine:
             self._swap_out_fn, self._swap_in_fn = \
                 self.cache.swap_programs(self.engine)
 
+    def _verify_fn(self, kb: int) -> GraphProgram:
+        """The verify program of k-bucket ``kb`` (one per bucket of the
+        fixed set, so adaptive k never builds one), this engine's graph,
+        and its block's pinned host and device buffers."""
+        if kb not in self._verify:
+            self._verify[kb] = GraphProgram(
+                self.cache.verify_program(self.engine, kb, self.pad_token_id,
+                                          **self._sample_kw),
+                self.engine.graph_pool)
+            pin = torch.device(self.device).type == "cuda"
+            shape = (self.num_slots, kb + 1)
+            self._verify_tokens[kb] = (
+                torch.zeros(shape, dtype=torch.int32, pin_memory=pin),
+                torch.zeros(shape, dtype=torch.int32, device=self.device))
+        return self._verify[kb]
+
+    def _verify_call(self, kb: int, rng: Optional[torch.Generator]):
+        """Copy the pinned per-step inputs (the ``[B, kb+1]`` block, draft
+        lengths, active mask) to their device buffers and run (on the card:
+        replay) the verify program of bucket ``kb``."""
+        fn = self._verify_fn(kb)
+        host, dev = self._verify_tokens[kb]
+        dev.copy_(host, non_blocking=True)
+        self._draft_len.copy_(self._draft_len_host, non_blocking=True)
+        self._active.copy_(self._active_host, non_blocking=True)
+        return fn(self.engine.params, *self.cache.carry(),
+                  *self.cache.decode_args(), dev, self._draft_len,
+                  self._active, self._temp, rng)
+
     @property
     def program_count(self) -> int:
         """Serving programs built so far, as the reference counts them: one
         prefill per bucket used, the decode step, the slot-paged chunk
-        prefills, the swap-out and swap-in pair, and with the prefix cache
-        the copy-on-write block copy (``len(buckets) + 1`` after warm-up
-        with no option, + 1 block-paged)."""
-        return (len(self._prefill) + 1 + len(self._chunk_prefill)
-                + 2 * (self._swap_out_fn is not None)
-                + (self._copy_fn is not None))
+        prefills, the swap-out and swap-in pair, with the prefix cache the
+        copy-on-write block copy, and with speculation one verify program
+        per k-bucket and the draft model's programs (``len(buckets) + 1``
+        after warm-up with no option, + 1 block-paged)."""
+        n = (len(self._prefill) + 1 + len(self._chunk_prefill)
+             + len(self._verify) + 2 * (self._swap_out_fn is not None)
+             + (self._copy_fn is not None))
+        if self._drafter is not None:
+            n += len(self._drafter.program_cache_sizes())
+        return n
 
     def program_cache_sizes(self) -> Dict[str, int]:
         """Entry count per serving program, by the reference's names: each
@@ -372,11 +502,15 @@ class ServingEngine:
             out[f"prefill_{b}"] = fn._cache_size()
         for b, fn in self._chunk_prefill.items():
             out[f"chunk_prefill_{b}"] = fn._cache_size()
+        for kb, fn in self._verify.items():
+            out[f"verify_{kb}"] = fn._cache_size()
         if self._swap_out_fn is not None:
             out["swap_out"] = self._swap_out_fn._cache_size()
             out["swap_in"] = self._swap_in_fn._cache_size()
         if self._copy_fn is not None:
             out["block_copy"] = self._copy_fn._cache_size()
+        if self._drafter is not None:
+            out.update(self._drafter.program_cache_sizes())
         return out
 
     def recompile_count(self) -> int:
@@ -390,9 +524,10 @@ class ServingEngine:
         prefill (slot-paged under a budget: and its chunk prefill, for the
         buckets a chunk can take), with preemption the swap round trip, the
         decode step (block-paged: and the block copy, the garbage row onto
-        itself), then reset the slot lengths. The decode call builds the
-        CUDA kernels and captures the step's CUDA graph, off the served
-        trace. Block-paged warm-up prefills and swaps through sentinel
+        itself), with speculation each k-bucket's verify step (no slot
+        active) and draft program, then reset the slot lengths. The decode
+        call builds the CUDA kernels and captures the step's CUDA graph,
+        off the served trace, as do the verify and draft calls theirs. Block-paged warm-up prefills and swaps through sentinel
         table rows, so its writes land in the garbage row. A sampling
         engine warms up on a generator of its own: the served trace's draws
         start from the engine's seed."""
@@ -427,6 +562,14 @@ class ServingEngine:
             self.cache.update_kv(*self._copy_fn(
                 self.cache.k, self.cache.v, self.cache.sentinel,
                 self.cache.sentinel))
+        if self.spec is not None:
+            self._active_host.zero_()
+            self._draft_len_host.zero_()
+            for kb in self.spec.k_buckets:
+                self._verify_fn(kb)
+                self._verify_tokens[kb][0].fill_(self.pad_token_id)
+                self.cache.update(*self._verify_call(kb, rng)[:3])
+            self._drafter.warmup()
         self.cache.lengths.zero_()
         self._warm = True
 
@@ -446,11 +589,29 @@ class ServingEngine:
                 f"largest prefill bucket {self.buckets[-1]} (set "
                 f"prefill_token_budget to serve longer prompts via "
                 f"chunked prefill)")
-        if not self.cache.capacity_for(plen, request.max_new_tokens):
+        if not self.cache.capacity_for(plen, request.max_new_tokens,
+                                       self._lookahead):
+            extra = (f" (speculation reserves {self._lookahead} lookahead "
+                     f"rows for pre-acceptance draft writes)"
+                     if self._lookahead else "")
             raise SlotCapacityError(
                 f"request {request.rid}: prompt {plen} + max_new "
                 f"{request.max_new_tokens} exceeds slot capacity "
-                f"{self.max_len}")
+                f"{self.max_len}{extra}")
+        if self.tracer is not None:
+            # a request with trace context keeps its trace and hangs its
+            # spans under the caller's span; else the engine owns the root.
+            # The Request is not changed: the context lives here
+            if request.trace_id is not None:
+                rt = _ReqTrace(request.trace_id, request.parent_span)
+                self._rtraces[request.rid] = rt
+                self._pending_submit_stamps.append(rt)
+            else:
+                root = self.tracer.begin(
+                    "request", t=request.arrival_time, rid=request.rid,
+                    priority=request.priority, prompt_len=plen)
+                self._rtraces[request.rid] = _ReqTrace(
+                    root.trace_id, root.span_id, root_span=root)
         self.scheduler.submit(request)
 
     def cancel(self, rid: int) -> bool:
@@ -463,6 +624,7 @@ class ServingEngine:
         if self.scheduler.remove(rid):
             if self._preempted.pop(rid, None) is not None:
                 self.swap.discard(rid)
+            self._trace_cancel(rid, "queued")
             return True
         for i, st in enumerate(self._slots):
             if st is not None and st.request.rid == rid:
@@ -472,8 +634,24 @@ class ServingEngine:
                     # the computed length caps the donation (a host read)
                     self.prefix.finish(i, donate_upto=int(
                         self.cache.lengths[i]))
+                self._trace_cancel(rid, "slot")
                 return True
         return False
+
+    def _trace_cancel(self, rid: int, where: str) -> None:
+        """Close a cancelled request's open spans at the last step's
+        instant (cancel takes no clock argument)."""
+        if self.tracer is None:
+            return
+        rt = self._rtraces.pop(rid, None)
+        if rt is None:
+            return
+        t = self._last_step_now
+        self.tracer.end(rt.decode_span, t=t, reason="cancelled")
+        self.tracer.end(rt.swap_span, t=t, reason="cancelled")
+        self.tracer.record("cancel", t, t, trace_id=rt.trace_id,
+                           parent_id=rt.root, where=where)
+        self.tracer.end(rt.root_span, t=t, finish_reason="cancelled")
 
     @property
     def pending(self) -> int:
@@ -501,12 +679,24 @@ class ServingEngine:
             # insert-on-finish: the prompt's full blocks go to the radix
             # index, the rest are freed, the table row parks at the sentinel
             self.prefix.finish(slot)
+        if self.tracer is not None:
+            rt = self._rtraces.pop(st.request.rid, None)
+            if rt is not None:
+                t_fin = st.result.finish_time
+                self.tracer.end(rt.decode_span, t=t_fin,
+                                tokens=len(st.result.tokens),
+                                decode_calls=st.result.decode_calls)
+                self.tracer.end(rt.swap_span, t=t_fin)
+                self.tracer.end(rt.root_span, t=t_fin, finish_reason=reason,
+                                tokens=len(st.result.tokens),
+                                preemptions=st.result.preemptions)
         if self.telemetry is not None:
             res, reg = st.result, self.telemetry
             reg.counter("serving/finished_requests").inc()
             reg.histogram("serving/latency_ms").observe(res.latency * 1e3)
             # decode-phase iterations only: TTFT covers the prefill, and
-            # time preempted after the first token is queue wait
+            # time preempted after the first token is queue wait. Divided
+            # by decode invocations, not tokens: a verify emits up to k + 1
             if res.decode_calls > 0:
                 tpot = max(res.finish_time - res.first_token_time
                            - res.decode_preempted_wall,
@@ -515,6 +705,9 @@ class ServingEngine:
                 reg.histogram(
                     f"serving/tpot_ms/p{metric_label(res.priority)}"
                 ).observe(tpot)
+                reg.histogram("serving/tokens_per_decode_call",
+                              buckets=_TOKENS_PER_STEP_BUCKETS).observe(
+                    (len(res.tokens) - 1) / res.decode_calls)
         return st.result
 
     def _maybe_finish(self, slot: int, now: float) -> Optional[RequestResult]:
@@ -529,12 +722,16 @@ class ServingEngine:
     def _admit_fits(self, req: Request) -> bool:
         """The scheduler's ``fits`` hook: slot-paged, a free slot suffices;
         block-paged admission (a fresh request or a resume alike) needs the
-        request's unmatched blocks (prompt + max_new, minus radix-matched
-        full blocks) from free + evictable pool blocks."""
+        request's unmatched blocks (prompt + max_new + the speculative
+        lookahead, minus radix-matched full blocks) from free + evictable
+        pool blocks."""
         if self.prefix is None:
             return True
-        return self.prefix.fits(req.prompt,
-                                len(req.prompt) + req.max_new_tokens)
+        return self.prefix.fits(req.prompt, self._span_of(req))
+
+    def _span_of(self, req: Request) -> int:
+        """Positions a request may write: prompt, new tokens, lookahead."""
+        return len(req.prompt) + req.max_new_tokens + self._lookahead
 
     @staticmethod
     def _stream(st: _SlotState, tokens) -> None:
@@ -652,11 +849,21 @@ class ServingEngine:
             finished.append(res)
             if self.telemetry is not None:
                 self.telemetry.counter("serving/shed_deadline").inc()
+            if self.tracer is not None:
+                rt = self._rtraces.pop(req.rid, None)
+                if rt is not None:
+                    t_q0 = req.arrival_time if rt.submitted_t is None \
+                        else rt.submitted_t
+                    self.tracer.record("queue_wait", min(t_q0, now), now,
+                                       trace_id=rt.trace_id,
+                                       parent_id=rt.root, slot=slot)
+                    self.tracer.end(rt.root_span, t=res.finish_time,
+                                    finish_reason="shed_deadline")
             return 0
         start = 0
         if self.prefix is not None:
             start, copies = self.prefix.admit(slot, req.prompt,
-                                              plen + req.max_new_tokens)
+                                              self._span_of(req))
             for src, dst in copies:
                 self.cache.update_kv(*self._copy_fn(
                     self.cache.k, self.cache.v, src, dst))
@@ -671,6 +878,17 @@ class ServingEngine:
             self.telemetry.counter("serving/prefills").inc()
             self.telemetry.histogram("serving/queue_wait_ms").observe(
                 max(now - req.arrival_time, 0.0) * 1e3)
+        if self.tracer is not None:
+            rt = self._rtraces.get(req.rid)
+            if rt is not None:
+                t_q0 = req.arrival_time if rt.submitted_t is None \
+                    else rt.submitted_t
+                self.tracer.record(
+                    "queue_wait", min(t_q0, now), now, trace_id=rt.trace_id,
+                    parent_id=rt.root, slot=slot, priority=req.priority,
+                    radix_matched_tokens=start)
+        if self._adaptive is not None:
+            self._adaptive.reset_slot(slot)
         return self._run_prefill_chunks(slot, now, budget_left, finished)
 
     def _run_prefill_chunks(self, slot: int, now: float,
@@ -697,16 +915,31 @@ class ServingEngine:
             pos = st.prefill_pos
             if self.prefix is None and (pos > 0 or not last):
                 # a chunk of the prompt, from its offset in the slot's row
+                pname = f"chunk_prefill_{bucket}"
                 fn, args = self._chunk_fn(bucket), self.cache.chunk_args(
                     slot, pos, chunk)
             else:
                 # the whole prompt at once (slot-paged), or a suffix or a
                 # chunk of it from its offset (block-paged)
+                pname = f"prefill_{bucket}"
                 fn, args = self._prefill_fn(bucket), self.cache.prefill_args(
                     slot, pos, chunk)
+            armed = self.tracer is not None
+            if armed:
+                t_span0 = self._now(now)
             out = fn(self.engine.params, *self.cache.carry(), ids, *args,
                      self._temp, self._next_rng())
             self.cache.update(*out[:3])
+            if armed:
+                # stamped around the dispatch; the last chunk's token read
+                # below is the fence the bare engine pays as well
+                rt = self._rtraces.get(req.rid)
+                if rt is not None:
+                    self.tracer.record(
+                        "prefill_chunk", t_span0, self._now(now),
+                        trace_id=rt.trace_id, parent_id=rt.root,
+                        program=pname, bucket=bucket, tokens=chunk,
+                        slot=slot)
             st.prefill_pos += chunk
             spent += bucket
             self.prefill_tokens_computed += chunk
@@ -730,6 +963,14 @@ class ServingEngine:
                         f"serving/ttft_ms/p{metric_label(req.priority)}"
                     ).observe(ttft)
                 self._stream(st, [tok])
+                if armed:
+                    # decode-phase residency, from the first token to the
+                    # finish, preemption or cancel
+                    rt = self._rtraces.get(req.rid)
+                    if rt is not None:
+                        rt.decode_span = self.tracer.begin(
+                            "decode_segment", trace_id=rt.trace_id,
+                            parent_id=rt.root, t=t_emit, slot=slot)
                 done = self._maybe_finish(slot, now)
                 if done is not None:
                     finished.append(done)
@@ -777,6 +1018,10 @@ class ServingEngine:
         with the tokens of an uninterrupted run."""
         st = self._slots[slot]
         self._build_swap_programs()
+        armed = self.tracer is not None
+        rt = self._rtraces.get(st.request.rid) if armed else None
+        if armed:
+            t_sw0 = self._now(now)
         # the length the slot computed bounds what is parked (a host read)
         length = int(self.cache.lengths[slot])
         host_k, host_v, n_used = self.cache.swap_out(self._swap_out_fn, slot,
@@ -792,8 +1037,19 @@ class ServingEngine:
         self.scheduler.release(slot)
         self.scheduler.resubmit(st.request)
         st.result.preemptions += 1
-        self._preempted[st.request.rid] = _Preempted(st, length,
-                                                     self._now(now))
+        since = self._now(now)
+        self._preempted[st.request.rid] = _Preempted(st, length, since)
+        if rt is not None:
+            # the decode segment ends where the swap began; the swapped
+            # interval opens at the park and closes on resume
+            self.tracer.end(rt.decode_span, t=t_sw0, reason="preempted")
+            rt.decode_span = None
+            self.tracer.record("swap_out", t_sw0, since, trace_id=rt.trace_id,
+                               parent_id=rt.root, program="swap_out",
+                               blocks=n_used, slot=slot)
+            rt.swap_span = self.tracer.begin(
+                "swapped", trace_id=rt.trace_id, parent_id=rt.root, t=since,
+                blocks=n_used)
         self.preemptions += 1
         if self.telemetry is not None:
             reg = self.telemetry
@@ -808,19 +1064,33 @@ class ServingEngine:
         a mid-prefill resume past it)."""
         rec = self._preempted.pop(req.rid)
         st = rec.state
+        rt = self._rtraces.get(req.rid) if self.tracer is not None else None
+        if self.tracer is not None:
+            t_in0 = self._now(now)
         host_k, host_v = self.swap.pop(req.rid)
         length = rec.length
         shared = 0
         if self.prefix is not None:
             shared = self.prefix.readmit(slot, req.prompt,
-                                         len(req.prompt) + req.max_new_tokens)
+                                         self._span_of(req))
             length = max(length, min(shared * self.cache.block_size,
                                      st.prefill_total))
             if st.prefilling:
                 st.prefill_pos = max(st.prefill_pos, length)
         swapped_in = self.cache.swap_in(self._swap_in_fn, host_k, host_v,
                                         slot, length, shared)
-        gap = max(self._now(now) - rec.since, 0.0)
+        t_res = self._now(now)
+        if rt is not None:
+            self.tracer.end(rt.swap_span, t=t_in0)
+            rt.swap_span = None
+            self.tracer.record("swap_in", t_in0, t_res, trace_id=rt.trace_id,
+                               parent_id=rt.root, program="swap_in",
+                               blocks=swapped_in, slot=slot)
+            if st.result.tokens:
+                rt.decode_span = self.tracer.begin(
+                    "decode_segment", trace_id=rt.trace_id,
+                    parent_id=rt.root, t=t_res, slot=slot, resumed=True)
+        gap = max(t_res - rec.since, 0.0)
         st.result.preempted_wall += gap
         if st.result.tokens:
             # after the first token: left out of the TPOT span at finish (a
@@ -829,6 +1099,8 @@ class ServingEngine:
         st.order = self._admit_seq
         self._admit_seq += 1
         self._slots[slot] = st
+        if self._adaptive is not None:
+            self._adaptive.reset_slot(slot)
         self.swapped_blocks_in += swapped_in
         if self.telemetry is not None:
             reg = self.telemetry
@@ -839,12 +1111,19 @@ class ServingEngine:
     def step(self, now: Optional[float] = None) -> List[RequestResult]:
         """One serving iteration: the budgeted admit/prefill side (chunk
         continuations, admissions, preemptions), then one decode step for
-        every decode-phase slot (slots still prefilling sit it out).
-        Returns requests finished."""
+        every decode-phase slot (slots still prefilling sit it out): a
+        speculative one with ``speculative``. Returns requests finished."""
         if not self._warm:
             self.warmup()
         if now is None:
             now = self._time()
+        self._last_step_now = now
+        if self._pending_submit_stamps:
+            # the first step after a context-carrying submit: its queue
+            # wait starts here
+            for rt in self._pending_submit_stamps:
+                rt.submitted_t = now
+            self._pending_submit_stamps.clear()
         finished: List[RequestResult] = []
         self._schedule(now, finished)
         active_slots = [i for i, s in enumerate(self._slots)
@@ -855,7 +1134,16 @@ class ServingEngine:
             self._last_decode_t = None
             return finished
         self._note_decode_gap()
+        if self.spec is not None:
+            return self._spec_step(now, active_slots, finished)
         return self._plain_step(now, active_slots, finished)
+
+    def _iter_trace(self) -> str:
+        """The engine's own trace, made at first use, for the iteration
+        spans (decode, draft and verify steps)."""
+        if self._engine_trace is None:
+            self._engine_trace = self.tracer.new_trace()
+        return self._engine_trace
 
     def _note_decode_gap(self) -> None:
         """Moving average of the host wall time between decode steps: the
@@ -869,6 +1157,8 @@ class ServingEngine:
 
     def _plain_step(self, now: float, active_slots: List[int],
                     finished: List[RequestResult]) -> List[RequestResult]:
+        """One token for every decode-phase slot (also the speculative
+        step's fallback when nothing was drafted)."""
         # the previous step's read of its picks synchronized the stream, so
         # the pinned host buffers are free to write
         toks, active = self._toks_host.numpy(), self._active_host.numpy()
@@ -877,6 +1167,9 @@ class ServingEngine:
         for i in active_slots:
             toks[i] = self._slots[i].last_token
         active[active_slots] = True
+        armed = self.tracer is not None
+        if armed:
+            t_dec0 = self._now(now)
         t0 = time.perf_counter()
         self._toks.copy_(self._toks_host, non_blocking=True)
         self._active.copy_(self._active_host, non_blocking=True)
@@ -887,9 +1180,17 @@ class ServingEngine:
         # the stream's one host read per step: the picks feed the streams
         nxt = out[3].cpu().numpy()
         self.decode_wall += time.perf_counter() - t0
+        if armed:
+            self.tracer.record("decode_step", t_dec0, self._now(now),
+                               trace_id=self._iter_trace(), program="decode",
+                               n_slots=len(active_slots))
         self.decode_steps += 1
         self._active_slot_iterations += len(active_slots)
         self.tokens_generated += len(active_slots)
+        if self.telemetry is not None:
+            self.telemetry.counter("serving/decode_steps").inc()
+            self.telemetry.counter("serving/slot_iterations_active").inc(
+                len(active_slots))
         t_emit = self._now(now)
         for i in active_slots:
             st = self._slots[i]
@@ -899,6 +1200,116 @@ class ServingEngine:
             st.result.decode_calls += 1
             st.last_token = tok
             self._stream(st, [tok])
+            done = self._maybe_finish(i, now)
+            if done is not None:
+                finished.append(done)
+        return finished
+
+    def _spec_step(self, now: float, active_slots: List[int],
+                   finished: List[RequestResult]) -> List[RequestResult]:
+        """One speculative iteration: draft up to k tokens per slot, verify
+        them all in one target forward, emit each slot's accepted prefix
+        plus one token (1 to draft_len + 1 tokens per slot). A slot's draft
+        length is capped at its remaining budget - 1, so emission never
+        overshoots max_new_tokens; the verify width is the smallest bucket
+        holding the longest draft made; a round that drafted nothing runs
+        the plain decode step. Slots in their prefill phase have no stream
+        yet and sit the round out."""
+        spec = self.spec
+        nslots = self.num_slots
+        want = np.zeros((nslots,), np.int32)
+        for i in active_slots:
+            st = self._slots[i]
+            remaining = st.request.max_new_tokens - len(st.result.tokens)
+            k_des = (self._adaptive.desired_k(i)
+                     if self._adaptive is not None else spec.k_max)
+            want[i] = max(0, min(k_des, remaining - 1))
+        kb = pick_k_bucket(max(int(want.max()), 1), spec.k_buckets)
+        # the drafters read each slot's stream: prompt + emitted tokens
+        histories = [list(s.request.prompt) + s.result.tokens
+                     if s is not None and not s.prefilling else None
+                     for s in self._slots]
+        armed = self.tracer is not None
+        if armed:
+            t_sp0 = self._now(now)
+        t0 = time.perf_counter()
+        drafts, lens = self._drafter.propose(histories, want, kb)
+        lens = np.minimum(np.asarray(lens, np.int32), want)
+        dt = time.perf_counter() - t0
+        self._draft_wall += dt
+        self.decode_wall += dt
+        if armed:
+            self.tracer.record("spec_draft", t_sp0, self._now(now),
+                               trace_id=self._iter_trace(), k_bucket=kb,
+                               n_slots=len(active_slots))
+        longest = int(lens.max())
+        if longest == 0:
+            # nothing drafted anywhere: the plain step emits the same token
+            return self._plain_step(now, active_slots, finished)
+        kb = pick_k_bucket(longest, spec.k_buckets)
+        self._verify_fn(kb)
+        # the previous step's read synchronized the stream: the pinned
+        # host buffers are free to write
+        tokens = self._verify_tokens[kb][0].numpy()
+        active = self._active_host.numpy()
+        tokens.fill(self.pad_token_id)
+        active.fill(False)
+        for i in active_slots:
+            tokens[i, 0] = self._slots[i].last_token
+            n = int(lens[i])
+            tokens[i, 1:1 + n] = drafts[i, :n]
+        active[active_slots] = True
+        self._draft_len_host.numpy()[:] = lens
+        if armed:
+            t_vf0 = self._now(now)
+        t0 = time.perf_counter()
+        out = self._verify_call(kb, self._next_rng())
+        self.cache.update(*out[:3])
+        # the step's one host read: accepted tokens and their counts
+        out_tokens, n_emit = verify_to_host(out[3])
+        dt = time.perf_counter() - t0
+        self._verify_wall += dt
+        self.decode_wall += dt
+        if armed:
+            self.tracer.record("spec_verify", t_vf0, self._now(now),
+                               trace_id=self._iter_trace(),
+                               program=f"verify_{kb}",
+                               n_slots=len(active_slots))
+        self.decode_steps += 1
+        self._active_slot_iterations += len(active_slots)
+        reg = self.telemetry
+        if reg is not None:
+            reg.counter("serving/decode_steps").inc()
+            reg.counter("serving/spec_verify_steps").inc()
+            reg.counter("serving/slot_iterations_active").inc(
+                len(active_slots))
+        t_emit = self._now(now)
+        for i in active_slots:
+            st = self._slots[i]
+            n = int(n_emit[i])
+            emitted = [int(t) for t in out_tokens[i, :n]]
+            n_drafted, n_accepted = int(lens[i]), n - 1
+            if (self.eos_token_id is not None
+                    and self.eos_token_id in emitted):
+                # EOS inside the accepted block: the plain decode stops at
+                # its first EOS, so the tokens behind it are dropped
+                emitted = emitted[:emitted.index(self.eos_token_id) + 1]
+            st.result.tokens.extend(emitted)
+            st.result.token_times.extend([t_emit] * len(emitted))
+            st.result.decode_calls += 1
+            st.last_token = emitted[-1]
+            self.tokens_generated += len(emitted)
+            # only the accepted block is streamed
+            self._stream(st, emitted)
+            self.spec_drafted_tokens += n_drafted
+            self.spec_accepted_tokens += n_accepted
+            if self._adaptive is not None:
+                self._adaptive.update(i, n_accepted, n_drafted)
+            if reg is not None:
+                reg.counter("serving/spec_drafted_tokens").inc(n_drafted)
+                reg.counter("serving/spec_accepted_tokens").inc(n_accepted)
+                reg.histogram("serving/accepted_tokens_per_step",
+                              buckets=_TOKENS_PER_STEP_BUCKETS).observe(n)
             done = self._maybe_finish(i, now)
             if done is not None:
                 finished.append(done)
@@ -942,8 +1353,9 @@ class ServingEngine:
     def _record_run_telemetry(self, n_finished: int, elapsed: float,
                               run_tokens: int) -> None:
         """The reference's per-run gauges: rates over this run, the queue's
-        peak, the compile-once contract, batch fill, the swap buffer and,
-        block-paged, the pool and prefix-cache gauges."""
+        peak, the compile-once contract, batch fill, the swap buffer,
+        block-paged the pool and prefix-cache gauges, and with speculation
+        the acceptance rate, tokens per slot-step and the draft's share."""
         reg = self.telemetry
         reg.gauge("serving/run_elapsed_s").set(elapsed)
         if elapsed > 0:
@@ -976,3 +1388,17 @@ class ServingEngine:
                 self.cache.occupancy())
             reg.gauge("serving/prefix_cached_blocks").set(
                 self.prefix.cached_blocks())
+        if self.spec is not None:
+            if self.spec_drafted_tokens:
+                reg.gauge("serving/spec_acceptance_rate").set(
+                    self.spec_accepted_tokens / self.spec_drafted_tokens)
+            if self._active_slot_iterations:
+                # decode-phase tokens per slot-step (1.0: the plain decode)
+                reg.gauge("serving/spec_tokens_per_slot_step").set(
+                    (self.tokens_generated - self.prefill_calls)
+                    / self._active_slot_iterations)
+            wall = self._draft_wall + self._verify_wall
+            if wall > 0:
+                # drafting's share of the draft + verify host wall
+                reg.gauge("serving/spec_draft_overhead_frac").set(
+                    self._draft_wall / wall)

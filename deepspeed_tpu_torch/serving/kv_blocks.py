@@ -158,6 +158,12 @@ class BlockKVPool:
                                            pad_token_id=pad_token_id,
                                            kv_dtype=self.kv_dtype, **sample)
 
+    def verify_program(self, engine, k: int, pad_token_id: int, **sample):
+        return engine.block_verify_program(self.num_slots,
+                                           self.max_blocks_per_slot, k,
+                                           pad_token_id=pad_token_id,
+                                           kv_dtype=self.kv_dtype, **sample)
+
     def swap_programs(self, engine) -> Tuple:
         """The preemption swap-out and swap-in programs."""
         kw = dict(kv_dtype=self.kv_dtype or "compute")
@@ -173,8 +179,8 @@ class BlockKVPool:
         return self.table_row(slot), slot, start, n
 
     def decode_args(self) -> Tuple:
-        """The decode program's addressing operand: the full block table
-        (see :meth:`table_array`)."""
+        """The decode and verify programs' addressing operand: the full
+        block table (see :meth:`table_array`)."""
         return (self.table_array(),)
 
     def decode_kernel_supports(self, num_heads: int) -> bool:
@@ -254,10 +260,12 @@ class BlockKVPool:
         self.ref[block] -= 1
 
     # ------------------------------------------------------------ sizing
-    def capacity_for(self, prompt_len: int, max_new_tokens: int) -> bool:
+    def capacity_for(self, prompt_len: int, max_new_tokens: int,
+                     lookahead: int = 0) -> bool:
         """Whether the fixed-width block table holds the request end to end
-        (prompt + every generated token, rounded up to whole blocks)."""
-        return (self.blocks_for(prompt_len + max_new_tokens)
+        (prompt + every generated token + the speculative lookahead, as
+        SlotKVCache.capacity_for, rounded up to whole blocks)."""
+        return (self.blocks_for(prompt_len + max_new_tokens + lookahead)
                 <= self.max_blocks_per_slot)
 
     def hbm_bytes(self) -> int:

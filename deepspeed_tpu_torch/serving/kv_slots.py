@@ -62,6 +62,10 @@ class SlotKVCache:
         return engine.slot_decode_program(self.num_slots, self.max_len,
                                           pad_token_id=pad_token_id, **sample)
 
+    def verify_program(self, engine, k: int, pad_token_id: int, **sample):
+        return engine.slot_verify_program(self.num_slots, self.max_len, k,
+                                          pad_token_id=pad_token_id, **sample)
+
     def swap_programs(self, engine) -> Tuple:
         """The preemption swap-out and swap-in programs."""
         return (engine.slot_swap_out_program(self.num_slots, self.max_len),
@@ -96,7 +100,8 @@ class SlotKVCache:
         self.swap_in(in_fn, *self.swap_out(out_fn, 0, 0)[:2], 0, 0)
 
     def decode_args(self) -> Tuple:
-        """The decode program's addressing operands: none beyond the carry."""
+        """The decode and verify programs' addressing operands: none beyond
+        the carry."""
         return ()
 
     def decode_kernel_supports(self, num_heads: int) -> bool:
@@ -105,10 +110,14 @@ class SlotKVCache:
         _, _, hkv, s_max, dh = self.k.shape
         return supports(num_heads, hkv, s_max, dh, self.k.element_size())
 
-    def capacity_for(self, prompt_len: int, max_new_tokens: int) -> bool:
+    def capacity_for(self, prompt_len: int, max_new_tokens: int,
+                     lookahead: int = 0) -> bool:
         """Whether one slot holds the request end to end (the last decode
-        write lands at row prompt_len + max_new_tokens - 1)."""
-        return prompt_len + max_new_tokens <= self.max_len
+        write lands at row prompt_len + max_new_tokens - 1). ``lookahead``
+        reserves the rows a speculative verify writes before acceptance:
+        the last verify, at length prompt_len + max_new_tokens - 1, writes
+        up to k_max rows past it."""
+        return prompt_len + max_new_tokens + lookahead <= self.max_len
 
     def hbm_bytes(self) -> int:
         return int(self.k.numel() * self.k.element_size()

@@ -33,6 +33,14 @@ class Request:
     # absolute completion deadline in the engine clock, or None; a request
     # whose deadline passed before admission is shed without prefill
     deadline: Optional[float] = None
+    # trace context (telemetry/spans.py): set by whoever owns the request's
+    # root span. A request that arrives with a trace id keeps it, and the
+    # engine's spans link under ``parent_span``; None with an armed tracer:
+    # the engine opens a fresh trace and owns its root span
+    trace_id: Optional[str] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    parent_span: Optional[str] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
 
 @dataclasses.dataclass

@@ -8,6 +8,9 @@ the JSONL sink, the config section, MFU and trace capture).
 * :mod:`trace`    — ``trace(path)`` over ``torch.profiler`` and
   ``annotate(name)``.
 * :mod:`mfu`      — model-flops utilization against the card's peak.
+* :mod:`spans`    — the span-graph request tracer (``ServingEngine(
+  tracer=SpanTracer())``), its Chrome-trace export and the per-request
+  phase breakdowns.
 
 ``serving/engine.py`` records into the registry: requests finished,
 prefills, latency / queue-wait / TTFT / TPOT histograms, deadline sheds,
@@ -30,6 +33,11 @@ from deepspeed_tpu_torch.telemetry.registry import (
     sanitize_metric_name,
 )
 from deepspeed_tpu_torch.telemetry.sink import JsonlSink, read_jsonl
+from deepspeed_tpu_torch.telemetry.spans import (PHASE_OF_SPAN, PHASES, Span,
+                                                 SpanTracer,
+                                                 aggregate_phase_stats,
+                                                 phase_breakdown,
+                                                 trace_summaries)
 from deepspeed_tpu_torch.telemetry.trace import annotate, trace
 
 __all__ = [
@@ -39,16 +47,23 @@ __all__ = [
     "Histogram",
     "JsonlSink",
     "MetricsRegistry",
+    "PHASES",
+    "PHASE_OF_SPAN",
+    "Span",
+    "SpanTracer",
     "TelemetryConfig",
+    "aggregate_phase_stats",
     "annotate",
     "get_registry",
     "get_telemetry_config",
     "metric_label",
     "mfu",
     "peak_flops_per_sec",
+    "phase_breakdown",
     "read_jsonl",
     "record_event",
     "reset_registry",
     "sanitize_metric_name",
     "trace",
+    "trace_summaries",
 ]

@@ -27,6 +27,12 @@ present. This file imports neither jax nor the JAX package:
   the swap buffer drains, and the chunk and swap programs keep one entry;
   a swap round trip moves a pool's bytes out and back unchanged; a sampled
   engine replays the eager draws and repeats with its seed.
+* Speculative decoding: for each k-bucket (2, 4, 8), slot-paged and over a
+  bf16 block pool, greedy and sampled, the verify graph's replay gives the
+  eager closure's accepted tokens, counts, KV store and lengths bit for
+  bit, and a second replay from the same state repeats; the draft model's
+  graph (a TinyLlama-shaped head layout, Dh 64 at GQA rep 8) likewise, and
+  a self-drafting engine serves the plain engine's tokens.
 """
 
 import numpy as np
@@ -40,6 +46,8 @@ from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
 from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaModel
 from deepspeed_tpu_torch.serving import (Request, ServingEngine,
                                          poisson_trace, shared_prefix_trace)
+from deepspeed_tpu_torch.serving.speculative import verify_to_host
+from deepspeed_tpu_torch.utils.tree import tree_leaves
 
 pytestmark = pytest.mark.cuda
 
@@ -382,3 +390,144 @@ def test_sampled_serving_replays_the_eager_draws(cuda):
     assert first == again == eager != greedy
     assert srv._decode.captures == 1
     assert set(srv.program_cache_sizes().values()) == {1}
+
+
+# ---------------------------------------------------------- speculation
+SPEC_K = (2, 4, 8)
+# the draft model: TinyLlama-1.1B's head layout (Dh 64, GQA rep 8) narrowed
+DRAFT_CFG = dict(vocab_size=512, max_seq_len=256, num_layers=2,
+                 hidden_size=512, num_heads=8, num_kv_heads=1,
+                 intermediate_size=1024)
+
+
+def _spec_server(eng, prefix_cache: bool, **kw):
+    """A speculative engine with four live slots, each past its prefill."""
+    store = dict(prefix_cache=True, block_size=16) if prefix_cache else {}
+    srv = ServingEngine(eng, num_slots=4, max_len=256, buckets=(32, 64),
+                        telemetry=False, speculative=dict(
+                            mode="ngram", k_buckets=SPEC_K), **store, **kw)
+    srv.warmup()
+    rng = np.random.RandomState(9)
+    for rid, n in enumerate((5, 17, 30, 60)):
+        srv.submit(Request(rid, rng.randint(0, 512, size=n).tolist(), 64))
+    srv._schedule(0.0, [])
+    assert all(st is not None and not st.prefilling for st in srv._slots)
+    return srv
+
+
+def _store(srv):
+    return (tree_leaves(srv.cache.k) + tree_leaves(srv.cache.v)
+            + [srv.cache.lengths])
+
+
+def _state(srv):
+    return [x.clone() for x in _store(srv)]
+
+
+def _restore(srv, saved):
+    for x, y in zip(_store(srv), saved):
+        x.copy_(y)
+
+
+def _fill_verify(srv, kb, seed):
+    rng = np.random.RandomState(seed)
+    tokens = srv._verify_tokens[kb][0].numpy()
+    tokens[:] = rng.randint(0, 512, size=tokens.shape)
+    srv._draft_len_host.numpy()[:] = [kb, kb - 1, 1, 0]
+    srv._active_host.numpy()[:] = [True, True, True, False]
+
+
+def check_verify_replay(srv, kb, gen=None):
+    """The verify graph of bucket ``kb`` replayed from one state twice and
+    its eager closure from the same state: the same accepted tokens, counts,
+    KV store and lengths, bit for bit."""
+    _fill_verify(srv, kb, kb)
+    saved = _state(srv)
+    runs = []
+    for eager in (False, False, True):
+        _restore(srv, saved)
+        if gen is not None:
+            gen.manual_seed(11)
+        fn = srv._verify_fn(kb)
+        if eager:
+            srv._verify[kb] = fn.eager
+        try:
+            out = srv._verify_call(kb, gen)
+        finally:
+            srv._verify[kb] = fn
+        toks, n = verify_to_host(out[3])
+        runs.append((toks, n, _state(srv)))
+    for toks, n, state in runs[1:]:
+        np.testing.assert_array_equal(toks, runs[0][0])
+        np.testing.assert_array_equal(n, runs[0][1])
+        assert all(torch.equal(a, b) for a, b in zip(state, runs[0][2]))
+    assert runs[0][1][3] == 0 and (runs[0][1][:3] >= 1).all()
+    assert srv._verify[kb].captures == 1
+    return runs[0]
+
+
+@pytest.mark.parametrize("do_sample", [False, True], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("prefix_cache", [False, True],
+                         ids=["slot_paged", "block_paged"])
+def test_verify_graph_replay_matches_eager(cuda, prefix_cache, do_sample):
+    eng = deepspeed_tpu_torch.init_inference(LlamaModel(LlamaConfig(**SERVE_CFG)),
+                                             dtype="bf16", seed=3)
+    kw = dict(do_sample=True, temperature=0.8, top_p=0.9) if do_sample else {}
+    srv = _spec_server(eng, prefix_cache, **kw)
+    _reset()
+    for kb in SPEC_K:
+        check_verify_replay(srv, kb, srv._rng)
+    n = _counts()
+    # the verify block runs no decode kernel (it is a multi-token step)
+    assert n["fused_decode_step"] == n["fused_block_decode_step"] == 0
+    assert set(srv.program_cache_sizes().values()) == {1}
+
+
+def test_draft_graph_replay_matches_eager(cuda):
+    eng = deepspeed_tpu_torch.init_inference(LlamaModel(LlamaConfig(**SERVE_CFG)),
+                                             dtype="bf16", seed=3)
+    draft = deepspeed_tpu_torch.init_inference(
+        LlamaModel(LlamaConfig(**DRAFT_CFG)), dtype="bf16", seed=4)
+    srv = ServingEngine(eng, num_slots=4, max_len=256, buckets=(32, 64),
+                        telemetry=False, speculative=dict(
+                            mode="draft", draft_engine=draft, draft_window=120,
+                            k_buckets=SPEC_K))
+    srv.warmup()
+    drafter = srv._drafter
+    rng = np.random.RandomState(2)
+    hists = [rng.randint(0, 512, size=n).tolist() for n in (3, 119, 120, 200)]
+    want = np.full((4,), 8)
+    for kb in SPEC_K:
+        _reset()
+        first = drafter.propose(hists, want, kb)[0]
+        again = drafter.propose(hists, want, kb)[0]
+        launches = _counts()["fused_decode_step"]
+        prog = drafter._programs[kb]
+        drafter._programs[kb] = prog.eager
+        try:
+            eager = drafter.propose(hists, want, kb)[0]
+        finally:
+            drafter._programs[kb] = prog
+        np.testing.assert_array_equal(first, again)
+        np.testing.assert_array_equal(first, eager)
+        # kernel B in each rollout step of each layer, replays credited
+        assert launches == 2 * DRAFT_CFG["num_layers"] * (kb - 1)
+        assert prog.captures == 1
+    assert srv.program_cache_sizes()["draft_8"] == 1
+
+
+def test_self_drafting_engine_serves_the_plain_tokens(cuda):
+    """In fp32 (in bf16 the verify's einsum rounds its logits where the
+    decode kernel keeps f32, so a near tie may flip)."""
+    eng = deepspeed_tpu_torch.init_inference(LlamaModel(LlamaConfig(**SERVE_CFG)),
+                                             dtype="fp32", seed=3)
+    reqs = poisson_trace(np.random.RandomState(5), 6, rate=1e3,
+                         prompt_lens=[5, 20, 60], max_new_choices=[6, 12],
+                         vocab_size=512)
+    plain, _, _ = _serve(eng, reqs, eager=False)
+    spec, n, srv = _serve(eng, reqs, eager=False, speculative=dict(
+        mode="draft", draft_engine=eng, draft_window=64, k_buckets=SPEC_K))
+    assert spec == plain
+    assert srv.spec_accepted_tokens > 0 and n["fused_decode_step"] > 0
+    assert set(srv.program_cache_sizes().values()) == {1}
+    assert srv.recompile_count() == 0
