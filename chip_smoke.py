@@ -86,6 +86,21 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                TTFT and TPOT by class, swap traffic and peak host bytes,
                and the same trace on a monolithic engine (buckets 128 /
                512 / 2048, no budget, no preemption).
+   serve_telemetry — the serving control plane on phase 4's bf16 engine:
+               serve_preempt_chunked's trace (outputs cut to 24 tokens) on
+               its virtual clock, over its int8 block pool with the prefix
+               cache, armed with slo= (a TTFT page rule the class-1 prompts
+               make fire, an availability SLI), tenants=True (one tenant
+               per class), a span tracer and a flight recorder, twice.
+               Held: tokens equal the bare run's; the tenants' decode
+               tokens sum to the tokens served; both replays give one
+               alert timeline, with a page alert and a flight dump
+               written at it; the block decode step launches 32 x decode
+               steps; record_attribution() has a row for every program of
+               program_cache_sizes() and none reads above 1.05 of its
+               roof. Reported: every row (analytic FLOPs and bytes over
+               host wall, telemetry/attribution.py), the tenants' totals.
+               JSONL and dumps under build/telemetry/.
    serve_spec — speculative decoding on phase 4's bf16 engine (runs a-c2)
                and phase 5's int8 engine (runs d, d2), 8 slots, max_len
                1024, adaptive k: (a) self-drafting (120-token window,
@@ -161,6 +176,17 @@ Training (phases added after ``reference``, before the serving phases):
                token, GPT2Model.flops_per_token(T)), peak memory, and a
                profile of one step (device busy share, top kernels, the
                flash kernels' ms per step).
+   train_774m_telemetry — a second 774M engine (after the first is
+               freed), the same config, seed and batches plus a telemetry
+               section (JSONL sink, sync_interval 4, spans, the flight
+               recorder) and wall_clock_breakdown: 2 + 8 steps. Held:
+               flash launches, losses within 1e-3 of the bare run's and
+               falling, train/tokens_per_sec within 5% of the bare run's
+               tokens/s and train/mfu x 989 within 5% of its TFLOP/s,
+               two step-window spans. Reported: armed over bare ms per
+               step, the train step's roofline row, and 2 more steps'
+               forward / backward / optimizer step / batch ms on the
+               wall-clock timers (CUDA events).
 
 Generate (phases added after ``reference`` and after ``probe_fp32``):
 
@@ -312,7 +338,14 @@ from deepspeed_tpu_torch.serving import (BlockKVPool, Request, ServingEngine,
                                          poisson_trace, shared_prefix_trace,
                                          templated_trace)
 from deepspeed_tpu_torch.serving.speculative import DraftModelDrafter
-from deepspeed_tpu_torch.telemetry import MetricsRegistry, SpanTracer
+from deepspeed_tpu_torch.telemetry import (FlightRecorder, JsonlSink,
+                                           MetricsRegistry, SLOEngine,
+                                           SpanTracer, get_registry,
+                                           read_jsonl, reset_registry)
+from deepspeed_tpu_torch.utils.timer import (BACKWARD_GLOBAL_TIMER,
+                                             FORWARD_GLOBAL_TIMER,
+                                             STEP_GLOBAL_TIMER,
+                                             TRAIN_BATCH_TIMER)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12      # dense bf16 tensor-core peak
@@ -2330,11 +2363,13 @@ def _latency_by_class(results) -> dict:
     return out
 
 
-def _virtual_tokens(eng, kw, reqs, eager: bool, **sample) -> dict:
+def _virtual_tokens(eng, kw, reqs, eager: bool, stats=None,
+                    **sample) -> dict:
     """The trace (outputs cut to 24 tokens) on a fresh engine under a
     virtual clock of 0.01 s a read, so the burst lands while the class-1
     prompts still prefill; with ``eager`` through the decode program's
-    eager closure (as :func:`eager_server`). Returns the tokens by rid."""
+    eager closure (as :func:`eager_server`). Returns the tokens by rid;
+    ``stats`` (a dict) takes the run's preemption and swap counts."""
     gc.collect()                         # the previous run's engine
     srv = ServingEngine(eng, telemetry=False, time_fn=VirtualClock(0.01),
                         **kw, **sample)
@@ -2342,6 +2377,13 @@ def _virtual_tokens(eng, kw, reqs, eager: bool, **sample) -> dict:
         srv._decode = srv._decode.eager
     toks = {r.rid: r.tokens for r in srv.run(_copy_reqs(reqs, 24))}
     assert srv.preemptions >= 1, "the virtual-clock run did not preempt"
+    # the clock fixes where each park lands, so the upload path is held
+    # here: on this trace some victim parks past its prompt blocks
+    assert srv.swapped_blocks_in >= 1, "no parked block was uploaded"
+    if stats is not None:
+        stats.update(preemptions=srv.preemptions,
+                     swapped_blocks_out=srv.swapped_blocks_out,
+                     swapped_blocks_in=srv.swapped_blocks_in)
     if not eager:
         serving_programs(srv)
     return toks
@@ -2381,7 +2423,11 @@ def _preempt_run(eng, mode: str, smi: str) -> dict:
     assert launches[other] == 0 and launches["int8_matmul_dma"] == 0, launches
     assert srv.preemptions >= 1, "no preemption"
     assert len(srv.swap) == 0 and srv.swap.bytes_stored == 0, srv.swap
-    assert srv.swapped_blocks_in >= 1 and srv.swap.peak_bytes > 0
+    # on the wall clock the burst may land only at a chunk boundary of a
+    # prefilling victim: block-paged, its resume then re-pins every parked
+    # block from the radix index and uploads none (swapped_blocks_in 0),
+    # so the upload is held on the virtual-clock runs below
+    assert srv.swapped_blocks_out >= 1 and srv.swap.peak_bytes > 0
     programs = serving_programs(srv)
     assert {"swap_out", "swap_in"} <= set(programs["program_cache_sizes"])
     swap = {"preemptions": srv.preemptions,
@@ -2415,7 +2461,8 @@ def _preempt_run(eng, mode: str, smi: str) -> dict:
     # replayed against eager under a virtual clock: greedy, then sampled
     # (temperature 0.8, top-p 0.9, the engine's seed) twice and eager
     t0 = time.perf_counter()
-    graph = _virtual_tokens(eng, kw, reqs, eager=False)
+    virtual_swap = {}
+    graph = _virtual_tokens(eng, kw, reqs, eager=False, stats=virtual_swap)
     vs_eager = replayed_vs_eager(graph, _virtual_tokens(eng, kw, reqs,
                                                         eager=True))
     sample = dict(do_sample=True, temperature=0.8, top_p=0.9)
@@ -2436,6 +2483,7 @@ def _preempt_run(eng, mode: str, smi: str) -> dict:
             "ttft_p50_s": _pct([r.first_token_latency for r in results], 50),
             "ttft_p95_s": _pct([r.first_token_latency for r in results], 95),
             "by_class": _latency_by_class(results), "swap": swap,
+            "virtual_clock_swap": virtual_swap,
             "solo_identical": True, "solo_tokens_compared": cut,
             "replayed_vs_eager": vs_eager,
             "sampled": {"repeat_identical": True, **vs_eager_sampled},
@@ -3440,6 +3488,214 @@ def phase_train_774m(smi: str) -> dict:
     return info
 
 
+# telemetry artefacts (JSONL streams, flight dumps) of the telemetry phases
+TELEMETRY_DIR = Path(__file__).resolve().parent / "build" / "telemetry"
+
+
+def _fresh_dir(name: str) -> Path:
+    d = TELEMETRY_DIR / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def phase_train_774m_telemetry(smi: str, bare: dict) -> dict:
+    """train_774m again, on a second engine (after the first is freed) with
+    the same config, seed and batches plus ``telemetry`` (a JSONL sink,
+    ``sync_interval`` 4, spans, the flight recorder) and
+    ``wall_clock_breakdown``: 2 warm-up and 8 measured steps, fences at
+    steps 1, 4 and 8. Held: every flash kernel launches 36 x 2 x 8 times in
+    the measured steps; the losses are finite, fall, and equal the bare
+    run's within 1e-3 relative; ``train/tokens_per_sec`` (the fence window
+    of steps 5-8) within 5% of the bare run's tokens/s and ``train/mfu`` x
+    989 within 5% of its achieved TFLOP/s; step-window spans recorded.
+    Reported: armed over bare ms per step (the reference's budget is 2%);
+    then 2 more steps read through the wall-clock timers (CUDA events):
+    forward, backward, optimizer step and the whole batch, ms per step."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = _fresh_dir("train_774m")
+    reset_registry()
+    cfg = GPT2Config.gpt2_774m()
+    gas, micro, t, warm, steps = 2, 8, 1024, 2, 8
+    config = dict(BENCH_774M_CONFIG, wall_clock_breakdown=True,
+                  telemetry={"jsonl_path": str(out_dir / "train.jsonl"),
+                             "sync_interval": 4, "spans": True,
+                             "flight_recorder": True,
+                             "flight_dir": str(out_dir)})
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=GPT2Model(cfg, attn_impl="flash"), config=config)
+    batches = lm_batches(np.random.RandomState(0), warm + steps + 1, gas,
+                         micro, t, cfg.vocab_size, start_span=1000)
+    losses = [eng.train_batch_from_stacked(b) for b in batches[:warm]]
+    torch.cuda.synchronize()
+    reset_counts()                       # the main path starts here
+    t0 = time.perf_counter()
+    for b in batches[warm:warm + steps]:
+        losses.append(eng.train_batch_from_stacked(b))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    losses = [float(x) for x in losses]
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], losses
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, bare["losses"]))
+    assert loss_rel <= 1e-3, (losses, bare["losses"])
+    for name, n in launches.items():
+        want = cfg.num_layers * gas * steps if name in FLASH else 0
+        assert n == want, (name, n, want)
+    gauges = get_registry().snapshot()["gauges"]
+    tps, mfu = gauges["train/tokens_per_sec"], gauges["train/mfu"]
+    peak = BF16_FLOP_PER_S / 1e12
+    assert abs(tps / bare["tokens_per_s"] - 1) <= 0.05, (tps, bare)
+    assert abs(mfu * peak / bare["achieved_tflops"] - 1) <= 0.05, (mfu, bare)
+    spans = eng.tracer.spans_for(eng._train_trace)
+    assert [(s.attrs["end_step"], s.attrs["steps"]) for s in spans] == \
+        [(4, 3), (8, 4)], spans
+    attribution = eng.train_step_attribution()["train_step"]
+    # the wall-clock breakdown: 2 more steps, read through the timers
+    names = (FORWARD_GLOBAL_TIMER, BACKWARD_GLOBAL_TIMER, STEP_GLOBAL_TIMER,
+             TRAIN_BATCH_TIMER)
+    for name in names:
+        eng.timers(name).elapsed(reset=True)
+    for b in batches[warm + steps - 1:warm + steps + 1]:
+        eng.train_batch_from_stacked(b)
+    split = {name: 1e3 * eng.timers(name).elapsed(reset=False) / 2
+             for name in names}
+    eng.destroy()
+    ms = 1e3 * wall / steps
+    info = {"phase": "train_774m_telemetry", "card": smi,
+            "config": config, "losses": losses,
+            "loss_max_rel_diff_vs_bare": loss_rel, "launches": launches,
+            "ms_per_step": ms, "bare_ms_per_step": bare["ms_per_step"],
+            "armed_over_bare": ms / bare["ms_per_step"],
+            "tokens_per_s": steps * gas * micro * t / wall,
+            "gauges": gauges,
+            "tokens_per_sec_over_bare": tps / bare["tokens_per_s"],
+            "mfu_x_peak_over_bare_tflops":
+                mfu * peak / bare["achieved_tflops"],
+            "step_windows": [s.as_dict() for s in spans],
+            "train_step_attribution": attribution,
+            "wall_clock_breakdown_ms_per_step": split,
+            "breakdown_parts_over_batch":
+                sum(split[n] for n in names[:3]) / split[TRAIN_BATCH_TIMER]}
+    emit(info)
+    del eng
+    reset_registry()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
+# the control plane's SLOs on serve_preempt_chunked's virtual trace: a TTFT
+# page rule the class-1 prompts (3-4 chunks of 512 each) make fire, and an
+# availability SLI over finished requests and deadline sheds
+TELEMETRY_SLO = {
+    "slis": [{"name": "ttft", "kind": "latency", "metric": "serving/ttft_ms",
+              "threshold_ms": 1000.0, "objective": 0.5},
+             {"name": "availability", "kind": "availability",
+              "good": "serving/finished_requests",
+              "bad": ["serving/shed_deadline"], "objective": 0.99}],
+    "rules": [{"sli": "ttft", "short_s": 0.5, "long_s": 2.0, "burn": 1.5,
+               "min_events": 3, "severity": "page"},
+              {"sli": "availability", "short_s": 1.0, "long_s": 4.0,
+               "burn": 10.0, "min_events": 4, "severity": "page"}],
+}
+TENANT_OF_CLASS = {0: "interactive", 1: "batch"}
+
+
+def _telemetry_run(eng, kw, reqs, out_dir: Path) -> tuple:
+    """serve_preempt_chunked's trace (outputs cut to 24 tokens) under its
+    virtual clock with the control plane armed: slo, tenants, a span tracer
+    and a flight recorder, a registry of its own."""
+    gc.collect()
+    reg = MetricsRegistry()
+    sink = JsonlSink(str(out_dir / "serve.jsonl"))
+    rec = FlightRecorder(dump_dir=str(out_dir), registry=reg)
+    reg.attach_sink(rec.tee(sink))
+    slo = SLOEngine(TELEMETRY_SLO, registry=reg, eval_interval_s=0.0,
+                    flight_recorder=rec)
+    srv = ServingEngine(eng, telemetry=reg, slo=slo, tenants=True,
+                        tracer=SpanTracer(sink=reg.sink),
+                        time_fn=VirtualClock(0.01), **kw)
+    armed = _copy_reqs(reqs, 24)
+    for r in armed:
+        r.tenant_id = TENANT_OF_CLASS[r.priority]
+    srv.warmup()
+    reset_counts()                       # the main path starts here
+    results = srv.run(armed, warmup=False)
+    launches = read_counts()
+    return srv, {r.rid: r.tokens for r in results}, launches, sink
+
+
+def phase_serve_telemetry(eng, smi: str) -> dict:
+    """The serving control plane on phase 4's bf16 engine (LLaMA-7B), on
+    serve_preempt_chunked's trace and virtual clock, block-paged over its
+    int8 pool with the prefix cache (chunked prefill, swap preemption):
+    ``slo=`` (:data:`TELEMETRY_SLO`), ``tenants=True`` with one tenant per
+    class, a span tracer, a flight recorder. Held: the served tokens equal
+    the same engine's run bare bit for bit; the tenants' decode tokens sum
+    to the tokens served; two armed replays give the same alert timeline,
+    with a page alert and a flight dump written at it; the block decode
+    step launches 32 x decode steps; ``record_attribution()`` gives a row
+    for every program of ``program_cache_sizes()``, and no row's
+    ``achieved_vs_attainable`` exceeds 1.05. Reported: every program's
+    row, the tenants' totals and the alert timeline."""
+    t0 = time.perf_counter()
+    kw = dict(PREEMPT_SERVE, **PREEMPT_BLOCK)
+    reqs = _preempt_trace()
+    bare = _virtual_tokens(eng, kw, reqs, eager=False)
+    runs = []
+    for i in range(2):
+        out_dir = _fresh_dir(f"serve_{i}")
+        srv, tokens, launches, sink = _telemetry_run(eng, kw, reqs, out_dir)
+        assert tokens == bare, f"armed run {i}: tokens differ from bare"
+        layers = eng.module.config.num_layers
+        assert launches["fused_block_decode_step"] == \
+            layers * srv.decode_steps, launches
+        totals = srv.tenants.totals()
+        assert sum(t["decode_tokens"] for t in totals.values()) == \
+            sum(len(v) for v in tokens.values()) == srv.tokens_generated
+        table = srv.record_attribution()
+        assert set(table) == set(srv.program_cache_sizes()), table
+        worst = max(r["achieved_vs_attainable"] or 0.0
+                    for r in table.values())
+        assert worst <= 1.05, table
+        timeline = [(a.rule, a.kind, a.t) for a in srv.slo.alerts]
+        dumps = list(srv.slo.flight_recorder.dumps)
+        sink.close()
+        runs.append({"timeline": timeline, "dumps": dumps, "table": table,
+                     "totals": totals, "launches": launches,
+                     "decode_steps": srv.decode_steps,
+                     "preemptions": srv.preemptions,
+                     "records": len(read_jsonl(str(out_dir / "serve.jsonl")))})
+        del srv
+    assert runs[0]["timeline"] == runs[1]["timeline"], runs
+    assert any(k == "fired" and r.startswith("ttft:page")
+               for r, k, _ in runs[0]["timeline"]), runs[0]["timeline"]
+    dump = runs[0]["dumps"][0]
+    assert dump["reason"] == "slo_page" and Path(dump["path"]).exists()
+    info = {"phase": "serve_telemetry", "card": smi,
+            "model": "llama_7b, phase 4's engine (bf16, random weights "
+                     "seed 0)",
+            "config": {**kw, "slo": TELEMETRY_SLO,
+                       "tenants": TENANT_OF_CLASS},
+            "tokens_equal_bare": True, "timeline": runs[0]["timeline"],
+            "timeline_equal_on_replay": True, "flight_dumps": runs[0]["dumps"],
+            "tenants": runs[0]["totals"], "attribution": runs[0]["table"],
+            "max_achieved_vs_attainable": max(
+                r["achieved_vs_attainable"] or 0.0
+                for r in runs[0]["table"].values()),
+            "decode_steps": runs[0]["decode_steps"],
+            "preemptions": runs[0]["preemptions"],
+            "jsonl_records": runs[0]["records"],
+            "launches": {k: sum(r["launches"][k] for r in runs)
+                         for k in WRAPPERS},
+            "phase_wall_s": time.perf_counter() - t0}
+    emit(info)
+    return info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3455,9 +3711,10 @@ def main() -> int:
     phase_reference_generate()
     phase_reference_train()
     train = phase_train_774m(dev["nvidia_smi"])
+    train_tel = phase_train_774m_telemetry(dev["nvidia_smi"], train)
     launches = dict.fromkeys(WRAPPERS, 0)
     for k in FLASH:
-        launches[k] = train["launches"][k]
+        launches[k] = train["launches"][k] + train_tel["launches"][k]
     for k in SPARSE:
         launches[k] = sparse["launches"][k]
     for dtype in ("bf16", "int8"):
@@ -3468,6 +3725,7 @@ def main() -> int:
             runs += [blk, phase_serve_block(eng, "int8", dev["nvidia_smi"],
                                             baseline=bf16_tokens)[0],
                      phase_serve_preempt_chunked(eng, dev["nvidia_smi"]),
+                     phase_serve_telemetry(eng, dev["nvidia_smi"]),
                      phase_serve_spec(eng, dev["nvidia_smi"],
                                       ("a_self_draft", "b_tinyllama_draft",
                                        "c_ngram_block_int8_pool",

@@ -7,7 +7,7 @@ tests); there is no auto-fallback."""
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -30,6 +30,11 @@ class CUDA_Accelerator(DeepSpeedAccelerator):
 
     def synchronize(self) -> None:
         torch.cuda.synchronize(self.index)
+
+    def memory_stats(self) -> Dict[str, int]:
+        stats = torch.cuda.memory_stats(self.index)
+        return {"bytes_in_use": stats.get("allocated_bytes.all.current", 0),
+                "peak_bytes_in_use": stats.get("allocated_bytes.all.peak", 0)}
 
 
 class CPU_Accelerator(DeepSpeedAccelerator):

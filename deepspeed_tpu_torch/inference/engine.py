@@ -502,7 +502,8 @@ class InferenceEngine:
                 last = logits[:, int(length) - 1]                 # [1, V]
                 return k_slots, v_slots, lengths, pick(last, temp, rng)[0]
 
-            self._programs[key] = Program(prefill, f"slot prefill {bucket_len}")
+            self._programs[key] = Program(prefill, f"slot prefill {bucket_len}",
+                                          work=("forward", 1, bucket_len))
         return self._programs[key]
 
     def slot_decode_program(self, num_slots: int, max_len: int, *,
@@ -541,7 +542,8 @@ class InferenceEngine:
                 return cache["k"], cache["v"], lengths, nxt
 
             self._programs[key] = Program(decode, "slot decode",
-                                          inputs=(4, 5))
+                                          inputs=(4, 5),
+                                          work=("forward", num_slots, 1))
         return self._programs[key]
 
     def slot_verify_program(self, num_slots: int, max_len: int, k: int, *,
@@ -588,7 +590,8 @@ class InferenceEngine:
                     logits, tokens, draft_len, active, lengths, temp, rng)
 
             self._programs[key] = Program(verify, f"slot verify {k}",
-                                          inputs=(4, 5, 6))
+                                          inputs=(4, 5, 6),
+                                          work=("forward", num_slots, k + 1))
         return self._programs[key]
 
     def slot_draft_program(self, window_len: int, num_slots: int,
@@ -633,7 +636,9 @@ class InferenceEngine:
                 return torch.stack(out, dim=1)
 
             self._programs[key] = Program(draft, f"slot draft {k}",
-                                          inputs=(3, 4))
+                                          inputs=(3, 4),
+                                          work=("draft", num_slots, window_len,
+                                                k))
         return self._programs[key]
 
     def slot_chunk_prefill_program(self, bucket_len: int, num_slots: int,
@@ -672,7 +677,8 @@ class InferenceEngine:
                 return k_slots, v_slots, lengths, pick(last, temp, rng)[0]
 
             self._programs[key] = Program(chunk,
-                                          f"slot chunk prefill {bucket_len}")
+                                          f"slot chunk prefill {bucket_len}",
+                                          work=("forward", 1, bucket_len))
         return self._programs[key]
 
     def slot_swap_out_program(self, num_slots: int, max_len: int) -> Callable:
@@ -685,7 +691,7 @@ class InferenceEngine:
         if key not in self._programs:
             self._programs[key] = Program(
                 lambda k, v, slot: extract_slot_kv(k, v, int(slot)),
-                "slot swap out")
+                "slot swap out", work=("kv", max_len, 1))
         return self._programs[key]
 
     def slot_swap_in_program(self, num_slots: int, max_len: int) -> Callable:
@@ -704,7 +710,8 @@ class InferenceEngine:
                 lengths[int(slot)] = int(length)
                 return k_slots, v_slots, lengths
 
-            self._programs[key] = Program(swap_in, "slot swap in")
+            self._programs[key] = Program(swap_in, "slot swap in",
+                                          work=("kv", max_len, 1))
         return self._programs[key]
 
     # ------------------------------------------ block-paged serving programs
@@ -744,7 +751,8 @@ class InferenceEngine:
                 return (cache["k"], cache["v"], lengths,
                         pick(last, temp, rng)[0])
 
-            self._programs[key] = Program(prefill, f"block prefill {bucket_len}")
+            self._programs[key] = Program(prefill, f"block prefill {bucket_len}",
+                                          work=("forward", 1, bucket_len))
         return self._programs[key]
 
     def block_decode_program(self, num_slots: int, max_blocks: int, *,
@@ -783,7 +791,8 @@ class InferenceEngine:
                 return cache["k"], cache["v"], lengths, nxt
 
             self._programs[key] = Program(decode, "block decode",
-                                          inputs=(5, 6))
+                                          inputs=(5, 6),
+                                          work=("forward", num_slots, 1))
         return self._programs[key]
 
     def block_verify_program(self, num_slots: int, max_blocks: int, k: int,
@@ -821,7 +830,8 @@ class InferenceEngine:
                     logits, tokens, draft_len, active, lengths, temp, rng)
 
             self._programs[key] = Program(verify, f"block verify {k}",
-                                          inputs=(5, 6, 7))
+                                          inputs=(5, 6, 7),
+                                          work=("forward", num_slots, k + 1))
         return self._programs[key]
 
     def block_copy_program(self, num_blocks: int, block_size: int, *,
@@ -844,7 +854,8 @@ class InferenceEngine:
                         leaf[:, int(dst)].copy_(leaf[:, int(src)])
                 return k_pool, v_pool
 
-            self._programs[key] = Program(copy, "block copy")
+            self._programs[key] = Program(copy, "block copy",
+                                          work=("kv", block_size, 2))
         return self._programs[key]
 
     def block_swap_out_program(self, num_blocks: int, max_blocks: int, *,
@@ -859,7 +870,8 @@ class InferenceEngine:
         key = ("blk_swap_out", num_blocks, max_blocks, kv_dtype)
         if key not in self._programs:
             self._programs[key] = Program(
-                torch.no_grad()(gather_pool_blocks), "block swap out")
+                torch.no_grad()(gather_pool_blocks), "block swap out",
+                work=("kv", 0, 1))
         return self._programs[key]
 
     def block_swap_in_program(self, num_blocks: int, max_blocks: int, *,
@@ -881,7 +893,8 @@ class InferenceEngine:
                 lengths[int(slot)] = int(length)
                 return k_pool, v_pool, lengths
 
-            self._programs[key] = Program(swap_in, "block swap in")
+            self._programs[key] = Program(swap_in, "block swap in",
+                                          work=("kv", 0, 1))
         return self._programs[key]
 
     # ------------------------------------------------------------ contract

@@ -43,7 +43,7 @@ again on every replay.
 from __future__ import annotations
 
 import weakref
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -103,12 +103,17 @@ def launch_counters() -> List[Callable]:
 class Program:
     """A closure with jit's entry accounting (see the module note). The
     closure is ``eager``; ``inputs`` are the positional indices of its
-    per-step inputs (what a :class:`GraphProgram` of it copies in)."""
+    per-step inputs (what a :class:`GraphProgram` of it copies in);
+    ``work`` describes one call's work from its operand shapes for the
+    roofline count (telemetry/attribution.work_cost), None where none is
+    kept."""
 
-    def __init__(self, fn: Callable, name: str, *, inputs: Sequence[int] = ()):
+    def __init__(self, fn: Callable, name: str, *, inputs: Sequence[int] = (),
+                 work: Optional[Tuple] = None):
         self.eager = fn
         self.name = name
         self.inputs = frozenset(inputs)
+        self.work = work
         self._entries: Dict[Tuple, object] = {}
 
     def _leaf_signature(self, x):

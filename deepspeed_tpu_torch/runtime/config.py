@@ -10,10 +10,8 @@ The sections the port runs are parsed whole; those whose subsystem it
 does not run yet are read for the switch that turns them on, are listed by
 :meth:`DeepSpeedConfig.not_ported` when on, and the training engine raises
 :class:`NotPortedError` for them rather than quietly training without
-them. ``telemetry`` is on by default
-in the reference (an in-process registry that writes nothing without a
-sink); the port has none, so only an explicit, enabled ``telemetry``
-section counts as asking for it.
+them. ``telemetry`` (on by default, as in the reference) and
+``wall_clock_breakdown`` run.
 """
 
 from __future__ import annotations
@@ -32,6 +30,7 @@ from deepspeed_tpu_torch.runtime.config_utils import (
 from deepspeed_tpu_torch.runtime.zero.config import (DeepSpeedZeroConfig,
                                                      OffloadDeviceEnum,
                                                      ZeroStageEnum)
+from deepspeed_tpu_torch.telemetry.config import TelemetryConfig
 
 
 class FP16Config(DeepSpeedConfigModel):
@@ -103,10 +102,6 @@ class ResilienceConfig(DeepSpeedConfigModel):
 
     enabled: bool = False
     check_finite_grads: Optional[bool] = None
-
-
-class TelemetryConfig(DeepSpeedConfigModel):
-    enabled: bool = True   # the reference's default
 
 
 _MONITORS = ("tensorboard", "wandb", "csv_monitor", "jsonl_monitor")
@@ -185,7 +180,6 @@ class DeepSpeedConfig:
         self.monitor_config = {k: EnabledConfig(**d.get(k, {}))
                                for k in _MONITORS}
         self.telemetry_config = TelemetryConfig(**d.get("telemetry", {}))
-        self._telemetry_requested = "telemetry" in d
         self.flops_profiler_config = EnabledConfig(**d.get("flops_profiler", {}))
         self.comms_logger_config = EnabledConfig(**d.get("comms_logger", {}))
         self.resilience_config = ResilienceConfig(**d.get(C.RESILIENCE, {}))
@@ -200,6 +194,7 @@ class DeepSpeedConfig:
         # ---------------- misc ------------------------------------------------
         self.steps_per_print = d.get(C.STEPS_PER_PRINT, C.STEPS_PER_PRINT_DEFAULT)
         self.wall_clock_breakdown = d.get(C.WALL_CLOCK_BREAKDOWN, C.WALL_CLOCK_BREAKDOWN_DEFAULT)
+        self.memory_breakdown = d.get(C.MEMORY_BREAKDOWN, C.MEMORY_BREAKDOWN_DEFAULT)
         self.seed = d.get(C.SEED, C.SEED_DEFAULT)
         self.elasticity_enabled = bool(d.get(C.ELASTICITY, {}).get("enabled", False))
 
@@ -276,9 +271,7 @@ class DeepSpeedConfig:
             "monitor (" + ", ".join(_MONITORS) + ")": any(
                 m.enabled for m in self.monitor_config.values()),
             "flops_profiler": self.flops_profiler_config.enabled,
-            "telemetry": self._telemetry_requested and self.telemetry_config.enabled,
             "comms_logger": self.comms_logger_config.enabled,
-            "wall_clock_breakdown": bool(self.wall_clock_breakdown),
             "resilience (sentinel)": self.resilience_config.enabled,
             "elasticity": self.elasticity_enabled,
             "activation_checkpointing": any((

@@ -81,17 +81,32 @@ graph's addresses never move.
 ``telemetry`` (True: the global registry; a registry; None/False: off)
 records the reference's serving metrics: finished requests, prefills,
 prefill chunks, deadline sheds, preemptions and swap traffic, latency /
-queue-wait / TTFT / TPOT histograms, and per run the rates and the
+queue-wait / TTFT / TPOT histograms, the prefix cache's hit, miss,
+copy-on-write and eviction counters, and per run the rates and the
 contract's gauges (``serving/compiled_programs``,
 ``serving/jit_cache_entries``, ``serving/recompiles``).
 
-Options the JAX engine has and this port does not yet (SLO control,
-tenants) raise :class:`EngineConfigError`.
+The control plane, all host work at points the loop already holds (an
+armed run issues the device work of a bare one):
+
+* ``slo`` (a telemetry/slo.SLOEngine): ``maybe_evaluate(now)`` once per
+  iteration on the engine's clock, so a virtual-clock trace replays its
+  alert timeline exactly;
+* ``tenants`` (telemetry/tenants.TenantLedger, on by default with
+  telemetry): per-tenant prompt and decode tokens, prefill computed and
+  saved by the prefix cache, KV block- and byte-seconds, preemptions,
+  sheds, TTFT and TPOT, by ``Request.tenant_id``;
+* with a tracer, each program call's host wall (:meth:`ServingEngine.
+  _prog_note`): the decode and verify walls end at the token read that
+  fences them, the prefill and copy walls bracket the dispatch;
+  :meth:`ServingEngine.attribution_table` joins them with each program's
+  analytic FLOP and byte count (telemetry/attribution.py).
 """
 
 from __future__ import annotations
 
 import time
+from functools import partial
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -106,7 +121,8 @@ from deepspeed_tpu_torch.serving.errors import (EmptyPromptError,
                                                 SlotCapacityError,
                                                 SwapCapacityError)
 from deepspeed_tpu_torch.serving.kv_blocks import BlockKVPool
-from deepspeed_tpu_torch.serving.kv_quant import normalize_kv_dtype
+from deepspeed_tpu_torch.serving.kv_quant import (normalize_kv_dtype,
+                                                  pool_payload)
 from deepspeed_tpu_torch.serving.kv_slots import SlotKVCache
 from deepspeed_tpu_torch.serving.radix import PrefixCache
 from deepspeed_tpu_torch.serving.scheduler import (Request, RequestResult,
@@ -118,10 +134,12 @@ from deepspeed_tpu_torch.serving.speculative import (AdaptiveK,
                                                      pick_k_bucket,
                                                      verify_to_host)
 from deepspeed_tpu_torch.serving.swap import HostSwapBuffer
+from deepspeed_tpu_torch.telemetry.attribution import (attribution_table,
+                                                       model_cost, work_cost)
 from deepspeed_tpu_torch.telemetry.registry import get_registry, metric_label
+from deepspeed_tpu_torch.telemetry.tenants import TenantLedger
 from deepspeed_tpu_torch.utils.logging import log_dist
 
-_NOT_PORTED = ("slo", "tenants")
 # tokens-per-step histograms count small integers (1 .. k + 1): unit-wide
 # buckets keep their percentiles exact
 _TOKENS_PER_STEP_BUCKETS = tuple(float(x) for x in range(1, 34))
@@ -135,17 +153,19 @@ class _SlotState:
     admission sequence (chunks continue in class, then admission order)."""
 
     __slots__ = ("request", "result", "last_token", "prefill_pos",
-                 "prefill_total", "order")
+                 "prefill_total", "order", "tenant")
 
     def __init__(self, request: Request, result: RequestResult,
                  last_token: int, prefill_pos: int, prefill_total: int,
-                 order: int):
+                 order: int, tenant: str = "default"):
         self.request = request
         self.result = result
         self.last_token = last_token
         self.prefill_pos = prefill_pos
         self.prefill_total = prefill_total
         self.order = order
+        # the sanitized ledger key of the request's tenant
+        self.tenant = tenant
 
     @property
     def prefilling(self) -> bool:
@@ -217,10 +237,16 @@ class ServingEngine:
         :class:`~deepspeed_tpu_torch.serving.speculative.SpeculativeConfig`
         fields, or a config: speculative decoding.
     tracer: a :class:`~deepspeed_tpu_torch.telemetry.spans.SpanTracer`
-        (None: untraced).
+        (None: untraced); arming it also records each program call's wall
+        for :meth:`attribution_table`.
     telemetry: True (default) records into the global registry
         (telemetry/registry.py), a registry records there, None/False
         records nothing.
+    slo: a :class:`~deepspeed_tpu_torch.telemetry.slo.SLOEngine`, evaluated
+        once per iteration on the engine's clock (None: off).
+    tenants: per-tenant accounting (telemetry/tenants.py): None follows
+        ``telemetry`` (into the same registry), True forces a ledger
+        (registry-less without telemetry), False turns it off.
     """
 
     def __init__(self, engine, *, num_slots: int = 8, max_len: int = 1024,
@@ -240,12 +266,6 @@ class ServingEngine:
                  tpot_slo_ms: Optional[float] = None,
                  slo_max_defer: int = 4, tracer=None, slo=None,
                  tenants: Optional[bool] = None):
-        requested = {"slo": slo, "tenants": tenants}
-        for name in _NOT_PORTED:
-            if requested[name]:
-                raise EngineConfigError(
-                    f"ServingEngine option {name}={requested[name]!r} is not "
-                    "ported to the PyTorch engine yet")
         self.engine = engine
         self.telemetry = get_registry() if telemetry is True else (
             telemetry or None)
@@ -267,7 +287,10 @@ class ServingEngine:
                                      dtype=engine.dtype,
                                      kv_dtype=self.kv_dtype,
                                      device=engine.device)
-            self.prefix: Optional[PrefixCache] = PrefixCache(self.cache)
+            # its hit/miss/COW/eviction counters land beside the serving
+            # histograms
+            self.prefix: Optional[PrefixCache] = PrefixCache(
+                self.cache, registry=self.telemetry)
             self._copy_fn = self.cache.copy_program(engine)
         else:
             self.cache = SlotKVCache(engine.module, num_slots, max_len,
@@ -340,8 +363,31 @@ class ServingEngine:
         self._draft_wall = 0.0
         self._verify_wall = 0.0
 
-        # ---- span tracing
+        # ---- SLO control plane and per-tenant accounting
+        self.slo = slo
+        if tenants is None:
+            tenants = self.telemetry is not None
+        self.tenants = TenantLedger(self.telemetry) if tenants else None
+        # KV occupancy is billed at payload bytes per pool block (a
+        # quantized pool's blocks at what they cost); slot-paged, the whole
+        # slot row is one block
+        if prefix_cache:
+            self._kv_bytes_per_block = (
+                pool_payload(self.cache.k).nbytes
+                + pool_payload(self.cache.v).nbytes) / (self.cache.num_blocks
+                                                        + 1)
+        else:
+            self._kv_bytes_per_block = (
+                self.cache.k.nbytes + self.cache.v.nbytes) / num_slots
+        self._acct_last_t: Optional[float] = None
+
+        # ---- span tracing and per-program attribution
         self.tracer = tracer
+        # program name -> [total host wall s, calls, rows]: armed runs only
+        # (the bare path keeps no clock of its own); rows are the context or
+        # moved K/V rows the calls touched (telemetry/attribution.work_cost)
+        self._prog_wall: Dict[str, list] = {}
+        self._attr_cache: Dict[tuple, dict] = {}
         self._rtraces: Dict[int, _ReqTrace] = {}
         self._engine_trace: Optional[str] = None   # iteration spans' trace
         self._last_step_now = 0.0     # cancel() takes no clock argument
@@ -518,6 +564,90 @@ class ServingEngine:
         above 0 means a program recompiled (was captured again) after
         warm-up."""
         return sum(max(0, v - 1) for v in self.program_cache_sizes().values())
+
+    # ------------------------------------------------------- attribution
+    def _prog_note(self, name: str, dt: float, rows: float = 0) -> None:
+        """Add one call's host wall (and the context or moved K/V rows it
+        touched) to program ``name``'s total (armed runs)."""
+        w = self._prog_wall.get(name)
+        if w is None:
+            self._prog_wall[name] = [dt, 1, rows]
+        else:
+            w[0] += dt
+            w[1] += 1
+            w[2] += rows
+
+    def _program_map(self) -> Dict[str, Callable]:
+        """name -> program, by the names of :meth:`program_cache_sizes`
+        (the draft model's programs included)."""
+        progs: Dict[str, Callable] = {"decode": self._decode}
+        for b, fn in self._prefill.items():
+            progs[f"prefill_{b}"] = fn
+        for b, fn in self._chunk_prefill.items():
+            progs[f"chunk_prefill_{b}"] = fn
+        for kb, fn in self._verify.items():
+            progs[f"verify_{kb}"] = fn
+        if self._swap_out_fn is not None:
+            progs["swap_out"] = self._swap_out_fn
+            progs["swap_in"] = self._swap_in_fn
+        if self._copy_fn is not None:
+            progs["block_copy"] = self._copy_fn
+        if isinstance(self._drafter, DraftModelDrafter):
+            for kb, fn in self._drafter._programs.items():
+                progs[f"draft_{kb}"] = fn
+        return progs
+
+    def _model_costs(self):
+        """(target, draft) :class:`~deepspeed_tpu_torch.telemetry.
+        attribution.ModelCost`: the serving model over this engine's KV
+        store, and the draft model over its drafter's cache (None without
+        one)."""
+        def cost(engine, kv_bytes, rows):
+            return model_cost(engine.params, engine.module.config,
+                              kv_row_bytes=kv_bytes / rows,
+                              compute_itemsize=engine.dtype.itemsize)
+
+        c = self.cache
+        rows = ((c.num_blocks + 1) * c.block_size if self.prefix is not None
+                else self.num_slots * self.max_len)
+        target = cost(self.engine, c.hbm_bytes(), rows)
+        draft = None
+        if isinstance(self._drafter, DraftModelDrafter):
+            d = self._drafter
+            draft = cost(d.engine, d.k.nbytes + d.v.nbytes,
+                         d.k.shape[1] * d.k.shape[3])
+        return target, draft
+
+    def attribution_table(self) -> Dict[str, dict]:
+        """Per-program roofline rows (telemetry/attribution.py): each
+        serving program's analytic FLOPs and bytes per call (the rows a
+        call touched averaged over the timed calls) joined with its mean
+        host wall per call (tracer-armed runs) and the card's roofs.
+        Never called from the serving loop."""
+        target, draft = self._model_costs()
+        walls, progs = {}, {}
+        for name, fn in self._program_map().items():
+            w = self._prog_wall.get(name)
+            if w is not None:
+                walls[name] = (w[0], w[1])
+            mc = draft if name.startswith("draft_") else target
+            work = getattr(fn, "program", fn).work
+            progs[name] = (partial(work_cost, mc),
+                           (work, w[2] / w[1] if w is not None else 0.0))
+        return attribution_table(progs, walls=walls, cache=self._attr_cache,
+                                 device_name=self.engine.accelerator
+                                 .device_name())
+
+    def record_attribution(self) -> Dict[str, dict]:
+        """:meth:`attribution_table`, also written to the telemetry JSONL
+        sink as an ``{"kind": "attribution"}`` record (rendered by
+        scripts/telemetry_report.py's attribution section)."""
+        table = self.attribution_table()
+        if self.telemetry is not None and self.telemetry.sink is not None:
+            self.telemetry.sink.write({"kind": "attribution",
+                                       "scope": "serving",
+                                       "programs": table})
+        return table
 
     def warmup(self) -> None:
         """Run every serving program once on dummy data: each bucket's
@@ -708,6 +838,8 @@ class ServingEngine:
                 reg.histogram("serving/tokens_per_decode_call",
                               buckets=_TOKENS_PER_STEP_BUCKETS).observe(
                     (len(res.tokens) - 1) / res.decode_calls)
+                if self.tenants is not None:
+                    self.tenants.note_tpot(st.tenant, tpot)
         return st.result
 
     def _maybe_finish(self, slot: int, now: float) -> Optional[RequestResult]:
@@ -849,6 +981,8 @@ class ServingEngine:
             finished.append(res)
             if self.telemetry is not None:
                 self.telemetry.counter("serving/shed_deadline").inc()
+            if self.tenants is not None:
+                self.tenants.note_shed(self.tenants.resolve(req.tenant_id))
             if self.tracer is not None:
                 rt = self._rtraces.pop(req.rid, None)
                 if rt is not None:
@@ -865,15 +999,26 @@ class ServingEngine:
             start, copies = self.prefix.admit(slot, req.prompt,
                                               self._span_of(req))
             for src, dst in copies:
+                w0 = time.perf_counter() if self.tracer is not None else 0.0
                 self.cache.update_kv(*self._copy_fn(
                     self.cache.k, self.cache.v, src, dst))
+                if self.tracer is not None:
+                    self._prog_note("block_copy", time.perf_counter() - w0)
         res = RequestResult(rid=req.rid, prompt_len=plen,
                             arrival_time=req.arrival_time,
                             admitted_time=now, priority=req.priority)
+        tenant = self.tenants.resolve(req.tenant_id) \
+            if self.tenants is not None else "default"
         self._slots[slot] = _SlotState(req, res, last_token=0,
                                        prefill_pos=start, prefill_total=plen,
-                                       order=self._admit_seq)
+                                       order=self._admit_seq, tenant=tenant)
         self._admit_seq += 1
+        if self.tenants is not None:
+            # the prompt lands on the bill at admission; radix-matched
+            # tokens are the prefix cache's dividend to the tenant
+            self.tenants.note_admitted(tenant, plen)
+            if start:
+                self.tenants.note_prefill(tenant, 0, saved=start)
         if self.telemetry is not None:
             self.telemetry.counter("serving/prefills").inc()
             self.telemetry.histogram("serving/queue_wait_ms").observe(
@@ -927,12 +1072,15 @@ class ServingEngine:
             armed = self.tracer is not None
             if armed:
                 t_span0 = self._now(now)
+                t_wall0 = time.perf_counter()
             out = fn(self.engine.params, *self.cache.carry(), ids, *args,
                      self._temp, self._next_rng())
             self.cache.update(*out[:3])
             if armed:
                 # stamped around the dispatch; the last chunk's token read
-                # below is the fence the bare engine pays as well
+                # below is the fence the bare engine pays as well. The chunk
+                # attends to the ``pos`` rows before it
+                self._prog_note(pname, time.perf_counter() - t_wall0, pos)
                 rt = self._rtraces.get(req.rid)
                 if rt is not None:
                     self.tracer.record(
@@ -947,6 +1095,10 @@ class ServingEngine:
             st.result.prefill_chunks += 1
             if self.telemetry is not None:
                 self.telemetry.counter("serving/prefill_chunks").inc()
+            if self.tenants is not None:
+                # billed with the engine counter, so the tenants' computed
+                # tokens sum exactly to it
+                self.tenants.note_prefill(st.tenant, chunk)
             if last:
                 tok = int(out[3])      # the token must reach the host stream
                 self.prefill_calls += 1
@@ -956,12 +1108,15 @@ class ServingEngine:
                 t_emit = self._now(now)
                 st.result.first_token_time = t_emit
                 st.result.token_times.append(t_emit)
+                ttft = max(t_emit - req.arrival_time, 0.0) * 1e3
                 if self.telemetry is not None:
-                    ttft = max(t_emit - req.arrival_time, 0.0) * 1e3
                     self.telemetry.histogram("serving/ttft_ms").observe(ttft)
                     self.telemetry.histogram(
                         f"serving/ttft_ms/p{metric_label(req.priority)}"
                     ).observe(ttft)
+                if self.tenants is not None:
+                    self.tenants.note_tokens(st.tenant, 1)
+                    self.tenants.note_ttft(st.tenant, ttft)
                 self._stream(st, [tok])
                 if armed:
                     # decode-phase residency, from the first token to the
@@ -1022,6 +1177,7 @@ class ServingEngine:
         rt = self._rtraces.get(st.request.rid) if armed else None
         if armed:
             t_sw0 = self._now(now)
+            w0 = time.perf_counter()
         # the length the slot computed bounds what is parked (a host read)
         length = int(self.cache.lengths[slot])
         host_k, host_v, n_used = self.cache.swap_out(self._swap_out_fn, slot,
@@ -1050,7 +1206,15 @@ class ServingEngine:
             rt.swap_span = self.tracer.begin(
                 "swapped", trace_id=rt.trace_id, parent_id=rt.root, t=since,
                 blocks=n_used)
+        if armed:
+            # block-paged, the blocks parked; slot-paged, the whole row
+            # (the program's own count)
+            self._prog_note("swap_out", time.perf_counter() - w0,
+                            n_used * self.cache.block_size
+                            if self.prefix is not None else 0)
         self.preemptions += 1
+        if self.tenants is not None:
+            self.tenants.note_preemption(st.tenant)
         if self.telemetry is not None:
             reg = self.telemetry
             reg.counter("serving/preemptions").inc()
@@ -1067,6 +1231,7 @@ class ServingEngine:
         rt = self._rtraces.get(req.rid) if self.tracer is not None else None
         if self.tracer is not None:
             t_in0 = self._now(now)
+            w0 = time.perf_counter()
         host_k, host_v = self.swap.pop(req.rid)
         length = rec.length
         shared = 0
@@ -1080,6 +1245,10 @@ class ServingEngine:
         swapped_in = self.cache.swap_in(self._swap_in_fn, host_k, host_v,
                                         slot, length, shared)
         t_res = self._now(now)
+        if self.tracer is not None:
+            self._prog_note("swap_in", time.perf_counter() - w0,
+                            swapped_in * self.cache.block_size
+                            if self.prefix is not None else 0)
         if rt is not None:
             self.tracer.end(rt.swap_span, t=t_in0)
             rt.swap_span = None
@@ -1118,6 +1287,10 @@ class ServingEngine:
         if now is None:
             now = self._time()
         self._last_step_now = now
+        self._account_kv_occupancy(now)
+        if self.slo is not None:
+            # on the engine's clock: a virtual trace replays its alerts
+            self.slo.maybe_evaluate(now)
         if self._pending_submit_stamps:
             # the first step after a context-carrying submit: its queue
             # wait starts here
@@ -1137,6 +1310,35 @@ class ServingEngine:
         if self.spec is not None:
             return self._spec_step(now, active_slots, finished)
         return self._plain_step(now, active_slots, finished)
+
+    def _account_kv_occupancy(self, now: float) -> None:
+        """Bill each occupied slot's tenant for the KV it held since the
+        last step: the pool blocks its table names (host numpy, no device
+        read; a shared radix block bills every tenant that holds it), or
+        slot-paged its whole row. On the engine's clock."""
+        if self.tenants is None:
+            return
+        last = self._acct_last_t
+        self._acct_last_t = now
+        if last is None:
+            return
+        dt = now - last
+        if dt <= 0:
+            return
+        paged = self.prefix is not None
+        for i, st in enumerate(self._slots):
+            if st is None:
+                continue
+            blocks = int((self.cache.tables[i] != self.cache.sentinel).sum()) \
+                if paged else 1
+            self.tenants.note_kv_occupancy(st.tenant, blocks, dt,
+                                           self._kv_bytes_per_block)
+
+    def _context_rows(self, slots: List[int]) -> int:
+        """K/V rows already cached for ``slots`` (a decode-phase slot holds
+        its prompt and every emitted token but the last)."""
+        return sum(len(self._slots[i].request.prompt)
+                   + len(self._slots[i].result.tokens) - 1 for i in slots)
 
     def _iter_trace(self) -> str:
         """The engine's own trace, made at first use, for the iteration
@@ -1179,8 +1381,11 @@ class ServingEngine:
         self.cache.update(*out[:3])
         # the stream's one host read per step: the picks feed the streams
         nxt = out[3].cpu().numpy()
-        self.decode_wall += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.decode_wall += dt
         if armed:
+            # the token read above fences the step: an honest wall
+            self._prog_note("decode", dt, self._context_rows(active_slots))
             self.tracer.record("decode_step", t_dec0, self._now(now),
                                trace_id=self._iter_trace(), program="decode",
                                n_slots=len(active_slots))
@@ -1199,6 +1404,8 @@ class ServingEngine:
             st.result.token_times.append(t_emit)
             st.result.decode_calls += 1
             st.last_token = tok
+            if self.tenants is not None:
+                self.tenants.note_tokens(st.tenant, 1)
             self._stream(st, [tok])
             done = self._maybe_finish(i, now)
             if done is not None:
@@ -1271,6 +1478,8 @@ class ServingEngine:
         self._verify_wall += dt
         self.decode_wall += dt
         if armed:
+            self._prog_note(f"verify_{kb}", dt,
+                            self._context_rows(active_slots))
             self.tracer.record("spec_verify", t_vf0, self._now(now),
                                trace_id=self._iter_trace(),
                                program=f"verify_{kb}",
@@ -1299,6 +1508,8 @@ class ServingEngine:
             st.result.decode_calls += 1
             st.last_token = emitted[-1]
             self.tokens_generated += len(emitted)
+            if self.tenants is not None:
+                self.tenants.note_tokens(st.tenant, len(emitted))
             # only the accepted block is streamed
             self._stream(st, emitted)
             self.spec_drafted_tokens += n_drafted

@@ -67,10 +67,14 @@ class _SlotRecord:
 
 class PrefixCache:
     """Couples the block pool and the radix trie into the serving engine's
-    admit/finish protocol, with the hit/miss/COW/eviction counters."""
+    admit/finish protocol, with the hit/miss/COW/eviction counters (also
+    into ``registry``'s ``serving/prefix_hit_tokens``,
+    ``serving/prefix_miss_tokens``, ``serving/blocks_cowed`` and
+    ``serving/blocks_evicted`` when one is given)."""
 
-    def __init__(self, pool: BlockKVPool):
+    def __init__(self, pool: BlockKVPool, registry=None):
         self.pool = pool
+        self.registry = registry
         self.root = RadixNode(None, None, None)
         self._records: Dict[int, _SlotRecord] = {}
         self._tick = 0
@@ -163,6 +167,8 @@ class PrefixCache:
         self._mut += 1
         self.pool.free_block(node.block)
         self.blocks_evicted += 1
+        if self.registry is not None:
+            self.registry.counter("serving/blocks_evicted").inc()
 
     def _evict_lru(self, n_needed: int) -> None:
         """Evict unpinned leaves oldest first until the free list holds
@@ -241,11 +247,17 @@ class PrefixCache:
             matched += p
             self.blocks_cowed += 1
             self._touch(node)
+            if self.registry is not None:
+                self.registry.counter("serving/blocks_cowed").inc()
         owned.extend(self._alloc_rest(table, len(full) + len(owned), n_total))
         self._records[slot] = _SlotRecord(prompt, full, owned)
         pool.invalidate_tables()
+        miss = len(prompt) - matched
         self.hit_tokens += matched
-        self.miss_tokens += len(prompt) - matched
+        self.miss_tokens += miss
+        if self.registry is not None:
+            self.registry.counter("serving/prefix_hit_tokens").inc(matched)
+            self.registry.counter("serving/prefix_miss_tokens").inc(miss)
         return matched, copies
 
     def _pin_evict_build(self, slot: int, full: List[RadixNode],

@@ -33,6 +33,9 @@ class Request:
     # absolute completion deadline in the engine clock, or None; a request
     # whose deadline passed before admission is shed without prefill
     deadline: Optional[float] = None
+    # the tenant whose bill the request lands on (telemetry/tenants.py);
+    # None is the default tenant. Sanitized before it names metrics
+    tenant_id: Optional[str] = None
     # trace context (telemetry/spans.py): set by whoever owns the request's
     # root span. A request that arrives with a trace id keeps it, and the
     # engine's spans link under ``parent_span``; None with an armed tracer:

@@ -3,9 +3,12 @@ deepspeed_tpu/utils/timer.py, the analog of the reference's
 ``deepspeed/utils/timer.py``: SynchronizedWallClockTimer, ThroughputTimer).
 
 On the card an interval is a pair of CUDA events recorded on the current
-stream, read (synchronizing on the end event) when the interval stops: it
-spans the device work queued between them, not only the host's launches.
-Without a card the host clock times it.
+stream: it spans the device work queued between them, not only the host's
+launches. A named timer's intervals are read when it is read (``elapsed``,
+``mean``, ``log``), which synchronizes on the last end event, so timing a
+step adds no host sync of its own until the timers are logged; the
+throughput timer reads each interval when it stops. Without a card the
+host clock times it.
 """
 
 from __future__ import annotations
@@ -41,14 +44,28 @@ class _Interval:
         else:
             self._t0 = time.perf_counter()
 
-    def end(self) -> float:
-        """Seconds since :meth:`begin`."""
+    def end_lazy(self):
+        """Close the interval; its seconds come from :func:`_seconds` (on
+        the card an event pair, read later without a sync here)."""
         if self.cuda:
             t1 = torch.cuda.Event(enable_timing=True)
             t1.record()
-            t1.synchronize()
-            return self._t0.elapsed_time(t1) / 1e3
+            return (self._t0, t1)
         return time.perf_counter() - self._t0
+
+    def end(self) -> float:
+        """Seconds since :meth:`begin`."""
+        return _seconds(self.end_lazy())
+
+
+def _seconds(interval) -> float:
+    """An interval's seconds: a host-clock float as is, a CUDA event pair
+    once its end event has completed."""
+    if isinstance(interval, float):
+        return interval
+    t0, t1 = interval
+    t1.synchronize()
+    return t0.elapsed_time(t1) / 1e3
 
 
 def _use_cuda(device) -> bool:
@@ -63,6 +80,8 @@ class _Timer:
         self.started = False
         self._interval = _Interval(cuda)
         self._elapsed = 0.0
+        # closed intervals not read yet: (interval, recorded)
+        self._pending: List[tuple] = []
         self._record: List[float] = []
 
     def start(self):
@@ -72,20 +91,27 @@ class _Timer:
 
     def stop(self, record: bool = False):
         assert self.started, f"timer {self.name} not started"
-        dt = self._interval.end()
-        self._elapsed += dt
+        self._pending.append((self._interval.end_lazy(), record))
         self.started = False
-        if record:
-            self._record.append(dt)
+
+    def _resolve(self) -> None:
+        for interval, record in self._pending:
+            dt = _seconds(interval)
+            self._elapsed += dt
+            if record:
+                self._record.append(dt)
+        self._pending.clear()
 
     def reset(self):
         self.started = False
+        self._pending.clear()
         self._elapsed = 0.0
 
     def elapsed(self, reset: bool = True) -> float:
         started = self.started
         if started:
             self.stop()
+        self._resolve()
         out = self._elapsed
         if reset:
             self.reset()
@@ -94,6 +120,7 @@ class _Timer:
         return out
 
     def mean(self) -> float:
+        self._resolve()
         return sum(self._record) / max(len(self._record), 1)
 
 

@@ -37,7 +37,7 @@ from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaModel
 from deepspeed_tpu_torch.serving import (EngineConfigError, PromptTooLongError,
                                          Request, ServingEngine,
                                          SlotCapacityError, poisson_trace)
-from deepspeed_tpu_torch.telemetry import SpanTracer
+from deepspeed_tpu_torch.telemetry import SLOEngine, SpanTracer
 
 SLOTS, MAX_LEN, BUCKETS = 4, 128, (32,)
 LOGIT_TOL = 1e-2
@@ -154,13 +154,13 @@ def test_unported_options_and_bad_requests_raise_typed_errors():
     for kw in ({"speculative": "beam"}, {"preemption": "lru"},
                {"tpot_slo_ms": 5.0}, {"kv_dtype": "int8"},
                {"prefix_cache": True, "kv_dtype": "int4"},
-               {"speculative": {"mode": "draft"}}, {"slo": object()},
-               {"tenants": True}):
+               {"speculative": {"mode": "draft"}}):
         with pytest.raises(EngineConfigError):
             ServingEngine(teng, num_slots=2, max_len=64, buckets=(16,), **kw)
-    # speculation and the span tracer are ported
+    # speculation, the span tracer, the SLO engine and tenants are ported
     ServingEngine(teng, num_slots=2, max_len=64, buckets=(16,),
-                  speculative="ngram", tracer=SpanTracer())
+                  speculative="ngram", tracer=SpanTracer(),
+                  slo=SLOEngine(), tenants=True)
     with pytest.raises(EngineConfigError, match="smallest prefill bucket"):
         ServingEngine(teng, num_slots=2, max_len=64, buckets=(16,),
                       prefill_token_budget=8)

@@ -34,7 +34,6 @@ from deepspeed_tpu.telemetry import MetricsRegistry as JMetricsRegistry
 from deepspeed_tpu.telemetry import JsonlSink as JJsonlSink
 from deepspeed_tpu.telemetry import read_jsonl as jax_read_jsonl
 from deepspeed_tpu.utils import groups
-from deepspeed_tpu_torch.errors import NotPortedError
 from deepspeed_tpu_torch.inference.weights import llama_params_from_numpy
 from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaModel
 from deepspeed_tpu_torch.serving import ServingEngine, poisson_trace
@@ -207,8 +206,10 @@ def test_telemetry_off_records_nothing(engines):
 def test_config_mfu_timers_trace(tmp_path):
     cfg = get_telemetry_config({"telemetry": {"jsonl_path": "t.jsonl"}})
     assert cfg.enabled and cfg.jsonl_path == "t.jsonl" and cfg.sync_interval == 50
-    with pytest.raises(NotPortedError):
-        get_telemetry_config({"telemetry": {"spans": True}})
+    # the span tracer and the flight recorder are ported
+    cfg = get_telemetry_config({"telemetry": {"spans": True,
+                                              "flight_recorder": True}})
+    assert cfg.spans and cfg.flight_recorder and cfg.cost_analysis
     assert peak_flops_per_sec(1, "NVIDIA H100 80GB HBM3") == 989e12
     assert peak_flops_per_sec(1, "some other card") is None
     assert mfu(989e12, 2.0, 1, "NVIDIA H100 80GB HBM3") == 0.5

@@ -444,9 +444,9 @@ NOT_PORTED = [
     {"csv_monitor": {"enabled": True}},
     {"jsonl_monitor": {"enabled": True}},
     {"flops_profiler": {"enabled": True}},
-    {"telemetry": {"enabled": True}},
+    {"zero_optimization": {"stage": 2}},
     {"comms_logger": {"enabled": True}},
-    {"wall_clock_breakdown": True},
+    {"activation_checkpointing": {"cpu_checkpointing": True}},
     {"resilience": {"enabled": True}},
     {"elasticity": {"enabled": True}},
     {"activation_checkpointing": {"partition_activations": True}},
