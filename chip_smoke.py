@@ -144,8 +144,9 @@ Training (phases added after ``reference``, before the serving phases):
                backward dK/dV) against their plain versions: bf16 at the
                GPT-2 774M training shape (B 8, H 20, T 1024, Dh 64) and at
                Dh 128 (B 4, H 16, T 2048), causal and not, f32 at a
-               small ragged shape, and bf16 at the 774M width with ragged
-               T 1000 (causal). O and lse, then dQ/dK/dV from a fixed dO
+               small ragged shape, bf16 at the 774M width with ragged
+               T 1000 (causal), and bf16 untimed at TinyLlama-1.1B's
+               training shape (B 4, H 32, T 2048, Dh 64, causal). O and lse, then dQ/dK/dV from a fixed dO
                (each row within 2e-2 of its own max |x| in bf16, 1e-4 in
                f32: kernel_check.rel_err; lse within 1e-4 absolute);
                O, lse and dQ/dK/dV bit-identical across two launches, and
@@ -187,6 +188,55 @@ Training (phases added after ``reference``, before the serving phases):
                step, the train step's roofline row, and 2 more steps'
                forward / backward / optimizer step / batch ms on the
                wall-clock timers (CUDA events).
+   train_774m (end) — one step with GPT2Config(loss_chunk=128) and one
+               without, on the same batch from the same state (the
+               engine's state copied): losses within 1e-5 relative, the
+               global grad norms within 2^-8 relative and the updated wte
+               within 2^-7 of the update's norm (the chunked backward's
+               gradient of wte against autograd's), the ms and peak memory
+               of each step.
+   kernels (flash precise) — the three f32-precise flash kernels
+               (csrc/flash_precise.cu, DSTPU_FLASH_F32_PRECISE=1) against
+               their plain versions with p and dS in f32, row by row
+               (1e-4 plus one ulp of a 16-bit output: 2^-7 bf16, 2^-10
+               fp16; lse 1e-4 absolute), the backward bit for bit across
+               launches, at the 774M and Dh 128 / T 2048 shapes in bf16,
+               causal and not, and untimed rows at TinyLlama's shape (B·H
+               128, T 2048, Dh 64, causal), in fp16 and f32, and ragged. On
+               16-bit inputs each row also runs the default kernels D, E, F
+               end to end beside the precise ones, and holds the precise
+               outputs nearer an f64 evaluation (mean error over every
+               element at most 1/1.1 of the default's: the kernels keep p
+               and dS in f32). Times beside the plain versions and SDPA on
+               f32 copies; bounds with q.k^T and dO.v^T at the 16-bit
+               tensor rate and the f32-operand products at the f32
+               CUDA-core rate, and f32_floor_ms with every product at the
+               latter.
+   train_tinyllama — TinyLlama-1.1B at full width and depth (its
+               config.json; random init) through initialize() in bf16
+               (AdamW, ZeRO 0, bench.py's 774M settings), attn flash,
+               micro-batch 4 x gas 2 x T 2048: the first micro-batch's loss
+               through flash and dense attention within 1e-3, then remat
+               off, "nothing" and "save_attn" on one engine, 2 warm-up and
+               6 measured steps each: ms a step, tokens/s, MFU
+               (LlamaModel.flops_per_token(T)), peak memory; kernel D
+               launches 2 x 22 x gas a step under "nothing" and 22 x gas
+               otherwise, E and F 22 x gas; the loss falls; peak memory
+               under "nothing" below remat off. Then two steps under
+               DSTPU_FLASH_F32_PRECISE=1: only the precise kernels launch
+               (22 x gas x 2 each), the first batch's loss within 1e-3 of
+               the default mode's.
+   checkpoint_roundtrip — TinyLlama width at 4 of its 22 layers (0.31 B
+               parameters), trained as above: a 3-step stretch replayed
+               from a copy of the same state (bit-identical, or the spread
+               held below), save_checkpoint at step 3 and 3 more steps; a
+               fresh engine's load_checkpoint and the same 3 steps give the
+               same losses; its tag at step 6, truncated, makes the next
+               load walk back to step 3; init_inference(config=
+               {"checkpoint": dir}) at batch 2 generates the tokens that
+               the engine's in-memory parameters generate (kernel B).
+               Save and load seconds, bytes written; the directory is
+               temporary.
 
 Generate (phases added after ``reference`` and after ``probe_fp32``):
 
@@ -312,18 +362,23 @@ from deepspeed_tpu_torch.ops.flash_decode import (flash_decode,
                                                   flash_decode_plain)
 from deepspeed_tpu_torch.ops.flash_attention import (flash_bwd_dkv,
                                                      flash_bwd_dkv_plain,
+                                                     flash_bwd_dkv_precise,
                                                      flash_bwd_dq,
                                                      flash_bwd_dq_plain,
+                                                     flash_bwd_dq_precise,
                                                      flash_fwd_parts,
-                                                     flash_fwd_parts_plain)
+                                                     flash_fwd_parts_plain,
+                                                     flash_fwd_precise)
 from deepspeed_tpu_torch.ops import get_op_builder
 from deepspeed_tpu_torch.ops.int8_matmul import (grid_plan, int8_matmul,
                                                  int8_matmul_dma,
                                                  int8_matmul_plain)
 from deepspeed_tpu_torch.ops.int8_matmul import plan as int8_plan
-from deepspeed_tpu_torch.ops.kernel_check import (block_step_inputs,
+from deepspeed_tpu_torch.ops.kernel_check import (PRECISE_GAIN,
+                                                  block_step_inputs,
                                                   capture_graph, clone_pool,
                                                   flash_delta, flash_inputs,
+                                                  flash_mean_errors_f64,
                                                   graph_replay,
                                                   masked_row_layout,
                                                   random_pool,
@@ -410,6 +465,18 @@ KERNELS = {
     "int8_matmul": {
         "source": "deepspeed_tpu_torch/csrc/int8_matmul_grid.cu",
         "replaces": "deepspeed_tpu/ops/int8_matmul.py:44 (_kernel)"},
+    "flash_fwd_precise": {
+        "source": "deepspeed_tpu_torch/csrc/flash_precise.cu",
+        "replaces": "deepspeed_tpu/ops/flash_attention.py:80 (_fwd_kernel, "
+                    "DSTPU_FLASH_F32_PRECISE=1)"},
+    "flash_bwd_dq_precise": {
+        "source": "deepspeed_tpu_torch/csrc/flash_precise.cu",
+        "replaces": "deepspeed_tpu/ops/flash_attention.py:121 (_bwd_dq_kernel, "
+                    "DSTPU_FLASH_F32_PRECISE=1)"},
+    "flash_bwd_dkv_precise": {
+        "source": "deepspeed_tpu_torch/csrc/flash_precise.cu",
+        "replaces": "deepspeed_tpu/ops/flash_attention.py:154 (_bwd_dkv_kernel, "
+                    "DSTPU_FLASH_F32_PRECISE=1)"},
 }
 WRAPPERS = {"fused_decode_step": fused_decode_step,
             "int8_matmul_dma": int8_matmul_dma,
@@ -422,14 +489,27 @@ WRAPPERS = {"fused_decode_step": fused_decode_step,
             "block_sparse_fwd": block_sparse_fwd,
             "block_sparse_bwd_dq": block_sparse_bwd_dq,
             "block_sparse_bwd_dkv": block_sparse_bwd_dkv,
-            "int8_matmul": int8_matmul}
+            "int8_matmul": int8_matmul,
+            "flash_fwd_precise": flash_fwd_precise,
+            "flash_bwd_dq_precise": flash_bwd_dq_precise,
+            "flash_bwd_dkv_precise": flash_bwd_dkv_precise}
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+PRECISE = ("flash_fwd_precise", "flash_bwd_dq_precise", "flash_bwd_dkv_precise")
 SPARSE = ("block_sparse_fwd", "block_sparse_bwd_dq", "block_sparse_bwd_dkv")
 # flash outputs, per row: |kernel - plain| as a share of the row's max |x|
 # (kernel_check.rel_err). bf16: about two ulps (2^-7 each) of the row's
 # largest element; the H100 readings are at most one ulp (0.0073-0.0078).
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 LSE_TOL = 1e-4                                              # absolute
+# the f32-precise flash kernels against their plain versions under
+# DSTPU_FLASH_F32_PRECISE=1, per row (kernel_check.rel_err): both compute
+# the same f32 values up to summation order (the f32 rows' 1e-4); a 16-bit
+# output then rounds them once, where two values that close may land one
+# ulp apart: at most 2^-7 (bf16) or 2^-10 (fp16) of the row's largest
+# element, since an element in [2^e, 2^(e+1)) has an ulp of 2^(e-7)
+# (2^(e-10))
+PRECISE_TOL = {torch.bfloat16: 1e-4 + 2 ** -7, torch.float16: 1e-4 + 2 ** -10,
+               torch.float32: 1e-4}
 # GPT-2 774M first-batch loss through flash vs dense attention, absolute
 # (the reading is 9.4e-5 at a loss of 11.1)
 FLASH_DENSE_LOSS_TOL = 1e-3
@@ -954,17 +1034,64 @@ def _bound(nbytes, flops, flop_rate):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def _bound_mixed(nbytes, product_flops, storage_products, f32_products,
+                 storage_rate):
+    """:func:`_bound` for a kernel whose first-stage products take
+    storage-dtype operands (at ``storage_rate``: the tensor cores multiply
+    16-bit values exactly and sum in f32) and whose second-stage products
+    take f32 operands (at the f32 CUDA-core rate); the two times add.
+    ``f32_floor_ms`` prices every product at the f32 CUDA-core rate."""
+    products = storage_products + f32_products
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = product_flops * (storage_products / storage_rate
+                             + f32_products / F32_FLOP_PER_S)
+    return {"bytes": nbytes, "flops": products * product_flops,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "f32_floor_ms": 1e3 * products * product_flops / F32_FLOP_PER_S}
+
+
 def _flash_bwd(q, k, v, do, lse, delta, causal):
     return (flash_bwd_dq(q, k, v, do, lse, delta, causal=causal),
             *flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal))
 
 
-def check_flash(dtype, b, h, t, dh, causal, seed=0):
+def _sdpa_times(sets, b, h, t, dh, causal):
+    """The yardstick: SDPA's forward, backward (dQ, dK, dV together, from
+    forwards kept on the stream it is captured on) and forward + backward
+    times on [B, H, T, Dh] views of the same values."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    views = [[x.view(b, h, t, dh) for x in st] for st in sets]
+    lib_fwd = time_ms(lambda i: sdpa(*views[i][:3], is_causal=causal), 2)
+
+    def leaves(i):
+        return [x.detach().requires_grad_() for x in views[i][:3]]
+
+    def fwd_bwd(i):
+        qq, kk, vv = leaves(i)
+        torch.autograd.grad(sdpa(qq, kk, vv, is_causal=causal), (qq, kk, vv),
+                            views[i][3])
+
+    lib_fb = time_ms(fwd_bwd, 2, per=4, reps=10)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graphs = [(sdpa(*lv, is_causal=causal), lv)
+                  for lv in (leaves(0), leaves(1))]
+    lib_bwd = time_ms(
+        lambda i: torch.autograd.grad(graphs[i][0], graphs[i][1], views[i][3],
+                                      retain_graph=True), 2, per=4, reps=10,
+        stream=side)
+    del graphs
+    return lib_fwd, lib_bwd, lib_fb
+
+
+def check_flash(dtype, b, h, t, dh, causal, seed=0, timed=True):
     """The three flash kernels against their plain versions at one shape
-    (flat [B*H, T, Dh] operands), then their times. The backward is fed the
-    plain version's lse and delta (so each kernel is held alone), from a
-    fixed dO; its outputs must be bit-identical across two launches and
-    when replayed from a CUDA graph."""
+    (flat [B*H, T, Dh] operands), then, if ``timed``, their times. The
+    backward is fed the plain version's lse and delta (so each kernel is
+    held alone), from a fixed dO; its outputs must be bit-identical across
+    two launches and when replayed from a CUDA graph."""
     dev = "cuda"
     bh = b * h
     sets = [flash_inputs(dev, dtype, bh, t, dh, seed=seed + i) for i in range(2)]
@@ -999,6 +1126,17 @@ def check_flash(dtype, b, h, t, dh, causal, seed=0):
     assert torch.equal(out, out2) and torch.equal(lse, lse2), \
         "flash forward not bit-identical across launches"
     del out, out2, lse2, ref, grads, again, replayed, plain
+    row = {"dtype": str(dtype).split(".")[-1], "b": b, "h": h, "t": t,
+           "dh": dh, "causal": causal, "tol_rel": tol,
+           "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL, "errors": errs,
+           "bwd_bit_identical": True, "fwd_bit_identical": True,
+           "bwd_replay_bit_identical": True,
+           "fwd": {"max_abs_err": max(errs["out"]["max_abs_err"], lse_err)},
+           "dq": {"max_abs_err": errs["dq"]["max_abs_err"]},
+           "dkv": {"max_abs_err": max(errs["dk"]["max_abs_err"],
+                                      errs["dv"]["max_abs_err"])}}
+    if not timed:
+        return row
 
     # times, rotating two input sets (> 50 MB of operands at the main shapes)
     lses, deltas = [], []
@@ -1017,31 +1155,7 @@ def check_flash(dtype, b, h, t, dh, causal, seed=0):
                                                 causal=causal), 2, per=4, reps=7)
     p_dkv = time_ms(lambda i: flash_bwd_dkv_plain(*sets[i], lses[i], deltas[i],
                                                   causal=causal), 2, per=4, reps=7)
-    # yardstick: SDPA on [B, H, T, Dh] views of the same values
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    views = [[x.view(b, h, t, dh) for x in st] for st in sets]
-    lib_fwd = time_ms(lambda i: sdpa(*views[i][:3], is_causal=causal), 2)
-
-    def leaves(i):
-        return [x.detach().requires_grad_() for x in views[i][:3]]
-
-    def fwd_bwd(i):
-        qq, kk, vv = leaves(i)
-        torch.autograd.grad(sdpa(qq, kk, vv, is_causal=causal), (qq, kk, vv),
-                            views[i][3])
-
-    lib_fb = time_ms(fwd_bwd, 2, per=4, reps=10)
-    # the backward alone, from forwards kept on the stream it is captured on
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        graphs = [(sdpa(*lv, is_causal=causal), lv)
-                  for lv in (leaves(0), leaves(1))]
-    lib_bwd = time_ms(
-        lambda i: torch.autograd.grad(graphs[i][0], graphs[i][1], views[i][3],
-                                      retain_graph=True), 2, per=4, reps=10,
-        stream=side)
-    del graphs
+    lib_fwd, lib_bwd, lib_fb = _sdpa_times(sets, b, h, t, dh, causal)
     pairs = attn_pairs(t, t, causal)
     esz = q.element_size()
     rate = BF16_FLOP_PER_S if dtype != torch.float32 else F32_FLOP_PER_S
@@ -1054,10 +1168,7 @@ def check_flash(dtype, b, h, t, dh, causal, seed=0):
     # products (S, dP, dV, dK, dQ), as SDPA's backward runs them. The pair
     # runs seven (S and dP in both kernels), so it cannot reach this bound.
     bwd_b = _bound(7 * big + 2 * rows, 10 * bh * dh * pairs, rate)
-    return {"dtype": str(dtype).split(".")[-1], "b": b, "h": h, "t": t,
-            "dh": dh, "causal": causal, "tol_rel": tol, "lse_max_abs_err": lse_err,
-            "lse_tol": LSE_TOL, "errors": errs, "bwd_bit_identical": True,
-            "fwd_bit_identical": True,
+    return {**row,
             "attended_pairs": pairs,
             "fwd": {"kernel_ms": fwd, "plain_ms": p_fwd, "library_ms": lib_fwd,
                     "max_abs_err": max(errs["out"]["max_abs_err"], lse_err),
@@ -1074,11 +1185,136 @@ def check_flash(dtype, b, h, t, dh, causal, seed=0):
                     "max_abs_err": max(errs[o]["max_abs_err"]
                                        for o in ("dq", "dk", "dv")),
                     **bwd_b, **_shares(dq + dkv, bwd_b["bound_ms"], lib_bwd)},
-            "bwd_replay_bit_identical": True,
             "library": "scaled_dot_product_attention: forward (fwd), backward "
                        "of dQ, dK and dV together (dq, dkv, bwd rows; bwd "
                        "is E + F)",
             "sdpa_fwd_bwd_ms": lib_fb}
+
+
+def _precise_vs_default(q, k, v, do, causal) -> dict:
+    """Kernels D, E, F and their f32-precise variants, each run end to end
+    (the backward from its own forward's lse and delta) on the same 16-bit
+    inputs: mean errors against the f64 evaluation, the precise ones at
+    most 1 / PRECISE_GAIN of the default's."""
+    def run(fwd, dq, dkv):
+        out, lse = fwd(q, k, v, causal=causal)
+        delta = flash_delta(do, out)
+        return (out, dq(q, k, v, do, lse, delta, causal=causal),
+                *dkv(q, k, v, do, lse, delta, causal=causal))
+
+    errs = {}
+    for mode, fns in (("precise", (flash_fwd_precise, flash_bwd_dq_precise,
+                                   flash_bwd_dkv_precise)),
+                      ("default", (flash_fwd_parts, flash_bwd_dq,
+                                   flash_bwd_dkv))):
+        outs = run(*fns)
+        errs[mode] = dict(zip(("out", "dq", "dk", "dv"),
+                              flash_mean_errors_f64(outs, q, k, v, do,
+                                                    causal=causal)))
+        del outs
+    gain = {o: errs["default"][o] / errs["precise"][o] for o in errs["default"]}
+    assert all(g >= PRECISE_GAIN for g in gain.values()), (q.shape, causal, errs)
+    return {"mean_abs_err_f64": errs, "default_over_precise": gain,
+            "min_gain": PRECISE_GAIN}
+
+
+def check_flash_precise(dtype, b, h, t, dh, causal, seed=0, timed=True):
+    """The three f32-precise flash kernels (csrc/flash_precise.cu) against
+    their plain versions with ``precise=True`` (what
+    DSTPU_FLASH_F32_PRECISE=1 selects), row by row, at one shape; the
+    backward from the plain version's lse and delta. On 16-bit inputs, the
+    precise and default kernels against an f64 evaluation
+    (:func:`_precise_vs_default`). Their times beside the plain versions'
+    and SDPA's on f32 copies of the operands (the library's computation in
+    f32); the bound with q.k^T and dO.v^T at the storage dtype's rate and
+    the f32-operand products at the f32 CUDA-core rate."""
+    dev = "cuda"
+    bh = b * h
+    sets = [flash_inputs(dev, dtype, bh, t, dh, seed=seed + i) for i in range(2)]
+    q, k, v, do = sets[0]
+    out, lse = flash_fwd_precise(q, k, v, causal=causal)
+    ref, ref_lse = flash_fwd_parts_plain(q, k, v, causal=causal, precise=True)
+    delta = flash_delta(do, ref)
+    grads = (flash_bwd_dq_precise(q, k, v, do, ref_lse, delta, causal=causal),
+             *flash_bwd_dkv_precise(q, k, v, do, ref_lse, delta, causal=causal))
+    again = (flash_bwd_dq_precise(q, k, v, do, ref_lse, delta, causal=causal),
+             *flash_bwd_dkv_precise(q, k, v, do, ref_lse, delta, causal=causal))
+    plain = (flash_bwd_dq_plain(q, k, v, do, ref_lse, delta, causal=causal,
+                                precise=True),
+             *flash_bwd_dkv_plain(q, k, v, do, ref_lse, delta, causal=causal,
+                                  precise=True))
+    torch.cuda.synchronize()
+    tol = PRECISE_TOL[dtype]
+    errs = {}
+    for name, got, want in (("out", out, ref), ("dq", grads[0], plain[0]),
+                            ("dk", grads[1], plain[1]),
+                            ("dv", grads[2], plain[2])):
+        assert torch.isfinite(got.float()).all(), name
+        errs[name] = {"max_abs_err": (got.float() - want.float()).abs().max().item(),
+                      "rel_err": rel_err(got, want)}
+        assert errs[name]["rel_err"] <= tol, (name, dtype, b, h, t, dh, causal,
+                                              errs[name])
+    lse_err = (lse - ref_lse).abs().max().item()
+    assert lse_err <= LSE_TOL, ("lse", lse_err)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again)), \
+        "precise flash backward not bit-identical across launches"
+    row = {"dtype": str(dtype).split(".")[-1], "b": b, "h": h, "t": t,
+           "dh": dh, "causal": causal, "tol_rel": tol,
+           "lse_max_abs_err": lse_err, "errors": errs}
+    del out, ref, grads, again, plain
+    if dtype != torch.float32:
+        row["vs_f64"] = _precise_vs_default(q, k, v, do, causal)
+    if not timed:
+        return row
+    lses, deltas = [], []
+    for qq, kk, vv, dd in sets:
+        o, l_ = flash_fwd_parts_plain(qq, kk, vv, causal=causal, precise=True)
+        lses.append(l_)
+        deltas.append(flash_delta(dd, o))
+    fwd = time_ms(lambda i: flash_fwd_precise(*sets[i][:3], causal=causal), 2,
+                  per=4, reps=7)
+    dq = time_ms(lambda i: flash_bwd_dq_precise(*sets[i], lses[i], deltas[i],
+                                                causal=causal), 2, per=4, reps=7)
+    dkv = time_ms(lambda i: flash_bwd_dkv_precise(*sets[i], lses[i], deltas[i],
+                                                  causal=causal), 2, per=4, reps=7)
+    p_fwd = time_ms(lambda i: flash_fwd_parts_plain(*sets[i][:3], causal=causal,
+                                                    precise=True),
+                    2, per=4, reps=7)
+    p_dq = time_ms(lambda i: flash_bwd_dq_plain(*sets[i], lses[i], deltas[i],
+                                                causal=causal, precise=True),
+                   2, per=4, reps=7)
+    p_dkv = time_ms(lambda i: flash_bwd_dkv_plain(*sets[i], lses[i], deltas[i],
+                                                  causal=causal, precise=True),
+                    2, per=4, reps=7)
+    sets32 = [[x.float() for x in st] for st in sets]
+    lib_fwd, lib_bwd, lib_fb = _sdpa_times(sets32, b, h, t, dh, causal)
+    del sets32
+    pairs = attn_pairs(t, t, causal)
+    big = bh * t * dh * q.element_size()
+    rows = bh * t * 4
+    # q.k^T (all three) and dO.v^T (dQ, dK/dV) from storage-dtype operands;
+    # p.V (forward), dS.K (dQ), p^T.dO and dS^T.q (dK/dV) from f32 p and dS
+    rate = BF16_FLOP_PER_S if dtype != torch.float32 else F32_FLOP_PER_S
+    product = 2 * bh * dh * pairs
+    fwd_b = _bound_mixed(4 * big + rows, product, 1, 1, rate)
+    dq_b = _bound_mixed(5 * big + 2 * rows, product, 2, 1, rate)
+    dkv_b = _bound_mixed(6 * big + 2 * rows, product, 2, 2, rate)
+    row.update({
+        "attended_pairs": pairs,
+        "fwd": {"kernel_ms": fwd, "plain_ms": p_fwd, "library_ms": lib_fwd,
+                "max_abs_err": max(errs["out"]["max_abs_err"], lse_err),
+                **fwd_b, **_shares(fwd, fwd_b["bound_ms"], lib_fwd)},
+        "dq": {"kernel_ms": dq, "plain_ms": p_dq, "library_ms": lib_bwd,
+               "max_abs_err": errs["dq"]["max_abs_err"],
+               **dq_b, **_shares(dq, dq_b["bound_ms"], lib_bwd)},
+        "dkv": {"kernel_ms": dkv, "plain_ms": p_dkv, "library_ms": lib_bwd,
+                "max_abs_err": max(errs["dk"]["max_abs_err"],
+                                   errs["dv"]["max_abs_err"]),
+                **dkv_b, **_shares(dkv, dkv_b["bound_ms"], lib_bwd)},
+        "library": "scaled_dot_product_attention on f32 copies: forward "
+                   "(fwd), backward of dQ, dK and dV together (dq, dkv)",
+        "sdpa_f32_fwd_bwd_ms": lib_fb})
+    return row
 
 
 def check_flash_decode(dtype, b, hq, hkv, s, dh, idxs, seed=0):
@@ -1240,7 +1476,25 @@ def phase_kernels() -> dict:
              check_flash(torch.float32, 2, 4, 200, 64, True),
              check_flash(torch.float32, 2, 2, 136, 128, False),
              # ragged: T 1000 is no multiple of the 64-row tile
-             check_flash(torch.bfloat16, 8, 20, 1000, 64, True)]
+             check_flash(torch.bfloat16, 8, 20, 1000, 64, True),
+             # TinyLlama-1.1B's training shape (train_tinyllama), untimed
+             check_flash(torch.bfloat16, 4, 32, 2048, 64, True, timed=False)]
+    torch.cuda.empty_cache()
+    # the f32-precise kernels at the same main shapes, then untimed rows at
+    # TinyLlama-1.1B's training shape, in fp16 and f32 and at a causal tail
+    # no multiple of the 32-row tile
+    precise = [check_flash_precise(torch.bfloat16, 8, 20, 1024, 64, True),
+               check_flash_precise(torch.bfloat16, 8, 20, 1024, 64, False),
+               check_flash_precise(torch.bfloat16, 4, 16, 2048, 128, True),
+               check_flash_precise(torch.bfloat16, 4, 16, 2048, 128, False),
+               check_flash_precise(torch.bfloat16, 4, 32, 2048, 64, True,
+                                   timed=False),
+               check_flash_precise(torch.float16, 2, 4, 1000, 64, True,
+                                   timed=False),
+               check_flash_precise(torch.float32, 2, 2, 136, 128, False,
+                                   timed=False),
+               check_flash_precise(torch.bfloat16, 2, 4, 130, 128, True,
+                                   timed=False)]
     torch.cuda.empty_cache()
     # flash-decode: (a) CodeLlama-34B decode at batch 1 (generate's route),
     # (b) batch 4, (c) the rep-1 variant at LLaMA-7B's shape, (d, e) f32 at
@@ -1283,10 +1537,12 @@ def phase_kernels() -> dict:
     emit({"phase": "kernels", "fused_decode_step": decode,
           "fused_block_decode_step": block,
           "fused_block_decode_step_edges": edges, "int8_matmul_dma": matmul,
-          "flash_attention": flash, "flash_decode": fdec})
+          "flash_attention": flash, "flash_precise": precise,
+          "flash_decode": fdec})
     return {"fused_decode_step": decode, "fused_block_decode_step": block,
             "fused_block_decode_step_edges": edges, "int8_matmul_dma": matmul,
-            "flash_attention": flash, "flash_decode": fdec}
+            "flash_attention": flash, "flash_precise": precise,
+            "flash_decode": fdec}
 
 
 def kernel_summary(kern: dict, launches: dict, sparse: dict) -> list:
@@ -1353,6 +1609,19 @@ def _kernel_rows(kern: dict, launches: dict, sparse: dict) -> list:
              bound_by=kern["flash_attention"][0][key]["bound_by"],
              library_ms=kern["flash_attention"][0][key]["library_ms"])
         for name, key in zip(FLASH, ("fwd", "dq", "dkv"))] + [
+        # the f32-precise flash kernels at the same shape; errors over
+        # every row
+        dict(name=name, route="cuda", **KERNELS[name],
+             launches=launches[name],
+             max_abs_err=max(r["errors"][o]["max_abs_err"]
+                             for r in kern["flash_precise"] for o in outs),
+             ms=kern["flash_precise"][0][key]["kernel_ms"],
+             plain_ms=kern["flash_precise"][0][key]["plain_ms"],
+             bound_ms=kern["flash_precise"][0][key]["bound_ms"],
+             bound_by=kern["flash_precise"][0][key]["bound_by"],
+             library_ms=kern["flash_precise"][0][key]["library_ms"])
+        for name, key, outs in zip(PRECISE, ("fwd", "dq", "dkv"),
+                                   (("out",), ("dq",), ("dk", "dv")))] + [
         # flash-decode at CodeLlama-34B's batch-1 decode (idx 639); its rep-1
         # variant at LLaMA-7B's (B 8, idx 1023), unrouted on the main path
         dict(name=name, route="cuda", **KERNELS[name],
@@ -3464,6 +3733,7 @@ def phase_train_774m(smi: str) -> dict:
         want = cfg.num_layers * gas * steps if name in FLASH else 0
         assert n == want, (name, n, want)
     prof = profile_train_step(eng, batches[-1])
+    chunked = _loss_chunk_pair(eng, cfg, batches[-1])
     tokens = gas * micro * t * steps
     flops_tok = model.flops_per_token(t)
     info = {"phase": "train_774m", "card": smi,
@@ -3480,11 +3750,345 @@ def phase_train_774m(smi: str) -> dict:
             "ms_per_step": 1e3 * wall / steps, "tokens_per_s": tokens / wall,
             "flop_per_token": flops_tok,
             "achieved_tflops": tokens / wall * flops_tok / 1e12,
-            "peak_mem_gb": peak / 1e9, "profile_one_step": prof}
+            "peak_mem_gb": peak / 1e9, "profile_one_step": prof,
+            "loss_chunk": chunked}
     emit(info)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    return info
+
+
+def _clone_tree(x):
+    if isinstance(x, dict):
+        return {k: _clone_tree(v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_clone_tree(v) for v in x))
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+def _snapshot_state(eng):
+    """A copy of everything a training step reads and updates in place."""
+    return (_clone_tree(eng.state), eng.global_steps, eng.micro_steps,
+            eng.skipped_steps,
+            eng.lr_scheduler.state_dict() if eng.lr_scheduler else None)
+
+
+def _restore_state(eng, snap) -> None:
+    state, eng.global_steps, eng.micro_steps, eng.skipped_steps, lr = snap
+    eng.state = _clone_tree(state)
+    if lr is not None:
+        eng.lr_scheduler.load_state_dict(lr)
+
+
+# the 774M loss with and without the chunked LM loss, relative: the same
+# f32 terms summed per chunk and then over chunks
+LOSS_CHUNK_TOL = 1e-5
+# ... and the step's gradients: each element of the wte gradient is a bf16
+# rounding of an f32 sum of the same products (over all chunks, or in one
+# GEMM), so the two may differ by an ulp (2^-8 relative, at most): the
+# global grad norm within 2^-8 relative, and AdamW's update of the f32 wte
+# (which the clipped gradient moves through the first moment) within 2^-7
+# of its norm
+LOSS_CHUNK_GRAD_NORM_TOL = 2 ** -8
+LOSS_CHUNK_UPDATE_TOL = 2 ** -7
+
+
+def _loss_chunk_pair(eng, cfg, batch, chunk: int = 128) -> dict:
+    """One step with ``GPT2Config(loss_chunk=chunk)`` and one without, on
+    the same batch from the same state (the engine's model swapped; each
+    after a warm-up step from that state): the
+    losses, the global grad norms and the updates of wte agree (the chunked
+    loss's own backward against autograd's), and the time and peak memory
+    of each step are reported."""
+    snap = _snapshot_state(eng)
+    module = eng.module
+    wte0 = snap[0].params["wte"]
+    out, updates = {}, {}
+    for name, c in ((f"loss_chunk_{chunk}", chunk), ("unchunked", 0)):
+        eng.module = GPT2Model(GPT2Config.gpt2_774m(loss_chunk=c),
+                               attn_impl="flash")
+        gc.collect()
+        torch.cuda.empty_cache()
+        # a warm-up step from the same state, then the one measured
+        _restore_state(eng, snap)
+        eng.train_batch_from_stacked(batch)
+        _restore_state(eng, snap)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = float(eng.train_batch_from_stacked(batch))
+        torch.cuda.synchronize()
+        out[name] = {"loss": loss, "step_ms": 1e3 * (time.perf_counter() - t0),
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "grad_norm": eng.get_global_grad_norm()}
+        updates[name] = eng.state.params["wte"].float() - wte0.float()
+    eng.module = module
+    del snap, wte0
+    a, b = out[f"loss_chunk_{chunk}"], out["unchunked"]
+    rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    norm_rel = abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+    du = updates["unchunked"]
+    upd_rel = ((updates[f"loss_chunk_{chunk}"] - du).norm() / du.norm()).item()
+    del updates, du
+    out.update(loss_rel_diff=rel, tol_rel=LOSS_CHUNK_TOL,
+               grad_norm_rel_diff=norm_rel,
+               grad_norm_tol_rel=LOSS_CHUNK_GRAD_NORM_TOL,
+               wte_update_rel_diff=upd_rel,
+               wte_update_tol_rel=LOSS_CHUNK_UPDATE_TOL,
+               note="peak memory includes a copy of the engine's state "
+                    "(masters and moments) kept to start both steps alike")
+    assert rel <= LOSS_CHUNK_TOL, out
+    assert norm_rel <= LOSS_CHUNK_GRAD_NORM_TOL, out
+    assert upd_rel <= LOSS_CHUNK_UPDATE_TOL, out
+    return out
+
+
+TINYLLAMA_TRAIN_CONFIG = {**BENCH_774M_CONFIG, "train_batch_size": 4 * 2}
+# (name, remat, remat_policy) of train_tinyllama's runs
+REMAT_RUNS = (("off", False, None), ("nothing", True, "nothing"),
+              ("save_attn", True, "save_attn"))
+
+
+def phase_train_tinyllama(smi: str) -> dict:
+    """TinyLlama-1.1B at full width and depth (random init, seed 1234)
+    trained through initialize() in bf16 (AdamW, ZeRO 0), attn_impl
+    "flash", micro-batch 4 x gas 2 x T 2048: three runs on one engine, remat
+    off, "nothing" and "save_attn" (the model swapped between runs), each 2
+    warm-up and 6 measured steps, the launch counters zeroed just before
+    the measured steps. Then two steps under DSTPU_FLASH_F32_PRECISE=1 (the
+    f32-precise kernels)."""
+    import os
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = LlamaConfig(**TINYLLAMA_1B)
+    gas, micro, t, warm, steps = 2, 4, 2048, 2, 6
+    t0 = time.perf_counter()
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=LlamaModel(cfg, attn_impl="flash"), config=TINYLLAMA_TRAIN_CONFIG)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(eng.state.params))
+    batches = lm_batches(np.random.RandomState(1), len(REMAT_RUNS) * (warm + steps)
+                         + 2, gas, micro, t, cfg.vocab_size, start_span=1000)
+    # the model's flash route at full width: the first micro-batch's loss
+    # through flash and through dense attention on the same parameters
+    first = {k: v[0] for k, v in batches[0].items()}
+    flash_loss = float(eng.eval_batch(first))
+    with torch.no_grad():
+        cp = eng._cast_for_compute(eng.state.params)
+        tb = {k: torch.as_tensor(v).long().to(eng.device) for k, v in first.items()}
+        dense_loss = float(LlamaModel(cfg, attn_impl="dense").apply(cp, tb)[0])
+        del cp, tb
+    assert abs(flash_loss - dense_loss) <= FLASH_DENSE_LOSS_TOL, \
+        (flash_loss, dense_loss)
+    flops_tok = eng.module.flops_per_token(t)
+    it = iter(batches)
+    runs, all_losses, launches_sum = {}, [], dict.fromkeys(WRAPPERS, 0)
+    for name, remat, policy in REMAT_RUNS:
+        eng.module = LlamaModel(cfg, attn_impl="flash", remat=remat,
+                                remat_policy=policy)
+        losses = [eng.train_batch_from_stacked(next(it)) for _ in range(warm)]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()                   # the main path starts here
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            losses.append(eng.train_batch_from_stacked(next(it)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(x) for x in losses]
+        assert all(math.isfinite(x) for x in losses), (name, losses)
+        fwd_per = (2 if policy == "nothing" else 1) * cfg.num_layers * gas
+        for k, n in launches.items():
+            want = {"flash_fwd": fwd_per, "flash_bwd_dq": cfg.num_layers * gas,
+                    "flash_bwd_dkv": cfg.num_layers * gas}.get(k, 0) * steps
+            assert n == want, (name, k, n, want)
+        for k in launches_sum:
+            launches_sum[k] += launches[k]
+        tokens = gas * micro * t * steps
+        runs[name] = {"remat": remat, "remat_policy": policy, "losses": losses,
+                      "ms_per_step": 1e3 * wall / steps,
+                      "tokens_per_s": tokens / wall,
+                      "mfu": tokens / wall * flops_tok / BF16_FLOP_PER_S,
+                      "peak_mem_gb": peak / 1e9,
+                      "launches_per_step": {k: launches[k] / steps
+                                            for k in FLASH}}
+        all_losses += losses
+    assert all_losses[-1] < all_losses[0], all_losses
+    assert runs["nothing"]["peak_mem_gb"] < runs["off"]["peak_mem_gb"], runs
+    # the f32-precise mode on the same path: two steps, remat off
+    eng.module = LlamaModel(cfg, attn_impl="flash")
+    default_now = float(eng.eval_batch(first))
+    os.environ["DSTPU_FLASH_F32_PRECISE"] = "1"
+    try:
+        precise_first = float(eng.eval_batch(first))
+        reset_counts()
+        t0 = time.perf_counter()
+        p_losses = [float(eng.train_batch_from_stacked(next(it)))
+                    for _ in range(2)]
+        torch.cuda.synchronize()
+        p_wall = time.perf_counter() - t0
+        p_launches = read_counts()
+    finally:
+        del os.environ["DSTPU_FLASH_F32_PRECISE"]
+    assert all(math.isfinite(x) for x in p_losses), p_losses
+    for k, n in p_launches.items():
+        want = cfg.num_layers * gas * 2 if k in PRECISE else 0
+        assert n == want, ("precise", k, n, want)
+    assert abs(precise_first - default_now) <= FLASH_DENSE_LOSS_TOL, \
+        (precise_first, default_now)
+    for k in PRECISE:
+        launches_sum[k] += p_launches[k]
+    info = {"phase": "train_tinyllama", "card": smi,
+            "model": "TinyLlama-1.1B (22 layers, hidden 2048, 32 / 4 heads of "
+                     "Dh 64, intermediate 5632, vocab 32000), random init "
+                     "seed 1234, attn flash",
+            "config": TINYLLAMA_TRAIN_CONFIG, "n_params": n_params,
+            "micro_batch": micro, "gas": gas, "seq_len": t,
+            "warmup_steps": warm, "measured_steps": steps, "init_s": init_s,
+            "flop_per_token": flops_tok,
+            "first_batch_loss_flash": flash_loss,
+            "first_batch_loss_dense": dense_loss,
+            "flash_dense_loss_tol": FLASH_DENSE_LOSS_TOL, "runs": runs,
+            "precise": {"first_batch_loss": precise_first,
+                        "first_batch_loss_default_mode": default_now,
+                        "losses": p_losses,
+                        "ms_per_step": 1e3 * p_wall / 2,
+                        "launches": {k: p_launches[k] for k in PRECISE}},
+            "launches": launches_sum}
+    emit(info)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def phase_checkpoint_roundtrip(smi: str) -> dict:
+    """TinyLlama width at 4 of its 22 layers, trained as train_tinyllama
+    (remat off): one 3-step stretch replayed from the same state (is the
+    step bit-identical run to run?); save at step 3, 3 more steps; a fresh
+    engine loads the tag and takes the same 3 steps (losses held to the
+    uninterrupted run's: bit-identical, or within the replay's spread);
+    its own tag at step 6, corrupted, makes the next load walk back to
+    step 3; init_inference(config={"checkpoint": dir}) then generates the
+    tokens the engine's in-memory parameters generate. The directory is
+    temporary and removed at the end."""
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = LlamaConfig(**{**TINYLLAMA_1B, "num_layers": 4})
+    gas, micro, t = 2, 4, 2048
+    batches = lm_batches(np.random.RandomState(2), 6, gas, micro, t,
+                         cfg.vocab_size, start_span=1000)
+    reg = get_registry()
+    events0 = {n: reg.counter(n).value for n in ("checkpoint/saves",
+                                                 "checkpoint/loads")}
+
+    def engine(seed):
+        e, *_ = deepspeed_tpu_torch.initialize(
+            model=LlamaModel(cfg, attn_impl="flash"),
+            config={**TINYLLAMA_TRAIN_CONFIG, "seed": seed})
+        return e
+
+    root = Path(tempfile.mkdtemp(prefix="dstorch_ckpt_"))
+    try:
+        reset_counts()
+        e1 = engine(0)
+        snap = _snapshot_state(e1)
+        first = [float(e1.train_batch_from_stacked(b)) for b in batches[:3]]
+        p_first = _clone_tree(e1.state.params)
+        _restore_state(e1, snap)
+        del snap
+        replay = [float(e1.train_batch_from_stacked(b)) for b in batches[:3]]
+        identical = first == replay and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(p_first),
+                                              tree_leaves(e1.state.params)))
+        spread = max(abs(a - b) for a, b in zip(first, replay))
+        del p_first
+        embed3 = e1.state.params["embed"].clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e1.save_checkpoint(str(root), tag="step3")
+        save_s = time.perf_counter() - t0
+        tag_bytes = _dir_bytes(root / "step3")
+        after = [float(e1.train_batch_from_stacked(b)) for b in batches[3:]]
+        del e1
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        e2 = engine(1)
+        t0 = time.perf_counter()
+        path, _ = e2.load_checkpoint(str(root))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        assert path.endswith("step3") and e2.global_steps == 3, path
+        assert torch.equal(e2.state.params["embed"], embed3)
+        resumed = [float(e2.train_batch_from_stacked(b)) for b in batches[3:]]
+        if identical:
+            assert resumed == after, (resumed, after)
+        else:
+            assert max(abs(a - b) for a, b in zip(resumed, after)) \
+                <= 2 * spread, (resumed, after, spread)
+        # the newest tag corrupted: the next load walks back to step 3
+        e2.save_checkpoint(str(root), tag="step6")
+        npz = root / "step6" / "state.npz"
+        raw = npz.stat().st_size
+        with open(npz, "r+b") as f:
+            f.truncate(raw // 2)
+        path, _ = e2.load_checkpoint(str(root))
+        assert path.endswith("step3") and e2.global_steps == 3, path
+        assert torch.equal(e2.state.params["embed"], embed3)
+        del embed3
+
+        # serve the tag, and the engine's in-memory parameters (batch 2:
+        # generate's decode steps take kernel B)
+        prompt = torch.as_tensor(np.random.RandomState(3).randint(
+            0, cfg.vocab_size, size=(2, 64)))
+        reset_counts()
+        served = deepspeed_tpu_torch.init_inference(
+            LlamaModel(cfg), config={"dtype": "bf16", "checkpoint": str(root)})
+        from_tag = served.generate(prompt, max_new_tokens=32).cpu()
+        del served
+        mem = deepspeed_tpu_torch.init_inference(
+            LlamaModel(cfg), config={"dtype": "bf16"}, params=e2.state.params)
+        from_mem = mem.generate(prompt, max_new_tokens=32).cpu()
+        gen_launches = read_counts()
+        del mem
+        assert torch.equal(from_tag, from_mem), (from_tag, from_mem)
+        assert gen_launches["fused_decode_step"] > 0, gen_launches
+        events = {n: reg.counter(n).value - v for n, v in events0.items()}
+        assert events == {"checkpoint/saves": 2, "checkpoint/loads": 2}, events
+        info = {"phase": "checkpoint_roundtrip", "card": smi,
+                "model": "TinyLlama-1.1B width, 4 of its 22 layers, bf16 "
+                         "training (masters and moments f32), attn flash",
+                "n_params": sum(p.numel() for p in tree_leaves(e2.state.params)),
+                "replay_bit_identical": identical, "replay_spread": spread,
+                "losses_uninterrupted": after, "losses_resumed": resumed,
+                "save_s": save_s, "load_s": load_s, "tag_bytes": tag_bytes,
+                "walked_back_to": "step3", "generated_tokens": 32,
+                "served_from_tag_equals_in_memory": True,
+                "generate_launches": {k: gen_launches[k]
+                                      for k in ("fused_decode_step",
+                                                "flash_decode")},
+                "events": events}
+        emit(info)
+        del e2
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    info["launches"] = gen_launches
     return info
 
 
@@ -3712,9 +4316,15 @@ def main() -> int:
     phase_reference_train()
     train = phase_train_774m(dev["nvidia_smi"])
     train_tel = phase_train_774m_telemetry(dev["nvidia_smi"], train)
+    tiny = phase_train_tinyllama(dev["nvidia_smi"])
+    ckpt = phase_checkpoint_roundtrip(dev["nvidia_smi"])
     launches = dict.fromkeys(WRAPPERS, 0)
     for k in FLASH:
-        launches[k] = train["launches"][k] + train_tel["launches"][k]
+        launches[k] = (train["launches"][k] + train_tel["launches"][k]
+                       + tiny["launches"][k])
+    for k in PRECISE:
+        launches[k] = tiny["launches"][k]
+    launches["fused_decode_step"] += ckpt["launches"]["fused_decode_step"]
     for k in SPARSE:
         launches[k] = sparse["launches"][k]
     for dtype in ("bf16", "int8"):
@@ -3736,7 +4346,7 @@ def main() -> int:
                                           "d2_self_draft_int8_weights")))
         for run in runs:
             for k in launches:
-                if k not in FLASH:
+                if k not in FLASH + PRECISE:
                     launches[k] += run["launches"][k]
         del eng
         gc.collect()                     # free this engine before the next

@@ -3,12 +3,14 @@ of deepspeed_tpu's ``DeepSpeedInferenceConfig`` that the serving path and
 ``generate`` read (``dtype``, ``seed``, ``quant`` with
 ``quantize_embedding``, ``max_tokens`` / ``max_out_tokens``,
 ``min_out_tokens`` / ``min_tokens``, ``tensor_parallel.tp_size`` / ``tp``
-— only 1 for now)."""
+— only 1 for now — and ``checkpoint``, an engine checkpoint directory or a
+dict with ``checkpoint_dir`` / ``base_dir`` to serve its newest valid
+tag)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import torch
 
@@ -46,6 +48,7 @@ class DeepSpeedInferenceConfig:
         default_factory=TPConfig)
     quant: Union[QuantizationConfig, Dict] = dataclasses.field(
         default_factory=QuantizationConfig)
+    checkpoint: Optional[Union[str, Dict]] = None
     max_tokens: int = 1024
     min_out_tokens: int = 1
     seed: int = 0

@@ -116,6 +116,9 @@ class InferenceEngine:
         model.compute_dtype = self.dtype
         self.module = model
         quant = _is_quantizable if self.weight_quant else None
+        # parameters: explicit > checkpoint > seeded init
+        if params is None and config.checkpoint is not None:
+            params = self._load_checkpoint_params(config.checkpoint)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(config.seed)
             self.params = model.init(gen, device=self.device, dtype=self.dtype,
@@ -159,6 +162,24 @@ class InferenceEngine:
                 q, s = quantize_int8(t, reduce_dims=(1,))
                 return {"__q__": q, "__scale__": s}
         return t
+
+    def _load_checkpoint_params(self, checkpoint):
+        """The params of an engine checkpoint's newest valid tag, as CPU
+        tensors (``_adopt`` then moves them onto the device in the serving
+        dtype); ``checkpoint`` is the directory or a dict with
+        ``checkpoint_dir`` / ``base_dir``."""
+        from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import load_params_for_inference
+
+        if isinstance(checkpoint, str):
+            path = checkpoint
+        else:
+            path = checkpoint.get("checkpoint_dir") or checkpoint.get("base_dir")
+            if path is None:
+                raise ValueError(
+                    "inference checkpoint dict must carry 'checkpoint_dir' (or "
+                    f"'base_dir') pointing at an engine checkpoint; got keys "
+                    f"{sorted(checkpoint)}")
+        return load_params_for_inference(path)
 
     def _maybe_quantize_embedding(self, params):
         """int8 tied embedding (``quant.quantize_embedding``): one scale per

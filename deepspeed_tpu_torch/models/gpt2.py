@@ -14,9 +14,13 @@ or, with ``attn_impl="flash"``, the flash attention kernels.
 in the logical unpacked layout: the reference's token-pair packing for Dh <
 128 is a TPU tiling device with no counterpart here.
 
-Not ported yet, and refused rather than ignored: ``remat``, ``loss_chunk``,
-progressive layer drop (``pld_theta``), random-LTD (``ltd_keep``) and the
-sequence-parallel attention forms.
+``remat=True`` runs each block under an activation checkpointing policy
+(runtime/activation_checkpointing.py, ``remat_policy``) and
+``GPT2Config(loss_chunk>0)`` takes the LM loss in sequence chunks without
+``[B, T, V]`` logits (runtime/zero/tiling.py), as the reference. Not
+ported yet, and refused rather than ignored: progressive layer drop
+(``pld_theta``), random-LTD (``ltd_keep``) and the sequence-parallel
+attention forms.
 """
 
 from __future__ import annotations
@@ -51,8 +55,8 @@ class GPT2Config:
     dropout: float = 0.0
     tie_embeddings: bool = True
     eps: float = 1e-5
-    # >0 in the reference: the LM loss in sequence chunks without [B, T, V]
-    # logits (runtime/zero/tiling.py); not ported yet
+    # >0: the LM loss in sequence chunks without [B, T, V] logits
+    # (runtime/zero/tiling.py)
     loss_chunk: int = 0
 
     @property
@@ -99,9 +103,6 @@ class GPT2Model:
                  attn_impl: str = "dense"):
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r}; one of {ATTN_IMPLS}")
-        if remat:
-            raise NotPortedError("GPT2Model(remat=True) (activation "
-                                 "checkpointing) is not ported yet")
         if attn_impl in SEQUENCE_PARALLEL_IMPLS:
             raise NotPortedError(f"attn_impl={attn_impl!r} is not ported yet")
         if attn_impl != "dense" and config.dropout > 0.0:
@@ -111,11 +112,10 @@ class GPT2Model:
         if config.loss_chunk and not config.tie_embeddings:
             raise ValueError("loss_chunk requires tie_embeddings (the "
                              "chunked LM loss projects through wte)")
-        if config.loss_chunk:
-            raise NotPortedError("GPT2Config(loss_chunk>0) (the chunked LM "
-                                 "loss) is not ported yet")
         self.config = config
         self.compute_dtype = compute_dtype
+        self.remat = remat
+        self.remat_policy = remat_policy
         self.attn_impl = attn_impl
 
     # ------------------------------------------------------------------ init
@@ -169,16 +169,42 @@ class GPT2Model:
         return params
 
     # ---------------------------------------------------------------- layers
+    def _qkv(self, x, blk):
+        """Attention's operands, each ``[B, T, H, Dh]``."""
+        c = self.config
+        b, t, d = x.shape
+        y = layer_norm(x, blk["ln1_scale"], blk["ln1_bias"], c.eps)
+        qkv = qdot("btd,de->bte", y, blk["qkv_w"]) + blk["qkv_b"].to(y.dtype)
+        return tuple(z.reshape(b, t, c.num_heads, c.head_dim)
+                     for z in torch.split(qkv, d, dim=-1))
+
+    def _attend(self, q, k, v, blk, dropout_rng, train: bool):
+        """Causal self-attention over the whole sequence (dropout on the
+        dense path when training)."""
+        if self.attn_impl != "dense":
+            return sp_attention(self.attn_impl, q, k, v)
+        rate = self.config.dropout if train else 0.0
+        return multihead_attention(q, k, v, causal=True, dropout_rate=rate,
+                                   dropout_rng=dropout_rng)
+
+    def _out_mlp(self, x, attn, blk, *_):
+        """The block's output from attention's: the output projection and
+        the MLP, each a residual."""
+        c = self.config
+        attn = attn.reshape(x.shape)
+        x = x + qdot("btd,de->bte", attn, blk["attn_out_w"]) + \
+            blk["attn_out_b"].to(x.dtype)
+        y = layer_norm(x, blk["ln2_scale"], blk["ln2_bias"], c.eps)
+        hmid = gelu(qdot("btd,dm->btm", y, blk["mlp_fc_w"]) +
+                    blk["mlp_fc_b"].to(y.dtype))
+        return x + qdot("btm,md->btd", hmid, blk["mlp_out_w"]) + \
+            blk["mlp_out_b"].to(x.dtype)
+
     def _block_impl(self, x, blk, dropout_rng, train: bool, cache):
         """One block; with ``cache=(k_full, v_full, layer, idx,
         block_table)`` attention runs against the stacked KV cache (or the
         block pool), written in place. Returns ``(x, k_full, v_full)``."""
-        c = self.config
-        b, t, d = x.shape
-        h, dh = c.num_heads, c.head_dim
-        y = layer_norm(x, blk["ln1_scale"], blk["ln1_bias"], c.eps)
-        qkv = qdot("btd,de->bte", y, blk["qkv_w"]) + blk["qkv_b"].to(y.dtype)
-        q, k, v = (z.reshape(b, t, h, dh) for z in torch.split(qkv, d, dim=-1))
+        q, k, v = self._qkv(x, blk)
         kc = vc = None
         if cache is not None:
             kc, vc, layer, idx, bt = cache
@@ -186,21 +212,9 @@ class GPT2Model:
             attn, kc, vc = cached_attention(q.contiguous(), kc, vc,
                                             k.contiguous(), v.contiguous(),
                                             layer, idx, block_table=bt)
-        elif self.attn_impl != "dense":
-            attn = sp_attention(self.attn_impl, q, k, v)
         else:
-            rate = c.dropout if train else 0.0
-            attn = multihead_attention(q, k, v, causal=True, dropout_rate=rate,
-                                       dropout_rng=dropout_rng)
-        attn = attn.reshape(b, t, d)
-        x = x + qdot("btd,de->bte", attn, blk["attn_out_w"]) + \
-            blk["attn_out_b"].to(x.dtype)
-        y = layer_norm(x, blk["ln2_scale"], blk["ln2_bias"], c.eps)
-        hmid = gelu(qdot("btd,dm->btm", y, blk["mlp_fc_w"]) +
-                    blk["mlp_fc_b"].to(y.dtype))
-        x = x + qdot("btm,md->btd", hmid, blk["mlp_out_w"]) + \
-            blk["mlp_out_b"].to(x.dtype)
-        return x, kc, vc
+            attn = self._attend(q, k, v, blk, dropout_rng, train)
+        return self._out_mlp(x, attn, blk), kc, vc
 
     def _block(self, x, blk, dropout_rng, train: bool):
         return self._block_impl(x, blk, dropout_rng, train, None)[0]
@@ -224,8 +238,17 @@ class GPT2Model:
             layers = [layer_view(blocks, i) for i in range(c.num_layers)]
         else:
             layers = unbind_layers(blocks)
+        if self.remat:
+            from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpoint_block
+
+            block_fn = checkpoint_block(
+                lambda x, blk, g: self._qkv(x, blk),
+                lambda q, k, v, blk, g: self._attend(q, k, v, blk, g, train),
+                self._out_mlp, policy=self.remat_policy)
+        else:
+            block_fn = lambda x, blk, g: self._block(x, blk, g, train)  # noqa: E731
         for blk in layers:
-            x = self._block(x, blk, gen, train)
+            x = block_fn(x, blk, gen)
         return layer_norm(x, params["ln_f_scale"], params["ln_f_bias"], c.eps)
 
     def logits(self, params, hidden):
@@ -239,8 +262,15 @@ class GPT2Model:
         hidden = self.forward_hidden(params, batch["input_ids"], rngs=rngs,
                                      train=train, pld_theta=pld_theta,
                                      ltd_keep=ltd_keep)
-        loss, n = cross_entropy_loss(self.logits(params, hidden),
-                                     batch["labels"])
+        if self.config.loss_chunk:
+            from deepspeed_tpu_torch.runtime.zero.tiling import chunked_cross_entropy
+
+            loss, n = chunked_cross_entropy(hidden, params["wte"],
+                                            batch["labels"],
+                                            chunk=self.config.loss_chunk)
+        else:
+            loss, n = cross_entropy_loss(self.logits(params, hidden),
+                                         batch["labels"])
         return loss, {"loss": loss, "ntokens": n}
 
     # ------------------------------------------------------ inference path

@@ -5,8 +5,14 @@ attention over layer-stacked weights.
 The parameter dict keeps the JAX layout and orientation — ``embed [V, D]``,
 stacked ``blocks/* [L, in, out]``, ``final_norm [D]``, ``lm_head [D, V]`` —
 so the weight bridge (inference/weights.py) is a copy. The JAX layer scan
-becomes a Python loop over :func:`layer_view` dicts; the stacked KV cache
-is updated in place.
+becomes a Python loop over :func:`layer_view` dicts (per-layer
+:func:`unbind_layers` views when training); the stacked KV cache is updated
+in place.
+
+Training (``apply``) runs attention dense or, with ``attn_impl="flash"``,
+through the flash kernels, the KV heads repeated to the query heads first
+as the reference does; ``remat=True`` runs each block under an activation
+checkpointing policy (runtime/activation_checkpointing.py).
 """
 
 from __future__ import annotations
@@ -18,7 +24,11 @@ import torch
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch.compression.quantize import quantize_int8
-from deepspeed_tpu_torch.models.base import layer_view, qdot, rms_norm
+from deepspeed_tpu_torch.errors import NotPortedError
+from deepspeed_tpu_torch.models.base import (ATTN_IMPLS, SEQUENCE_PARALLEL_IMPLS,
+                                             cross_entropy_loss, layer_view,
+                                             qdot, rms_norm, sp_attention,
+                                             unbind_layers)
 from deepspeed_tpu_torch.ops.attention import (alloc_kv_cache,
                                                cached_attention,
                                                multihead_attention)
@@ -82,9 +92,18 @@ class LlamaModel:
 
     supports_weight_quant = True   # block matmuls go through base.qdot
 
-    def __init__(self, config: LlamaConfig, compute_dtype=torch.bfloat16):
+    def __init__(self, config: LlamaConfig, compute_dtype=torch.bfloat16,
+                 remat: bool = False, remat_policy: Optional[str] = None,
+                 attn_impl: str = "dense"):
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"unknown attn_impl {attn_impl!r}; one of {ATTN_IMPLS}")
+        if attn_impl in SEQUENCE_PARALLEL_IMPLS:
+            raise NotPortedError(f"attn_impl={attn_impl!r} is not ported yet")
         self.config = config
         self.compute_dtype = compute_dtype
+        self.remat = remat
+        self.remat_policy = remat_policy
+        self.attn_impl = attn_impl
         self._rope: Dict[torch.device, tuple] = {}
 
     # ------------------------------------------------------------ params
@@ -135,48 +154,106 @@ class LlamaModel:
         return self._rope[dev]
 
     # ----------------------------------------------------------- forward
-    def _block(self, x, blk, cos, sin, cache):
-        """One block; with ``cache=(k_full, v_full, layer, idx, block_table)``
-        attention runs against the stacked KV cache, or, with a block table,
-        the block pool (written in place)."""
+    def _qkv(self, x, blk, cos, sin, idx=0):
+        """Attention's operands: q ``[B, T, Hq, Dh]``, k and v ``[B, T,
+        Hkv, Dh]``, rotated from position ``idx``."""
         c = self.config
         b, t, _ = x.shape
         hq, hkv, dh = c.num_heads, c.num_kv_heads, c.head_dim
-        idx = cache[3] if cache is not None else 0
         y = rms_norm(x, blk["attn_norm"], c.eps)
         q = qdot("btd,de->bte", y, blk["wq"]).reshape(b, t, hq, dh)
         k = qdot("btd,de->bte", y, blk["wk"]).reshape(b, t, hkv, dh)
         v = qdot("btd,de->bte", y, blk["wv"]).reshape(b, t, hkv, dh)
         q = apply_rotary_pos_emb(q, cos, sin, position_offset=idx)
         k = apply_rotary_pos_emb(k, cos, sin, position_offset=idx)
+        return q, k, v
+
+    def _attend(self, q, k, v, blk=None):
+        """Causal self-attention over the whole sequence, the KV heads
+        repeated to the query heads first."""
+        c = self.config
+        if c.num_kv_heads != c.num_heads:
+            k = k.repeat_interleave(c.num_heads // c.num_kv_heads, dim=2)
+            v = v.repeat_interleave(c.num_heads // c.num_kv_heads, dim=2)
+        if self.attn_impl != "dense":
+            return sp_attention(self.attn_impl, q, k, v)
+        return multihead_attention(q, k, v, causal=True)
+
+    def _out_mlp(self, x, attn, blk):
+        """The block's output from attention's: the output projection and
+        the SwiGLU MLP, each a residual."""
+        c = self.config
+        b, t, _ = x.shape
+        x = x + qdot("bte,ed->btd", attn.reshape(b, t, -1), blk["wo"])
+        y = rms_norm(x, blk["mlp_norm"], c.eps)
+        gate = F.silu(qdot("btd,dm->btm", y, blk["w_gate"]))
+        up = qdot("btd,dm->btm", y, blk["w_up"])
+        return x + qdot("btm,md->btd", gate * up, blk["w_down"])
+
+    def _block(self, x, blk, cos, sin, cache):
+        """One block; with ``cache=(k_full, v_full, layer, idx, block_table)``
+        attention runs against the stacked KV cache, or, with a block table,
+        the block pool (written in place)."""
+        idx = cache[3] if cache is not None else 0
+        q, k, v = self._qkv(x, blk, cos, sin, idx)
         if cache is None:
-            if hkv != hq:
-                k = k.repeat_interleave(hq // hkv, dim=2)
-                v = v.repeat_interleave(hq // hkv, dim=2)
-            attn = multihead_attention(q, k, v, causal=True)
+            attn = self._attend(q, k, v)
             kc = vc = None
         else:
             kc, vc, layer, idx, bt = cache
             attn, kc, vc = cached_attention(q, kc, vc, k, v, layer, idx,
                                             block_table=bt)
-        x = x + qdot("bte,ed->btd", attn.reshape(b, t, hq * dh), blk["wo"])
-        y = rms_norm(x, blk["mlp_norm"], c.eps)
-        gate = F.silu(qdot("btd,dm->btm", y, blk["w_gate"]))
-        up = qdot("btd,dm->btm", y, blk["w_up"])
-        x = x + qdot("btm,md->btd", gate * up, blk["w_down"])
-        return x, kc, vc
+        return self._out_mlp(x, attn, blk), kc, vc
 
-    def forward_hidden(self, params, input_ids):
+    def forward_hidden(self, params, input_ids, *, rngs=None,
+                       train: bool = False):
+        """Final-normed hidden states ``[B, T, D]`` (``rngs`` unused: the
+        model has no dropout, as the reference)."""
         c = self.config
         x = params["embed"].to(self.compute_dtype)[input_ids]
         cos, sin = self._rope_tables(x.device)
-        for layer in range(c.num_layers):
-            x = self._block(x, layer_view(params["blocks"], layer), cos, sin,
-                            None)[0]
+        blocks = params["blocks"]
+        if any(isinstance(w, dict) for w in blocks.values()):
+            # int8 weights (inference): per-layer views keep them whole
+            layers = [layer_view(blocks, i) for i in range(c.num_layers)]
+        else:
+            layers = unbind_layers(blocks)
+        if self.remat:
+            from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpoint_block
+
+            block_fn = checkpoint_block(
+                lambda x, blk: self._qkv(x, blk, cos, sin), self._attend,
+                self._out_mlp, policy=self.remat_policy)
+        else:
+            block_fn = lambda x, blk: self._block(x, blk, cos, sin, None)[0]  # noqa: E731
+        for blk in layers:
+            x = block_fn(x, blk)
         return rms_norm(x, params["final_norm"], c.eps)
 
     def logits(self, params, hidden):
         return hidden @ params["lm_head"].to(hidden.dtype)
+
+    def apply(self, params, batch, *, rngs=None, train: bool = False):
+        """``(mean token loss, {"loss", "ntokens"})`` of a causal-LM batch
+        ``{"input_ids": [B, T], "labels": [B, T]}``."""
+        hidden = self.forward_hidden(params, batch["input_ids"], rngs=rngs,
+                                     train=train)
+        loss, n = cross_entropy_loss(self.logits(params, hidden),
+                                     batch["labels"])
+        return loss, {"loss": loss, "ntokens": n}
+
+    def flops_per_token(self, seq_len: Optional[int] = None) -> float:
+        """Training FLOPs a token (forward and backward): 6 N over the
+        parameters plus the attention term at ``seq_len`` tokens a sequence
+        (default ``max_seq_len``, the reference's one value)."""
+        c = self.config
+        t = c.max_seq_len if seq_len is None else seq_len
+        n_params = (c.vocab_size * c.hidden_size * 2 + c.num_layers * (
+            c.hidden_size * c.head_dim * (c.num_heads + 2 * c.num_kv_heads) +
+            c.num_heads * c.head_dim * c.hidden_size +
+            3 * c.hidden_size * c.intermediate_size))
+        attn = 12 * c.num_layers * c.hidden_size * t
+        return 6.0 * n_params + attn
 
     # ------------------------------------------------------ inference path
     def init_cache(self, batch_size: int, max_len: int, dtype=None,

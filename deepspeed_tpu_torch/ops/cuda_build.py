@@ -152,6 +152,12 @@ def kernels() -> ctypes.CDLL:
             i32, i32, i32, i32, i32,     # bh, tq, tk, dh, causal
             f32, i32, vp]                # scale, dtype code, stream
         lib.dst_flash_bwd_dkv.restype = i32
+        # the f32-precise flash kernels (csrc/flash_precise.cu) take the
+        # same arguments as their 16-bit counterparts
+        for name in ("fwd", "bwd_dq", "bwd_dkv"):
+            base = getattr(lib, f"dst_flash_{name}")
+            precise = getattr(lib, f"dst_flash_{name}_precise")
+            precise.argtypes, precise.restype = base.argtypes, i32
         lib.dst_flash_decode.argtypes = [
             vp, vp, vp, vp, vp, vp, vp,  # q, k, v, out, ml, acc, idx
             i32, i32, i32, i32, i32,     # idx scalar, b, hq, hkv, s_max

@@ -21,9 +21,13 @@ beside them: products take storage-dtype operands and accumulate in f32;
 ``p`` and ``dS`` are rounded to the storage dtype before the second-stage
 products; causal masking is top-left aligned (query row i sees key columns
 ``<= i``); masked scores are ``-1e30`` (an all-masked row gives exp → 0).
-``DSTPU_FLASH_F32_PRECISE=1`` keeps ``p``/``dS`` in f32 in the plain
-versions, as in the reference; the CUDA kernels do not implement it yet and
-their wrappers raise when it is set.
+``DSTPU_FLASH_F32_PRECISE=1`` (read per call, as the reference reads it)
+keeps ``p``/``dS`` in f32 for the second-stage products. The plain versions
+honour it, and on a CUDA tensor the three wrappers then launch the
+f32-precise kernels of ``csrc/flash_precise.cu`` instead, each with a
+wrapper and launch counter of its own (:func:`flash_fwd_precise`,
+:func:`flash_bwd_dq_precise`, :func:`flash_bwd_dkv_precise`): every operand
+converted to f32 and every product an f32 FMA on the CUDA cores.
 
 CUDA tensors launch the kernels (bf16, fp16 and f32; Dh 64 or 128; any T,
 causal or not) or raise ``ValueError`` on anything else. CPU tensors run
@@ -48,10 +52,12 @@ def _f32_precise() -> bool:
     return os.environ.get("DSTPU_FLASH_F32_PRECISE") == "1"
 
 
-def _mm_dtype(storage_dtype):
+def _mm_dtype(storage_dtype, precise: Optional[bool] = None):
     """dtype of the computed p/dS operands of the second-stage products: the
-    storage dtype unless ``DSTPU_FLASH_F32_PRECISE=1``."""
-    return torch.float32 if _f32_precise() else storage_dtype
+    storage dtype unless ``precise`` (default: ``DSTPU_FLASH_F32_PRECISE=1``)."""
+    if precise is None:
+        precise = _f32_precise()
+    return torch.float32 if precise else storage_dtype
 
 
 # ------------------------------------------------------------ plain versions
@@ -66,20 +72,21 @@ def _scores(qf, kf, causal: bool, sc: float):
     return s
 
 
-def _round(x, dtype):
-    return x.to(_mm_dtype(dtype)).float()
+def _round(x, dtype, precise: Optional[bool] = None):
+    return x.to(_mm_dtype(dtype, precise)).float()
 
 
 def flash_fwd_parts_plain(qf, kf, vf, *, causal: bool,
-                          scale: Optional[float] = None):
+                          scale: Optional[float] = None,
+                          precise: Optional[bool] = None):
     """Plain version of :func:`flash_fwd_parts` (the whole key range as one
-    tile)."""
+    tile); ``precise`` None reads ``DSTPU_FLASH_F32_PRECISE``."""
     sc = float(scale) if scale is not None else qf.shape[-1] ** -0.5
     s = _scores(qf, kf, causal, sc)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l_safe = p.sum(-1, keepdim=True).clamp_min(1e-20)
-    acc = torch.matmul(_round(p, vf.dtype), vf.float())
+    acc = torch.matmul(_round(p, vf.dtype, precise), vf.float())
     return (acc / l_safe).to(qf.dtype), m + torch.log(l_safe)
 
 
@@ -90,27 +97,29 @@ def _bwd_p_ds(qf, kf, vf, dof, lse, delta, causal: bool, sc: float):
 
 
 def flash_bwd_dq_plain(qf, kf, vf, dof, lse, delta, *, causal: bool,
-                       scale: Optional[float] = None):
+                       scale: Optional[float] = None,
+                       precise: Optional[bool] = None):
     sc = float(scale) if scale is not None else qf.shape[-1] ** -0.5
     _, ds = _bwd_p_ds(qf, kf, vf, dof, lse, delta, causal, sc)
-    return (torch.matmul(_round(ds, kf.dtype), kf.float()) * sc).to(qf.dtype)
+    return (torch.matmul(_round(ds, kf.dtype, precise), kf.float())
+            * sc).to(qf.dtype)
 
 
 def flash_bwd_dkv_plain(qf, kf, vf, dof, lse, delta, *, causal: bool,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None,
+                        precise: Optional[bool] = None):
     sc = float(scale) if scale is not None else qf.shape[-1] ** -0.5
     p, ds = _bwd_p_ds(qf, kf, vf, dof, lse, delta, causal, sc)
-    dv = torch.matmul(_round(p, dof.dtype).transpose(1, 2), dof.float())
-    dk = torch.matmul(_round(ds, qf.dtype).transpose(1, 2), qf.float()) * sc
+    dv = torch.matmul(_round(p, dof.dtype, precise).transpose(1, 2),
+                      dof.float())
+    dk = torch.matmul(_round(ds, qf.dtype, precise).transpose(1, 2),
+                      qf.float()) * sc
     return dk.to(kf.dtype), dv.to(vf.dtype)
 
 
 # ---------------------------------------------------------------- wrappers
 def _check(what: str, qf, kf, vf, extra=()):
     """Validate flat CUDA operands; returns ``(bh, tq, tk, dh)``."""
-    if _f32_precise():
-        raise ValueError(f"{what}: DSTPU_FLASH_F32_PRECISE=1 (f32 p/dS "
-                         "operands) is not implemented by the CUDA kernels")
     if qf.ndim != 3 or kf.ndim != 3 or vf.shape != kf.shape:
         raise ValueError(f"{what}: q {tuple(qf.shape)}, k {tuple(kf.shape)}, "
                          f"v {tuple(vf.shape)} are not flat [BH, T, Dh] "
@@ -146,21 +155,57 @@ def flash_fwd_parts(qf, kf, vf, *, causal: bool, scale: Optional[float] = None):
         return flash_fwd_parts_plain(qf, kf, vf, causal=causal, scale=scale)
     if qf.device.type != "cuda":
         raise ValueError(f"flash_fwd_parts: unsupported device {qf.device}")
-    bh, tq, tk, dh = _check("flash_fwd_parts", qf, kf, vf)
+    if _f32_precise():
+        return flash_fwd_precise(qf, kf, vf, causal=causal, scale=scale)
+    return _launch_fwd(flash_fwd_parts, "dst_flash_fwd", qf, kf, vf, causal,
+                       scale)
+
+
+flash_fwd_parts.launches = 0
+
+
+def _launch_fwd(wrapper, fn: str, qf, kf, vf, causal, scale):
+    bh, tq, tk, dh = _check(wrapper.__name__, qf, kf, vf)
     sc = float(scale) if scale is not None else dh ** -0.5
     lib = cuda_build.kernels()
     out = torch.empty_like(qf)
     lse = torch.empty((bh, tq, 1), dtype=torch.float32, device=qf.device)
-    err = lib.dst_flash_fwd(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
-                            out.data_ptr(), lse.data_ptr(), bh, tq, tk, dh,
-                            int(bool(causal)), sc,
-                            cuda_build.dtype_code(qf.dtype), _stream(qf))
-    cuda_build.check(lib, err, "flash_fwd_parts")
-    flash_fwd_parts.launches += 1
+    err = getattr(lib, fn)(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
+                           out.data_ptr(), lse.data_ptr(), bh, tq, tk, dh,
+                           int(bool(causal)), sc,
+                           cuda_build.dtype_code(qf.dtype), _stream(qf))
+    cuda_build.check(lib, err, wrapper.__name__)
+    wrapper.launches += 1
     return out, lse
 
 
-flash_fwd_parts.launches = 0
+def _launch_dq(wrapper, fn: str, qf, kf, vf, dof, lse, delta, causal, scale):
+    bh, tq, tk, dh = _bwd_check(wrapper.__name__, qf, kf, vf, dof, lse, delta)
+    sc = float(scale) if scale is not None else dh ** -0.5
+    lib = cuda_build.kernels()
+    dq = torch.empty_like(qf)
+    err = getattr(lib, fn)(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
+                           dof.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                           dq.data_ptr(), bh, tq, tk, dh, int(bool(causal)),
+                           sc, cuda_build.dtype_code(qf.dtype), _stream(qf))
+    cuda_build.check(lib, err, wrapper.__name__)
+    wrapper.launches += 1
+    return dq
+
+
+def _launch_dkv(wrapper, fn: str, qf, kf, vf, dof, lse, delta, causal, scale):
+    bh, tq, tk, dh = _bwd_check(wrapper.__name__, qf, kf, vf, dof, lse, delta)
+    sc = float(scale) if scale is not None else dh ** -0.5
+    lib = cuda_build.kernels()
+    dk, dv = torch.empty_like(kf), torch.empty_like(vf)
+    err = getattr(lib, fn)(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
+                           dof.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                           dk.data_ptr(), dv.data_ptr(), bh, tq, tk, dh,
+                           int(bool(causal)), sc,
+                           cuda_build.dtype_code(qf.dtype), _stream(qf))
+    cuda_build.check(lib, err, wrapper.__name__)
+    wrapper.launches += 1
+    return dk, dv
 
 
 def _bwd_check(what, qf, kf, vf, dof, lse, delta):
@@ -182,17 +227,11 @@ def flash_bwd_dq(qf, kf, vf, dof, lse, delta, *, causal: bool,
                                   scale=scale)
     if qf.device.type != "cuda":
         raise ValueError(f"flash_bwd_dq: unsupported device {qf.device}")
-    bh, tq, tk, dh = _bwd_check("flash_bwd_dq", qf, kf, vf, dof, lse, delta)
-    sc = float(scale) if scale is not None else dh ** -0.5
-    lib = cuda_build.kernels()
-    dq = torch.empty_like(qf)
-    err = lib.dst_flash_bwd_dq(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
-                               dof.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                               dq.data_ptr(), bh, tq, tk, dh, int(bool(causal)),
-                               sc, cuda_build.dtype_code(qf.dtype), _stream(qf))
-    cuda_build.check(lib, err, "flash_bwd_dq")
-    flash_bwd_dq.launches += 1
-    return dq
+    if _f32_precise():
+        return flash_bwd_dq_precise(qf, kf, vf, dof, lse, delta,
+                                    causal=causal, scale=scale)
+    return _launch_dq(flash_bwd_dq, "dst_flash_bwd_dq", qf, kf, vf, dof, lse,
+                      delta, causal, scale)
 
 
 flash_bwd_dq.launches = 0
@@ -206,21 +245,69 @@ def flash_bwd_dkv(qf, kf, vf, dof, lse, delta, *, causal: bool,
                                    scale=scale)
     if qf.device.type != "cuda":
         raise ValueError(f"flash_bwd_dkv: unsupported device {qf.device}")
-    bh, tq, tk, dh = _bwd_check("flash_bwd_dkv", qf, kf, vf, dof, lse, delta)
-    sc = float(scale) if scale is not None else dh ** -0.5
-    lib = cuda_build.kernels()
-    dk, dv = torch.empty_like(kf), torch.empty_like(vf)
-    err = lib.dst_flash_bwd_dkv(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
-                                dof.data_ptr(), lse.data_ptr(),
-                                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                                bh, tq, tk, dh, int(bool(causal)), sc,
-                                cuda_build.dtype_code(qf.dtype), _stream(qf))
-    cuda_build.check(lib, err, "flash_bwd_dkv")
-    flash_bwd_dkv.launches += 1
-    return dk, dv
+    if _f32_precise():
+        return flash_bwd_dkv_precise(qf, kf, vf, dof, lse, delta,
+                                     causal=causal, scale=scale)
+    return _launch_dkv(flash_bwd_dkv, "dst_flash_bwd_dkv", qf, kf, vf, dof,
+                       lse, delta, causal, scale)
 
 
 flash_bwd_dkv.launches = 0
+
+
+# ----------------------------------------------------- f32-precise kernels
+# The reference's DSTPU_FLASH_F32_PRECISE=1 kernels (its _fwd_kernel,
+# _bwd_dq_kernel and _bwd_dkv_kernel with f32 p / dS operands): the plain
+# versions above under the flag are what they are held against.
+def _on_cuda(what: str, qf) -> bool:
+    """False for a CPU tensor (the plain version runs), True for a CUDA
+    one; raises for any other device."""
+    if qf.device.type == "cpu":
+        return False
+    if qf.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {qf.device}")
+    return True
+
+
+def flash_fwd_precise(qf, kf, vf, *, causal: bool,
+                      scale: Optional[float] = None):
+    """Kernel D in f32-precise mode: :func:`flash_fwd_parts` with p kept in
+    f32 for P.V (``csrc/flash_precise.cu``)."""
+    if not _on_cuda("flash_fwd_precise", qf):
+        return flash_fwd_parts_plain(qf, kf, vf, causal=causal, scale=scale,
+                                     precise=True)
+    return _launch_fwd(flash_fwd_precise, "dst_flash_fwd_precise", qf, kf, vf,
+                       causal, scale)
+
+
+flash_fwd_precise.launches = 0
+
+
+def flash_bwd_dq_precise(qf, kf, vf, dof, lse, delta, *, causal: bool,
+                         scale: Optional[float] = None):
+    """Kernel E in f32-precise mode: dS kept in f32 for dS.K."""
+    if not _on_cuda("flash_bwd_dq_precise", qf):
+        return flash_bwd_dq_plain(qf, kf, vf, dof, lse, delta, causal=causal,
+                                  scale=scale, precise=True)
+    return _launch_dq(flash_bwd_dq_precise, "dst_flash_bwd_dq_precise", qf, kf,
+                      vf, dof, lse, delta, causal, scale)
+
+
+flash_bwd_dq_precise.launches = 0
+
+
+def flash_bwd_dkv_precise(qf, kf, vf, dof, lse, delta, *, causal: bool,
+                          scale: Optional[float] = None):
+    """Kernel F in f32-precise mode: p and dS kept in f32 for P^T.dO and
+    dS^T.Q."""
+    if not _on_cuda("flash_bwd_dkv_precise", qf):
+        return flash_bwd_dkv_plain(qf, kf, vf, dof, lse, delta, causal=causal,
+                                   scale=scale, precise=True)
+    return _launch_dkv(flash_bwd_dkv_precise, "dst_flash_bwd_dkv_precise", qf,
+                       kf, vf, dof, lse, delta, causal, scale)
+
+
+flash_bwd_dkv_precise.launches = 0
 
 
 def flash_bwd_parts(qf, kf, vf, dof, lse, delta, *, causal: bool,

@@ -2,7 +2,8 @@
 shared by ``chip_smoke.py`` and the card tests
 (tests/test_torch_cuda_kernels.py): the block decode kernel
 (ops/decode_step.py), the flash attention kernels
-(ops/flash_attention.py) and the block-sparse attention kernels
+(ops/flash_attention.py; an f64 evaluation for the f32-precise ones,
+:func:`flash_mean_errors_f64`) and the block-sparse attention kernels
 (ops/sparse_attention/block_sparse.py; their work lists' part-wise plain
 sums: :func:`fwd_by_parts`, :func:`dq_by_parts`, :func:`dkv_by_parts`).
 
@@ -116,6 +117,41 @@ def flash_inputs(dev, dtype, bh: int, tq: int, dh: int, tk=None, seed: int = 0):
 def flash_delta(dout, out):
     """rowsum(dO * O) in f32, ``[BH, T, 1]`` (the backward's plain input)."""
     return (dout.float() * out.float()).sum(-1, keepdim=True)
+
+
+# the f32-precise flash outputs against the default ones (p and dS rounded
+# to the 16-bit storage dtype), both from the same 16-bit inputs: the
+# default's mean error against the f64 evaluation is at least this many
+# times the precise one's. A kernel that rounded p or dS as the default
+# does would give about 1; the precise kernels read 1.376-1.616 at
+# chip_smoke.py's shapes (NVIDIA H100 80GB HBM3, 700.00 W).
+PRECISE_GAIN = 1.1
+
+
+def flash_mean_errors_f64(outs, q, k, v, dout, *, causal: bool,
+                          group: int = 16):
+    """Mean ``|x - exact|`` over every element of flash results ``(out, dq,
+    dk, dv)`` (flat ``[BH, T, Dh]``, self-attention) against an f64
+    evaluation of softmax attention (scale ``Dh^-0.5``, top-left causal)
+    and its autograd gradients from the same inputs and ``dout``, taken
+    ``group`` rows of BH at a time."""
+    bh, _, dh = q.shape
+    sums = [0.0] * len(outs)
+    for s in range(0, bh, group):
+        rows = slice(s, s + group)
+        qq, kk, vv = (x[rows].double().requires_grad_() for x in (q, k, v))
+        scores = qq @ kk.transpose(1, 2) * dh ** -0.5
+        if causal:
+            keep = torch.ones(scores.shape[-2:], dtype=torch.bool,
+                              device=q.device).tril()
+            scores = scores.masked_fill(~keep, float("-inf"))
+        o = torch.softmax(scores, -1) @ vv
+        exact = (o.detach(),) + torch.autograd.grad(o, (qq, kk, vv),
+                                                    dout[rows].double())
+        for i, (got, want) in enumerate(zip(outs, exact)):
+            sums[i] += (got[rows].double() - want).abs().sum().item()
+        del qq, kk, vv, scores, o, exact
+    return [x / got.numel() for x, got in zip(sums, outs)]
 
 
 def masked_row_layout(h: int, nb: int):

@@ -59,6 +59,15 @@ class SchedulerConfig(DeepSpeedConfigModel):
     params: Dict[str, Any] = {}
 
 
+class CheckpointConfig(DeepSpeedConfigModel):
+    """The ``checkpoint`` section (reference CheckpointConfig): the port
+    reads ``async_save`` (the background-thread engine). The reference's
+    other keys (``tag_validation``, the storage options) change nothing on
+    one device and are kept as attributes."""
+
+    async_save: bool = False
+
+
 class ActivationCheckpointingConfig(DeepSpeedConfigModel):
     partition_activations: bool = False
     cpu_checkpointing: bool = False
@@ -177,6 +186,7 @@ class DeepSpeedConfig:
         # ---------------- subsystems -----------------------------------------
         self.activation_checkpointing_config = ActivationCheckpointingConfig(
             **d.get(C.ACTIVATION_CHECKPOINTING, {}))
+        self.checkpoint_config = CheckpointConfig(**d.get(C.CHECKPOINT, {}))
         self.monitor_config = {k: EnabledConfig(**d.get(k, {}))
                                for k in _MONITORS}
         self.telemetry_config = TelemetryConfig(**d.get("telemetry", {}))
@@ -250,7 +260,7 @@ class DeepSpeedConfig:
 
     def not_ported(self) -> List[str]:
         """The enabled options whose subsystem the port does not run yet."""
-        zc, ac = self.zero_config, self.activation_checkpointing_config
+        zc = self.zero_config
         offload = any(sub is not None and sub.device != OffloadDeviceEnum.none
                       for sub in (zc.offload_optimizer, zc.offload_param))
         checks = {
@@ -274,9 +284,9 @@ class DeepSpeedConfig:
             "comms_logger": self.comms_logger_config.enabled,
             "resilience (sentinel)": self.resilience_config.enabled,
             "elasticity": self.elasticity_enabled,
-            "activation_checkpointing": any((
-                ac.partition_activations, ac.cpu_checkpointing,
-                ac.contiguous_memory_optimization, ac.number_checkpoints,
-                ac.synchronize_checkpoint_boundary, ac.profile, ac.policy)),
+            # activation_checkpointing is parsed and, as in the reference,
+            # not read by the engine: a model's remat follows its own
+            # remat / remat_policy and the options that
+            # runtime/activation_checkpointing.configure() was given
         }
         return [name for name, on in checks.items() if on]

@@ -22,7 +22,10 @@ semantics at every point that changes a number:
 The overflow flag is read to the host only when it can be set (fp16 or the
 finite-grad guard); otherwise a step makes no host sync. Options the port
 does not run yet raise :class:`NotPortedError` at construction
-(``DeepSpeedConfig.not_ported``), and so do the checkpoint methods.
+(``DeepSpeedConfig.not_ported``). Checkpoints (``save_checkpoint``,
+``load_checkpoint``, ``save_16bit_model``) use the reference's format
+(runtime/checkpoint_engine/), with a ``checkpoint_save`` /
+``checkpoint_load`` span on the tracer.
 
 Telemetry (the ``telemetry`` section, on by default as in the reference):
 every step adds ``train/steps``, ``train/tokens`` and a
@@ -639,9 +642,63 @@ class DeepSpeedEngine:
                                 collate_fn=collate_fn, **kw)
 
     # ----------------------------------------------------------- checkpoints
-    def save_checkpoint(self, *args, **kwargs):
-        raise NotPortedError("checkpointing is not ported to the PyTorch "
-                             "engine yet")
+    def _checkpoint_engine(self):
+        """Engine-lifetime checkpoint backend: the background-thread engine
+        under ``checkpoint.async_save``, else None (a native engine per
+        call), as the reference chooses."""
+        if getattr(self, "_ckpt_engine", None) is None:
+            if self.config.checkpoint_config.async_save:
+                from deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine import (
+                    AsyncCheckpointEngine)
 
-    load_checkpoint = save_checkpoint
-    save_16bit_model = save_checkpoint
+                self._ckpt_engine = AsyncCheckpointEngine()
+            else:
+                self._ckpt_engine = None
+        return self._ckpt_engine
+
+    def _checkpoint_span(self, name: str, t0: float) -> None:
+        """The ``checkpoint_save`` / ``checkpoint_load`` span, and a fresh
+        telemetry window: the checkpoint's time is not a step's."""
+        if self.tracer is not None:
+            self.tracer.record(name, t0, time.perf_counter(),
+                               trace_id=self._train_trace,
+                               step=self.global_steps)
+        if self.telemetry is not None:
+            self._reset_telemetry_window()
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None,
+                        save_latest=True):
+        """Write ``<save_dir>/<tag>/state.npz`` and its sidecars in the
+        reference's format (runtime/checkpoint_engine/engine.py)."""
+        from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import save_engine_checkpoint
+
+        t0 = time.perf_counter()
+        try:
+            return save_engine_checkpoint(self, save_dir, tag=tag,
+                                          client_state=client_state,
+                                          save_latest=save_latest,
+                                          checkpoint_engine=self._checkpoint_engine())
+        finally:
+            self._checkpoint_span("checkpoint_save", t0)
+
+    def load_checkpoint(self, load_dir, tag=None, load_optimizer_states=True,
+                        load_lr_scheduler_states=True, load_module_only=False):
+        """Load ``tag`` (default: the newest valid one, walking back past
+        corrupt tags) onto this engine's device; returns ``(path,
+        client_state)``."""
+        from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import load_engine_checkpoint
+
+        t0 = time.perf_counter()
+        try:
+            return load_engine_checkpoint(self, load_dir, tag=tag,
+                                          load_optimizer_states=load_optimizer_states,
+                                          load_lr_scheduler_states=load_lr_scheduler_states,
+                                          load_module_only=load_module_only,
+                                          checkpoint_engine=self._checkpoint_engine())
+        finally:
+            self._checkpoint_span("checkpoint_load", t0)
+
+    def save_16bit_model(self, save_dir, save_filename="model_weights.npz"):
+        from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import save_16bit_model
+
+        return save_16bit_model(self, save_dir, save_filename)

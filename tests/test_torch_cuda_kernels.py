@@ -29,7 +29,15 @@ f16 and f32 at Dh 64 and 128, T a multiple of the tile and ragged, causal
 and not, Tk != Tq (top-left causal), run-to-run bit identity of the
 forward and the backward (T 200 and 1000 ragged), the backward at a
 negative and a small scale and replayed from a CUDA graph bit for bit (Dh
-64 and 128), and the wrappers' input checks. Flash-decode (both computations:
+64 and 128), and the wrappers' input checks; the f32-precise kernels
+(``DSTPU_FLASH_F32_PRECISE=1``) in every element type at the 774M and Dh
+128 / T 2048 widths and at ragged tails, in 16 bits nearer an f64
+evaluation than kernels D, E, F on the same inputs (mean error over every
+element, the default's PRECISE_GAIN times the precise one's or more), and
+the flag's route through the autograd path; the chunked LM loss's bf16
+backward against f32; a bf16 LLaMA engine's checkpoint round trip on the
+card.
+Flash-decode (both computations:
 GQA rep >= 2 with p rounded, rep 1 in f32): bf16/f16/f32 at Dh 64, 128 and
 256, the CodeLlama-34B decode shape (B 1 and 4, Hq 64 / Hkv 8, S 640), an
 odd S, a rep that is not a multiple of the kernel's 8 rows, idx at 0, a
@@ -88,17 +96,22 @@ from deepspeed_tpu_torch.ops.flash_decode import (flash_decode,
 from deepspeed_tpu_torch.ops.flash_attention import (flash_attention,
                                                      flash_bwd_dkv,
                                                      flash_bwd_dkv_plain,
+                                                     flash_bwd_dkv_precise,
                                                      flash_bwd_dq,
                                                      flash_bwd_dq_plain,
+                                                     flash_bwd_dq_precise,
                                                      flash_fwd_parts,
-                                                     flash_fwd_parts_plain)
+                                                     flash_fwd_parts_plain,
+                                                     flash_fwd_precise)
 from deepspeed_tpu_torch.ops.int8_matmul import (int8_matmul,
                                                  int8_matmul_dma,
                                                  int8_matmul_plain)
-from deepspeed_tpu_torch.ops.kernel_check import (block_step_inputs,
+from deepspeed_tpu_torch.ops.kernel_check import (PRECISE_GAIN,
+                                                  block_step_inputs,
                                                   capture_graph, clone_pool,
                                                   dq_by_parts, fwd_by_parts,
                                                   flash_delta, flash_inputs,
+                                                  flash_mean_errors_f64,
                                                   graph_replay,
                                                   masked_row_layout,
                                                   real_rows_equal, rel_err)
@@ -118,6 +131,12 @@ DECODE_TOL = {torch.bfloat16: 2e-2, torch.float16: 4e-3, torch.float32: 1e-5}
 SPLIT_B, SPLIT_HKV, SPLIT_S = 6, 2, 300
 MATMUL_RTOL = {torch.bfloat16: 8e-3, torch.float16: 1e-3, torch.float32: 1e-5}
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float16: 4e-3, torch.float32: 1e-4}
+# the f32-precise flash kernels: the f32 bound, plus one ulp of a 16-bit
+# output as a share of the row's max (the same f32 values rounded once may
+# land one ulp apart; an element in [2^e, 2^(e+1)) has an ulp of 2^(e-7)
+# in bf16, 2^(e-10) in fp16)
+PRECISE_TOL = {torch.bfloat16: 1e-4 + 2 ** -7, torch.float16: 1e-4 + 2 ** -10,
+               torch.float32: 1e-4}
 
 
 @pytest.fixture
@@ -614,10 +633,140 @@ def test_flash_wrappers_reject_bad_inputs(cuda, monkeypatch):
                         v, causal=True)
     with pytest.raises(ValueError):     # mixed dtypes
         flash_fwd_parts(q, k.half(), v, causal=True)
-    monkeypatch.setenv("DSTPU_FLASH_F32_PRECISE", "1")
-    with pytest.raises(ValueError):     # f32 p/dS operands not in the kernel
-        flash_fwd_parts(q, k, v, causal=True)
     assert flash_fwd_parts.launches == n0
+    # under the flag the wrapper launches the f32-precise kernel instead,
+    # and the precise wrappers check their inputs the same way
+    monkeypatch.setenv("DSTPU_FLASH_F32_PRECISE", "1")
+    p0 = flash_fwd_precise.launches
+    flash_fwd_parts(q, k, v, causal=True)
+    assert flash_fwd_parts.launches == n0
+    assert flash_fwd_precise.launches == p0 + 1
+    with pytest.raises(ValueError):     # Dh 96
+        flash_fwd_precise(*flash_inputs(cuda, torch.bfloat16, 2, 64, 96)[:3],
+                          causal=True)
+    assert flash_fwd_precise.launches == p0 + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("dh,t,bh", [(64, 1024, 4), (128, 2048, 2),
+                                     (64, 130, 3), (128, 77, 3)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_precise_kernels_match_plain(cuda, dtype, dh, t, bh, causal):
+    """The f32-precise kernels against the plain versions with p and dS in
+    f32, row by row: at the 774M and Dh 128 / T 2048 widths and at tails no
+    multiple of the 32-row tile. In 16 bits, the precise kernels and the
+    default ones, each run end to end, against an f64 evaluation: the
+    precise ones keep p and dS in f32, so their mean error is the smaller
+    by PRECISE_GAIN or more."""
+    q, k, v, do = flash_inputs(cuda, dtype, bh, t, dh, seed=t + dh)
+    out, lse = flash_fwd_precise(q, k, v, causal=causal)
+    ref, ref_lse = flash_fwd_parts_plain(q, k, v, causal=causal, precise=True)
+    delta = flash_delta(do, ref)
+    got = (flash_bwd_dq_precise(q, k, v, do, ref_lse, delta, causal=causal),
+           *flash_bwd_dkv_precise(q, k, v, do, ref_lse, delta, causal=causal))
+    want = (flash_bwd_dq_plain(q, k, v, do, ref_lse, delta, causal=causal,
+                               precise=True),
+            *flash_bwd_dkv_plain(q, k, v, do, ref_lse, delta, causal=causal,
+                                 precise=True))
+    torch.cuda.synchronize()
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    for g, w in ((out, ref),) + tuple(zip(got, want)):
+        assert g.dtype == dtype and torch.isfinite(g.float()).all()
+        assert rel_err(g, w) <= PRECISE_TOL[dtype]
+    again = flash_bwd_dq_precise(q, k, v, do, ref_lse, delta, causal=causal)
+    assert torch.equal(again, got[0])
+    if dtype == torch.float32:
+        return
+    errs = []
+    for fwd, dq, dkv in ((flash_fwd_precise, flash_bwd_dq_precise,
+                          flash_bwd_dkv_precise),
+                         (flash_fwd_parts, flash_bwd_dq, flash_bwd_dkv)):
+        o, lse = fwd(q, k, v, causal=causal)
+        d = flash_delta(do, o)
+        outs = (o, dq(q, k, v, do, lse, d, causal=causal),
+                *dkv(q, k, v, do, lse, d, causal=causal))
+        errs.append(flash_mean_errors_f64(outs, q, k, v, do, causal=causal))
+    for name, ep, ed in zip(("o", "dq", "dk", "dv"), *errs):
+        assert ed >= PRECISE_GAIN * ep, (name, ep, ed)
+
+
+def test_flash_precise_flag_routes_the_autograd_path(cuda, monkeypatch):
+    monkeypatch.setenv("DSTPU_FLASH_F32_PRECISE", "1")
+    wrappers = (flash_fwd_parts, flash_bwd_dq, flash_bwd_dkv,
+                flash_fwd_precise, flash_bwd_dq_precise, flash_bwd_dkv_precise)
+    before = [w.launches for w in wrappers]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((2, 200, 4, 64), generator=g, device=cuda)
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    flash_attention(q, k, v, True).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [0, 0, 0, 1, 1, 1]
+
+
+def test_chunked_loss_backward_sums_in_f32(cuda):
+    """The chunked LM loss's backward in bf16 at GPT-2 774M's vocabulary and
+    width (1024 rows a chunk) against the same from f32 copies of the same
+    values: the gradients of the hidden states and of the embedding each
+    within 2^-7 of their norm (dl and each result rounded to bf16 once,
+    2^-9 apiece)."""
+    from deepspeed_tpu_torch.runtime.zero.tiling import chunked_cross_entropy
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    h = torch.randn((8, 256, 1280), generator=g, device=cuda).to(torch.bfloat16)
+    e = (torch.randn((50257, 1280), generator=g, device=cuda) * 0.02
+         ).to(torch.bfloat16)
+    labels = torch.randint(0, 50257, (8, 256), generator=g, device=cuda)
+    grads = []
+    for dtype in (torch.bfloat16, torch.float32):
+        hh, ee = (x.detach().to(dtype).requires_grad_() for x in (h, e))
+        chunked_cross_entropy(hh, ee, labels, chunk=128)[0].backward()
+        grads.append((hh.grad.float(), ee.grad.float()))
+    for name, got, want in zip(("hidden", "embed"), *grads):
+        err = ((got - want).norm() / want.norm()).item()
+        assert err <= 2 ** -7, (name, err)
+
+
+def test_cuda_engine_checkpoint_round_trip(cuda, tmp_path):
+    """A bf16 LLaMA engine on the card: save, load into a fresh engine (every
+    master and moment bit for bit, on the card) and continue; the resumed
+    losses equal the uninterrupted run's (the step's kernels are
+    deterministic: the flash backward sums without atomics)."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+
+    cfg = {"train_batch_size": 4, "gradient_accumulation_steps": 2,
+           "bf16": {"enabled": True}, "steps_per_print": 0,
+           "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}}
+    rng = np.random.RandomState(0)
+    batches = []
+    for _ in range(4):
+        ids = rng.randint(0, 512, size=(2, 2, 129)).astype(np.int32)
+        batches.append({"input_ids": ids[..., :-1], "labels": ids[..., 1:]})
+
+    def engine(seed):
+        model = LlamaModel(LlamaConfig(vocab_size=512, max_seq_len=128,
+                                       num_layers=2, hidden_size=256,
+                                       num_heads=4, num_kv_heads=2,
+                                       intermediate_size=512),
+                           attn_impl="flash")
+        return deepspeed_tpu_torch.initialize(
+            model=model, config={**cfg, "seed": seed})[0]
+
+    e1 = engine(0)
+    [e1.train_batch_from_stacked(b) for b in batches[:2]]
+    e1.save_checkpoint(str(tmp_path))
+    saved = [t.clone() for t in tree_leaves(e1.state.params)]
+    after = [float(e1.train_batch_from_stacked(b)) for b in batches[2:]]
+    e2 = engine(1)
+    e2.load_checkpoint(str(tmp_path))
+    assert all(t.device.type == "cuda" and torch.equal(t, s)
+               for t, s in zip(tree_leaves(e2.state.params), saved))
+    assert e2.global_steps == 2
+    assert [float(e2.train_batch_from_stacked(b)) for b in batches[2:]] == after
 
 
 # flash-decode outputs, row by row (kernel_check.rel_err): the kernel rounds

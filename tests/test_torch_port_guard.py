@@ -1,10 +1,15 @@
 """Import and device guards of the PyTorch port.
 
-* No module of deepspeed_tpu_torch/ and not chip_smoke.py imports ``jax`` or
-  the JAX package (an AST scan of every import statement), and importing
-  the port leaves ``jax`` out of ``sys.modules`` (a fresh interpreter).
+* No module of deepspeed_tpu_torch/ and not chip_smoke.py imports ``jax``,
+  the JAX package or ``ml_dtypes`` (an AST scan of every import
+  statement), and importing the port leaves them out of ``sys.modules``
+  (a fresh interpreter). bf16 arrays cross numpy as uint16 bits.
 * The model, op, serving and inference layers import nothing of the
-  training runtime (their shared errors live in ``errors.py``).
+  training engine (their shared errors live in ``errors.py``). Three
+  runtime modules that the reference's models and inference engine import
+  too are open to them — activation checkpointing and the chunked loss
+  (models) and the checkpoint format (inference) — and those import
+  nothing else of the runtime.
 * Entry points default to the CUDA card: with no card, ``init_inference()``
   and ``initialize()`` without a device raise instead of carrying on on the
   CPU.
@@ -23,7 +28,13 @@ from deepspeed_tpu_torch.accelerator import DeviceUnavailableError, get_accelera
 from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaModel
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "deepspeed_tpu", "flax", "optax")
+FORBIDDEN = ("jax", "jaxlib", "deepspeed_tpu", "flax", "optax", "ml_dtypes")
+# runtime modules a lower layer may import (as the reference's do)
+OPEN_TO = {
+    "models": ("deepspeed_tpu_torch.runtime.activation_checkpointing",
+               "deepspeed_tpu_torch.runtime.zero.tiling"),
+    "inference": ("deepspeed_tpu_torch.runtime.checkpoint_engine",),
+}
 
 
 def _imported_roots(path: pathlib.Path):
@@ -51,10 +62,30 @@ def test_no_jax_or_reference_package_imports(path):
 
 @pytest.mark.parametrize("layer", ["models", "ops", "serving", "inference"])
 def test_lower_layers_do_not_import_the_training_runtime(layer):
+    open_to = OPEN_TO.get(layer, ())
     for path in sorted((ROOT / "deepspeed_tpu_torch" / layer).rglob("*.py")):
         for name in _imported_roots(path):
+            if open_to and name.startswith(open_to):
+                continue
             assert not name.startswith("deepspeed_tpu_torch.runtime"), \
                 f"{path.relative_to(ROOT)} imports {name}"
+
+
+@pytest.mark.parametrize("module", sorted({m for ms in OPEN_TO.values()
+                                           for m in ms}))
+def test_runtime_modules_open_to_lower_layers_import_no_more_runtime(module):
+    """What a lower layer may import of the runtime pulls in nothing else of
+    it (the engine, its config), except the configuration class that
+    ``activation_checkpointing.configure`` builds when given no config."""
+    base = ROOT / module.replace(".", "/")
+    files = sorted(base.rglob("*.py")) if base.is_dir() else [
+        base.with_suffix(".py")]
+    allowed = (module, "deepspeed_tpu_torch.runtime.config")
+    for path in files:
+        for name in _imported_roots(path):
+            if name.startswith("deepspeed_tpu_torch.runtime"):
+                assert name.startswith(allowed), \
+                    f"{path.relative_to(ROOT)} imports {name}"
 
 
 def test_importing_the_port_loads_no_jax():

@@ -36,6 +36,8 @@ Tolerances, and why:
   ``global_steps`` and applied steps.
 """
 
+import tempfile
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -427,7 +429,7 @@ def test_dataloader_stream_and_state_dict_round_trip_match_jax():
 
 
 # ------------------------------------------------------------ not ported
-NOT_PORTED = [
+OPTIONS = [
     {"zero_optimization": {"stage": 1}},
     {"zero_optimization": {"stage": 3}},
     {"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
@@ -454,10 +456,17 @@ NOT_PORTED = [
     {"optimizer": {"type": "cpu_adam", "params": {"lr": 1e-3}}},
     {"optimizer": {"type": "OneBitAdam", "params": {"lr": 1e-3}}},
 ]
+OPTION_IDS = [next(iter(e)) + f"-{i}" for i, e in enumerate(OPTIONS)]
+# the activation_checkpointing section is parsed and, as in the reference,
+# not read by the engine (runtime/activation_checkpointing.py)
+ACCEPTED = [(e, i) for e, i in zip(OPTIONS, OPTION_IDS)
+            if "activation_checkpointing" in e]
+NOT_PORTED = [(e, i) for e, i in zip(OPTIONS, OPTION_IDS)
+              if "activation_checkpointing" not in e]
 
 
-@pytest.mark.parametrize("extra", NOT_PORTED,
-                         ids=[next(iter(e)) + f"-{i}" for i, e in enumerate(NOT_PORTED)])
+@pytest.mark.parametrize("extra", [e for e, _ in NOT_PORTED],
+                         ids=[i for _, i in NOT_PORTED])
 def test_options_not_ported_raise(extra):
     cfg = _config("fp32", **extra)
     if "tensor_parallel" in extra or "sequence_parallel" in extra \
@@ -467,6 +476,20 @@ def test_options_not_ported_raise(extra):
     model = GPT2Model(GPT2Config.tiny(max_seq_len=64))
     with pytest.raises(NotPortedError):
         deepspeed_tpu_torch.initialize(model=model, config=cfg, device="cpu")
+
+
+@pytest.mark.parametrize("extra", [e for e, _ in ACCEPTED],
+                         ids=[i for _, i in ACCEPTED])
+def test_activation_checkpointing_options_are_accepted(extra):
+    cfg = _config("fp32", **extra)
+    assert TConfig(cfg).not_ported() == []
+    model = GPT2Model(GPT2Config.tiny(max_seq_len=64))
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
+                                                device="cpu")
+    mine = engine.config.activation_checkpointing_config
+    ref = JConfig(cfg, world_size=1).activation_checkpointing_config
+    for key, value in extra["activation_checkpointing"].items():
+        assert getattr(mine, key) == getattr(ref, key) == value
 
 
 def test_hybrid_pipeline_and_checkpoints_not_ported():
@@ -483,10 +506,11 @@ def test_hybrid_pipeline_and_checkpoints_not_ported():
                                        config=_config())
     engine, *_ = deepspeed_tpu_torch.initialize(model=model, device="cpu",
                                                 config=_config())
-    for method in (engine.save_checkpoint, engine.load_checkpoint,
-                   engine.save_16bit_model):
-        with pytest.raises(NotPortedError):
-            method("ckpt")
+    # the checkpoint methods are ported (tests/test_torch_checkpoint.py)
+    with tempfile.TemporaryDirectory() as d:
+        assert engine.save_checkpoint(d) is True
+        assert engine.load_checkpoint(d)[0].endswith("global_step0")
+        assert engine.save_16bit_model(d).endswith("model_weights.npz")
     # an absent telemetry section is the reference's default, not a request
     assert TConfig(_config()).not_ported() == []
 
