@@ -217,8 +217,8 @@ Training (phases added after ``reference``, before the serving phases):
                (AdamW, ZeRO 0, bench.py's 774M settings), attn flash,
                micro-batch 4 x gas 2 x T 2048: the first micro-batch's loss
                through flash and dense attention within 1e-3, then remat
-               off, "nothing" and "save_attn" on one engine, 2 warm-up and
-               6 measured steps each: ms a step, tokens/s, MFU
+               off, "nothing" and "save_attn" on one engine, one warm-up
+               and 4 measured steps each: ms a step, tokens/s, MFU
                (LlamaModel.flops_per_token(T)), peak memory; kernel D
                launches 2 x 22 x gas a step under "nothing" and 22 x gas
                otherwise, E and F 22 x gas; the loss falls; peak memory
@@ -237,6 +237,35 @@ Training (phases added after ``reference``, before the serving phases):
                the engine's in-memory parameters generate (kernel B).
                Save and load seconds, bytes written; the directory is
                temporary.
+   train_llama7b_offload — ZeRO-Offload and ZeRO-Infinity (after
+               checkpoint_roundtrip). The host's nproc, MemTotal and the
+               free space where the swap files go; the host kernels' build
+               flags. (a) LLaMA-7B width at 2 layers (0.67 B parameters),
+               one seeded init and 3 batches (micro-batch 1 x gas 2 x T
+               2048, bf16, AdamW, clipping 1.0, flash) through three
+               engines: device-state ZeRO 0, offload_optimizer cpu at
+               stage 2 and nvme at stage 3 (swap files under
+               build/nvme_swap). The first loss is bit-identical across
+               the three; cpu against device: losses and grad norms of
+               steps 2-3 within 1e-3 relative, the images after step 3
+               within 1e-2 row by row (kernel_check.rel_err); nvme against
+               cpu: losses, grad norms and images bit-identical; each
+               flash kernel launches layers x gas x 3 times a run. NVMe
+               bytes read and written a step. (b) LLaMA-7B as published
+               (32 layers; fewer only if the host's MemAvailable cannot
+               hold 12 bytes a parameter of f32 state plus a margin, the
+               cut recorded), offload_optimizer cpu, stage 2, remat
+               "nothing", the same batch shape: one warm-up and 2 measured
+               steps on a fixed batch. Held: the loss falls; the engine
+               adds only the bf16 images to the card's allocation, after
+               init and between steps (memory_stats: at most 2 bytes a
+               parameter plus 1 GiB over what was allocated before it), peak
+               below 80 GB; the staging slots pinned; kernel D launches 2
+               x layers x gas a step, E and F layers x gas. Reported: ms a
+               step split into forward, backward, grad download wait, host
+               Adam and image upload wait; host Adam GB/s over the bytes
+               it sweeps; tokens/s and MFU (LlamaModel.flops_per_token);
+               peak card memory and peak host RSS; the OpenMP team size.
 
 Generate (phases added after ``reference`` and after ``probe_fp32``):
 
@@ -332,10 +361,13 @@ The line before the last is the kernels summary; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
+import os
 import re
+import resource
 import shutil
 import subprocess
 import sys
@@ -388,6 +420,7 @@ from deepspeed_tpu_torch.ops.sparse_attention.block_sparse import (
     block_sparse_bwd_dkv_plain, block_sparse_bwd_dq, block_sparse_bwd_dq_plain,
     block_sparse_delta, block_sparse_fwd, block_sparse_fwd_plain,
     group_busy, layout_to_dense_mask, row_groups, sparse_luts)
+from deepspeed_tpu_torch.runtime.zero.offload import param_names
 from deepspeed_tpu_torch.utils.tree import tree_leaves
 from deepspeed_tpu_torch.serving import (BlockKVPool, Request, ServingEngine,
                                          poisson_trace, shared_prefix_trace,
@@ -3854,16 +3887,15 @@ def phase_train_tinyllama(smi: str) -> dict:
     """TinyLlama-1.1B at full width and depth (random init, seed 1234)
     trained through initialize() in bf16 (AdamW, ZeRO 0), attn_impl
     "flash", micro-batch 4 x gas 2 x T 2048: three runs on one engine, remat
-    off, "nothing" and "save_attn" (the model swapped between runs), each 2
-    warm-up and 6 measured steps, the launch counters zeroed just before
-    the measured steps. Then two steps under DSTPU_FLASH_F32_PRECISE=1 (the
-    f32-precise kernels)."""
-    import os
-
+    off, "nothing" and "save_attn" (the model swapped between runs), each
+    one warm-up and 4 measured steps (2 and 6 before train_llama7b_offload
+    took its share of the run's time), the launch counters zeroed just
+    before the measured steps. Then two steps under
+    DSTPU_FLASH_F32_PRECISE=1 (the f32-precise kernels)."""
     gc.collect()
     torch.cuda.empty_cache()
     cfg = LlamaConfig(**TINYLLAMA_1B)
-    gas, micro, t, warm, steps = 2, 4, 2048, 2, 6
+    gas, micro, t, warm, steps = 2, 4, 2048, 1, 4
     t0 = time.perf_counter()
     eng, *_ = deepspeed_tpu_torch.initialize(
         model=LlamaModel(cfg, attn_impl="flash"), config=TINYLLAMA_TRAIN_CONFIG)
@@ -4093,6 +4125,299 @@ def phase_checkpoint_roundtrip(smi: str) -> dict:
 
 
 # telemetry artefacts (JSONL streams, flight dumps) of the telemetry phases
+# ZeRO-Offload at LLaMA-7B width: the config of train_tinyllama's runs (bench
+# 774M's: bf16, AdamW lr 1e-4 wd 0.01, clipping 1.0, bf16 grad accumulation)
+# at micro-batch 1 x gas 2 x T 2048, with the zero section of each run
+OFFLOAD_GAS, OFFLOAD_MICRO, OFFLOAD_T = 2, 1, 2048
+OFFLOAD_RUNS = (("device", {"stage": 0}),
+                ("cpu", {"stage": 2, "offload_optimizer": {"device": "cpu"}}),
+                ("nvme", {"stage": 3, "offload_optimizer": {"device": "nvme"}}))
+OFFLOAD_PARITY_LAYERS = 2
+OFFLOAD_PARITY_STEPS = 3
+OFFLOAD_WARM, OFFLOAD_STEPS = 1, 2
+# losses and grad norms of steps 2-3, host (cpu) against device-state Adam,
+# relative: the same f32 update in another order (the host kernel may fuse
+# a multiply-add and scales the grad inside its sweep), so the bf16 images
+# after step 1 may differ by an ulp here and there
+OFFLOAD_LOSS_TOL = 1e-3
+# ... and the images after step 3, row by row (kernel_check.rel_err): about
+# one bf16 ulp (2^-8 relative at most) where the two f32 masters round
+# apart, with room for three steps of it
+OFFLOAD_IMAGE_TOL = 1e-2
+# the host memory the depth rule keeps free beside the f32 state: the
+# pinned staging ring, the process's growth while it trains, the page cache
+# the IO engine's files need
+OFFLOAD_HOST_MARGIN = 8e9
+NVME_DIR = Path(__file__).resolve().parent / "build" / "nvme_swap"
+
+
+def _llama_7b(layers: int) -> LlamaConfig:
+    """LLaMA-7B's published widths at ``layers`` of its 32 layers."""
+    return dataclasses.replace(LlamaConfig.llama_7b(), num_layers=layers)
+
+
+def _llama_params(cfg) -> int:
+    from deepspeed_tpu_torch.models.llama import _block_matmuls
+
+    per_layer = sum(din * dout for _, din, dout, _ in _block_matmuls(cfg)) \
+        + 2 * cfg.hidden_size
+    return cfg.num_layers * per_layer + 2 * cfg.vocab_size * cfg.hidden_size \
+        + cfg.hidden_size
+
+
+def _meminfo(key: str) -> int:
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith(key + ":"):
+            return int(line.split()[1]) * 1024
+    raise KeyError(key)
+
+
+def _proc_status(key: str) -> int:
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith(key + ":"):
+            return int(line.split()[1]) * 1024
+    raise KeyError(key)
+
+
+def _offload_config(zero: dict) -> dict:
+    return {**BENCH_774M_CONFIG,
+            "train_batch_size": OFFLOAD_MICRO * OFFLOAD_GAS,
+            "zero_optimization": json.loads(json.dumps(zero))}
+
+
+def _images(eng) -> dict:
+    """The compute-dtype weights the next forward reads, on the host."""
+    return {n: p.detach().to(torch.bfloat16).cpu()
+            for n, p in param_names(eng.state.params).items()}
+
+
+def _offload_parity(params, batches, cfg, dev: str) -> dict:
+    """(a): the same init and batches through the device-state engine (ZeRO
+    0), offload_optimizer cpu (stage 2) and nvme (stage 3)."""
+    out, images, launches = {}, {}, dict.fromkeys(WRAPPERS, 0)
+    for name, zero in OFFLOAD_RUNS:
+        zero = json.loads(json.dumps(zero))
+        if name == "nvme":
+            shutil.rmtree(NVME_DIR, ignore_errors=True)
+            zero["offload_optimizer"]["nvme_path"] = str(NVME_DIR)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=LlamaModel(cfg, attn_impl="flash"), config=_offload_config(zero),
+            params=params, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        reset_counts()                   # the main path starts here
+        rows, host = [], []
+        t0 = time.perf_counter()
+        for b in batches:
+            loss = float(eng.train_batch_from_stacked(b))
+            rows.append((loss, eng.get_global_grad_norm()))
+            if eng._host_opt is not None:
+                host.append(dict(eng._host_opt.stats))
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        for k, n in got.items():
+            want = cfg.num_layers * OFFLOAD_GAS * len(batches) if k in FLASH else 0
+            assert n == want, (name, k, n, want)
+            launches[k] += n
+        images[name] = _images(eng)
+        out[name] = {"zero": zero, "losses": [r[0] for r in rows],
+                     "grad_norms": [r[1] for r in rows], "init_s": init_s,
+                     "ms_per_step": 1e3 * wall / len(batches)}
+        if host:
+            out[name]["host_step"] = host
+            out[name]["omp_threads"] = eng._host_opt.num_threads
+        if name == "nvme":
+            st = host[-1]
+            out[name]["nvme"] = {
+                "read_bytes_per_step": st["nvme_read_bytes"],
+                "write_bytes_per_step": st["nvme_write_bytes"],
+                "gb_per_s_over_host_step": (st["nvme_read_bytes"]
+                                            + st["nvme_write_bytes"])
+                / st["step_s"] / 1e9,
+                "folder": str(NVME_DIR)}
+        eng.destroy()
+        del eng
+    shutil.rmtree(NVME_DIR, ignore_errors=True)
+    dev, cpu, nvme = out["device"], out["cpu"], out["nvme"]
+    assert dev["losses"][0] == cpu["losses"][0] == nvme["losses"][0], out
+    loss_rel = max(abs(c - d) / abs(d) for c, d in
+                   zip(cpu["losses"][1:], dev["losses"][1:]))
+    norm_rel = max(abs(c - d) / abs(d) for c, d in
+                   zip(cpu["grad_norms"][1:], dev["grad_norms"][1:]))
+    image_err = max(rel_err(images["cpu"][n], images["device"][n])
+                    for n in images["device"])
+    assert loss_rel <= OFFLOAD_LOSS_TOL and norm_rel <= OFFLOAD_LOSS_TOL, out
+    assert image_err <= OFFLOAD_IMAGE_TOL, (image_err, out)
+    assert nvme["losses"] == cpu["losses"] and \
+        nvme["grad_norms"] == cpu["grad_norms"], out
+    for n, img in images["cpu"].items():
+        assert torch.equal(img, images["nvme"][n]), n
+    out.update(cpu_vs_device={"loss_max_rel": loss_rel, "grad_norm_max_rel": norm_rel,
+                              "image_rel_err": image_err,
+                              "loss_tol": OFFLOAD_LOSS_TOL,
+                              "image_tol": OFFLOAD_IMAGE_TOL},
+               nvme_vs_cpu="bit-identical losses, grad norms and images",
+               launches=launches)
+    return out
+
+
+def phase_train_llama7b_offload(smi: str, dev: str = "cuda") -> dict:
+    """(a) LLaMA-7B width at OFFLOAD_PARITY_LAYERS layers, one seeded init
+    and batches through three engines: device-state (ZeRO 0),
+    offload_optimizer cpu (stage 2) and nvme (stage 3), 3 steps each. (b)
+    LLaMA-7B as published, offload_optimizer cpu, remat "nothing", at the
+    deepest depth whose f32 state the host holds (full depth unless its
+    memory forbids): one warm-up and 2 measured steps on a fixed batch."""
+    from deepspeed_tpu_torch.ops.native.builder import compiler
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    NVME_DIR.parent.mkdir(parents=True, exist_ok=True)
+    host = {"nproc": len(os.sched_getaffinity(0)),
+            "mem_total_bytes": _meminfo("MemTotal"),
+            "mem_available_bytes_at_start": _meminfo("MemAvailable"),
+            "nvme_dir_df": shutil.disk_usage(NVME_DIR.parent)._asdict()}
+    t0 = time.perf_counter()
+    adam = get_op_builder("cpu_adam_native")()
+    flags = adam.build_flags()
+    adam.load().load()
+    get_op_builder("async_io")().load().load()
+    build_s = time.perf_counter() - t0
+    # (a) parity at 7B width, two layers
+    cfg = _llama_7b(OFFLOAD_PARITY_LAYERS)
+    params = LlamaModel(cfg).init(torch.Generator(device=dev).manual_seed(7),
+                                  device=dev, dtype=torch.float32)
+    batches = lm_batches(np.random.RandomState(3), OFFLOAD_PARITY_STEPS,
+                         OFFLOAD_GAS, OFFLOAD_MICRO, OFFLOAD_T, cfg.vocab_size,
+                         start_span=1000)
+    parity = _offload_parity(params, batches, cfg, dev)
+    del params
+    # (b) LLaMA-7B as published, as deep as the host's memory allows
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    avail = _meminfo("MemAvailable")
+    layers = LlamaConfig.llama_7b().num_layers
+    while layers > 1 and 12 * _llama_params(_llama_7b(layers)) \
+            + OFFLOAD_HOST_MARGIN > avail:
+        layers -= 1
+    cfg = _llama_7b(layers)
+    n_params = _llama_params(cfg)
+    zero = {"stage": 2, "offload_optimizer": {"device": "cpu"}}
+    # what earlier phases left allocated (cached tables, rope caches)
+    card_base = torch.cuda.memory_stats()["allocated_bytes.all.current"]
+    t0 = time.perf_counter()
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=LlamaModel(cfg, attn_impl="flash", remat=True,
+                         remat_policy="nothing"),
+        config={**_offload_config(zero), "wall_clock_breakdown": True},
+        device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rss_after_init = _proc_status("VmRSS")
+    # no f32 master or moment on the card: the engine adds only the bf16
+    # images (2 bytes a parameter) to what was allocated before it
+    card_after_init = torch.cuda.memory_stats()["allocated_bytes.all.current"] \
+        - card_base
+    assert all(p.dtype == torch.bfloat16
+               for p in param_names(eng.state.params).values())
+    assert card_after_init <= 2 * n_params + 2 ** 30, (card_after_init, n_params)
+    assert eng._host_opt.staging is None or eng._host_opt.staging.pinned()
+    batch = lm_batches(np.random.RandomState(4), 1, OFFLOAD_GAS, OFFLOAD_MICRO,
+                       OFFLOAD_T, cfg.vocab_size, start_span=1000)[0]
+    losses = [float(eng.train_batch_from_stacked(batch))
+              for _ in range(OFFLOAD_WARM)]
+    staging = eng._host_opt.staging     # made at the first step on the card
+    assert dev != "cuda" or staging.pinned()
+    torch.cuda.synchronize()
+    names = (FORWARD_GLOBAL_TIMER, BACKWARD_GLOBAL_TIMER, STEP_GLOBAL_TIMER,
+             TRAIN_BATCH_TIMER)
+    for n in names:
+        eng.timers(n).elapsed(reset=True)
+    reset_counts()                       # the main path starts here
+    steps, stats = [], []
+    for _ in range(OFFLOAD_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(eng.train_batch_from_stacked(batch)))
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        stats.append(dict(eng._host_opt.stats))
+    launches = read_counts()
+    timers = {n: 1e3 * eng.timers(n).elapsed(reset=True) / OFFLOAD_STEPS
+              for n in names}
+    peak_card = torch.cuda.max_memory_allocated()
+    card_between = torch.cuda.memory_stats()["allocated_bytes.all.current"] \
+        - card_base
+    assert card_between <= 2 * n_params + 2 ** 30, (card_between, n_params)
+    assert peak_card < 80e9, peak_card
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], losses
+    for k, n in launches.items():
+        want = {"flash_fwd": 2 * layers * OFFLOAD_GAS,
+                "flash_bwd_dq": layers * OFFLOAD_GAS,
+                "flash_bwd_dkv": layers * OFFLOAD_GAS}.get(k, 0) * OFFLOAD_STEPS
+        assert n == want, (k, n, want)
+    step_s = sum(steps) / OFFLOAD_STEPS
+    tokens = OFFLOAD_GAS * OFFLOAD_MICRO * OFFLOAD_T
+    flops_tok = eng.module.flops_per_token(OFFLOAD_T)
+
+    def mean(key):
+        return sum(s[key] for s in stats) / len(stats)
+
+    full = {
+        "model": f"LLaMA-7B (hidden 4096, intermediate 11008, 32 heads, "
+                 f"vocab 32000) at {layers} of 32 layers, random init seed "
+                 f"1234, attn flash, remat \"nothing\"",
+        "layers": layers, "n_params": n_params,
+        "depth_rule": {"mem_available_bytes": avail,
+                       "state_bytes": 12 * n_params,
+                       "margin_bytes": OFFLOAD_HOST_MARGIN,
+                       "cut": layers < 32},
+        "zero": zero, "init_s": init_s, "losses": losses,
+        "ms_per_step": 1e3 * step_s, "tokens_per_s": tokens / step_s,
+        "mfu": tokens / step_s * flops_tok / BF16_FLOP_PER_S,
+        "flop_per_token": flops_tok,
+        "split_ms": {"forward": timers[FORWARD_GLOBAL_TIMER],
+                     "backward": timers[BACKWARD_GLOBAL_TIMER],
+                     "step_timer": timers[STEP_GLOBAL_TIMER],
+                     "host_step": 1e3 * mean("step_s"),
+                     "grad_download_wait": 1e3 * mean("download_wait_s"),
+                     "host_adam": 1e3 * mean("adam_s"),
+                     "image_upload_wait": 1e3 * mean("upload_wait_s")},
+        "host_adam_gb_per_s": mean("bytes_swept") / mean("adam_s") / 1e9,
+        "host_adam_bytes_swept": mean("bytes_swept"),
+        "omp_threads": eng._host_opt.num_threads,
+        "staging": staging and {"slots": len(staging.grad),
+                                "chunk_elements": staging.chunk,
+                                "pinned": staging.pinned()},
+        "peak_card_bytes": peak_card, "card_bytes_before_init": card_base,
+        "card_bytes_after_init": card_after_init,
+        "card_bytes_between_steps": card_between,
+        "host_rss_after_init_bytes": rss_after_init,
+        # the process's peak, from getrusage (kB on Linux)
+        "host_rss_peak_bytes": 1024 * resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss,
+        "launches": launches}
+    eng.destroy()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the phase's launches: (a)'s three runs and (b)'s measured steps
+    total = {k: n + parity["launches"][k] for k, n in launches.items()}
+    info = {"phase": "train_llama7b_offload", "card": smi, "host": host,
+            "native_build": {"cpu_adam_native_flags": flags,
+                             "compiler": compiler(), "build_s": build_s},
+            "config": _offload_config({}), "micro_batch": OFFLOAD_MICRO,
+            "gas": OFFLOAD_GAS, "seq_len": OFFLOAD_T,
+            "parity_7b_width": {"layers": OFFLOAD_PARITY_LAYERS, **parity},
+            "llama_7b": full, "launches": total}
+    emit(info)
+    return info
+
+
 TELEMETRY_DIR = Path(__file__).resolve().parent / "build" / "telemetry"
 
 
@@ -4318,10 +4643,11 @@ def main() -> int:
     train_tel = phase_train_774m_telemetry(dev["nvidia_smi"], train)
     tiny = phase_train_tinyllama(dev["nvidia_smi"])
     ckpt = phase_checkpoint_roundtrip(dev["nvidia_smi"])
+    offload = phase_train_llama7b_offload(dev["nvidia_smi"])
     launches = dict.fromkeys(WRAPPERS, 0)
     for k in FLASH:
         launches[k] = (train["launches"][k] + train_tel["launches"][k]
-                       + tiny["launches"][k])
+                       + tiny["launches"][k] + offload["launches"][k])
     for k in PRECISE:
         launches[k] = tiny["launches"][k]
     launches["fused_decode_step"] += ckpt["launches"]["fused_decode_step"]

@@ -11,7 +11,10 @@ the moments, in f32) and the reference's update formulas. They are not
 ``torch.optim`` classes: the JAX package's semantics, not torch's, are the
 contract. ``step`` updates the parameter and state tensors in place (the
 port's memory saving over the reference's fresh arrays) and returns them.
-The CPU-offload and 1-bit optimizers are not ported yet.
+``DeepSpeedCPUAdam`` is FusedAdam's math; the engine keeps its state in
+host memory when ``zero_optimization.offload_optimizer`` says so
+(runtime/zero/offload.py, on the native kernels of ops/cpu_adam_native.py).
+The 1-bit optimizers are not ported yet.
 """
 
 from __future__ import annotations
@@ -93,6 +96,16 @@ class FusedAdam:
         _apply(params, upd, grads, state.exp_avg, state.exp_avg_sq)
         return params, AdamState(step=count, exp_avg=state.exp_avg,
                                  exp_avg_sq=state.exp_avg_sq)
+
+
+@dataclasses.dataclass
+class DeepSpeedCPUAdam(FusedAdam):
+    """FusedAdam's math; the engine places its state in host memory when
+    ``offload_optimizer.device`` is ``cpu`` or ``nvme`` (reference
+    ops/adam/cpu_adam.py)."""
+
+    name = "cpu_adam"
+    host_state: bool = True
 
 
 class LambState(NamedTuple):
@@ -178,6 +191,9 @@ class Adagrad:
         return params, AdagradState(step=state.step + 1, sum_sq=state.sum_sq)
 
 
+DeepSpeedCPUAdagrad = Adagrad    # the reference's name for the same math
+
+
 class SGDState(NamedTuple):
     step: int
     momentum_buf: Any
@@ -225,8 +241,8 @@ OPTIMIZER_REGISTRY: Dict[str, Any] = {
     "adam": FusedAdam,
     "adamw": lambda **kw: FusedAdam(adam_w_mode=True, **kw),
     "fusedadam": FusedAdam,
-    "cpu_adam": _not_ported("cpu_adam"),
-    "deepspeedcpuadam": _not_ported("DeepSpeedCPUAdam"),
+    "cpu_adam": DeepSpeedCPUAdam,
+    "deepspeedcpuadam": DeepSpeedCPUAdam,
     "lamb": FusedLamb,
     "fusedlamb": FusedLamb,
     "adagrad": Adagrad,

@@ -9,6 +9,14 @@ The arrays are whole and keyed by parameter path (checkpoint_engine.py), so
 a tag written by the reference's engine loads here and one written here
 loads into the reference's. On load, every array moves onto the engine's
 device in the dtype of the engine's own leaf.
+
+Under ZeRO-Offload the authoritative f32 masters and moments are the host
+optimizer's: they go in a ``host_opt`` section keyed by parameter name
+(``host_opt::['blocks']['wq']/master``) with its step count in
+``__meta__["host_opt_step"]``, as the reference writes them. A
+module-only load, or a tag saved without offload, re-seeds the host
+masters from the loaded parameters (the reference's rule), so the next
+step does not rebuild the images from stale masters.
 """
 
 from __future__ import annotations
@@ -61,6 +69,11 @@ def save_engine_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         "scaler": state.scaler,
         "__meta__": {"global_step": int(state.global_step)},
     }
+    host_opt = getattr(engine, "_host_opt", None)
+    if host_opt is not None:
+        hsd = host_opt.state_dict()
+        state_dict["host_opt"] = hsd["state"]
+        state_dict["__meta__"]["host_opt_step"] = hsd["step"]
     # deterministic data-pipeline resume: the (seed, epoch, in-epoch
     # offset) triple rides in __meta__; not for an external data_sampler,
     # whose order may not replay across a restart
@@ -258,14 +271,22 @@ def load_engine_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     state = engine.state
     params, _ = _unflatten_into(state.params, loaded.get("params", {}))
     opt_state = state.opt_state
-    if load_optimizer_states and not load_module_only and "opt_state" in loaded:
+    host_opt = getattr(engine, "_host_opt", None)
+    meta = loaded.get("__meta__", {})
+    if host_opt is not None:
+        if load_optimizer_states and not load_module_only and "host_opt" in loaded:
+            host_opt.load_state_dict({
+                "step": int(meta.get("host_opt_step", 0)),
+                "state": _host_opt_state(host_opt, loaded["host_opt"])})
+        else:
+            host_opt.init(params)
+    elif load_optimizer_states and not load_module_only and "opt_state" in loaded:
         opt_state, _ = _unflatten_into(state.opt_state, loaded["opt_state"],
                                        strict=False)
     scaler = state.scaler
     if "scaler" in loaded and not load_module_only:
         scaler, _ = _unflatten_into(state.scaler, loaded["scaler"], strict=False)
 
-    meta = loaded.get("__meta__", {})
     gstep = int(meta.get("global_step", 0))
     engine.state = state._replace(params=params, opt_state=opt_state,
                                   scaler=scaler, global_step=gstep)
@@ -305,6 +326,18 @@ def load_engine_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     log_dist(f"loaded checkpoint {tag} from {load_dir} onto {engine.device}",
              ranks=[0])
     return os.path.join(load_dir, tag), client_state
+
+
+def _host_opt_state(host_opt, flat):
+    """The ``host_opt`` section (keys ``<name>/<state>``) as the host
+    optimizer's nested state; every name and state must be there."""
+    out = {}
+    for name, entry in host_opt.state_template().items():
+        missing = [f"{name}/{k}" for k in entry if f"{name}/{k}" not in flat]
+        if missing:
+            raise KeyError(f"checkpoint host_opt section misses {missing}")
+        out[name] = {k: flat[f"{name}/{k}"] for k in entry}
+    return out
 
 
 def load_params_for_inference(load_dir: str, template=None,

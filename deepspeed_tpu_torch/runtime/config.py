@@ -27,9 +27,7 @@ from deepspeed_tpu_torch.runtime.config_utils import (
     DeepSpeedConfigModel,
     dict_raise_error_on_duplicate_keys,
 )
-from deepspeed_tpu_torch.runtime.zero.config import (DeepSpeedZeroConfig,
-                                                     OffloadDeviceEnum,
-                                                     ZeroStageEnum)
+from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig, ZeroStageEnum
 from deepspeed_tpu_torch.telemetry.config import TelemetryConfig
 
 
@@ -260,13 +258,13 @@ class DeepSpeedConfig:
 
     def not_ported(self) -> List[str]:
         """The enabled options whose subsystem the port does not run yet."""
-        zc = self.zero_config
-        offload = any(sub is not None and sub.device != OffloadDeviceEnum.none
-                      for sub in (zc.offload_optimizer, zc.offload_param))
+        # ZeRO stages 1-3 run on the port's one rank: the reference's
+        # PartitionPlan on a one-device mesh keeps every leaf whole, so the
+        # step is stage 0's (partitioning over ranks: ROADMAP queue 1 item
+        # 7). offload_optimizer (cpu, nvme) runs (runtime/zero/offload.py);
+        # offload_param is parsed and, as in the reference, not read by the
+        # engine.
         checks = {
-            f"zero_optimization.stage={self.zero_optimization_stage}":
-                self.zero_optimization_stage > 0,
-            "zero_optimization offload": offload,
             f"pipeline.stages={self.pipeline.stages}": self.pipeline.stages > 1,
             "hybrid_engine": self.hybrid_engine.enabled,
             f"tensor_parallel.tp_size={self.tensor_parallel.tp_size}":

@@ -1,5 +1,6 @@
-"""Training engine (port of deepspeed_tpu/runtime/engine.py: ZeRO stage 0 on
-one device).
+"""Training engine (port of deepspeed_tpu/runtime/engine.py on one device:
+ZeRO stages 0-3, whose one-device plan keeps every leaf whole, and
+ZeRO-Offload / ZeRO-Infinity).
 
 The reference compiles the whole step into one XLA program; here it is a
 Python loop over PyTorch ops on the engine's device, with the reference's
@@ -19,9 +20,20 @@ semantics at every point that changes a number:
   counter ``global_steps`` and the LR schedule advance on every step, as
   in the reference.
 
+With ``zero_optimization.offload_optimizer`` (``cpu`` or ``nvme``) the f32
+masters and moments live on the host (runtime/zero/offload.py) and the
+card keeps the compute-dtype images as ``state.params``. A step computes
+the gas micro-batches' grads on the card, divides by gas and unscales in
+one f32 multiply by ``1 / (gas * scale)``, checks for overflow and takes
+the global norm there (the reference's host-path epilogue, one multiply
+where the device path takes two), reads the flag and the norm to the
+host, and runs the host step with the clip factor as ``grad_scale``,
+which downloads the grads and uploads the images. On overflow the update
+is skipped and the scaler advances.
+
 The overflow flag is read to the host only when it can be set (fp16 or the
-finite-grad guard); otherwise a step makes no host sync. Options the port
-does not run yet raise :class:`NotPortedError` at construction
+finite-grad guard); otherwise a device-state step makes no host sync.
+Options the port does not run yet raise :class:`NotPortedError` at construction
 (``DeepSpeedConfig.not_ported``). Checkpoints (``save_checkpoint``,
 ``load_checkpoint``, ``save_16bit_model``) use the reference's format
 (runtime/checkpoint_engine/), with a ``checkpoint_save`` /
@@ -63,6 +75,8 @@ from deepspeed_tpu_torch.runtime.precision import (LossScalerState,
                                                    create_loss_scaler,
                                                    global_grad_norm,
                                                    has_inf_or_nan)
+from deepspeed_tpu_torch.runtime.zero.config import OffloadDeviceEnum
+from deepspeed_tpu_torch.runtime.zero.offload import HostOffloadOptimizer, param_names
 from deepspeed_tpu_torch.telemetry import (FlightRecorder, JsonlSink,
                                            SpanTracer, accelerator_peaks,
                                            get_registry, mfu, roofline_row)
@@ -78,7 +92,7 @@ _ACC_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 
 class TrainState(NamedTuple):
-    params: Any               # fp32 master parameters
+    params: Any               # fp32 masters (offload: compute-dtype images)
     opt_state: Any
     scaler: LossScalerState
     global_step: int          # applied (not skipped) updates
@@ -132,6 +146,19 @@ class DeepSpeedEngine:
         if optimizer is None:
             optimizer = build_optimizer("adam", {"lr": 1e-3})
         self.optimizer = optimizer
+        # ---- host (ZeRO-Offload / Infinity) optimizer: f32 masters and
+        # moments in host memory or on NVMe, the step on the host's cores
+        offload = config.zero_config.offload_optimizer
+        self.offload_optimizer = bool(
+            offload is not None and offload.device != OffloadDeviceEnum.none)
+        self._host_opt = None
+        if self.offload_optimizer:
+            try:
+                self._host_opt = HostOffloadOptimizer(optimizer, offload,
+                                                      self.compute_dtype)
+            except ValueError as e:
+                log_dist(f"offload_optimizer: {e}; keeping device-state path",
+                         ranks=[0])
         if lr_scheduler is None and config.scheduler_name is not None:
             lr_scheduler = build_lr_scheduler(config.scheduler_name,
                                               config.scheduler_params, optimizer)
@@ -233,6 +260,13 @@ class DeepSpeedEngine:
             params = self.module.init(gen, device=self.device, dtype=torch.float32)
         else:
             params = tree_map(lambda p: p.detach().to(self.device).clone(), params)
+        if self._host_opt is not None:
+            # the masters go to the host; the card keeps only the
+            # compute-dtype image (the f32 init is freed with ``params``)
+            self._host_opt.init(params)
+            params = self._cast_for_compute(params)
+            return TrainState(params=params, opt_state={},
+                              scaler=self.loss_scaler.init(), global_step=0)
         return TrainState(params=params, opt_state=self.optimizer.init(params),
                           scaler=self.loss_scaler.init(), global_step=0)
 
@@ -276,6 +310,8 @@ class DeepSpeedEngine:
             self._grad_acc = grads
         else:
             tree_map(lambda a, g: a.add_(g), self._grad_acc, grads)
+        for p in tree_leaves(leaves):
+            p.grad = None               # summed: free it before the step
 
     def _apply_grads(self, grads, lr: float):
         """unscale -> overflow check -> norm -> clip -> optimizer -> scale
@@ -301,6 +337,44 @@ class DeepSpeedEngine:
             scaler=self.loss_scaler.update(state.scaler, overflow),
             global_step=state.global_step + (0 if overflow else 1))
         self._global_grad_norm = norm
+
+    def _unscale_epilogue(self):
+        """The host path's epilogue (the reference's ``_unscale_epilogue``):
+        the accumulated grads, taken over, to f32 times ``1 / (gas *
+        scale)``, the overflow flag and the global norm, on the device.
+        Returns the f32 grads by name. Each leaf is converted in place (f32)
+        or replaced, so the accumulator frees as the f32 grads appear."""
+        inv = float(np.float32(1.0) / (np.float32(self.gas)
+                                       * np.float32(self.state.scaler.cur_scale)))
+        flat = param_names(self._take_grads())
+        for name, g in flat.items():
+            flat[name] = g.float().mul_(inv)
+        overflow = False
+        if self.fp16_enabled or self._check_finite_grads:
+            overflow = bool(has_inf_or_nan(flat))
+        return flat, overflow, global_grad_norm(flat)
+
+    def _host_apply(self, lr: float):
+        """The host-optimizer step (the reference's ``_host_apply``): the
+        epilogue on the card, the clip factor from the norm, then the host
+        update and the images' upload; on overflow only the scaler moves."""
+        flat, overflow, norm = self._unscale_epilogue()
+        state = self.state
+        self._global_grad_norm = norm
+        new_scaler = self.loss_scaler.update(state.scaler, overflow)
+        if overflow:
+            self.skipped_steps += 1
+            self.state = state._replace(scaler=new_scaler)
+            return
+        clip = self.config.gradient_clipping
+        # a host read: the clip factor gates the host step
+        factor = min(1.0, clip / (float(norm) + 1e-6)) if clip and clip > 0 \
+            else 1.0
+        self._host_opt.step(flat, lr, grad_scale=factor,
+                            out=param_names(state.params))
+        self.state = TrainState(params=state.params, opt_state={},
+                                scaler=new_scaler,
+                                global_step=state.global_step + 1)
 
     def _finish_step(self):
         self.global_steps += 1
@@ -356,9 +430,11 @@ class DeepSpeedEngine:
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
         self._timer(STEP_GLOBAL_TIMER, True)
-        grads, self._grad_acc = self._grad_acc, None
-        grads = tree_map(lambda g: g.float() / self.gas, grads)
-        self._apply_grads(grads, lr)
+        if self._host_opt is not None:
+            self._host_apply(lr)
+        else:
+            grads = tree_map(lambda g: g.float() / self.gas, self._take_grads())
+            self._apply_grads(grads, lr)
         self._timer(STEP_GLOBAL_TIMER, False)
         self.micro_steps += self.gas
         self._finish_step()
@@ -369,6 +445,12 @@ class DeepSpeedEngine:
                                         time.perf_counter() - t_start)
         self._log_step(loss)
         return loss
+
+    def _take_grads(self):
+        """The accumulated grads, handed over (the engine keeps no
+        reference, so the step may free them as it goes)."""
+        grads, self._grad_acc = self._grad_acc, None
+        return grads
 
     def _log_step(self, loss):
         n = self.config.steps_per_print
@@ -466,7 +548,11 @@ class DeepSpeedEngine:
         step's bytes the update's traffic: every f32 master parameter and
         optimizer-state tensor read and written once, and the compute-dtype
         weights read once by the forward and once by the backward (a lower
-        bound: activations are left out). Otherwise, or for a model without
+        bound: activations are left out). Under offload no master or
+        optimizer state is on the card: the bytes are the compute-dtype
+        images read by the forward and the backward and written by the
+        upload, and the f32 grads read by the download. Otherwise, or for a
+        model without
         ``flops_per_token``: the reference's fallback ``6 * N * tokens``
         with no bytes."""
         if self._telemetry_flops is not None:
@@ -477,12 +563,16 @@ class DeepSpeedEngine:
             if (self.config.telemetry_config.cost_analysis
                     and hasattr(self.module, "flops_per_token")):
                 flops = float(self.module.flops_per_token(seq)) * tokens
-                state_bytes = sum(t.numel() * t.element_size() for t in
-                                  params + tree_leaves(self.state.opt_state)
-                                  if isinstance(t, torch.Tensor))
                 itemsize = torch.empty((), dtype=self.compute_dtype).element_size()
-                nbytes = 2.0 * state_bytes + 2.0 * itemsize * sum(
-                    t.numel() for t in params)
+                numel = sum(t.numel() for t in params)
+                if self._host_opt is not None:
+                    nbytes = (3.0 * itemsize + 4.0) * numel
+                else:
+                    state_bytes = sum(
+                        t.numel() * t.element_size() for t in
+                        params + tree_leaves(self.state.opt_state)
+                        if isinstance(t, torch.Tensor))
+                    nbytes = 2.0 * state_bytes + 2.0 * itemsize * numel
             else:
                 flops = 6.0 * sum(t.numel() for t in params) * tokens
         self._telemetry_flops = flops
@@ -578,10 +668,12 @@ class DeepSpeedEngine:
                 f"step() at boundary needs {self.gas} backward() calls, "
                 f"got {self._acc_count}")
             self._timer(STEP_GLOBAL_TIMER, True)
-            grads, self._grad_acc = self._grad_acc, None
-            # / gas in the accumulation dtype, as the reference's step()
-            grads = tree_map(lambda g: g / self.gas, grads)
-            self._apply_grads(grads, self.get_lr()[0])
+            if self._host_opt is not None:
+                self._host_apply(self.get_lr()[0])
+            else:
+                # / gas in the accumulation dtype, as the reference's step()
+                grads = tree_map(lambda g: g / self.gas, self._take_grads())
+                self._apply_grads(grads, self.get_lr()[0])
             self._timer(STEP_GLOBAL_TIMER, False)
             self._acc_count = 0
             self._finish_step()

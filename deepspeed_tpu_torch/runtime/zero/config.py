@@ -1,9 +1,10 @@
 """ZeRO config (port of deepspeed_tpu/runtime/zero/config.py) — analog of
 reference ``deepspeed/runtime/zero/config.py``.
 
-Same JSON schema (``zero_optimization`` section). The port trains at stage
-0 only for now; the engine refuses stage >= 1 and offload as "not ported
-yet" (runtime/config.py ``not_ported``)."""
+Same JSON schema (``zero_optimization`` section). On the port's one rank
+stages 1-3 run stage 0's step (the reference's one-device plan keeps every
+leaf whole); ``offload_optimizer`` runs (runtime/zero/offload.py);
+``offload_param`` is parsed and, as in the reference, not read."""
 
 from __future__ import annotations
 

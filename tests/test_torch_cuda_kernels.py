@@ -36,7 +36,11 @@ evaluation than kernels D, E, F on the same inputs (mean error over every
 element, the default's PRECISE_GAIN times the precise one's or more), and
 the flag's route through the autograd path; the chunked LM loss's bf16
 backward against f32; a bf16 LLaMA engine's checkpoint round trip on the
-card.
+card; ZeRO-Offload on the card (a small bf16 LLaMA trained with device
+state, cpu and nvme offload from one init: the first loss bit-identical,
+cpu within 1e-3 of the device state and its images within 1e-2 row by row,
+nvme bit for bit with cpu; the staging slots pinned and only the bf16
+images on the card).
 Flash-decode (both computations:
 GQA rep >= 2 with p rounded, rep 1 in f32): bf16/f16/f32 at Dh 64, 128 and
 256, the CodeLlama-34B decode shape (B 1 and 4, Hq 64 / Hkv 8, S 640), an
@@ -767,6 +771,97 @@ def test_cuda_engine_checkpoint_round_trip(cuda, tmp_path):
                for t, s in zip(tree_leaves(e2.state.params), saved))
     assert e2.global_steps == 2
     assert [float(e2.train_batch_from_stacked(b)) for b in batches[2:]] == after
+
+
+def _offload_engines(tmp_path, runs):
+    """A bf16 LLaMA (Dh 64, flash) on the card from one init, trained 3
+    steps per ``runs`` entry (name, zero section); returns per run the
+    losses, grad norms, bf16 images and the engine."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from deepspeed_tpu_torch.runtime.zero.offload import param_names
+
+    cfg = LlamaConfig(vocab_size=512, max_seq_len=128, num_layers=2,
+                      hidden_size=256, num_heads=4, num_kv_heads=2,
+                      intermediate_size=512)
+    params = LlamaModel(cfg).init(torch.Generator(device="cuda").manual_seed(3),
+                                  device="cuda", dtype=torch.float32)
+    rng = np.random.RandomState(1)
+    batches = []
+    for _ in range(3):
+        ids = rng.randint(0, 512, size=(2, 2, 129)).astype(np.int32)
+        batches.append({"input_ids": ids[..., :-1], "labels": ids[..., 1:]})
+    out = {}
+    for name, zero in runs:
+        if zero.get("offload_optimizer", {}).get("device") == "nvme":
+            zero["offload_optimizer"]["nvme_path"] = str(tmp_path / name)
+        eng = deepspeed_tpu_torch.initialize(
+            model=LlamaModel(cfg, attn_impl="flash"), params=params, config={
+                "train_batch_size": 4, "gradient_accumulation_steps": 2,
+                "bf16": {"enabled": True}, "steps_per_print": 0,
+                "gradient_clipping": 1.0, "zero_optimization": zero,
+                "optimizer": {"type": "AdamW",
+                              "params": {"lr": 1e-4, "weight_decay": 0.01}}})[0]
+        rows = [(float(eng.train_batch_from_stacked(b)),
+                 eng.get_global_grad_norm()) for b in batches]
+        out[name] = dict(rows=rows, engine=eng, images={
+            n: p.to(torch.bfloat16) for n, p in param_names(eng.state.params).items()})
+    return out
+
+
+def test_cuda_offload_tracks_device_state(cuda, tmp_path):
+    """chip_smoke's train_llama7b_offload (a) at a small width and its lr
+    (1e-4): the first loss bit-identical across device-state, cpu and nvme
+    offload; cpu against device within 1e-3 relative (losses and grad
+    norms of steps 2-3) and the images within 1e-2 row by row (the same f32
+    Adam in another order: an ulp of bf16 here and there; at lr 1e-3 a
+    step moves these 0.02-sized weights by 8 ulps and the two orders part
+    by several); nvme against cpu bit for bit."""
+    from deepspeed_tpu_torch.ops.kernel_check import rel_err
+
+    runs = _offload_engines(tmp_path, [
+        ("device", {"stage": 0}),
+        ("cpu", {"stage": 2, "offload_optimizer": {"device": "cpu"}}),
+        ("nvme", {"stage": 3, "offload_optimizer": {"device": "nvme"}})])
+    dev, cpu, nvme = (runs[k]["rows"] for k in ("device", "cpu", "nvme"))
+    assert dev[0][0] == cpu[0][0] == nvme[0][0]
+    for (dl, dn), (cl, cn) in zip(dev[1:], cpu[1:]):
+        assert abs(cl - dl) <= 1e-3 * abs(dl) and abs(cn - dn) <= 1e-3 * dn
+    for n, img in runs["device"]["images"].items():
+        assert rel_err(runs["cpu"]["images"][n], img) <= 1e-2, n
+        assert torch.equal(runs["cpu"]["images"][n], runs["nvme"]["images"][n])
+    assert nvme == cpu
+
+
+def test_cuda_offload_stages_pinned_and_keeps_no_f32_on_the_card(cuda, tmp_path):
+    """The staging slots are pinned host memory; every parameter on the
+    card is a bf16 image, the f32 masters and moments are host tensors, and
+    the card holds no more than the images between steps."""
+    import gc
+
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    runs = _offload_engines(tmp_path, [
+        ("cpu", {"stage": 2, "offload_optimizer": {"device": "cpu"}})])
+    eng = runs["cpu"]["engine"]
+    staging = eng._host_opt.staging
+    assert staging is not None and staging.pinned()
+    assert all(t.is_pinned() for t in staging.grad + staging.img)
+    images = list(runs["cpu"]["images"].values())
+    from deepspeed_tpu_torch.runtime.zero.offload import param_names
+
+    assert all(p.device.type == "cuda" and p.dtype == torch.bfloat16
+               for p in param_names(eng.state.params).values())
+    assert eng.state.opt_state == {}
+    assert all(m.device.type == "cpu" and m.dtype == torch.float32
+               for m in eng._host_opt.master.values())
+    n = sum(t.numel() for t in images)
+    del images, runs
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    assert held <= 2 * n + 64 * 2 ** 20, (held, n)
 
 
 # flash-decode outputs, row by row (kernel_check.rel_err): the kernel rounds

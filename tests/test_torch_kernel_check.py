@@ -19,8 +19,13 @@ holds a right tiled implementation and rejects a wrong one.
 * So is the block-sparse dK/dV kernel's merge of partials: at a GPT-style
   causal layout whose global columns are cut in two parts, dK summed from
   its parts passes the sparse bound (1.6e-2 in bf16), and dK with one
-  part's partial left out is rejected.
+  part's partial left out is rejected. Its plain versions run in one
+  intra-op thread: about 4,500 ops on [1, 2, 128, 16, 64] blocks, each of
+  which paid a thread barrier under torch's default team, 188 s on a host
+  loaded by six pytest workers where one thread takes about 2.
 """
+
+import contextlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -170,12 +175,29 @@ def test_decode_step_one_split_left_out_of_l_is_rejected():
 SPARSE_BF16_TOL = 1.6e-2
 
 
+@contextlib.contextmanager
+def _one_intra_op_thread():
+    """torch's intra-op team cut to one thread for the block (the ops are
+    too small to gain from more), restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def test_sparse_dkv_one_partial_left_out_is_rejected():
     """Layout (a)'s pattern (Fixed, 4 local, 1 global, unidirectional, block
     16) at T 2048, bf16, Dh 64: the global column of key block 3 holds 125
     query blocks, two parts of the work list. dK summed from all parts is
     within the bound of the plain version; with that column's second part
     left out it is rejected."""
+    with _one_intra_op_thread():
+        _sparse_dkv_one_partial_left_out_is_rejected()
+
+
+def _sparse_dkv_one_partial_left_out_is_rejected():
     t, blk, h = 2048, 16, 2
     layout = FixedSparsityConfig(num_heads=h, block=blk, num_local_blocks=4,
                                  num_global_blocks=1,

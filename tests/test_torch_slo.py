@@ -31,8 +31,14 @@ both sides.
 * Sampling: distribution only (torch's generator gives other bits than
   JAX's): the first token of 2000 identical requests, and one decode step
   of 2000 identical slots, each pass a chi-squared test against the filtered
-  softmax (p > 1e-3); a sampled engine repeats with its seed.
+  softmax (p > 1e-3); a sampled engine repeats with its seed. Those 4000
+  draws run in one intra-op thread: each prefill is one request's forward
+  at hidden 64, and with torch's default team every small op paid a
+  thread barrier, which on a host loaded by six pytest workers took 264 s
+  where one thread takes 40.
 """
+
+import contextlib
 
 import jax
 import numpy as np
@@ -539,7 +545,24 @@ def _chisquare(draws, logits):
     return stats.chisquare(observed, expected).pvalue
 
 
+@contextlib.contextmanager
+def _one_intra_op_thread():
+    """torch's intra-op team cut to one thread for the block (the ops are
+    too small to gain from more), restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def test_sampled_serving_follows_the_filtered_softmax(engines):
+    with _one_intra_op_thread():
+        _sampled_serving_follows_the_filtered_softmax(engines)
+
+
+def _sampled_serving_follows_the_filtered_softmax(engines):
     _, teng = engines
     n = 2000
     prompt = _prompts([11], seed=4)[0]

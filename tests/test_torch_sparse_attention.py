@@ -628,14 +628,24 @@ class TestRegistry:
         assert builder.load() is tsa
         assert builder.load().SparseSelfAttention is tsa.SparseSelfAttention
 
-    @pytest.mark.parametrize("name", ["cpu_adam", "cpu_adagrad",
-                                      "ring_attention", "async_io", "onebit",
-                                      "cpu_adam_native"])
+    @pytest.mark.parametrize("name", ["ring_attention", "onebit"])
     def test_unported_op_raises(self, name):
         builder = get_op_builder(name)(get_accelerator("cpu"))
         assert not builder.is_compatible()
         with pytest.raises(NotPortedError):
             builder.load()
+
+    @pytest.mark.parametrize("name", ["cpu_adam", "cpu_adagrad", "async_io",
+                                      "cpu_adam_native"])
+    def test_offload_ops_load_the_port(self, name):
+        """The ZeRO-Offload ops (tests/test_torch_offload.py holds them to
+        the reference)."""
+        builder = get_op_builder(name)(get_accelerator("cpu"))
+        assert builder.is_compatible()
+        op = builder.load()
+        assert op.__module__.startswith("deepspeed_tpu_torch.ops") \
+            if isinstance(op, type) else op.__name__.startswith(
+                "deepspeed_tpu_torch.ops")
 
     @pytest.mark.parametrize("name", ["fused_adam", "fused_lamb", "attention",
                                       "flash_attention"])

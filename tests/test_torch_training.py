@@ -461,8 +461,13 @@ OPTION_IDS = [next(iter(e)) + f"-{i}" for i, e in enumerate(OPTIONS)]
 # not read by the engine (runtime/activation_checkpointing.py)
 ACCEPTED = [(e, i) for e, i in zip(OPTIONS, OPTION_IDS)
             if "activation_checkpointing" in e]
+# ZeRO stages 1-3 (one rank: every leaf whole), offload and cpu_adam run
+# (runtime/zero/offload.py; tests/test_torch_offload.py)
+ZERO = [(e, i) for e, i in zip(OPTIONS, OPTION_IDS)
+        if "zero_optimization" in e
+        or e.get("optimizer", {}).get("type") == "cpu_adam"]
 NOT_PORTED = [(e, i) for e, i in zip(OPTIONS, OPTION_IDS)
-              if "activation_checkpointing" not in e]
+              if (e, i) not in ACCEPTED + ZERO]
 
 
 @pytest.mark.parametrize("extra", [e for e, _ in NOT_PORTED],
@@ -490,6 +495,22 @@ def test_activation_checkpointing_options_are_accepted(extra):
     ref = JConfig(cfg, world_size=1).activation_checkpointing_config
     for key, value in extra["activation_checkpointing"].items():
         assert getattr(mine, key) == getattr(ref, key) == value
+
+
+@pytest.mark.parametrize("extra", [e for e, _ in ZERO], ids=[i for _, i in ZERO])
+def test_zero_offload_and_cpu_adam_options_are_accepted(extra):
+    cfg = _config("fp32", **extra)
+    assert TConfig(cfg).not_ported() == []
+    model = GPT2Model(GPT2Config.tiny(max_seq_len=64))
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
+                                                device="cpu")
+    ref = JConfig(cfg, world_size=1)
+    assert engine.zero_optimization_stage() == ref.zero_optimization_stage
+    offload = ref.zero_config.offload_optimizer
+    assert (engine._host_opt is not None) == bool(
+        offload is not None and offload.device != "none")
+    assert engine.optimizer.name == jadam.build_optimizer(
+        ref.optimizer_name, ref.optimizer_params).name
 
 
 def test_hybrid_pipeline_and_checkpoints_not_ported():
