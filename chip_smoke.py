@@ -241,22 +241,22 @@ Training (phases added after ``reference``, before the serving phases):
                checkpoint_roundtrip). The host's nproc, MemTotal and the
                free space where the swap files go; the host kernels' build
                flags. (a) LLaMA-7B width at 2 layers (0.67 B parameters),
-               one seeded init and 3 batches (micro-batch 1 x gas 2 x T
+               one seeded init and 2 batches (micro-batch 1 x gas 2 x T
                2048, bf16, AdamW, clipping 1.0, flash) through three
                engines: device-state ZeRO 0, offload_optimizer cpu at
                stage 2 and nvme at stage 3 (swap files under
                build/nvme_swap). The first loss is bit-identical across
-               the three; cpu against device: losses and grad norms of
-               steps 2-3 within 1e-3 relative, the images after step 3
+               the three; cpu against device: the loss and grad norm of
+               step 2 within 1e-3 relative, the images after step 2
                within 1e-2 row by row (kernel_check.rel_err); nvme against
                cpu: losses, grad norms and images bit-identical; each
-               flash kernel launches layers x gas x 3 times a run. NVMe
+               flash kernel launches layers x gas x 2 times a run. NVMe
                bytes read and written a step. (b) LLaMA-7B as published
                (32 layers; fewer only if the host's MemAvailable cannot
                hold 12 bytes a parameter of f32 state plus a margin, the
                cut recorded), offload_optimizer cpu, stage 2, remat
-               "nothing", the same batch shape: one warm-up and 2 measured
-               steps on a fixed batch. Held: the loss falls; the engine
+               "nothing", the same batch shape: one warm-up and one
+               measured step on a fixed batch. Held: the loss falls; the engine
                adds only the bf16 images to the card's allocation, after
                init and between steps (memory_stats: at most 2 bytes a
                parameter plus 1 GiB over what was allocated before it), peak
@@ -266,6 +266,31 @@ Training (phases added after ``reference``, before the serving phases):
                Adam and image upload wait; host Adam GB/s over the bytes
                it sweeps; tokens/s and MFU (LlamaModel.flops_per_token);
                peak card memory and peak host RSS; the OpenMP team size.
+   train_774m_data_efficiency — GPT-2 774M (attn flash, bench.py's 774M
+               config, micro-batch 8 x gas 2 x T 1024; after
+               train_774m_telemetry) through initialize() in three runs of
+               1 warm-up and 3 measured steps, each on a fresh engine:
+               (a) random-LTD keeping 512 of 1024 tokens (a schedule held
+               at 512): each flash kernel launches 36 x gas a step and
+               the work the launches report pins 2 of them a micro-batch
+               at T 1024 and 34 at T 512; (b) progressive layer drop
+               (theta 0.5, gamma 1: theta 0.684, 0.568, 0.525 over the
+               measured steps, read from the engine): every block
+               computed (36 x gas launches a step), the p_keep of each
+               draw on the schedule (layer_keep_probs) and the kept
+               blocks within 4 binomial sigmas of their expectation; (c)
+               the fixed_linear curriculum 256 -> 1024 in steps of 256
+               (the measured steps at 512, 768, 1024) with the csv and
+               JSONL monitors at monitor_interval 1: one line per step,
+               equal to the returned losses. Then the FLOPs profiler: one
+               774M forward (B 8, T 1024) counted by get_model_profile
+               equals the analytic count (weight products, tied logits,
+               kernel D's causal pairs) within 1e-9 relative, and a small
+               GPT-2's forward and forward + backward count the same on
+               the card as on the CPU. Each run: ms a step, tokens/s
+               (every token counted), losses, launches, beside
+               train_774m's ms a step. The kernels phase adds D, E and F
+               at the LTD shape (B 8, H 20, T 512, Dh 64, causal, timed).
 
 Generate (phases added after ``reference`` and after ``probe_fp32``):
 
@@ -306,13 +331,13 @@ Generate (phases added after ``reference`` and after ``probe_fp32``):
    generate_34b — CodeLlama-34B at full width and depth in bf16 (random
                weights from a seeded torch.Generator; 67.5 GB), after
                asserting that the earlier phases freed the card: greedy at
-               batch 1, a 512-token prompt and 128 new tokens (cache 640:
-               48 x 127 flash-decode launches, no fused step), the probe
+               batch 1, a 512-token prompt and 64 new tokens (cache 640:
+               48 x 63 flash-decode launches, no fused step), the probe
                (as generate_gpt2's; the batch-1 replay is generate's own
                computation, so it reproduces every generated token),
                prefill ms, host ms per decode token, a profile of 5 decode
                steps (busy share, flash-decode ms per token, top kernels);
-               the same prompt at batch 4 (48 x 127 fused-step launches at
+               the same prompt at batch 4 (48 x 63 fused-step launches at
                rep 8), with its profile; a sampled
                generate (top-k 50, top-p 0.9, temperature 0.8, seed 1) twice
                at batch 1, identical.
@@ -421,7 +446,7 @@ from deepspeed_tpu_torch.ops.sparse_attention.block_sparse import (
     block_sparse_delta, block_sparse_fwd, block_sparse_fwd_plain,
     group_busy, layout_to_dense_mask, row_groups, sparse_luts)
 from deepspeed_tpu_torch.runtime.zero.offload import param_names
-from deepspeed_tpu_torch.utils.tree import tree_leaves
+from deepspeed_tpu_torch.utils.tree import tree_leaves, tree_map
 from deepspeed_tpu_torch.serving import (BlockKVPool, Request, ServingEngine,
                                          poisson_trace, shared_prefix_trace,
                                          templated_trace)
@@ -458,6 +483,9 @@ LOGIT_TOL = {"fp32": 1e-3, "bf16": 0.15, "int8": 0.15}
 # max |logit|, CodeLlama-34B's 0.149); the bound keeps the 7B bound's
 # factor of about two over its readings and still catches a gross error.
 GENERATE_LOGIT_TOL = 0.3
+# generate_34b's new tokens a call (128 through PR 17: cut for the script's
+# time limit; the probe reads the last 32)
+GENERATE_34B_NEW = 64
 KERNELS = {
     "fused_decode_step": {
         "source": "deepspeed_tpu_torch/csrc/decode_step.cu",
@@ -568,7 +596,14 @@ CODELLAMA_34B = dict(vocab_size=32000, max_seq_len=16384, num_layers=48,
                      intermediate_size=22016, rope_theta=1e6, eps=1e-5)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase line also carries ``t_s``, the seconds since
+    the script started."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1511,7 +1546,9 @@ def phase_kernels() -> dict:
              # ragged: T 1000 is no multiple of the 64-row tile
              check_flash(torch.bfloat16, 8, 20, 1000, 64, True),
              # TinyLlama-1.1B's training shape (train_tinyllama), untimed
-             check_flash(torch.bfloat16, 4, 32, 2048, 64, True, timed=False)]
+             check_flash(torch.bfloat16, 4, 32, 2048, 64, True, timed=False),
+             # GPT-2 774M's random-LTD middle layers (T_keep 512 of 1024)
+             check_flash(torch.bfloat16, 8, 20, 512, 64, True)]
     torch.cuda.empty_cache()
     # the f32-precise kernels at the same main shapes, then untimed rows at
     # TinyLlama-1.1B's training shape, in fp16 and f32 and at a causal tail
@@ -2852,6 +2889,8 @@ TINYLLAMA_1B = dict(vocab_size=32000, max_seq_len=2048, num_layers=22,
 SPEC_BLOCK = dict(prefix_cache=True, block_size=16, kv_dtype="int8")
 # the draft window: 120 + k_max 8 = a 128-position draft cache
 SPEC_WINDOW = 120
+# the virtual-clock replays' outputs, cut to this many tokens a request
+SPEC_VIRTUAL_TOKENS = 16
 
 
 def _spec_trace():
@@ -3002,7 +3041,7 @@ def _spec_virtual(eng, kw, reqs, eager: bool, tracer=None, **sample):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks = {r.rid: r.tokens for r in srv.run(
-        [Request(r.rid, r.prompt, min(r.max_new_tokens, 24))
+        [Request(r.rid, r.prompt, min(r.max_new_tokens, SPEC_VIRTUAL_TOKENS))
          for r in reqs[:8]], warmup=False)}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -3017,8 +3056,8 @@ def _spec_replays(eng, kw, reqs, traced: bool) -> dict:
     (temperature 0.8, top-p 0.9, the engine's seed) twice and eager; with
     ``traced`` a tracer-armed greedy run too, whose tokens equal the bare
     run's, with its span counts and its wall over the bare run's (a
-    self-drafting engine: a random model's 24 tokens, and its samples, give
-    prompt lookup little or nothing to draft)."""
+    self-drafting engine: a random model's SPEC_VIRTUAL_TOKENS tokens, and
+    its samples, give prompt lookup little or nothing to draft)."""
     t0 = time.perf_counter()
     greedy, bare_s, drafted = _spec_virtual(eng, kw, reqs, eager=False)
     eager, eager_s, _ = _spec_virtual(eng, kw, reqs, eager=True)
@@ -3491,7 +3530,7 @@ def _free_card(what: str) -> int:
 def phase_generate_34b(smi: str) -> dict:
     """CodeLlama-34B at full width and depth in bf16 (random weights from a
     seeded torch.Generator) through generate(): greedy at batch 1 (512-token
-    prompt, 128 new tokens, cache 640: the flash-decode route), its probe
+    prompt, 64 new tokens, cache 640: the flash-decode route), its probe
     and a decode profile; greedy at batch 4 (the fused step at rep 8); a
     seeded sampled generate twice at batch 1."""
     held = _free_card("before generate_34b")
@@ -3508,7 +3547,7 @@ def phase_generate_34b(smi: str) -> dict:
     rng = np.random.RandomState(34)
     prompt1 = rng.randint(0, cfg.vocab_size, size=(1, 512))
     eng.generate(prompt1[:, :64], max_new_tokens=4)         # warm-up
-    layers, max_new = cfg.num_layers, 128
+    layers, max_new = cfg.num_layers, GENERATE_34B_NEW
     steps = layers * (max_new - 1)
 
     b1 = _timed_generate(eng, prompt1, max_new)
@@ -4133,14 +4172,14 @@ OFFLOAD_RUNS = (("device", {"stage": 0}),
                 ("cpu", {"stage": 2, "offload_optimizer": {"device": "cpu"}}),
                 ("nvme", {"stage": 3, "offload_optimizer": {"device": "nvme"}}))
 OFFLOAD_PARITY_LAYERS = 2
-OFFLOAD_PARITY_STEPS = 3
-OFFLOAD_WARM, OFFLOAD_STEPS = 1, 2
-# losses and grad norms of steps 2-3, host (cpu) against device-state Adam,
+OFFLOAD_PARITY_STEPS = 2
+OFFLOAD_WARM, OFFLOAD_STEPS = 1, 1
+# losses and grad norms of step 2, host (cpu) against device-state Adam,
 # relative: the same f32 update in another order (the host kernel may fuse
 # a multiply-add and scales the grad inside its sweep), so the bf16 images
 # after step 1 may differ by an ulp here and there
 OFFLOAD_LOSS_TOL = 1e-3
-# ... and the images after step 3, row by row (kernel_check.rel_err): about
+# ... and the images after step 2, row by row (kernel_check.rel_err): about
 # one bf16 ulp (2^-8 relative at most) where the two f32 masters round
 # apart, with room for three steps of it
 OFFLOAD_IMAGE_TOL = 1e-2
@@ -4270,7 +4309,7 @@ def phase_train_llama7b_offload(smi: str, dev: str = "cuda") -> dict:
     offload_optimizer cpu (stage 2) and nvme (stage 3), 3 steps each. (b)
     LLaMA-7B as published, offload_optimizer cpu, remat "nothing", at the
     deepest depth whose f32 state the host holds (full depth unless its
-    memory forbids): one warm-up and 2 measured steps on a fixed batch."""
+    memory forbids): one warm-up and one measured step on a fixed batch."""
     from deepspeed_tpu_torch.ops.native.builder import compiler
 
     gc.collect()
@@ -4625,6 +4664,259 @@ def phase_serve_telemetry(eng, smi: str) -> dict:
     return info
 
 
+# ------------------------------------------------------- data efficiency
+DE_WARM, DE_STEPS = 1, 3
+DE_LTD_KEEP = 512                 # random-LTD: 512 of the 1024 tokens
+# PLD: theta(t) = 0.5 + 0.5 e^-t, 0.684 after the warm-up step
+DE_PLD = {"enabled": True, "theta": 0.5, "gamma": 1.0}
+PLD_THETA_BELOW = 0.7
+PLD_SIGMAS = 4.0                  # the keep count's bound: 4 binomial sigmas
+# curriculum: 256 at the warm-up step, then 512, 768, 1024
+DE_CURRICULUM = {"enabled": True, "schedule_type": "fixed_linear",
+                 "schedule_config": {"min_difficulty": 256,
+                                     "max_difficulty": 1024,
+                                     "total_curriculum_step": 4,
+                                     "difficulty_step": 256}}
+# the profiler's 774M forward against the analytic count: both sums of the
+# same integer products in f64
+PROFILE_TOL = 1e-9
+
+
+def _flash_work(b, h, dh, t, part) -> int:
+    """A flash kernel's reported products (ops/kernel_flops.py) at one
+    causal [B*H, T, Dh] call."""
+    return 2 * {"fwd": 2, "dq": 3, "dkv": 4}[part] * b * h * dh \
+        * attn_pairs(t, t, True)
+
+
+def _de_run(run: str, extra: dict, batches, smi: str, bare: dict,
+            before_step=None, per_step: bool = False) -> tuple:
+    """One 774M engine with ``extra`` on the bench config: DE_WARM warm-up
+    and DE_STEPS measured steps, the launch counters zeroed and a kernel
+    FLOPs count open just before the measured steps. ``before_step(eng)``
+    runs before each measured step; ``per_step`` synchronizes after each
+    one and reports its ms. Returns (info, engine)."""
+    from deepspeed_tpu_torch.ops.kernel_flops import kernel_flops_counter
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = GPT2Config.gpt2_774m()
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=GPT2Model(cfg, attn_impl="flash"),
+        config={**BENCH_774M_CONFIG, **extra})
+    losses = [eng.train_batch_from_stacked(b) for b in batches[:DE_WARM]]
+    torch.cuda.synchronize()
+    seqs, step_ms = [], []
+    reset_counts()                       # the main path starts here
+    with kernel_flops_counter() as kc:
+        t0 = time.perf_counter()
+        for b in batches[DE_WARM:DE_WARM + DE_STEPS]:
+            t_step = time.perf_counter()
+            if before_step is not None:
+                before_step(eng)
+            losses.append(eng.train_batch_from_stacked(b))
+            seqs.append(eng.curriculum_scheduler.get_current_difficulty()
+                        if eng.curriculum_scheduler is not None
+                        else b["input_ids"].shape[-1])
+            if per_step:
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t_step))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_counts()
+    losses = [float(x) for x in losses]
+    assert all(math.isfinite(x) for x in losses), (run, losses)
+    gas, micro = BENCH_774M_CONFIG["gradient_accumulation_steps"], 8
+    tokens = gas * micro * sum(seqs)
+    ms = 1e3 * wall / DE_STEPS
+    info = {"phase": "train_774m_data_efficiency", "run": run, "card": smi,
+            "config": extra, "warmup_steps": DE_WARM,
+            "measured_steps": DE_STEPS, "seq_lens": seqs, "losses": losses,
+            "launches": launches,
+            "flash_flops_reported": {k: v for k, v in kc.kernels.items()},
+            "ms_per_step": ms, "tokens_per_s": tokens / wall,
+            "train_774m_ms_per_step": bare["ms_per_step"],
+            "train_774m_tokens_per_s": bare["tokens_per_s"],
+            "ms_over_train_774m": ms / bare["ms_per_step"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if per_step:
+        info["step_ms"] = step_ms
+    return info, eng
+
+
+def _profile_counts(dev_params, cpu_params, dev: str = "cuda") -> dict:
+    """The FLOPs profiler at a small GPT-2 (2 layers, hidden 128, 2 heads of
+    Dh 64, flash) on the card (kernels) and on the CPU (plain versions),
+    one forward and one forward + backward each: the totals and the
+    kernels' reports must be equal."""
+    from deepspeed_tpu_torch.profiling import count_flops, get_model_profile
+
+    cfg = GPT2Config(vocab_size=512, max_seq_len=128, num_layers=2,
+                     hidden_size=128, num_heads=2)
+    ids = np.random.RandomState(3).randint(0, 512, (2, 64))
+    out = {}
+    for where, params in (("card", dev_params), ("cpu", cpu_params)):
+        on = dev if where == "card" else "cpu"
+        model = GPT2Model(cfg, attn_impl="flash")
+        batch = {"input_ids": torch.as_tensor(ids).long().to(on),
+                 "labels": torch.as_tensor(ids).long().to(on)}
+        fwd = get_model_profile(model, batch, params=params, as_string=False)
+        leaves = _grad_leaves(params)
+        step = count_flops(lambda: model.apply(leaves, batch)[0].backward())
+        out[where] = {"forward_flops": fwd[0], "params": fwd[2],
+                      "step_flops": step["flops"],
+                      "step_kernel_flops": step["kernel_flops"]}
+    assert out["card"] == out["cpu"], out
+    return out
+
+
+def _grad_leaves(params):
+    """Fresh bf16 autograd leaves of a parameter dict."""
+    return tree_map(lambda p: p.detach().to(torch.bfloat16).requires_grad_(),
+                    params)
+
+
+def phase_train_774m_data_efficiency(smi: str, bare: dict,
+                                     dev: str = "cuda") -> dict:
+    """GPT-2 774M (attn flash, bench config) through initialize() in three
+    runs of DE_WARM + DE_STEPS steps: (a) random-LTD keeping 512 of 1024
+    tokens, (b) progressive layer drop (theta 0.5, gamma 1: theta below
+    0.7 from the first measured step), (c) the fixed_linear curriculum
+    256 -> 1024 (four lengths) with the csv and JSONL monitors; then the
+    FLOPs profiler: the 774M forward against the analytic count, and a
+    small GPT-2's count on the card against the CPU's."""
+    t_phase = time.perf_counter()
+    cfg = GPT2Config.gpt2_774m()
+    gas, micro, t = BENCH_774M_CONFIG["gradient_accumulation_steps"], 8, 1024
+    h, dh, layers = cfg.num_heads, cfg.head_dim, cfg.num_layers
+    batches = lm_batches(np.random.RandomState(0), DE_WARM + DE_STEPS, gas,
+                         micro, t, cfg.vocab_size, start_span=1000)
+    runs = {}
+
+    # (a) random-LTD: layers 0 and 35 at T 1024, the 34 between at T 512
+    ltd = {"data_efficiency": {"data_routing": {"random_ltd": {
+        "enabled": True, "random_ltd_schedule": {
+            "min_value": DE_LTD_KEEP, "max_value": DE_LTD_KEEP}}}}}
+    info, eng = _de_run("a_random_ltd", ltd, batches, smi, bare)
+    n_micro = gas * DE_STEPS
+    for name, part in zip(FLASH, ("fwd", "dq", "dkv")):
+        assert info["launches"][name] == layers * n_micro, (name, info)
+        # the launches' reported work pins how many ran at each length:
+        # 2 at T 1024 and 34 at T 512 per micro-batch
+        want = n_micro * (2 * _flash_work(micro, h, dh, t, part)
+                          + (layers - 2) * _flash_work(micro, h, dh,
+                                                       DE_LTD_KEEP, part))
+        got = info["flash_flops_reported"]["flash_" + {
+            "fwd": "fwd_parts", "dq": "bwd_dq", "dkv": "bwd_dkv"}[part]]
+        assert got == want, (name, got, want)
+    info["flash_launches_at_t512_per_micro_batch_forward"] = layers - 2
+    info["flash_launches_at_t1024_per_micro_batch_forward"] = 2
+    # where the step's time goes (after the counted steps)
+    info["profile_one_step"] = profile_train_step(eng, batches[-1])
+    runs["a"] = info
+    emit(info)
+    del eng
+
+    # (b) progressive layer drop: every block computed, gated
+    import deepspeed_tpu_torch.models.gpt2 as gpt2_module
+    from deepspeed_tpu_torch.runtime.progressive_layer_drop import layer_keep_probs
+
+    draws, thetas = [], []
+    orig_keep = gpt2_module._pld_keep
+
+    def record(p, gen, device):
+        k = orig_keep(p, gen, device)
+        draws.append((p, k))
+        return k
+
+    def note_theta(eng):
+        thetas.append(eng.progressive_layer_drop.get_theta())
+        if len(thetas) == 1:
+            gpt2_module._pld_keep = record
+
+    try:
+        info, eng = _de_run("b_pld", {"progressive_layer_drop": DE_PLD},
+                            batches, smi, bare, before_step=note_theta)
+    finally:
+        gpt2_module._pld_keep = orig_keep
+    assert all(th < PLD_THETA_BELOW for th in thetas), thetas
+    assert len(draws) == layers * n_micro, len(draws)
+    for name in FLASH:
+        assert info["launches"][name] == layers * n_micro, (name, info)
+    probs = np.concatenate([np.tile(layer_keep_probs(layers, th), gas)
+                            for th in thetas])
+    drawn = np.array([p for p, _ in draws])
+    assert np.abs(drawn - probs).max() <= 1e-6, "p_keep off the schedule"
+    kept = int(sum(int(k) for _, k in draws))
+    mean, sd = float(probs.sum()), float(np.sqrt((probs * (1 - probs)).sum()))
+    assert abs(kept - mean) <= PLD_SIGMAS * sd, (kept, mean, sd)
+    info.update(thetas=thetas, blocks_drawn=len(draws), blocks_kept=kept,
+                expected_kept=mean, binomial_sd=sd, bound_sigmas=PLD_SIGMAS,
+                kept_share=kept / len(draws), expected_share=mean / len(draws))
+    runs["b"] = info
+    emit(info)
+    del eng
+
+    # (c) curriculum, the monitors on, then the profiler
+    out_dir = _fresh_dir("data_efficiency")
+    cur = {"curriculum_learning": DE_CURRICULUM, "monitor_interval": 1,
+           "csv_monitor": {"enabled": True, "output_path": str(out_dir),
+                           "job_name": "c"},
+           "jsonl_monitor": {"enabled": True, "output_path": str(out_dir),
+                             "job_name": "c"}}
+    info, eng = _de_run("c_curriculum", cur, batches, smi, bare,
+                        per_step=True)
+    assert info["seq_lens"] == [512, 768, 1024], info["seq_lens"]
+    for name, part in zip(FLASH, ("fwd", "dq", "dkv")):
+        assert info["launches"][name] == layers * n_micro, (name, info)
+    csv = (out_dir / "c" / "Train_Samples_train_loss.csv").read_text().split()
+    assert csv[0] == "step,value" and len(csv) == 1 + DE_WARM + DE_STEPS, csv
+    assert [float(r.split(",")[1]) for r in csv[1:]] == info["losses"], csv
+    recs = [r for r in read_jsonl(str(out_dir / "c.jsonl"))
+            if r["tag"] == "Train/Samples/train_loss"]
+    assert [r["value"] for r in recs] == info["losses"], recs
+    assert [r["step"] for r in recs] == list(range(1, 1 + DE_WARM + DE_STEPS))
+    from deepspeed_tpu_torch.profiling import get_model_profile
+
+    first = {k: torch.as_tensor(v[0]).long().to(eng.device)
+             for k, v in batches[0].items()}
+    cp = eng._cast_for_compute(eng.state.params)
+    counted, _, n_params = get_model_profile(
+        GPT2Model(cfg, attn_impl="flash"), first, params=cp, as_string=False)
+    del cp
+    hid, m = cfg.hidden_size, cfg.mlp_dim
+    analytic = (2 * micro * t * (layers * (4 * hid * hid + 2 * hid * m)
+                                 + cfg.vocab_size * hid)
+                + layers * _flash_work(micro, h, dh, t, "fwd"))
+    assert abs(counted - analytic) <= PROFILE_TOL * analytic, \
+        (counted, analytic)
+    small_cpu = GPT2Model(GPT2Config(vocab_size=512, max_seq_len=128,
+                                     num_layers=2, hidden_size=128,
+                                     num_heads=2)).init(
+        torch.Generator().manual_seed(4))
+    small = _profile_counts(tree_map(lambda x: x.to(dev), small_cpu),
+                            small_cpu, dev)
+    info.update(monitor_lines=len(csv) - 1, profile_774m_forward_flops=counted,
+                profile_774m_analytic_flops=analytic,
+                profile_774m_params=n_params, profile_tol=PROFILE_TOL,
+                profile_small_card_equals_cpu=small)
+    runs["c"] = info
+    emit(info)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in WRAPPERS}
+    summary = {"phase": "train_774m_data_efficiency", "card": smi,
+               "ms_per_step": {k: r["ms_per_step"] for k, r in runs.items()},
+               "tokens_per_s": {k: r["tokens_per_s"] for k, r in runs.items()},
+               "train_774m_ms_per_step": bare["ms_per_step"],
+               "launches": launches,
+               "phase_s": time.perf_counter() - t_phase}
+    emit(summary)
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4641,13 +4933,15 @@ def main() -> int:
     phase_reference_train()
     train = phase_train_774m(dev["nvidia_smi"])
     train_tel = phase_train_774m_telemetry(dev["nvidia_smi"], train)
+    data_eff = phase_train_774m_data_efficiency(dev["nvidia_smi"], train)
     tiny = phase_train_tinyllama(dev["nvidia_smi"])
     ckpt = phase_checkpoint_roundtrip(dev["nvidia_smi"])
     offload = phase_train_llama7b_offload(dev["nvidia_smi"])
     launches = dict.fromkeys(WRAPPERS, 0)
     for k in FLASH:
         launches[k] = (train["launches"][k] + train_tel["launches"][k]
-                       + tiny["launches"][k] + offload["launches"][k])
+                       + data_eff["launches"][k] + tiny["launches"][k]
+                       + offload["launches"][k])
     for k in PRECISE:
         launches[k] = tiny["launches"][k]
     launches["fused_decode_step"] += ckpt["launches"]["fused_decode_step"]

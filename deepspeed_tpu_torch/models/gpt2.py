@@ -17,10 +17,11 @@ in the logical unpacked layout: the reference's token-pair packing for Dh <
 ``remat=True`` runs each block under an activation checkpointing policy
 (runtime/activation_checkpointing.py, ``remat_policy``) and
 ``GPT2Config(loss_chunk>0)`` takes the LM loss in sequence chunks without
-``[B, T, V]`` logits (runtime/zero/tiling.py), as the reference. Not
-ported yet, and refused rather than ignored: progressive layer drop
-(``pld_theta``), random-LTD (``ltd_keep``) and the sequence-parallel
-attention forms.
+``[B, T, V]`` logits (runtime/zero/tiling.py), as the reference. When
+training, ``pld_theta`` gates each block by progressive layer drop and
+``ltd_keep`` runs the middle layers on a random subset of the tokens
+(random-LTD), as the reference's two branches. Not ported yet, and
+refused rather than ignored: the sequence-parallel attention forms.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import dataclasses
 import math
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from deepspeed_tpu_torch.compression.quantize import quantize_int8
@@ -42,6 +44,11 @@ from deepspeed_tpu_torch.models.base import (ATTN_IMPLS, SEQUENCE_PARALLEL_IMPLS
 from deepspeed_tpu_torch.ops.attention import (alloc_kv_cache,
                                                cached_attention,
                                                multihead_attention)
+
+
+def _pld_keep(p_keep: float, generator, device) -> torch.Tensor:
+    """One Bernoulli(p_keep) draw, a 0-dim bool tensor on ``device``."""
+    return torch.rand((), generator=generator, device=device) < p_keep
 
 
 @dataclasses.dataclass
@@ -223,12 +230,20 @@ class GPT2Model:
                        train: bool = False, pld_theta=None, ltd_keep=None):
         """Final-layer-normed hidden states ``[B, T, D]``. ``rngs`` is a
         ``torch.Generator`` (or ``{"dropout": generator}``) for attention
-        dropout on the dense path when training."""
-        if pld_theta is not None or ltd_keep is not None:
-            raise NotPortedError("progressive layer drop and random-LTD are "
-                                 "not ported yet")
+        dropout on the dense path when training, and for the draws of the
+        two branches the reference takes when training:
+
+        * random-LTD (``ltd_keep < T`` and 3 or more layers): layers 0 and
+          L - 1 run on every token; each middle layer on its own sorted
+          random draw of ``ltd_keep`` positions (gather, block, scatter),
+          the other tokens passing through unchanged;
+        * progressive layer drop (``pld_theta``): block l is kept with
+          probability ``p_l = 1 - l / (L - 1) * (1 - theta)`` and gated as
+          ``x + keep / p_l * (block(x) - x)``; every block is computed.
+
+        The two are exclusive, as in the reference."""
         c = self.config
-        t = input_ids.shape[1]
+        b, t = input_ids.shape
         gen = rngs.get("dropout") if isinstance(rngs, dict) else rngs
         x = embed_tokens(params["wte"], input_ids, self.compute_dtype)
         x = x + params["wpe"][:t].to(self.compute_dtype)[None]
@@ -247,9 +262,46 @@ class GPT2Model:
                 self._out_mlp, policy=self.remat_policy)
         else:
             block_fn = lambda x, blk, g: self._block(x, blk, g, train)  # noqa: E731
-        for blk in layers:
-            x = block_fn(x, blk, gen)
+        if (ltd_keep is not None and train and ltd_keep < t
+                and c.num_layers >= 3):
+            assert gen is not None, "random-LTD needs a dropout generator"
+            assert pld_theta is None, \
+                "random-LTD and progressive_layer_drop are exclusive"
+            from deepspeed_tpu_torch.runtime.data_pipeline.random_ltd import (
+                gather_tokens, sample_token_indices, scatter_tokens)
+
+            x = block_fn(x, layers[0], gen)
+            for blk in layers[1:-1]:
+                idx = sample_token_indices(gen, b, t, ltd_keep, device=x.device)
+                kept = block_fn(gather_tokens(x, idx), blk, gen)
+                x = scatter_tokens(x, kept, idx)
+            x = block_fn(x, layers[-1], gen)
+            return layer_norm(x, params["ln_f_scale"], params["ln_f_bias"],
+                              c.eps)
+
+        use_pld = pld_theta is not None and train
+        if use_pld:
+            assert gen is not None, "pld needs a dropout generator"
+        for i, blk in enumerate(layers):
+            x_new = block_fn(x, blk, gen)
+            if use_pld:
+                x = x + self._pld_gate(i, pld_theta, gen, x) * (x_new - x)
+            else:
+                x = x_new
         return layer_norm(x, params["ln_f_scale"], params["ln_f_bias"], c.eps)
+
+    def _pld_gate(self, i: int, theta: float, gen, x):
+        """Layer ``i``'s progressive-layer-drop gate, a 0-dim tensor in x's
+        dtype: ``1 / p_keep`` with probability ``p_keep`` (drawn on the
+        device: no host read), else 0; ``p_keep`` in f32 as the
+        reference's."""
+        f32 = np.float32
+        frac = f32(i) / f32(max(self.config.num_layers - 1, 1))
+        p_keep = f32(1.0) - frac * (f32(1.0) - f32(theta))
+        keep = _pld_keep(float(p_keep), gen, x.device)
+        with np.errstate(divide="ignore"):
+            inv = float(f32(1.0) / p_keep)       # inf at p_keep 0: never kept
+        return torch.where(keep, inv, 0.0).to(x.dtype)
 
     def logits(self, params, hidden):
         if self.config.tie_embeddings:
@@ -313,12 +365,25 @@ class GPT2Model:
         return self.logits(params, hidden), out
 
     # ------------------------------------------------------------------ cost
-    def flops_per_token(self, seq_len: Optional[int] = None) -> float:
+    def flops_per_token(self, seq_len: Optional[int] = None,
+                        ltd_keep: Optional[int] = None) -> float:
         """6*N approximation + attention quadratic term (training fwd+bwd)
-        at ``seq_len`` tokens per sequence (default ``max_seq_len``)."""
+        at ``seq_len`` tokens per sequence (default ``max_seq_len``). With
+        ``ltd_keep`` (random-LTD's kept tokens, below ``seq_len``, 3 or more
+        layers) the middle layers count ``ltd_keep`` of every ``seq_len``
+        tokens at sequence length ``ltd_keep``; the first and last layers,
+        the embeddings and the logits every token."""
         c = self.config
         t = c.max_seq_len if seq_len is None else seq_len
-        n_params = (c.vocab_size * c.hidden_size + c.max_seq_len * c.hidden_size +
-                    c.num_layers * (4 * c.hidden_size ** 2 + 2 * c.hidden_size * c.mlp_dim))
-        attn = 12 * c.num_layers * c.hidden_size * t
+        h = c.hidden_size
+        embed = c.vocab_size * h + c.max_seq_len * h
+
+        def layer(seq):
+            return 6.0 * (4 * h ** 2 + 2 * h * c.mlp_dim) + 12 * h * seq
+
+        if ltd_keep is not None and ltd_keep < t and c.num_layers >= 3:
+            return (6.0 * embed + 2 * layer(t)
+                    + (c.num_layers - 2) * layer(ltd_keep) * ltd_keep / t)
+        n_params = embed + c.num_layers * (4 * h ** 2 + 2 * h * c.mlp_dim)
+        attn = 12 * c.num_layers * h * t
         return 6.0 * n_params + attn

@@ -34,7 +34,7 @@ from typing import Optional, Union
 
 import torch
 
-from deepspeed_tpu_torch.ops import cuda_build
+from deepspeed_tpu_torch.ops import cuda_build, kernel_flops
 
 _THREADS, _MAX_PER_THREAD = 128, 16   # csrc/decode_split.cuh block shape
 _STAGE_ROWS = 64                      # csrc/decode_split.cuh kStageRows
@@ -103,6 +103,15 @@ def supports(hq: int, hkv: int, s_max: int, dh: int, itemsize: int = 2) -> bool:
     return (hkv > 0 and hq % hkv == 0 and s_max > 0
             and (dh * itemsize) % 16 == 0
             and (hq // hkv) * dh <= _THREADS * _MAX_PER_THREAD)
+
+
+def _report(name: str, q, idx, s_max: int) -> None:
+    """The decode step's products to the FLOPs profiler (ops/kernel_flops.py):
+    the per-slot lengths are read only while it counts."""
+    if kernel_flops.counting():
+        b, _, hq, dh = q.shape
+        kernel_flops.report(name, kernel_flops.decode_flops(hq, dh, idx, b,
+                                                            s_max))
 
 
 def _idx_vector(idx, b: int, device) -> torch.Tensor:
@@ -183,8 +192,9 @@ def fused_decode_step(q: torch.Tensor, k_full: torch.Tensor,
     Returns ``(attn [B, 1, Hq, Dh], k_full, v_full)``; the returned caches
     are the inputs, written in place."""
     if q.device.type == "cpu":
-        return fused_decode_step_plain(q, k_full, v_full, k_new, v_new,
-                                       layer, idx, scale=scale)
+        _report("fused_decode_step", q, idx, k_full.shape[3])
+        return kernel_flops.plain(fused_decode_step_plain, q, k_full, v_full,
+                                  k_new, v_new, layer, idx, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"fused_decode_step: unsupported device {q.device}")
     b, t, hq, dh = q.shape
@@ -233,6 +243,7 @@ def fused_decode_step(q: torch.Tensor, k_full: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(lib, err, "fused_decode_step")
     fused_decode_step.launches += 1
+    _report("fused_decode_step", q, idx, s_max)
     return out, k_full, v_full
 
 
@@ -293,9 +304,12 @@ def fused_block_decode_step(q: torch.Tensor, k_pool, v_pool,
     Returns ``(attn [B, 1, Hq, Dh], k_pool, v_pool)``; the returned pools
     are the inputs, written in place."""
     if q.device.type == "cpu":
-        return fused_block_decode_step_plain(q, k_pool, v_pool, k_new, v_new,
-                                             layer, idx, block_table,
-                                             scale=scale)
+        _report("fused_block_decode_step", q, idx,
+                block_table.shape[1] * (k_pool["q"] if isinstance(k_pool, dict)
+                                        else k_pool).shape[3])
+        return kernel_flops.plain(fused_block_decode_step_plain, q, k_pool,
+                                  v_pool, k_new, v_new, layer, idx,
+                                  block_table, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"fused_block_decode_step: unsupported device {q.device}")
     what = "fused_block_decode_step"
@@ -372,6 +386,7 @@ def fused_block_decode_step(q: torch.Tensor, k_pool, v_pool,
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(lib, err, what)
     fused_block_decode_step.launches += 1
+    _report(what, q, idx, mb * bs)
     return out, k_pool, v_pool
 
 

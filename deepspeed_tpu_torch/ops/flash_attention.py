@@ -31,7 +31,9 @@ converted to f32 and every product an f32 FMA on the CUDA cores.
 
 CUDA tensors launch the kernels (bf16, fp16 and f32; Dh 64 or 128; any T,
 causal or not) or raise ``ValueError`` on anything else. CPU tensors run
-the plain versions.
+the plain versions. Either way a wrapper reports its kernel's products to
+the FLOPs profiler (ops/kernel_flops.py): 4, 6 and 8 x BH x Dh x the
+(query, key) pairs visited for D, E and F.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from typing import Optional
 
 import torch
 
-from deepspeed_tpu_torch.ops import cuda_build
+from deepspeed_tpu_torch.ops import cuda_build, kernel_flops
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (64, 128)
@@ -148,11 +150,25 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# products per (query, key) pair and head dim: D computes q.k^T and p.V; E
+# recomputes S and dP and takes dS.K; F recomputes S and dP and takes
+# P^T.dO and dS^T.Q
+_PRODUCTS = {"fwd": 2, "dq": 3, "dkv": 4}
+
+
+def _report(name: str, part: str, qf, kf, causal: bool) -> None:
+    bh, tq, dh = qf.shape
+    pairs = kernel_flops.attn_pairs(tq, kf.shape[1], causal)
+    kernel_flops.report(name, 2 * _PRODUCTS[part] * bh * dh * pairs)
+
+
 def flash_fwd_parts(qf, kf, vf, *, causal: bool, scale: Optional[float] = None):
     """Kernel-level forward on flat operands: q ``[BH, Tq, Dh]``, k/v ``[BH,
     Tk, Dh]`` → ``(out [BH, Tq, Dh], lse f32 [BH, Tq, 1])``."""
     if qf.device.type == "cpu":
-        return flash_fwd_parts_plain(qf, kf, vf, causal=causal, scale=scale)
+        _report("flash_fwd_parts", "fwd", qf, kf, causal)
+        return kernel_flops.plain(flash_fwd_parts_plain, qf, kf, vf,
+                                  causal=causal, scale=scale)
     if qf.device.type != "cuda":
         raise ValueError(f"flash_fwd_parts: unsupported device {qf.device}")
     if _f32_precise():
@@ -176,6 +192,7 @@ def _launch_fwd(wrapper, fn: str, qf, kf, vf, causal, scale):
                            cuda_build.dtype_code(qf.dtype), _stream(qf))
     cuda_build.check(lib, err, wrapper.__name__)
     wrapper.launches += 1
+    _report(wrapper.__name__, "fwd", qf, kf, causal)
     return out, lse
 
 
@@ -190,6 +207,7 @@ def _launch_dq(wrapper, fn: str, qf, kf, vf, dof, lse, delta, causal, scale):
                            sc, cuda_build.dtype_code(qf.dtype), _stream(qf))
     cuda_build.check(lib, err, wrapper.__name__)
     wrapper.launches += 1
+    _report(wrapper.__name__, "dq", qf, kf, causal)
     return dq
 
 
@@ -205,6 +223,7 @@ def _launch_dkv(wrapper, fn: str, qf, kf, vf, dof, lse, delta, causal, scale):
                            cuda_build.dtype_code(qf.dtype), _stream(qf))
     cuda_build.check(lib, err, wrapper.__name__)
     wrapper.launches += 1
+    _report(wrapper.__name__, "dkv", qf, kf, causal)
     return dk, dv
 
 
@@ -223,8 +242,9 @@ def flash_bwd_dq(qf, kf, vf, dof, lse, delta, *, causal: bool,
                  scale: Optional[float] = None):
     """Backward dQ ``[BH, Tq, Dh]`` (kernel E)."""
     if qf.device.type == "cpu":
-        return flash_bwd_dq_plain(qf, kf, vf, dof, lse, delta, causal=causal,
-                                  scale=scale)
+        _report("flash_bwd_dq", "dq", qf, kf, causal)
+        return kernel_flops.plain(flash_bwd_dq_plain, qf, kf, vf, dof, lse,
+                                  delta, causal=causal, scale=scale)
     if qf.device.type != "cuda":
         raise ValueError(f"flash_bwd_dq: unsupported device {qf.device}")
     if _f32_precise():
@@ -241,8 +261,9 @@ def flash_bwd_dkv(qf, kf, vf, dof, lse, delta, *, causal: bool,
                   scale: Optional[float] = None):
     """Backward ``(dK, dV)``, each ``[BH, Tk, Dh]`` (kernel F)."""
     if qf.device.type == "cpu":
-        return flash_bwd_dkv_plain(qf, kf, vf, dof, lse, delta, causal=causal,
-                                   scale=scale)
+        _report("flash_bwd_dkv", "dkv", qf, kf, causal)
+        return kernel_flops.plain(flash_bwd_dkv_plain, qf, kf, vf, dof, lse,
+                                  delta, causal=causal, scale=scale)
     if qf.device.type != "cuda":
         raise ValueError(f"flash_bwd_dkv: unsupported device {qf.device}")
     if _f32_precise():
@@ -274,8 +295,9 @@ def flash_fwd_precise(qf, kf, vf, *, causal: bool,
     """Kernel D in f32-precise mode: :func:`flash_fwd_parts` with p kept in
     f32 for P.V (``csrc/flash_precise.cu``)."""
     if not _on_cuda("flash_fwd_precise", qf):
-        return flash_fwd_parts_plain(qf, kf, vf, causal=causal, scale=scale,
-                                     precise=True)
+        _report("flash_fwd_precise", "fwd", qf, kf, causal)
+        return kernel_flops.plain(flash_fwd_parts_plain, qf, kf, vf,
+                                  causal=causal, scale=scale, precise=True)
     return _launch_fwd(flash_fwd_precise, "dst_flash_fwd_precise", qf, kf, vf,
                        causal, scale)
 
@@ -287,8 +309,10 @@ def flash_bwd_dq_precise(qf, kf, vf, dof, lse, delta, *, causal: bool,
                          scale: Optional[float] = None):
     """Kernel E in f32-precise mode: dS kept in f32 for dS.K."""
     if not _on_cuda("flash_bwd_dq_precise", qf):
-        return flash_bwd_dq_plain(qf, kf, vf, dof, lse, delta, causal=causal,
-                                  scale=scale, precise=True)
+        _report("flash_bwd_dq_precise", "dq", qf, kf, causal)
+        return kernel_flops.plain(flash_bwd_dq_plain, qf, kf, vf, dof, lse,
+                                  delta, causal=causal, scale=scale,
+                                  precise=True)
     return _launch_dq(flash_bwd_dq_precise, "dst_flash_bwd_dq_precise", qf, kf,
                       vf, dof, lse, delta, causal, scale)
 
@@ -301,8 +325,10 @@ def flash_bwd_dkv_precise(qf, kf, vf, dof, lse, delta, *, causal: bool,
     """Kernel F in f32-precise mode: p and dS kept in f32 for P^T.dO and
     dS^T.Q."""
     if not _on_cuda("flash_bwd_dkv_precise", qf):
-        return flash_bwd_dkv_plain(qf, kf, vf, dof, lse, delta, causal=causal,
-                                   scale=scale, precise=True)
+        _report("flash_bwd_dkv_precise", "dkv", qf, kf, causal)
+        return kernel_flops.plain(flash_bwd_dkv_plain, qf, kf, vf, dof, lse,
+                                  delta, causal=causal, scale=scale,
+                                  precise=True)
     return _launch_dkv(flash_bwd_dkv_precise, "dst_flash_bwd_dkv_precise", qf,
                        kf, vf, dof, lse, delta, causal, scale)
 

@@ -28,7 +28,7 @@ from typing import Optional, Union
 
 import torch
 
-from deepspeed_tpu_torch.ops import cuda_build, decode_step
+from deepspeed_tpu_torch.ops import cuda_build, decode_step, kernel_flops
 
 HEAD_DIMS = (64, 128, 256)          # csrc/flash_decode.cu instantiations
 STAGE_POSITIONS = 32                # csrc/flash_decode.cu mha::kPos
@@ -137,6 +137,15 @@ def _launch(q, k_cache, v_cache, cache_index, scale, mha: bool, what: str):
     return out
 
 
+def _report(name: str, q, k_cache, cache_index) -> None:
+    """The kernel's products to the FLOPs profiler (ops/kernel_flops.py); a
+    tensor index is read only while it counts."""
+    if kernel_flops.counting():
+        b, _, hq, dh = q.shape
+        kernel_flops.report(name, kernel_flops.decode_flops(
+            hq, dh, cache_index, b, k_cache.shape[2]))
+
+
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor,
                  cache_index: Union[int, torch.Tensor], *,
@@ -150,12 +159,15 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if q.shape[2] == k_cache.shape[1]:
         return flash_decode_mha(q, k_cache, v_cache, cache_index, scale=scale)
     if q.device.type == "cpu":
-        return flash_decode_plain(q, k_cache, v_cache, cache_index, scale=scale)
+        _report("flash_decode", q, k_cache, cache_index)
+        return kernel_flops.plain(flash_decode_plain, q, k_cache, v_cache,
+                                  cache_index, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
     out = _launch(q, k_cache, v_cache, cache_index, scale, False,
                   "flash_decode")
     flash_decode.launches += 1
+    _report("flash_decode", q, k_cache, cache_index)
     return out
 
 
@@ -169,12 +181,15 @@ def flash_decode_mha(q: torch.Tensor, k_cache: torch.Tensor,
     """The rep == 1 computation of :func:`flash_decode` (the reference's
     ``_mha_kernel``: q, K and V upcast to f32, probabilities not rounded)."""
     if q.device.type == "cpu":
-        return flash_decode_plain(q, k_cache, v_cache, cache_index, scale=scale)
+        _report("flash_decode_mha", q, k_cache, cache_index)
+        return kernel_flops.plain(flash_decode_plain, q, k_cache, v_cache,
+                                  cache_index, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_mha: unsupported device {q.device}")
     out = _launch(q, k_cache, v_cache, cache_index, scale, True,
                   "flash_decode_mha")
     flash_decode_mha.launches += 1
+    _report("flash_decode_mha", q, k_cache, cache_index)
     return out
 
 

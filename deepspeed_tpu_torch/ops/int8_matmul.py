@@ -20,7 +20,8 @@ the whole of D, with no split and no partials. For bf16/fp16 x it runs
 kernel 2's tensor-core body over :func:`grid_plan`'s column tiles (32 or 64
 columns, narrow enough to fill the SMs); f32 x stays on the CUDA cores. It
 is unrouted, as in the reference: ``models/base.qdot`` calls
-:func:`int8_matmul_dma`.
+:func:`int8_matmul_dma`. Both report ``2 N D E`` to the FLOPs profiler
+(ops/kernel_flops.py) on either route.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from deepspeed_tpu_torch.ops import cuda_build
+from deepspeed_tpu_torch.ops import cuda_build, kernel_flops
 
 MAX_ROWS = 32   # decode-width activations only (models/base.qdot routes)
 
@@ -40,6 +41,11 @@ def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     if q.ndim == 3:
         q, s = q[layer], s[layer]
     return ((x.float() @ q.float()) * s.reshape(-1).float()).to(x.dtype)
+
+
+def _report(name: str, x, q) -> None:
+    kernel_flops.report(name, 2 * (x.numel() // x.shape[-1]) * q.shape[-2]
+                        * q.shape[-1])
 
 
 def k_splits(d: int) -> int:
@@ -138,7 +144,8 @@ def int8_matmul_dma(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     (``s`` ``[L, 1, E]``); the kernel offsets into the stacked tensor, so no
     slice is copied."""
     if x.device.type == "cpu":
-        return int8_matmul_plain(x, q, s, layer)
+        _report("int8_matmul_dma", x, q)
+        return kernel_flops.plain(int8_matmul_plain, x, q, s, layer)
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul_dma: unsupported device {x.device}")
     stacked = q.ndim == 3
@@ -152,6 +159,7 @@ def int8_matmul_dma(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
         raise ValueError(f"layer {layer} outside [0, {nl})")
     out = _launch_dma(x, q, s, layer)
     int8_matmul_dma.launches += 1
+    _report("int8_matmul_dma", x, q)
     return out
 
 
@@ -187,13 +195,15 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tens
     -> [N, E]`` in x's dtype. ``s`` may carry leading unit dims (``[1, E]``),
     as in the reference. :func:`int8_matmul_plain` is its plain version."""
     if x.device.type == "cpu":
-        return int8_matmul_plain(x, q, s)
+        _report("int8_matmul", x, q)
+        return kernel_flops.plain(int8_matmul_plain, x, q, s)
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul: unsupported device {x.device}")
     if q.ndim != 2:
         raise ValueError(f"int8_matmul: q {tuple(q.shape)} is not [D, E]")
     out = _launch_grid(x, q, s)
     int8_matmul.launches += 1
+    _report("int8_matmul", x, q)
     return out
 
 

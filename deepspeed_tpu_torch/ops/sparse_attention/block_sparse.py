@@ -63,7 +63,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.ops import cuda_build
+from deepspeed_tpu_torch.ops import cuda_build, kernel_flops
 
 _NEG_INF = -1e30
 _PART = 64              # table entries per work item at most
@@ -418,6 +418,18 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _report(name: str, products: int, qf, luts: SparseLuts,
+            block: int) -> None:
+    """The kernel's products over every active block (block x block pairs,
+    masked ones included) to the FLOPs profiler (ops/kernel_flops.py); the
+    table's counts are read only while it counts."""
+    if kernel_flops.counting():
+        h = luts.cnt_q.shape[0]
+        blocks = int(luts.cnt_q.sum()) * (qf.shape[0] // h)
+        kernel_flops.report(name, 2 * products * blocks * block * block
+                            * qf.shape[-1])
+
+
 def _cuda_only(what: str, qf) -> None:
     if qf.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {qf.device}")
@@ -429,9 +441,10 @@ def block_sparse_fwd(qf, kf, vf, luts: SparseLuts, *, block: int, causal: bool,
     ``(out [BH, T, Dh], lse f32 [BH, T])``, from the cached work list (cut
     rows through f32 partials from ``torch.empty``, merged by a second
     launch)."""
+    _report("block_sparse_fwd", 2, qf, luts, block)
     if qf.device.type == "cpu":
-        return block_sparse_fwd_plain(qf, kf, vf, luts, block=block,
-                                      causal=causal, scale=scale)
+        return kernel_flops.plain(block_sparse_fwd_plain, qf, kf, vf, luts,
+                                  block=block, causal=causal, scale=scale)
     _cuda_only("block_sparse_fwd", qf)
     bh, h, t, dh = _check("block_sparse_fwd", luts, block,
                           (("q", qf), ("k", kf), ("v", vf)))
@@ -467,9 +480,11 @@ def block_sparse_bwd_dq(qf, kf, vf, dof, lse, delta, luts: SparseLuts, *,
     """Backward dQ ``[BH, T, Dh]`` from lse and ``delta = rowsum(dO * O)``
     (f32 ``[BH, T]``), from the cached work list (cut rows through f32
     partials from ``torch.empty``, summed by a second launch)."""
+    _report("block_sparse_bwd_dq", 3, qf, luts, block)
     if qf.device.type == "cpu":
-        return block_sparse_bwd_dq_plain(qf, kf, vf, dof, lse, delta, luts,
-                                         block=block, causal=causal, scale=scale)
+        return kernel_flops.plain(block_sparse_bwd_dq_plain, qf, kf, vf, dof,
+                                  lse, delta, luts, block=block,
+                                  causal=causal, scale=scale)
     _cuda_only("block_sparse_bwd_dq", qf)
     bh, h, t, dh = _check("block_sparse_bwd_dq", luts, block,
                           _bwd_operands(qf, kf, vf, dof, lse, delta))
@@ -501,10 +516,11 @@ def block_sparse_bwd_dkv(qf, kf, vf, dof, lse, delta, luts: SparseLuts, *,
     """Backward ``(dK, dV)``, each ``[BH, T, Dh]``, over the transposed
     table, from the cached work list (split columns through f32 partials
     from ``torch.empty``, summed by a second launch)."""
+    _report("block_sparse_bwd_dkv", 4, qf, luts, block)
     if qf.device.type == "cpu":
-        return block_sparse_bwd_dkv_plain(qf, kf, vf, dof, lse, delta, luts,
-                                          block=block, causal=causal,
-                                          scale=scale)
+        return kernel_flops.plain(block_sparse_bwd_dkv_plain, qf, kf, vf, dof,
+                                  lse, delta, luts, block=block,
+                                  causal=causal, scale=scale)
     _cuda_only("block_sparse_bwd_dkv", qf)
     bh, h, t, dh = _check("block_sparse_bwd_dkv", luts, block,
                           _bwd_operands(qf, kf, vf, dof, lse, delta))

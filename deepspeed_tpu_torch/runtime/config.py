@@ -10,8 +10,9 @@ The sections the port runs are parsed whole; those whose subsystem it
 does not run yet are read for the switch that turns them on, are listed by
 :meth:`DeepSpeedConfig.not_ported` when on, and the training engine raises
 :class:`NotPortedError` for them rather than quietly training without
-them. ``telemetry`` (on by default, as in the reference) and
-``wall_clock_breakdown`` run.
+them. ``telemetry`` (on by default, as in the reference),
+``wall_clock_breakdown``, progressive layer drop, random-LTD, curriculum
+learning, the monitors and the flops profiler's section run.
 """
 
 from __future__ import annotations
@@ -22,6 +23,9 @@ import os
 from typing import Any, Dict, List, Optional, Union
 
 from deepspeed_tpu_torch.errors import DeepSpeedConfigError, NotPortedError  # noqa: F401
+from deepspeed_tpu_torch.monitor.config import DeepSpeedMonitorConfig, get_monitor_config
+from deepspeed_tpu_torch.profiling.config import (DeepSpeedFlopsProfilerConfig,
+                                                  get_flops_profiler_config)
 from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime.config_utils import (
     DeepSpeedConfigModel,
@@ -29,6 +33,7 @@ from deepspeed_tpu_torch.runtime.config_utils import (
 )
 from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig, ZeroStageEnum
 from deepspeed_tpu_torch.telemetry.config import TelemetryConfig
+from deepspeed_tpu_torch.utils.logging import logger
 
 
 class FP16Config(DeepSpeedConfigModel):
@@ -96,10 +101,17 @@ class ExpertParallelConfig(DeepSpeedConfigModel):
 
 class EnabledConfig(DeepSpeedConfigModel):
     """A section that matters to the port only through ``enabled``: the
-    hybrid engine, progressive layer drop, the monitor backends, the flops
-    profiler, the comms logger."""
+    hybrid engine, the comms logger."""
 
     enabled: bool = False
+
+
+class PLDConfig(DeepSpeedConfigModel):
+    """Progressive layer drop (reference progressive_layer_drop section)."""
+
+    enabled: bool = False
+    theta: float = 0.5
+    gamma: float = 0.001
 
 
 class ResilienceConfig(DeepSpeedConfigModel):
@@ -109,9 +121,6 @@ class ResilienceConfig(DeepSpeedConfigModel):
 
     enabled: bool = False
     check_finite_grads: Optional[bool] = None
-
-
-_MONITORS = ("tensorboard", "wandb", "csv_monitor", "jsonl_monitor")
 
 
 def _read_config_dict(config: Union[str, dict]) -> dict:
@@ -185,22 +194,43 @@ class DeepSpeedConfig:
         self.activation_checkpointing_config = ActivationCheckpointingConfig(
             **d.get(C.ACTIVATION_CHECKPOINTING, {}))
         self.checkpoint_config = CheckpointConfig(**d.get(C.CHECKPOINT, {}))
-        self.monitor_config = {k: EnabledConfig(**d.get(k, {}))
-                               for k in _MONITORS}
+        self.monitor_config: DeepSpeedMonitorConfig = get_monitor_config(d)
         self.telemetry_config = TelemetryConfig(**d.get("telemetry", {}))
-        self.flops_profiler_config = EnabledConfig(**d.get("flops_profiler", {}))
+        self.flops_profiler_config: DeepSpeedFlopsProfilerConfig = \
+            get_flops_profiler_config(d)
         self.comms_logger_config = EnabledConfig(**d.get("comms_logger", {}))
         self.resilience_config = ResilienceConfig(**d.get(C.RESILIENCE, {}))
         self.hybrid_engine = EnabledConfig(**d.get("hybrid_engine", {}))
-        self.pld_config = EnabledConfig(**d.get("progressive_layer_drop", {}))
-        rltd = d.get(C.DATA_EFFICIENCY, {}).get("data_routing", {}).get("random_ltd", {})
+        self.pld_config = PLDConfig(**d.get("progressive_layer_drop", {}))
+        # random-LTD (data_efficiency.data_routing.random_ltd): the inner
+        # flag governs, as in the reference, which warns when an outer
+        # 'enabled' flag says otherwise
+        de = d.get(C.DATA_EFFICIENCY, {})
+        dr = de.get("data_routing", {})
+        rltd = dr.get("random_ltd", {})
         self.random_ltd_enabled = bool(rltd.get("enabled", False))
-        self.curriculum_enabled_legacy = bool(
-            d.get("curriculum_learning", {}).get("enabled", False))
+        if self.random_ltd_enabled and not (
+                bool(de.get("enabled", True))
+                and bool(dr.get("enabled", True))):
+            logger.warning(
+                "random_ltd.enabled is true but an outer data_efficiency/"
+                "data_routing 'enabled' flag is false; matching reference "
+                "semantics the inner flag governs — random-LTD stays "
+                "ENABLED (drop the inner flag to disable it)")
+        self.random_ltd_params = rltd
+        # legacy curriculum learning: the engine truncates each batch to
+        # the scheduled sequence length
+        cl = d.get("curriculum_learning", {})
+        self.curriculum_enabled_legacy = bool(cl.get("enabled", False))
+        self.curriculum_params_legacy = {k: v for k, v in cl.items()
+                                         if k != "enabled"}
         self.dataloader_drop_last = d.get(C.DATALOADER_DROP_LAST, C.DATALOADER_DROP_LAST_DEFAULT)
 
         # ---------------- misc ------------------------------------------------
         self.steps_per_print = d.get(C.STEPS_PER_PRINT, C.STEPS_PER_PRINT_DEFAULT)
+        # the monitors' cadence; 0 (default) follows steps_per_print
+        self.monitor_interval = int(d.get(C.MONITOR_INTERVAL,
+                                          C.MONITOR_INTERVAL_DEFAULT))
         self.wall_clock_breakdown = d.get(C.WALL_CLOCK_BREAKDOWN, C.WALL_CLOCK_BREAKDOWN_DEFAULT)
         self.memory_breakdown = d.get(C.MEMORY_BREAKDOWN, C.MEMORY_BREAKDOWN_DEFAULT)
         self.seed = d.get(C.SEED, C.SEED_DEFAULT)
@@ -273,12 +303,9 @@ class DeepSpeedConfig:
                 self.sequence_parallel.sp_size > 1,
             f"ep_size={self.expert_parallel.ep_size}":
                 self.expert_parallel.ep_size > 1,
-            "progressive_layer_drop": self.pld_config.enabled,
-            "random_ltd": self.random_ltd_enabled,
-            "curriculum_learning": self.curriculum_enabled_legacy,
-            "monitor (" + ", ".join(_MONITORS) + ")": any(
-                m.enabled for m in self.monitor_config.values()),
-            "flops_profiler": self.flops_profiler_config.enabled,
+            # progressive_layer_drop, random_ltd, curriculum_learning, the
+            # monitors and flops_profiler run (the profiler's section is
+            # parsed and, as in the reference, not read by the engine)
             "comms_logger": self.comms_logger_config.enabled,
             "resilience (sentinel)": self.resilience_config.enabled,
             "elasticity": self.elasticity_enabled,

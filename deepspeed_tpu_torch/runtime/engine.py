@@ -53,11 +53,25 @@ guard's ``train/nonfinite_skipped_steps``, ``device/mem_*``). With
 ``telemetry.flight_recorder`` tees the stream into a flight recorder.
 ``wall_clock_breakdown`` times the forward, backward, optimizer step and
 whole batch on CUDA events (utils/timer.py), read and logged every
-``steps_per_print`` steps.
+``steps_per_print`` steps. The step's FLOPs follow each step's sequence
+length and random-LTD's kept tokens (``_train_step_flops``): the
+reference counts its first step only.
+
+Data efficiency, as the reference wires it (``train_batch``): the legacy
+curriculum truncates each batch to the scheduled length on the host;
+random-LTD passes the scheduler's kept-token count to ``model.apply`` as
+``ltd_keep`` (both step paths); progressive layer drop passes
+``pld_theta`` on the device-state path (the reference's host-optimizer
+step takes none) and advances its schedule after every step, on the
+forward/backward/step path too. The monitors (``tensorboard``, ``wandb``,
+``csv_monitor``, ``jsonl_monitor``) get the loss, the LR and fp16's loss
+scale every ``monitor_interval`` steps (default ``steps_per_print``). The
+generator that draws attention dropout draws PLD's and LTD's masks.
 """
 
 from __future__ import annotations
 
+import inspect
 import time
 from typing import Any, Iterator, NamedTuple, Optional, Union
 
@@ -66,6 +80,7 @@ import torch
 
 from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.errors import NotPortedError
+from deepspeed_tpu_torch.monitor.monitor import MonitorMaster
 from deepspeed_tpu_torch.ops.adam import build_optimizer
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.lr_schedules import build_lr_scheduler
@@ -187,6 +202,9 @@ class DeepSpeedEngine:
         self._path_t0: Optional[float] = None
         self._path_loss = None
 
+        self._init_data_efficiency(config)
+        self.monitor = MonitorMaster(config.monitor_config)
+
         # ---- wall-clock breakdown: CUDA-event timers, read at the log
         self.timers = (SynchronizedWallClockTimer(self.device)
                        if config.wall_clock_breakdown else None)
@@ -204,15 +222,57 @@ class DeepSpeedEngine:
             f"{config.gradient_accumulation_steps})", ranks=[0])
 
     # ------------------------------------------------------------------- init
+    def _init_data_efficiency(self, config) -> None:
+        """Progressive layer drop, random-LTD and the legacy curriculum
+        (the reference's construction, engine.py:193-240 and its
+        curriculum block)."""
+        accepts = inspect.signature(self.module.apply).parameters
+        self.progressive_layer_drop = None
+        self._use_pld = False
+        if config.pld_config.enabled:
+            from deepspeed_tpu_torch.runtime.progressive_layer_drop import ProgressiveLayerDrop
+
+            self.progressive_layer_drop = ProgressiveLayerDrop(
+                theta=config.pld_config.theta, gamma=config.pld_config.gamma)
+            self._use_pld = "pld_theta" in accepts
+            if not self._use_pld:
+                log_dist("progressive_layer_drop: model.apply does not "
+                         "accept pld_theta — schedule tracked but layers "
+                         "are NOT dropped", ranks=[0])
+        self.random_ltd_scheduler = None
+        self._use_random_ltd = False
+        if config.random_ltd_enabled:
+            from deepspeed_tpu_torch.runtime.data_pipeline.random_ltd import RandomLTDScheduler
+
+            self.random_ltd_scheduler = RandomLTDScheduler(config.random_ltd_params)
+            self._use_random_ltd = "ltd_keep" in accepts
+            if not self._use_random_ltd:
+                log_dist("random_ltd: model.apply does not accept "
+                         "ltd_keep — schedule tracked but tokens are NOT "
+                         "dropped", ranks=[0])
+            elif self._use_pld:
+                log_dist("random_ltd and progressive_layer_drop are "
+                         "mutually exclusive; disabling random_ltd",
+                         ranks=[0])
+                self._use_random_ltd = False
+        self.curriculum_scheduler = None
+        if config.curriculum_enabled_legacy:
+            from deepspeed_tpu_torch.runtime.data_pipeline import CurriculumScheduler
+
+            self.curriculum_scheduler = CurriculumScheduler(
+                config.curriculum_params_legacy)
+
     def _init_telemetry(self, tcfg) -> None:
         """The registry, the owned JSONL sink, the span tracer and the
         flight recorder's tee, as the reference arms them."""
         self.telemetry = None
         self._telemetry_flops: Optional[float] = None   # None: not counted
         self._telemetry_bytes: Optional[float] = None
+        self._param_counts = None        # (elements, state bytes), counted once
         self._fence_t: Optional[float] = None
         self._fence_step = 0
         self._fence_tokens = 0
+        self._fence_flops = 0.0
         self._owned_sink = None
         self.tracer = None
         self._train_trace = None
@@ -291,12 +351,13 @@ class DeepSpeedEngine:
 
         return tree_map(move, batch) if isinstance(batch, dict) else move(batch)
 
-    def _micro_loss(self, batch):
-        """``(loss, scaled_loss, leaves)`` of one micro-batch, graph kept."""
+    def _micro_loss(self, batch, **kwargs):
+        """``(loss, scaled_loss, leaves)`` of one micro-batch, graph kept;
+        ``kwargs`` (``pld_theta``, ``ltd_keep``) go to ``model.apply``."""
         leaves = self._compute_params()
         loss, _ = self.module.apply(leaves, batch,
                                     rngs={"dropout": self._dropout_rng},
-                                    train=True)
+                                    train=True, **kwargs)
         return loss, loss * self.state.scaler.cur_scale, leaves
 
     def _accumulate(self, leaves):
@@ -415,13 +476,24 @@ class DeepSpeedEngine:
         t_start = time.perf_counter()
         self._timer(TRAIN_BATCH_TIMER, True)
         lr = self.get_lr()[0]
+        batch = self._apply_curriculum(batch)
         tokens, seq = self._batch_token_count(batch)
+        kwargs = {}
+        ltd_keep = None
+        if self._use_random_ltd:
+            keep = self.random_ltd_scheduler.update_seq(self.global_steps)
+            if not seq or keep < seq:
+                ltd_keep = kwargs["ltd_keep"] = keep
+        if self._use_pld and self._host_opt is None:
+            # the reference's host-optimizer step passes no theta
+            kwargs["pld_theta"] = self.progressive_layer_drop.get_theta()
+        scale = self.state.scaler.cur_scale
         batch = self._to_device(batch)
         loss_sum = None
         for i in range(self.gas):
             mb = tree_map(lambda x: x[i], batch) if isinstance(batch, dict) else batch[i]
             self._timer(FORWARD_GLOBAL_TIMER, True)
-            loss, scaled, leaves = self._micro_loss(mb)
+            loss, scaled, leaves = self._micro_loss(mb, **kwargs)
             self._timer(FORWARD_GLOBAL_TIMER, False)
             self._timer(BACKWARD_GLOBAL_TIMER, True)
             scaled.backward()
@@ -439,12 +511,53 @@ class DeepSpeedEngine:
         self.micro_steps += self.gas
         self._finish_step()
         loss = loss_sum / self.gas
+        self._after_step(loss, scale)
         self._timer(TRAIN_BATCH_TIMER, False)
         if self.telemetry is not None:
             self._record_step_telemetry(loss, tokens, seq,
-                                        time.perf_counter() - t_start)
+                                        time.perf_counter() - t_start,
+                                        ltd_keep=ltd_keep)
         self._log_step(loss)
         return loss
+
+    def _apply_curriculum(self, batch):
+        """Legacy curriculum: the sequence keys of the (host) batch cut to
+        the scheduled difficulty (the reference's ``_apply_curriculum``,
+        its engine.py:1653 ``curriculum_seqlen``)."""
+        if self.curriculum_scheduler is None:
+            return batch
+        seqlen = self.curriculum_scheduler.update_difficulty(
+            self.global_steps + 1)
+        seq_keys = {"input_ids", "labels", "attention_mask",
+                    "token_type_ids", "position_ids"}
+
+        def trunc(node):
+            if isinstance(node, dict):
+                return {k: (v[..., :seqlen]
+                            if k in seq_keys and hasattr(v, "ndim") and
+                            v.ndim >= 2 else trunc(v))
+                        for k, v in node.items()}
+            return node
+
+        return trunc(batch)
+
+    def _after_step(self, loss, loss_scale) -> None:
+        """After a train_batch step: the PLD schedule, then the monitors'
+        events every ``monitor_interval`` steps (the loss read to the host
+        only then): the loss, the next step's LR and, under fp16, the loss
+        scale the step ran at."""
+        if self.progressive_layer_drop is not None:
+            self.progressive_layer_drop.update_state(self.global_steps)
+        cfg = self.config
+        interval = cfg.monitor_interval or max(cfg.steps_per_print or 0, 1)
+        if self.monitor.enabled and self.global_steps % interval == 0:
+            step = self.global_steps
+            events = [("Train/Samples/train_loss", float(loss), step),
+                      ("Train/Samples/lr", self.get_lr()[0], step)]
+            if self.fp16_enabled:
+                events.append(("Train/Samples/loss_scale", float(loss_scale),
+                               step))
+            self.monitor.write_events(events)
 
     def _take_grads(self):
         """The accumulated grads, handed over (the engine keeps no
@@ -474,11 +587,13 @@ class DeepSpeedEngine:
         return 0, 0
 
     def _record_step_telemetry(self, loss, tokens: int, seq: int,
-                               wall_dt: float) -> None:
-        """Per step: two counters and a histogram observation; everything
-        that needs the device waits for the periodic fence."""
+                               wall_dt: float, ltd_keep=None) -> None:
+        """Per step: two counters, a histogram observation and the step's
+        FLOPs (host arithmetic); everything that needs the device waits for
+        the periodic fence."""
         reg = self.telemetry
         reg.counter("train/steps").inc()
+        self._fence_flops += self._train_step_flops(tokens, seq, ltd_keep) or 0.0
         if tokens:
             self._fence_tokens += tokens
             reg.counter("train/tokens").inc(tokens)
@@ -486,7 +601,7 @@ class DeepSpeedEngine:
         interval = self.config.telemetry_config.sync_interval
         if interval and (self.global_steps % interval == 0
                          or self.global_steps == 1):
-            self._telemetry_fence(loss, tokens, seq)
+            self._telemetry_fence(loss)
 
     def _reset_telemetry_window(self) -> None:
         """Drop the fence-to-fence baseline, so that work between fences
@@ -494,8 +609,9 @@ class DeepSpeedEngine:
         self._fence_t = None
         self._fence_step = self.global_steps
         self._fence_tokens = 0
+        self._fence_flops = 0.0
 
-    def _telemetry_fence(self, loss, tokens: int, seq: int) -> None:
+    def _telemetry_fence(self, loss) -> None:
         """The periodic fence: one synchronize of the engine's device, then
         the device rate since the previous fence and the step's scalars
         (their reads wait on nothing once the device is drained)."""
@@ -515,15 +631,15 @@ class DeepSpeedEngine:
             if self._fence_tokens:
                 reg.gauge("train/tokens_per_sec").set(
                     self._fence_tokens / (now - self._fence_t))
-            flops = self._telemetry_flops
+            flops = self._fence_flops / steps      # the window's mean step
             if flops:
                 reg.gauge("train/model_tflops").set(flops / dev_step_s / 1e12)
                 u = mfu(flops, dev_step_s, 1, self.accelerator.device_name())
                 if u is not None:
                     reg.gauge("train/mfu").set(u)
-        self._train_step_flops(tokens, seq)
         self._fence_step = self.global_steps
         self._fence_tokens = 0
+        self._fence_flops = 0.0
         reg.gauge("train/grad_norm").set(float(self._global_grad_norm))
         reg.gauge("train/loss").set(float(loss))
         skipped = max(self.global_steps - self.state.global_step, 0)
@@ -541,10 +657,15 @@ class DeepSpeedEngine:
         # the next window starts after the reads, so only steps are charged
         self._fence_t = time.perf_counter()
 
-    def _train_step_flops(self, tokens: int, seq: int) -> Optional[float]:
-        """FLOPs of one train step, counted once. ``cost_analysis`` true:
-        ``model.flops_per_token(seq) * tokens`` (forward, backward and the
-        attention term; chip_smoke's train_774m counts the same), with the
+    def _train_step_flops(self, tokens: int, seq: int,
+                          ltd_keep: Optional[int] = None) -> Optional[float]:
+        """FLOPs of one train step at its own tokens, sequence length (after
+        the curriculum's cut) and random-LTD kept tokens; sets
+        ``_telemetry_flops`` / ``_telemetry_bytes`` (the train step's
+        roofline row). ``cost_analysis`` true:
+        ``model.flops_per_token(seq[, ltd_keep]) * tokens`` (forward,
+        backward and the attention term; chip_smoke's train_774m counts the
+        same), with the
         step's bytes the update's traffic: every f32 master parameter and
         optimizer-state tensor read and written once, and the compute-dtype
         weights read once by the forward and once by the backward (a lower
@@ -554,34 +675,35 @@ class DeepSpeedEngine:
         upload, and the f32 grads read by the download. Otherwise, or for a
         model without
         ``flops_per_token``: the reference's fallback ``6 * N * tokens``
-        with no bytes."""
-        if self._telemetry_flops is not None:
-            return self._telemetry_flops or None
+        with no bytes. The parameter and state sizes are counted once."""
         flops, nbytes = 0.0, 0.0
         if tokens:
-            params = tree_leaves(self.state.params)
+            if self._param_counts is None:
+                params = tree_leaves(self.state.params)
+                self._param_counts = (
+                    sum(t.numel() for t in params),
+                    sum(t.numel() * t.element_size() for t in
+                        params + tree_leaves(self.state.opt_state)
+                        if isinstance(t, torch.Tensor)))
+            numel, state_bytes = self._param_counts
             if (self.config.telemetry_config.cost_analysis
                     and hasattr(self.module, "flops_per_token")):
-                flops = float(self.module.flops_per_token(seq)) * tokens
+                kw = {} if ltd_keep is None else {"ltd_keep": ltd_keep}
+                flops = float(self.module.flops_per_token(seq, **kw)) * tokens
                 itemsize = torch.empty((), dtype=self.compute_dtype).element_size()
-                numel = sum(t.numel() for t in params)
                 if self._host_opt is not None:
                     nbytes = (3.0 * itemsize + 4.0) * numel
                 else:
-                    state_bytes = sum(
-                        t.numel() * t.element_size() for t in
-                        params + tree_leaves(self.state.opt_state)
-                        if isinstance(t, torch.Tensor))
                     nbytes = 2.0 * state_bytes + 2.0 * itemsize * numel
             else:
-                flops = 6.0 * sum(t.numel() for t in params) * tokens
+                flops = 6.0 * numel * tokens
         self._telemetry_flops = flops
         self._telemetry_bytes = nbytes
         return flops or None
 
     def train_step_attribution(self) -> dict:
         """The train step's roofline row (telemetry/attribution.py): the
-        counted FLOPs and bytes (counted at the first fence) joined with
+        counted FLOPs and bytes (of the last step) joined with
         the fence-measured device step time and the card's roofs; also
         written to the telemetry sink as an ``{"kind": "attribution",
         "scope": "train"}`` record."""
@@ -677,6 +799,8 @@ class DeepSpeedEngine:
             self._timer(STEP_GLOBAL_TIMER, False)
             self._acc_count = 0
             self._finish_step()
+            if self.progressive_layer_drop is not None:
+                self.progressive_layer_drop.update_state(self.global_steps)
             if self.telemetry is not None:
                 # the reference's forward/backward/step path records none;
                 # here it counts like a train_batch step (the last

@@ -40,7 +40,11 @@ card; ZeRO-Offload on the card (a small bf16 LLaMA trained with device
 state, cpu and nvme offload from one init: the first loss bit-identical,
 cpu within 1e-3 of the device state and its images within 1e-2 row by row,
 nvme bit for bit with cpu; the staging slots pinned and only the bf16
-images on the card).
+images on the card); the flash kernels at GPT-2 774M's random-LTD shape
+(B·H 8·20, T_keep 512, Dh 64, bf16, causal), and a small GPT-2 trained
+with random-LTD and with PLD on the card launching them at the kept
+length; the FLOPs profiler's count of a small GPT-2 on the card equal to
+its count on the CPU, forward and forward + backward.
 Flash-decode (both computations:
 GQA rep >= 2 with p rounded, rep 1 in f32): bf16/f16/f32 at Dh 64, 128 and
 256, the CodeLlama-34B decode shape (B 1 and 4, Hq 64 / Hkv 8, S 640), an
@@ -1365,3 +1369,96 @@ def test_gridded_int8_matmul_rejects_bad_inputs(cuda):
     with pytest.raises(TypeError):      # bf16 scales
         int8_matmul(x[:4].contiguous(), q[0], s[0].to(torch.bfloat16))
     assert int8_matmul.launches == n0
+
+
+# ------------------------------------------------- data efficiency (PR 18)
+def test_flash_kernels_at_the_ltd_shape(cuda):
+    """GPT-2 774M's random-LTD middle layers: B·H 8·20, T_keep 512, Dh 64,
+    bf16, causal; held row by row, the backward bit for bit on a repeat."""
+    q, k, v, do = flash_inputs(cuda, torch.bfloat16, 8 * 20, 512, 64, seed=18)
+    out, lse = flash_fwd_parts(q, k, v, causal=True)
+    ref, ref_lse = flash_fwd_parts_plain(q, k, v, causal=True)
+    assert rel_err(out, ref) <= FLASH_TOL[torch.bfloat16]
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    delta = flash_delta(do, ref)
+    grads = (flash_bwd_dq(q, k, v, do, ref_lse, delta, causal=True),
+             *flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal=True))
+    again = (flash_bwd_dq(q, k, v, do, ref_lse, delta, causal=True),
+             *flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal=True))
+    plain = (flash_bwd_dq_plain(q, k, v, do, ref_lse, delta, causal=True),
+             *flash_bwd_dkv_plain(q, k, v, do, ref_lse, delta, causal=True))
+    torch.cuda.synchronize()
+    for got, rep_, want in zip(grads, again, plain):
+        assert torch.isfinite(got.float()).all()
+        assert rel_err(got, want) <= FLASH_TOL[torch.bfloat16]
+        assert torch.equal(got, rep_)
+
+
+def _small_gpt2(layers=4):
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+
+    return GPT2Model(GPT2Config(vocab_size=512, max_seq_len=128,
+                                num_layers=layers, hidden_size=128,
+                                num_heads=2), attn_impl="flash")
+
+
+@pytest.mark.parametrize("option", ["ltd", "pld"])
+def test_data_efficiency_training_launches_the_kernels(cuda, option):
+    """A small GPT-2 (4 layers, 2 heads of Dh 64, bf16) through initialize()
+    on the card: random-LTD keeping 24 of 64 tokens runs the two outer
+    layers' kernels at T 64 and the middle ones' at T 24 (the kernels'
+    reported work pins the split); PLD launches every block's kernels."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops.kernel_flops import attn_pairs, kernel_flops_counter
+
+    extra = ({"data_efficiency": {"data_routing": {"random_ltd": {
+        "enabled": True, "random_ltd_schedule": {"min_value": 24,
+                                                 "max_value": 24}}}}}
+             if option == "ltd" else
+             {"progressive_layer_drop": {"enabled": True, "theta": 0.5,
+                                         "gamma": 1.0}})
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=_small_gpt2(), config={"train_batch_size": 4,
+                                     "gradient_accumulation_steps": 2,
+                                     "bf16": {"enabled": True},
+                                     "steps_per_print": 0, **extra})
+    ids = np.random.RandomState(0).randint(0, 512, (2, 2, 65))
+    batch = {"input_ids": ids[..., :-1], "labels": ids[..., 1:]}
+    n0 = flash_fwd_parts.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches
+    with kernel_flops_counter() as kc:
+        losses = [float(eng.train_batch_from_stacked(batch)) for _ in range(2)]
+    n = (flash_fwd_parts.launches - n0[0], flash_bwd_dq.launches - n0[1],
+         flash_bwd_dkv.launches - n0[2])
+    assert n == (16, 16, 16) and all(np.isfinite(losses))
+    per = 2 * 2 * (2 * 2) * 64       # 2 products of 2 FLOPs, B 2 x H 2, Dh 64
+    lengths = (64, 24, 24, 64) if option == "ltd" else (64,) * 4
+    assert kc.kernels["flash_fwd_parts"] == 4 * per * sum(
+        attn_pairs(t, t, True) for t in lengths)
+    eng.destroy()
+
+
+def test_flops_profiler_counts_the_same_on_the_card_and_the_cpu(cuda):
+    """One forward (get_model_profile) and one forward + backward
+    (count_flops) of a small GPT-2 with the flash kernels: the card's totals
+    and kernel reports equal the CPU's (plain versions) exactly."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.profiling import count_flops, get_model_profile
+    from deepspeed_tpu_torch.utils.tree import tree_map
+
+    model = _small_gpt2(2)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu",
+                        dtype=torch.float32)
+    ids = np.random.RandomState(1).randint(0, 512, (2, 96))
+    out = {}
+    for name, dev in (("cpu", "cpu"), ("card", cuda)):
+        p = tree_map(lambda x: x.to(dev), params)
+        batch = {k: torch.as_tensor(ids).long().to(dev)
+                 for k in ("input_ids", "labels")}
+        fwd = get_model_profile(model, batch, params=p, as_string=False)
+        leaves = tree_map(lambda x: x.to(torch.bfloat16).requires_grad_(), p)
+        step = count_flops(lambda: model.apply(leaves, batch)[0].backward())
+        out[name] = (fwd, step["flops"], step["kernel_flops"])
+    assert out["card"] == out["cpu"], out

@@ -162,13 +162,20 @@ def test_options_not_ported_raise():
             GPT2Model(cfg, attn_impl=impl)
     with pytest.raises(ValueError):            # as the reference
         GPT2Model(GPT2Config.tiny(dropout=0.1), attn_impl="flash")
-    m = GPT2Model(cfg)
+    # progressive layer drop and random-LTD are ported
+    # (tests/test_torch_data_efficiency.py): no longer refused, and at eval
+    # (train=False) both are the plain forward, as in the reference
+    m = GPT2Model(GPT2Config(vocab_size=512, max_seq_len=128, num_layers=3,
+                             hidden_size=64, num_heads=4),
+                  compute_dtype=torch.float32)
     params = m.init(torch.Generator().manual_seed(0))
     ids = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotPortedError):
-        m.forward_hidden(params, ids, pld_theta=0.5)
-    with pytest.raises(NotPortedError):
-        m.forward_hidden(params, ids, ltd_keep=4)
+    plain = m.forward_hidden(params, ids)
+    for kw in ({"pld_theta": 0.5}, {"ltd_keep": 4}):
+        assert torch.equal(m.forward_hidden(params, ids, **kw), plain)
+        got = m.forward_hidden(params, ids, train=True,
+                               rngs=torch.Generator().manual_seed(1), **kw)
+        assert got.shape == plain.shape and torch.isfinite(got).all()
 
 
 @pytest.mark.parametrize("preset", ["tiny", "gpt2_774m", "gpt2_1b3"])

@@ -5,11 +5,11 @@
   statement), and importing the port leaves them out of ``sys.modules``
   (a fresh interpreter). bf16 arrays cross numpy as uint16 bits.
 * The model, op, serving and inference layers import nothing of the
-  training engine (their shared errors live in ``errors.py``). Three
+  training engine (their shared errors live in ``errors.py``). Four
   runtime modules that the reference's models and inference engine import
-  too are open to them — activation checkpointing and the chunked loss
-  (models) and the checkpoint format (inference) — and those import
-  nothing else of the runtime.
+  too are open to them — activation checkpointing, the chunked loss and
+  random-LTD's token routing (models) and the checkpoint format
+  (inference) — and those import nothing else of the runtime.
 * Entry points default to the CUDA card: with no card, ``init_inference()``
   and ``initialize()`` without a device raise instead of carrying on on the
   CPU.
@@ -32,7 +32,8 @@ FORBIDDEN = ("jax", "jaxlib", "deepspeed_tpu", "flax", "optax", "ml_dtypes")
 # runtime modules a lower layer may import (as the reference's do)
 OPEN_TO = {
     "models": ("deepspeed_tpu_torch.runtime.activation_checkpointing",
-               "deepspeed_tpu_torch.runtime.zero.tiling"),
+               "deepspeed_tpu_torch.runtime.zero.tiling",
+               "deepspeed_tpu_torch.runtime.data_pipeline.random_ltd"),
     "inference": ("deepspeed_tpu_torch.runtime.checkpoint_engine",),
 }
 

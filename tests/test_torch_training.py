@@ -466,8 +466,16 @@ ACCEPTED = [(e, i) for e, i in zip(OPTIONS, OPTION_IDS)
 ZERO = [(e, i) for e, i in zip(OPTIONS, OPTION_IDS)
         if "zero_optimization" in e
         or e.get("optimizer", {}).get("type") == "cpu_adam"]
+# progressive layer drop, random-LTD, curriculum learning, the monitors and
+# the flops profiler's section run (tests/test_torch_data_efficiency.py,
+# tests/test_torch_profiling_monitor.py)
+DATA_EFFICIENCY = [(e, i) for e, i in zip(OPTIONS, OPTION_IDS)
+                   if next(iter(e)) in (
+                       "progressive_layer_drop", "data_efficiency",
+                       "curriculum_learning", "tensorboard", "wandb",
+                       "csv_monitor", "jsonl_monitor", "flops_profiler")]
 NOT_PORTED = [(e, i) for e, i in zip(OPTIONS, OPTION_IDS)
-              if (e, i) not in ACCEPTED + ZERO]
+              if (e, i) not in ACCEPTED + ZERO + DATA_EFFICIENCY]
 
 
 @pytest.mark.parametrize("extra", [e for e, _ in NOT_PORTED],
@@ -511,6 +519,34 @@ def test_zero_offload_and_cpu_adam_options_are_accepted(extra):
         offload is not None and offload.device != "none")
     assert engine.optimizer.name == jadam.build_optimizer(
         ref.optimizer_name, ref.optimizer_params).name
+
+
+@pytest.mark.parametrize("extra", [e for e, _ in DATA_EFFICIENCY],
+                         ids=[i for _, i in DATA_EFFICIENCY])
+def test_data_efficiency_monitor_and_profiler_options_are_accepted(extra,
+                                                                   tmp_path):
+    cfg = _config("fp32", **extra)
+    for name in ("tensorboard", "csv_monitor", "jsonl_monitor"):
+        if name in cfg:
+            cfg[name] = {**cfg[name], "output_path": str(tmp_path)}
+    if "curriculum_learning" in cfg:
+        cfg["curriculum_learning"].update(
+            schedule_type="fixed_linear", schedule_config={
+                "min_difficulty": 8, "max_difficulty": 32,
+                "total_curriculum_step": 10, "difficulty_step": 8})
+    assert TConfig(cfg).not_ported() == []
+    model = GPT2Model(GPT2Config.tiny(max_seq_len=64))
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
+                                                device="cpu")
+    ref = JConfig(cfg, world_size=1)
+    assert engine.config.pld_config.enabled == ref.pld_config.enabled
+    assert engine.config.random_ltd_enabled == ref.random_ltd_enabled
+    assert (engine.curriculum_scheduler is not None) == \
+        ref.curriculum_enabled_legacy
+    assert engine.config.monitor_config.enabled == ref.monitor_config.enabled
+    assert engine.config.flops_profiler_config.enabled == \
+        ref.flops_profiler_config.enabled
+    engine.destroy()
 
 
 def test_hybrid_pipeline_and_checkpoints_not_ported():
