@@ -127,7 +127,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                reference phase, n-gram and draft-model speculation on the
                small fp32 LLaMA, slot- and block-paged, whose tokens equal
                the plain engine's and the CPU's.
-6. probe_fp32 — LLaMA-7B in fp32: the trace's longest request served alone,
+6. probe_fp32 — LLaMA-7B at full width and 8 of its 32 layers in fp32: the
+               trace's longest request served alone,
                its kernel-cached replay held to the no-cache forward within
                1e-3 of max |logit|, and its served tokens to the replay.
                Then block-paged: template + suffix A served cold, then the
@@ -226,7 +227,7 @@ Training (phases added after ``reference``, before the serving phases):
                DSTPU_FLASH_F32_PRECISE=1: only the precise kernels launch
                (22 x gas x 2 each), the first batch's loss within 1e-3 of
                the default mode's.
-   checkpoint_roundtrip — TinyLlama width at 4 of its 22 layers (0.31 B
+   checkpoint_roundtrip — TinyLlama width at 2 of its 22 layers (0.22 B
                parameters), trained as above: a 3-step stretch replayed
                from a copy of the same state (bit-identical, or the spread
                held below), save_checkpoint at step 3 and 3 more steps; a
@@ -237,8 +238,30 @@ Training (phases added after ``reference``, before the serving phases):
                the engine's in-memory parameters generate (kernel B).
                Save and load seconds, bytes written; the directory is
                temporary.
+   train_774m_resilience — training resilience (after
+               checkpoint_roundtrip): GPT-2 774M width at 4 of its 36
+               layers (a tag ~1.7 GB), bf16, micro-batch 8 x gas 2 x T
+               1024, the data through initialize(training_data=...) and
+               train_batch(). (a) resilience armed, checkpoint_interval 4:
+               flip_param_bit flips the top exponent bit of an f32 master
+               element after steps 6 and 13, the newest tag truncated
+               before the second rewind: the rewind log is the protocol's
+               (nonfinite at 7 and 14, rewound to 4 and to 8 past the
+               corrupt tag, gas x (anomaly - rewound + 1) batches
+               skipped), the resilience counters agree, and the final
+               masters, moments and counters equal a clean run's that
+               skipped the same batches, bit for bit. (c) that clean run
+               takes a deferred preemption after step 5: exit code 101 at
+               the next step boundary, the run going on; a fresh engine
+               resumes from the tag bit-identical to it through step 8.
+               (b) the step-replay probe every 2 steps, its first second
+               replay perturbed by one bit: a replay anomaly, a rewind
+               skipping nothing, the next probe ok, the state at step 2
+               bit-identical to the clean run's. Reported: an armed quiet
+               step over an unarmed one, save / load / recovery ms, the
+               probe's clone / step / digest ms.
    train_llama7b_offload — ZeRO-Offload and ZeRO-Infinity (after
-               checkpoint_roundtrip). The host's nproc, MemTotal and the
+               train_774m_resilience). The host's nproc, MemTotal and the
                free space where the swap files go; the host kernels' build
                flags. (a) LLaMA-7B width at 2 layers (0.67 B parameters),
                one seeded init and 2 batches (micro-batch 1 x gas 2 x T
@@ -3027,9 +3050,9 @@ def profile_verify(srv, kb: int, reps: int = 3) -> dict:
 
 def _spec_virtual(eng, kw, reqs, eager: bool, tracer=None, **sample):
     """The trace's first 8 requests (one per slot), arriving at once and
-    cut to 24 new tokens, on a fresh speculative engine under a virtual
-    clock; with ``eager``
-    through the eager closures of its decode, verify and draft programs.
+    cut to SPEC_VIRTUAL_TOKENS new tokens, on a fresh speculative engine
+    under a virtual clock; with ``eager`` through the eager closures of its
+    decode, verify and draft programs.
     Returns the tokens by rid, the run's wall seconds (warm-up excluded)
     and the drafted tokens."""
     gc.collect()                         # the previous run's engine
@@ -3260,21 +3283,29 @@ def phase_serve_spec(eng, smi: str, runs) -> dict:
     return info
 
 
+# probe_fp32's depth: 8 of LLaMA-7B's 32 layers (the checks are per layer
+# and per token; the bf16 serving phases run all 32)
+PROBE_FP32_LAYERS = 8
+
+
 def phase_probe_fp32(smi: str) -> dict:
-    """LLaMA-7B in fp32 (both kernels take f32): the trace's longest request
-    served alone, then its logits checked as in the serving phases, with the
-    tight fp32 bound (the kernels' arithmetic at full width and depth).
-    Then serve_spec's self-drafting runs on this engine, slot-paged and over
-    an fp32 block pool (runs e, e2): with rounding too small to flip an
+    """LLaMA-7B at full width and PROBE_FP32_LAYERS of its 32 layers in
+    fp32 (both kernels take f32): the trace's longest request served
+    alone, then its logits checked as in the serving phases, with the
+    tight fp32 bound (the kernels' arithmetic at full width). Then
+    serve_spec's self-drafting runs on this engine, slot-paged and over an
+    fp32 block pool (runs e, e2): with rounding too small to flip an
     argmax, the draft computes the target's own function, and each run
     accepts at least 0.9 of its drafts."""
-    eng = deepspeed_tpu_torch.init_inference(
-        LlamaModel(LlamaConfig.llama_7b()), dtype="fp32", seed=0)
+    cfg = dataclasses.replace(LlamaConfig.llama_7b(),
+                              num_layers=PROBE_FP32_LAYERS)
+    eng = deepspeed_tpu_torch.init_inference(LlamaModel(cfg), dtype="fp32",
+                                             seed=0)
     srv = ServingEngine(eng, num_slots=8, max_len=1024, buckets=(128, 512))
     probe = max(_trace(), key=lambda r: len(r.prompt))
     [res] = srv.run([Request(probe.rid, probe.prompt, probe.max_new_tokens)])
     assert len(res.tokens) == probe.max_new_tokens
-    info = {"phase": "probe_fp32",
+    info = {"phase": "probe_fp32", "layers": cfg.num_layers,
             **check_probe(eng, probe, res.tokens, LOGIT_TOL["fp32"])}
     # block-paged, after freeing the slot cache: template + suffix A cold,
     # then the probe, template + suffix B, warm
@@ -3291,7 +3322,8 @@ def phase_probe_fp32(smi: str) -> dict:
     reset_counts()
     probe_b = Request(1, template + b, 32)
     [res] = srv.run([probe_b])
-    assert fused_block_decode_step.launches == 32 * (len(res.tokens) - 1)
+    assert fused_block_decode_step.launches == \
+        cfg.num_layers * (len(res.tokens) - 1)
     assert srv.prefix.blocks_cowed == 1
     assert srv.prefill_tokens_computed - pf0 == len(probe_b.prompt) - 392
     info["block_paged"] = {
@@ -4044,8 +4076,14 @@ def _dir_bytes(path: Path) -> int:
     return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
 
 
+# checkpoint_roundtrip's depth: 2 of TinyLlama's 22 layers (0.22 B
+# parameters, 2.6 GB a tag); train_774m_resilience covers save, load,
+# walk-back and resume at the 774M width
+CKPT_LAYERS = 2
+
+
 def phase_checkpoint_roundtrip(smi: str) -> dict:
-    """TinyLlama width at 4 of its 22 layers, trained as train_tinyllama
+    """TinyLlama width at 2 of its 22 layers, trained as train_tinyllama
     (remat off): one 3-step stretch replayed from the same state (is the
     step bit-identical run to run?); save at step 3, 3 more steps; a fresh
     engine loads the tag and takes the same 3 steps (losses held to the
@@ -4058,7 +4096,7 @@ def phase_checkpoint_roundtrip(smi: str) -> dict:
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = LlamaConfig(**{**TINYLLAMA_1B, "num_layers": 4})
+    cfg = LlamaConfig(**{**TINYLLAMA_1B, "num_layers": CKPT_LAYERS})
     gas, micro, t = 2, 4, 2048
     batches = lm_batches(np.random.RandomState(2), 6, gas, micro, t,
                          cfg.vocab_size, start_span=1000)
@@ -4141,7 +4179,7 @@ def phase_checkpoint_roundtrip(smi: str) -> dict:
         events = {n: reg.counter(n).value - v for n, v in events0.items()}
         assert events == {"checkpoint/saves": 2, "checkpoint/loads": 2}, events
         info = {"phase": "checkpoint_roundtrip", "card": smi,
-                "model": "TinyLlama-1.1B width, 4 of its 22 layers, bf16 "
+                "model": f"TinyLlama-1.1B width, {CKPT_LAYERS} of its 22 layers, bf16 "
                          "training (masters and moments f32), attn flash",
                 "n_params": sum(p.numel() for p in tree_leaves(e2.state.params)),
                 "replay_bit_identical": identical, "replay_spread": spread,
@@ -4160,6 +4198,345 @@ def phase_checkpoint_roundtrip(smi: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     info["launches"] = gen_launches
+    return info
+
+
+# -------------------------------------------------------------- resilience
+# GPT-2 774M at full width and 4 of its 36 layers: a tag (f32 masters and
+# two moments) is ~1.7 GB, so the phase's saves and loads fit its time
+RES_LAYERS = 4
+RES_SAMPLES = 512
+RES_FLIP_AFTER = (6, 13)     # flip a master's top exponent bit after these
+RES_CKPT_INTERVAL = 4
+RES_A_END = 11               # run (a) and its clean run train to this step
+RES_B_END = 2                # run (b): the replay probe every 2 steps
+RES_C_TRIGGER, RES_C_AFTER = 5, 3   # run (c): preempt at 5, resume 3 steps
+# steps 10-11 timed, armed (run (a) after its second rewind) and unarmed
+# (its clean run): quiet steps late in each run (the phase's first engine
+# ran its steps 2-3 ~35% slower on an H100, with the same sentinel work)
+RES_TIMED = (9, 11)
+# a random-init 774M's loss and grad norm fall fast over its first steps,
+# which the default 8-sigma spike threshold reads as spikes (three in run
+# (a) on an H100); the phase injects its own faults, so it holds the
+# threshold the JAX package's chaos tests hold
+RES_SPIKE_Z = 50.0
+RES_FLIP_LEAF = "['blocks']['qkv_w']"
+RES_FLIP_ELEMENT = 5
+
+
+def _res_samples(vocab: int, t: int, n: int = RES_SAMPLES, seed: int = 0):
+    """``n`` samples of ``lm_batches``' arithmetic sequences (starting
+    below token 1000), for ``initialize(training_data=...)``."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        start, step = rng.randint(0, 1000), rng.randint(1, 8)
+        ids = ((start + step * np.arange(t + 1)) % vocab).astype(np.int32)
+        out.append({"input_ids": ids[:-1], "labels": ids[1:]})
+    return out
+
+
+def _res_state(eng) -> list:
+    """Everything the step updates: masters, moments, counters, scale."""
+    st = eng.state
+    out = tree_leaves(st.params)
+    if st.opt_state:
+        out = out + tree_leaves(st.opt_state.exp_avg) \
+            + tree_leaves(st.opt_state.exp_avg_sq) + [st.opt_state.step]
+    return out + [st.global_step, float(st.scaler.cur_scale)]
+
+
+def _res_equal(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(a, b))
+
+
+def _res_clone(eng) -> list:
+    return [x.clone() if isinstance(x, torch.Tensor) else x
+            for x in _res_state(eng)]
+
+
+def _res_flip(eng, names) -> None:
+    """Flip bit 30 (the exponent's top bit) of one f32 master element of
+    layer 0's qkv weight: one card's memory bit flip."""
+    from deepspeed_tpu_torch.testing import flip_param_bit
+
+    flip_param_bit(eng, leaf_index=names.index(RES_FLIP_LEAF),
+                   byte=4 * RES_FLIP_ELEMENT + 3, bit=6)
+
+
+def _res_sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _res_timed(calls: list, fn):
+    """``fn`` wrapped to append its ms (the device synchronized before and
+    after) to ``calls``."""
+    def timed(*a, **k):
+        _res_sync()
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            _res_sync()
+            calls.append(1e3 * (time.perf_counter() - t0))
+    return timed
+
+
+def phase_train_774m_resilience(smi: str, dev: str = "cuda") -> dict:
+    """Training resilience on GPT-2 774M at full width (d 1280, 20 heads,
+    T 1024, vocab 50257) and a cut depth of 4 of its 36 layers (a tag of
+    f32 masters and two moments is ~1.7 GB, ~9 GB at full depth), bf16,
+    micro-batch 8 x gas 2, the bench optimizer, attn flash, the data
+    through initialize(training_data=...) and train_batch() (recovery
+    rewinds only a stream the engine owns). Held:
+
+    (a) the sentinel: resilience armed (checkpoint_interval 4, a check
+        every step, spikes above 50 robust sigmas); after steps 6 and 13
+        flip_param_bit flips the top exponent bit of one f32 master
+        element of layer 0's qkv weight, and before the second rewind the
+        newest tag is truncated (corrupt_file). Each rewind_log record's
+        class (nonfinite), anomaly step (7, 14), rewound-to step (4, then
+        8: the walk-back past the corrupt tag 12) and skipped batches (gas
+        x (anomaly - rewound + 1)) are the protocol's; the counters
+        resilience/rewinds, skipped_batches and anomalies_nonfinite; the
+        final masters, moments and counters bit-identical to a clean
+        engine's that skipped the same batches.
+    (c) preemption, on that clean run: install_preemption_handler(
+        defer=True) with an exit_fn that records the code and returns;
+        trigger() after step 5; the next train_batch saves at its step
+        boundary (code 101) and the run goes on, uninterrupted; a fresh
+        engine loads the tag and takes 3 steps bit-identical (losses and
+        state) to the clean run's steps 6-8.
+    (b) the step-replay probe every 2 steps: the first probe's second
+        replay runs a step function that flips one bit of its clone's
+        output: a replay anomaly, a rewind to the baseline tag that skips
+        nothing; the next probe reads ok (the card's whole-state
+        determinism check: two replays of the step on clones give the same
+        crc32 over masters, moments and metrics); the state at step 2
+        bit-identical to the clean run's.
+    Reported: an armed, quiet step against an unarmed one (steps 10-11 of
+    run (a) and of its clean run, ms, same call), save, load and recovery
+    ms, the probe's ms split into clone, step and digest (the sentinel's
+    functions wrapped here)."""
+    import tempfile
+
+    import deepspeed_tpu_torch.runtime.sentinel as sentinel
+    from deepspeed_tpu_torch.testing import corrupt_file
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(GPT2Config.gpt2_774m(), num_layers=RES_LAYERS)
+    gas = BENCH_774M_CONFIG["gradient_accumulation_steps"]
+    samples = _res_samples(cfg.vocab_size, cfg.max_seq_len)
+    reg = get_registry()
+    names_c = ("rewinds", "skipped_batches", "anomalies_nonfinite",
+               "step_replays", "step_replay_mismatches")
+
+    def counters():
+        return {n: reg.counter(f"resilience/{n}").value for n in names_c}
+
+    def engine(res=None):
+        conf = dict(BENCH_774M_CONFIG)
+        if res is not None:
+            conf["resilience"] = res
+        e, *_ = deepspeed_tpu_torch.initialize(
+            model=GPT2Model(cfg, attn_impl="flash"), config=conf,
+            training_data=samples, device=None if dev == "cuda" else dev)
+        return e
+
+    root = Path(tempfile.mkdtemp(prefix="dstorch_resilience_"))
+    steps_run = 0                        # train steps the kernels ran
+    save_ms, load_ms = [], []
+    try:
+        reset_counts()                   # the main path starts here
+        # ---- (a) the sentinel: two bit flips, a corrupt tag
+        c0 = counters()
+        ck_a = root / "a"
+        eng = engine({"enabled": True, "checkpoint_dir": str(ck_a),
+                      "checkpoint_interval": RES_CKPT_INTERVAL,
+                      "check_interval": 1, "spike_zscore": RES_SPIKE_Z})
+        names = list(param_names(eng.state.params))
+        eng.save_checkpoint = _res_timed(save_ms, eng.save_checkpoint)
+        eng.load_checkpoint = _res_timed(load_ms, eng.load_checkpoint)
+        flips, a_losses, t0, armed_ms = list(RES_FLIP_AFTER), [], None, None
+        while eng.global_steps < RES_A_END or flips:
+            if flips and eng.global_steps == flips[0]:
+                if len(flips) == 1:      # the newest tag rots first
+                    newest = (ck_a / "latest").read_text().strip()
+                    corrupt_file(str(ck_a / newest / "state.npz"))
+                _res_flip(eng, names)
+                flips.pop(0)
+            if not flips and eng.global_steps == RES_TIMED[0]:
+                _res_sync()
+                t0 = time.perf_counter()
+            a_losses.append(eng.train_batch())
+            if t0 is not None and eng.global_steps == RES_TIMED[1]:
+                _res_sync()
+                armed_ms = 1e3 * (time.perf_counter() - t0) \
+                    / (RES_TIMED[1] - RES_TIMED[0])
+        steps_run += len(a_losses)
+        a_losses = [float(x) for x in a_losses]
+        log = [dict(r) for r in eng.rewind_log]
+        got = [(r["class"], r["anomaly_step"], r["rewound_to"],
+                r["skipped_batches"], Path(r["checkpoint"]).name)
+               for r in log]
+        want = [("nonfinite", 7, 4, gas * (7 - 4 + 1), "global_step4"),
+                ("nonfinite", 14, 8, gas * (14 - 8 + 1), "global_step8")]
+        assert got == want, (got, want)
+        c1 = counters()
+        a_counters = {k: c1[k] - c0[k] for k in names_c[:3]}
+        assert a_counters == {"rewinds": 2,
+                              "skipped_batches": want[0][3] + want[1][3],
+                              "anomalies_nonfinite": 2}, a_counters
+        a_state = _res_clone(eng)
+        del eng
+        gc.collect()
+
+        # ---- the clean run with the same skips, preempted (c) at step 5
+        clean = engine()
+        ck_c, codes, c_save_ms = root / "c", [], []
+        clean.save_checkpoint = _res_timed(c_save_ms, clean.save_checkpoint)
+        h = clean.install_preemption_handler(str(ck_c), defer=True,
+                                             exit_fn=codes.append)
+        skips = {r["rewound_to"]: r["skipped_batches"] for r in log}
+        clean_losses, kept, unarmed_ms = [], {}, None
+        try:
+            while clean.global_steps < RES_A_END:
+                step = clean.global_steps
+                it = clean._ensure_train_iter()
+                for _ in range(skips.pop(step, 0)):
+                    next(it)
+                if step == RES_C_TRIGGER:
+                    h.trigger(reason="maintenance event")
+                    assert codes == [], codes    # deferred to the boundary
+                if step == RES_TIMED[0]:
+                    _res_sync()
+                    t0 = time.perf_counter()
+                clean_losses.append(clean.train_batch())
+                if clean.global_steps == RES_TIMED[1]:
+                    _res_sync()
+                    unarmed_ms = 1e3 * (time.perf_counter() - t0) \
+                        / (RES_TIMED[1] - RES_TIMED[0])
+                if clean.global_steps in (RES_B_END,
+                                          RES_C_TRIGGER + RES_C_AFTER):
+                    kept[clean.global_steps] = _res_clone(clean)
+        finally:
+            h.uninstall()
+        steps_run += RES_A_END
+        assert codes == [101] and len(c_save_ms) == 1, (codes, c_save_ms)
+        clean_losses = [float(x) for x in clean_losses]
+        a_identical = _res_equal(a_state, _res_state(clean))
+        assert a_identical, "run (a): the rewound run left the clean run"
+        assert a_losses[-3:] == clean_losses[-3:], (a_losses, clean_losses)
+        del clean, a_state
+        gc.collect()
+
+        # ---- (b) the replay probe, once perturbed
+        c0 = counters()
+        eng = engine({"enabled": True, "checkpoint_dir": str(root / "b"),
+                      "check_interval": 1, "step_replay_interval": 2,
+                      "spike_zscore": RES_SPIKE_Z})
+        eng.save_checkpoint = _res_timed(save_ms, eng.save_checkpoint)
+        eng.load_checkpoint = _res_timed(load_ms, eng.load_checkpoint)
+        probe_ms = {"probe": [], "clone": [], "digest": []}
+        wrapped = (("step_replay_probe", "probe"), ("clone_tree", "clone"),
+                   ("_tree_digest", "digest"))
+        real_fns = {n: getattr(sentinel, n) for n, _ in wrapped}
+        for n, key in wrapped:
+            setattr(sentinel, n, _res_timed(probe_ms[key], real_fns[n]))
+        try:
+            eng.train_batch()
+            real, calls = eng._train_step, [0]
+
+            def perturbed(state, *a, **k):
+                out, m = real(state, *a, **k)
+                calls[0] += 1
+                if calls[0] == 3:        # step 2's live step, then replays
+                    from deepspeed_tpu_torch.testing import flip_param_bit
+
+                    flip_param_bit(type("Replica", (), {"state": out})(),
+                                   leaf_index=names.index(RES_FLIP_LEAF),
+                                   byte=1)
+                return out, m
+
+            eng._train_step = perturbed
+            eng.train_batch()
+            eng._train_step = real
+            assert calls[0] == 3, calls
+            b_log = [dict(r) for r in eng.rewind_log]
+            assert [(r["class"], r["anomaly_step"], r["rewound_to"],
+                     r["skipped_batches"]) for r in b_log] == \
+                [("replay", 2, 0, 0)], b_log
+            b_calls = 2
+            while eng.global_steps < RES_B_END:
+                eng.train_batch()
+                b_calls += 1
+        finally:
+            for n, _ in wrapped:
+                setattr(sentinel, n, real_fns[n])
+        c1 = counters()
+        b_counters = {k: c1[k] - c0[k] for k in names_c[3:]}
+        assert b_counters == {"step_replays": 2,
+                              "step_replay_mismatches": 1}, b_counters
+        steps_run += b_calls + 2 * b_counters["step_replays"]
+        b_identical = _res_equal(_res_state(eng), kept.pop(RES_B_END))
+        assert b_identical, "run (b): the rewound run left the clean run"
+        del eng
+        gc.collect()
+
+        # ---- (c) a fresh engine resumes from the preemption tag
+        fresh = engine()
+        resume_ms = []
+        path, _ = _res_timed(resume_ms, fresh.load_checkpoint)(str(ck_c))
+        assert Path(path).name == f"global_step{RES_C_TRIGGER}", path
+        resumed = [float(fresh.train_batch()) for _ in range(RES_C_AFTER)]
+        steps_run += RES_C_AFTER
+        assert resumed == clean_losses[RES_C_TRIGGER:RES_C_TRIGGER
+                                       + RES_C_AFTER], (resumed, clean_losses)
+        c_identical = _res_equal(_res_state(fresh), kept.pop(
+            RES_C_TRIGGER + RES_C_AFTER))
+        assert c_identical, "run (c): the resumed run left the clean run"
+        del fresh
+        launches = read_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    for name, n in launches.items():
+        want_n = RES_LAYERS * gas * steps_run if name in FLASH else 0
+        assert n == want_n, (name, n, want_n)
+    n_probes = len(probe_ms["probe"])
+    info = {"phase": "train_774m_resilience", "card": smi,
+            "model": f"gpt2_774m width, {RES_LAYERS} of its 36 layers, bf16 "
+                     "(masters and moments f32), attn flash, micro-batch 8 x "
+                     "gas 2 x T 1024, data through initialize(training_data)",
+            "a_rewind_log": log, "a_counters": a_counters,
+            "a_losses": a_losses, "a_clean_losses": clean_losses,
+            "a_bit_identical_to_clean": a_identical,
+            "b_rewind_log": b_log, "b_counters": b_counters,
+            "b_clean_probes_ok": True, "b_bit_identical_to_clean":
+                b_identical,
+            "probe_split_ms": {
+                "probe": sum(probe_ms["probe"]) / n_probes,
+                "clone": sum(probe_ms["clone"]) / n_probes,
+                "digest": sum(probe_ms["digest"]) / n_probes,
+                "step": (sum(probe_ms["probe"]) - sum(probe_ms["clone"])
+                         - sum(probe_ms["digest"])) / n_probes},
+            "c_exit_code": codes[0], "c_losses_resumed": resumed,
+            "c_bit_identical_to_clean": c_identical,
+            "armed_ms_per_step": armed_ms, "unarmed_ms_per_step": unarmed_ms,
+            "armed_over_unarmed": armed_ms / unarmed_ms,
+            "save_ms": save_ms, "load_ms": load_ms,
+            "recovery_ms": [r["recovery_ms"] for r in log + b_log],
+            "preempt_save_ms": c_save_ms[0], "resume_load_ms": resume_ms[0],
+            "train_steps_run": steps_run, "launches": launches,
+            "phase_s": time.perf_counter() - t_phase}
+    emit(info)
     return info
 
 
@@ -4936,12 +5313,13 @@ def main() -> int:
     data_eff = phase_train_774m_data_efficiency(dev["nvidia_smi"], train)
     tiny = phase_train_tinyllama(dev["nvidia_smi"])
     ckpt = phase_checkpoint_roundtrip(dev["nvidia_smi"])
+    resilience = phase_train_774m_resilience(dev["nvidia_smi"])
     offload = phase_train_llama7b_offload(dev["nvidia_smi"])
     launches = dict.fromkeys(WRAPPERS, 0)
     for k in FLASH:
         launches[k] = (train["launches"][k] + train_tel["launches"][k]
                        + data_eff["launches"][k] + tiny["launches"][k]
-                       + offload["launches"][k])
+                       + resilience["launches"][k] + offload["launches"][k])
     for k in PRECISE:
         launches[k] = tiny["launches"][k]
     launches["fused_decode_step"] += ckpt["launches"]["fused_decode_step"]

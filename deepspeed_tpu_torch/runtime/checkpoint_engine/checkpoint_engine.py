@@ -31,6 +31,7 @@ import json
 import os
 import threading
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -215,15 +216,23 @@ def _from_stored(key: str, arr: np.ndarray):
 
 
 def _array_checksum(arr: np.ndarray) -> Dict[str, Any]:
-    """Per-array integrity record over the *stored* representation."""
-    return {"crc32": zlib.crc32(np.ascontiguousarray(arr).tobytes()) & 0xFFFFFFFF,
+    """Per-array integrity record over the *stored* representation (the
+    crc read straight from the array's buffer, not from a copy)."""
+    flat = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+    return {"crc32": zlib.crc32(flat) & 0xFFFFFFFF,
             "dtype": str(arr.dtype),
             "shape": list(arr.shape)}
 
 
+def _checksums(stored: Dict[str, np.ndarray]) -> Dict[str, Dict[str, Any]]:
+    """:func:`_array_checksum` of every array, in a pool of threads (zlib's
+    crc32 releases the GIL)."""
+    with ThreadPoolExecutor(max_workers=min(8, max(len(stored), 1))) as pool:
+        return dict(zip(stored, pool.map(_array_checksum, stored.values())))
+
+
 def _build_manifest(stored: Dict[str, np.ndarray]) -> Dict[str, Any]:
-    return {"version": MANIFEST_VERSION,
-            "arrays": {k: _array_checksum(v) for k, v in stored.items()}}
+    return {"version": MANIFEST_VERSION, "arrays": _checksums(stored)}
 
 
 def _verify_manifest(manifest: Dict[str, Any],
@@ -236,8 +245,9 @@ def _verify_manifest(manifest: Dict[str, Any],
         return False, (f"array set mismatch (missing {missing[:5]}, "
                        f"unexpected {extra[:5]})")
     bad = []
+    sums = _checksums(stored)
     for key, rec in expected.items():
-        got = _array_checksum(stored[key])
+        got = sums[key]
         if got != rec:
             bad.append(f"{key} (expected {rec}, got {got})")
     if bad:

@@ -12,7 +12,9 @@ does not run yet are read for the switch that turns them on, are listed by
 :class:`NotPortedError` for them rather than quietly training without
 them. ``telemetry`` (on by default, as in the reference),
 ``wall_clock_breakdown``, progressive layer drop, random-LTD, curriculum
-learning, the monitors and the flops profiler's section run.
+learning, the monitors, the flops profiler's section and ``resilience``
+run; ``elasticity`` is read for its switch and, as in the reference, the
+engine reads nothing of it (elasticity/ computes the batch ladder).
 """
 
 from __future__ import annotations
@@ -115,12 +117,49 @@ class PLDConfig(DeepSpeedConfigModel):
 
 
 class ResilienceConfig(DeepSpeedConfigModel):
-    """The reference's anomaly sentinel + recovery section. ``enabled`` (the
-    sentinel) is not ported; ``check_finite_grads`` (the skip-and-count
-    guard on nonfinite grads, default: follows ``enabled``) is."""
+    """Training anomaly sentinel + auto-recovery (the reference's
+    ``resilience`` section, parsed whole).
+
+    ``enabled`` turns on the sentinel (rolling robust z-score monitor over
+    loss/grad-norm, read at the check fence) and — when ``checkpoint_dir``
+    is set and the engine owns its dataloader — the PaLM-style
+    rewind-and-skip recovery protocol. ``check_finite_grads`` is
+    independently usable: it adds a skip-and-count guard on nonfinite
+    grads to the bf16/fp32 step, mirroring the fp16 dynamic-loss-scale
+    overflow semantics (default: follows ``enabled``).
+    """
 
     enabled: bool = False
+    # None -> follows `enabled`; True/False forces the guard on/off
     check_finite_grads: Optional[bool] = None
+    # auto-recovery: where the engine saves/rewinds checkpoints; interval
+    # in global steps (0 = caller manages saves; rewind still works off
+    # whatever tags exist under checkpoint_dir)
+    checkpoint_dir: Optional[str] = None
+    checkpoint_interval: int = 0
+    # sentinel read cadence in steps; 0 = ride the telemetry fence
+    # (telemetry.sync_interval) when telemetry is on, else every step
+    check_interval: int = 0
+    # rolling robust z-score monitor
+    window: int = 64
+    min_history: int = 8
+    spike_zscore: float = 8.0
+    divergence_patience: int = 4
+    # PaLM-style skip: batches between the rewind target and the anomaly
+    # are skipped, plus an extra width (in steps) that escalates
+    # base*factor^(k-1) across back-to-back rewinds, capped at max
+    skip_width_base: int = 1
+    skip_width_factor: int = 2
+    skip_width_max: int = 64
+    # rewind budget: ElasticAgent rolling-window semantics — only rewinds
+    # inside the trailing window count; None window counts forever
+    max_rewinds: int = 8
+    rewind_window_s: Optional[float] = None
+    # SDC audits, in global steps (0 = off)
+    sdc_audit_interval: int = 0
+    step_replay_interval: int = 0
+    # "recover" (rewind+skip when possible, else raise) | "raise"
+    on_anomaly: str = "recover"
 
 
 def _read_config_dict(config: Union[str, dict]) -> dict:
@@ -307,8 +346,9 @@ class DeepSpeedConfig:
             # monitors and flops_profiler run (the profiler's section is
             # parsed and, as in the reference, not read by the engine)
             "comms_logger": self.comms_logger_config.enabled,
-            "resilience (sentinel)": self.resilience_config.enabled,
-            "elasticity": self.elasticity_enabled,
+            # resilience runs (runtime/sentinel.py and the engine's
+            # recovery); the elasticity section is parsed and, as in the
+            # reference, not read by the engine
             # activation_checkpointing is parsed and, as in the reference,
             # not read by the engine: a model's remat follows its own
             # remat / remat_policy and the options that

@@ -32,7 +32,8 @@ which downloads the grads and uploads the images. On overflow the update
 is skipped and the scaler advances.
 
 The overflow flag is read to the host only when it can be set (fp16 or the
-finite-grad guard); otherwise a device-state step makes no host sync.
+finite-grad guard): the skip decides the optimizer's host-side step count.
+Otherwise a device-state step makes no host sync.
 Options the port does not run yet raise :class:`NotPortedError` at construction
 (``DeepSpeedConfig.not_ported``). Checkpoints (``save_checkpoint``,
 ``load_checkpoint``, ``save_16bit_model``) use the reference's format
@@ -57,6 +58,27 @@ whole batch on CUDA events (utils/timer.py), read and logged every
 length and random-LTD's kept tokens (``_train_step_flops``): the
 reference counts its first step only.
 
+Resilience (the ``resilience`` section, as the reference wires it):
+``enabled`` arms the anomaly sentinel (runtime/sentinel.py) and the
+finite-grad guard (which follows ``enabled`` unless
+``check_finite_grads`` says otherwise). Each ``train_batch`` step queues
+its loss, grad norm and overflow flag as one small device tensor; every
+``check_interval`` steps (0: the telemetry fence's ``sync_interval``)
+one device-to-host copy reads them all and the sentinel classifies each
+step. An anomaly with ``checkpoint_dir`` set and an engine-owned data
+stream rewinds: the newest valid tag is loaded (walking back past a
+corrupt one), with the dataloader position from its ``__meta__``, and the
+offending batches are skipped (``rewind_log``; the rolling
+``max_rewinds`` budget). ``sdc_audit_interval`` runs the cross-replica
+checksum vote (one voter on one device), ``step_replay_interval`` the
+step-replay probe: ``_train_step`` — the step's device arithmetic, which
+``_run_step`` runs too — twice on clones of the state.
+``install_preemption_handler`` saves a final tag on SIGTERM or
+``trigger()`` and exits with the restartable code 101: at once between
+steps; deferred (or inside a step, whatever ``defer`` says) at the next
+step boundary, which is the end of the step in flight or the start of the
+next, before it pulls its batches.
+
 Data efficiency, as the reference wires it (``train_batch``): the legacy
 curriculum truncates each batch to the scheduled length on the host;
 random-LTD passes the scheduler's kept-token count to ``model.apply`` as
@@ -71,6 +93,7 @@ generator that draws attention dropout draws PLD's and LTD's masks.
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import time
 from typing import Any, Iterator, NamedTuple, Optional, Union
@@ -94,8 +117,9 @@ from deepspeed_tpu_torch.runtime.zero.config import OffloadDeviceEnum
 from deepspeed_tpu_torch.runtime.zero.offload import HostOffloadOptimizer, param_names
 from deepspeed_tpu_torch.telemetry import (FlightRecorder, JsonlSink,
                                            SpanTracer, accelerator_peaks,
-                                           get_registry, mfu, roofline_row)
-from deepspeed_tpu_torch.utils.logging import log_dist
+                                           get_registry, mfu, record_event,
+                                           roofline_row)
+from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import (BACKWARD_GLOBAL_TIMER,
                                              FORWARD_GLOBAL_TIMER,
                                              STEP_GLOBAL_TIMER,
@@ -153,7 +177,10 @@ class DeepSpeedEngine:
         self.grad_accum_dtype = _ACC_DTYPES[config.grad_accum_dtype]
         self.zero_stage = config.zero_optimization_stage
         rcfg = config.resilience_config
-        self._check_finite_grads = bool(rcfg.check_finite_grads)
+        # the finite-grad guard follows ``resilience.enabled`` when unset
+        self._check_finite_grads = (bool(rcfg.check_finite_grads)
+                                    if rcfg.check_finite_grads is not None
+                                    else bool(rcfg.enabled))
 
         # ---- optimizer and LR schedule (reference _configure_optimizer)
         if optimizer is None and config.optimizer_name is not None:
@@ -212,9 +239,13 @@ class DeepSpeedEngine:
 
         self.training_dataloader = None
         self._train_iter = None
+        self._engine_owned_stream = False
         if training_data is not None:
             self.training_dataloader = self.deepspeed_io(training_data,
                                                          collate_fn=collate_fn)
+        self._init_resilience(rcfg, config.telemetry_config)
+        self._preemption_handler = None
+        self._in_step = False
         log_dist(
             f"DeepSpeedEngine: zero_stage={self.zero_stage} "
             f"dtype={self.compute_dtype} device={self.device} batch triple="
@@ -279,7 +310,6 @@ class DeepSpeedEngine:
         self._spans_sink = None
         self.flight_recorder = None
         self.slo = None
-        self.sentinel = None          # the resilience sentinel: not ported
         if tcfg.enabled:
             self.telemetry = get_registry()
             if tcfg.jsonl_path and self.telemetry.sink is None:
@@ -314,6 +344,40 @@ class DeepSpeedEngine:
                     # tee: each span is recorded once
                     self.tracer.sink = self.telemetry.sink
 
+    def _init_resilience(self, rcfg, tcfg) -> None:
+        """The anomaly sentinel, the rewind budget and the recovery log
+        (the reference's construction). The sentinel's per-step scalars
+        queue as device tensors and are read in one copy at the check
+        fence, every ``check_interval`` steps (0: the telemetry fence's
+        ``sync_interval``, else every step)."""
+        self.resilience_config = rcfg
+        self.sentinel = None
+        self._pending_anomaly_reads: list = []
+        self._rewind_budget = None
+        self._rewinds_since_clean = 0
+        self._last_anomaly_step = -1
+        self._resilience_baseline_saved = False
+        self._sdc_quarantine_cb = None
+        self.sdc_suspect_devices = ()
+        self.rewind_log: list = []
+        self._no_overflow = None
+        if rcfg.enabled:
+            from deepspeed_tpu_torch.elasticity.elastic_agent import RollingWindowBudget
+            from deepspeed_tpu_torch.runtime.sentinel import TrainingSentinel
+
+            self.sentinel = TrainingSentinel(
+                window=rcfg.window, min_history=rcfg.min_history,
+                spike_zscore=rcfg.spike_zscore,
+                divergence_patience=rcfg.divergence_patience,
+                fp16=self.fp16_enabled)
+            self._rewind_budget = RollingWindowBudget(
+                rcfg.max_rewinds, rcfg.rewind_window_s)
+            # the flag queued for a step whose flag is never set
+            self._no_overflow = torch.zeros((), device=self.device)
+        self._sentinel_interval = rcfg.check_interval or (
+            tcfg.sync_interval if (self.telemetry is not None
+                                   and tcfg.sync_interval) else 1)
+
     def _init_state(self, params) -> TrainState:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(int(self.config.seed))
@@ -337,10 +401,10 @@ class DeepSpeedEngine:
         return tree_map(lambda p: p.detach().to(self.compute_dtype)
                         if p.dtype == torch.float32 else p.detach(), params)
 
-    def _compute_params(self):
-        """The masters as compute-dtype autograd leaves."""
+    def _compute_params(self, params):
+        """``params`` (the masters) as compute-dtype autograd leaves."""
         return tree_map(lambda c: c.requires_grad_(),
-                        self._cast_for_compute(self.state.params))
+                        self._cast_for_compute(params))
 
     def _to_device(self, batch):
         def move(x):
@@ -351,39 +415,88 @@ class DeepSpeedEngine:
 
         return tree_map(move, batch) if isinstance(batch, dict) else move(batch)
 
-    def _micro_loss(self, batch, **kwargs):
-        """``(loss, scaled_loss, leaves)`` of one micro-batch, graph kept;
-        ``kwargs`` (``pld_theta``, ``ltd_keep``) go to ``model.apply``."""
-        leaves = self._compute_params()
+    def _micro_loss(self, state, batch, **kwargs):
+        """``(loss, scaled_loss, leaves)`` of one micro-batch on ``state``,
+        graph kept; ``kwargs`` (``pld_theta``, ``ltd_keep``) go to
+        ``model.apply``."""
+        leaves = self._compute_params(state.params)
         loss, _ = self.module.apply(leaves, batch,
                                     rngs={"dropout": self._dropout_rng},
                                     train=True, **kwargs)
-        return loss, loss * self.state.scaler.cur_scale, leaves
+        return loss, loss * state.scaler.cur_scale, leaves
 
-    def _accumulate(self, leaves):
-        """Add the leaves' grads, cast to grad_accum_dtype, into the sum."""
+    def _accumulate(self, leaves, acc=None):
+        """``acc`` plus the leaves' grads, cast to grad_accum_dtype (the
+        grads themselves when ``acc`` is None)."""
         def grad(p):
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             return g.to(self.grad_accum_dtype)
 
         grads = tree_map(grad, leaves)
-        if self._grad_acc is None:
-            self._grad_acc = grads
+        if acc is None:
+            acc = grads
         else:
-            tree_map(lambda a, g: a.add_(g), self._grad_acc, grads)
+            tree_map(lambda a, g: a.add_(g), acc, grads)
         for p in tree_leaves(leaves):
             p.grad = None               # summed: free it before the step
+        return acc
 
-    def _apply_grads(self, grads, lr: float):
+    def _micro_grads(self, state, batch, kwargs, timed: bool):
+        """The gas micro-batches' forwards and backwards on ``state``:
+        ``(mean loss, summed grads)``; ``timed`` runs the wall-clock
+        breakdown's forward and backward timers."""
+        loss_sum = acc = None
+        for i in range(self.gas):
+            mb = tree_map(lambda x: x[i], batch) if isinstance(batch, dict) else batch[i]
+            if timed:
+                self._timer(FORWARD_GLOBAL_TIMER, True)
+            loss, scaled, leaves = self._micro_loss(state, mb, **kwargs)
+            if timed:
+                self._timer(FORWARD_GLOBAL_TIMER, False)
+                self._timer(BACKWARD_GLOBAL_TIMER, True)
+            scaled.backward()
+            acc = self._accumulate(leaves, acc)
+            if timed:
+                self._timer(BACKWARD_GLOBAL_TIMER, False)
+            loss = loss.detach()
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+        return loss_sum / self.gas, acc
+
+    def _train_step(self, state, batch, lr: float, kwargs=None,
+                    timed: bool = False):
+        """The device arithmetic of one device-state ``train_batch`` step
+        on ``state``: the micro-batches' losses and backwards, the
+        accumulation, then :meth:`_apply_grads` (the guard and the
+        optimizer). Returns ``(new_state, metrics)``; the optimizer updates
+        ``state``'s tensors in place. Nothing else of the engine moves —
+        not ``global_steps``, the LR schedule, telemetry, the monitors or
+        PLD / LTD — so the step-replay probe runs exactly this on a copy;
+        ``_run_step`` runs it on the live state."""
+        loss, acc = self._micro_grads(state, batch, kwargs or {}, timed)
+        if timed:
+            self._timer(STEP_GLOBAL_TIMER, True)
+        grads = tree_map(lambda g: g.float() / self.gas, acc)
+        del acc
+        state, metrics = self._apply_grads(state, grads, lr)
+        if timed:
+            self._timer(STEP_GLOBAL_TIMER, False)
+        metrics["loss"] = loss
+        return state, metrics
+
+    def _apply_grads(self, state, grads, lr: float):
         """unscale -> overflow check -> norm -> clip -> optimizer -> scale
-        update (the reference's _apply_grads). ``grads`` are already divided
-        by gas."""
-        state = self.state
+        update (the reference's _apply_grads) on ``state``. ``grads`` are
+        already divided by gas. Returns ``(new_state, metrics)``: the
+        global norm and the overflow flag (a 0-d device tensor, None when
+        nothing checks it) and ``skipped``, the flag on the host: the skip
+        decides the optimizer's host-side step count, so the flag is read
+        here whenever it can be set (fp16 or the finite-grad guard)."""
         inv = float(np.float32(1.0) / np.float32(state.scaler.cur_scale))
         grads = tree_map(lambda g: g.float() * inv, grads)
-        overflow = False
+        flag, overflow = None, False
         if self.fp16_enabled or self._check_finite_grads:
-            overflow = bool(has_inf_or_nan(grads))
+            flag = has_inf_or_nan(grads)
+            overflow = bool(flag)
         norm = global_grad_norm(grads)
         if self.config.gradient_clipping > 0:
             grads, norm = clip_grads_by_global_norm(
@@ -391,42 +504,46 @@ class DeepSpeedEngine:
         params, opt_state = state.params, state.opt_state
         if not overflow:
             params, opt_state = self.optimizer.step(params, grads, opt_state, lr)
-        else:
-            self.skipped_steps += 1
-        self.state = TrainState(
+        new_state = TrainState(
             params=params, opt_state=opt_state,
             scaler=self.loss_scaler.update(state.scaler, overflow),
             global_step=state.global_step + (0 if overflow else 1))
-        self._global_grad_norm = norm
+        return new_state, {"grad_norm": norm, "overflow": flag,
+                           "skipped": overflow}
 
     def _unscale_epilogue(self):
         """The host path's epilogue (the reference's ``_unscale_epilogue``):
         the accumulated grads, taken over, to f32 times ``1 / (gas *
         scale)``, the overflow flag and the global norm, on the device.
-        Returns the f32 grads by name. Each leaf is converted in place (f32)
-        or replaced, so the accumulator frees as the f32 grads appear."""
+        Returns the f32 grads by name, the flag (a 0-d tensor, or None
+        when nothing checks it), the flag read to the host, and the norm.
+        Each leaf is converted in place (f32) or replaced, so the
+        accumulator frees as the f32 grads appear."""
         inv = float(np.float32(1.0) / (np.float32(self.gas)
                                        * np.float32(self.state.scaler.cur_scale)))
         flat = param_names(self._take_grads())
         for name, g in flat.items():
             flat[name] = g.float().mul_(inv)
-        overflow = False
+        flag, overflow = None, False
         if self.fp16_enabled or self._check_finite_grads:
-            overflow = bool(has_inf_or_nan(flat))
-        return flat, overflow, global_grad_norm(flat)
+            flag = has_inf_or_nan(flat)
+            overflow = bool(flag)
+        return flat, flag, overflow, global_grad_norm(flat)
 
     def _host_apply(self, lr: float):
         """The host-optimizer step (the reference's ``_host_apply``): the
         epilogue on the card, the clip factor from the norm, then the host
-        update and the images' upload; on overflow only the scaler moves."""
-        flat, overflow, norm = self._unscale_epilogue()
+        update and the images' upload; on overflow only the scaler moves.
+        Returns the step's metrics (as :meth:`_apply_grads`')."""
+        flat, flag, overflow, norm = self._unscale_epilogue()
         state = self.state
         self._global_grad_norm = norm
+        metrics = {"grad_norm": norm, "overflow": flag, "skipped": overflow}
         new_scaler = self.loss_scaler.update(state.scaler, overflow)
         if overflow:
             self.skipped_steps += 1
             self.state = state._replace(scaler=new_scaler)
-            return
+            return metrics
         clip = self.config.gradient_clipping
         # a host read: the clip factor gates the host step
         factor = min(1.0, clip / (float(norm) + 1e-6)) if clip and clip > 0 \
@@ -436,6 +553,7 @@ class DeepSpeedEngine:
         self.state = TrainState(params=state.params, opt_state={},
                                 scaler=new_scaler,
                                 global_step=state.global_step + 1)
+        return metrics
 
     def _finish_step(self):
         self.global_steps += 1
@@ -455,13 +573,56 @@ class DeepSpeedEngine:
     def train_batch(self, data_iter: Optional[Iterator] = None):
         """Pull ``gas`` micro-batches and run one step; returns the mean
         micro-batch loss (a 0-d f32 tensor on the device)."""
-        if data_iter is None:
-            data_iter = self._ensure_train_iter()
-        return self._run_step(_stack([next(data_iter) for _ in range(self.gas)]))
+        # preemption: a pending notice saves at the step boundary, before
+        # this step pulls its batches (the reference polls after the pull,
+        # so its tag's loader position is one step ahead of its parameters)
+        self._poll_preemption()
+        with self._step_in_flight():
+            # anomaly rewind can only fast-forward a stream the ENGINE
+            # owns; track which source fed the step so recovery never
+            # rewinds the engine loader while a caller-supplied iterator
+            # keeps advancing
+            self._engine_owned_stream = data_iter is None
+            if data_iter is None:
+                # baseline checkpoint BEFORE the first pull: the rewind
+                # target of an anomaly in the first interval must pair
+                # step-0 params with dataloader offset 0, or the resumed
+                # stream desyncs
+                if (self.sentinel is not None
+                        and self.resilience_config.checkpoint_dir
+                        and not self._resilience_baseline_saved):
+                    self._resilience_baseline_saved = True
+                    self.save_checkpoint(self.resilience_config.checkpoint_dir)
+                data_iter = self._ensure_train_iter()
+            loss = self._run_step(_stack([next(data_iter)
+                                          for _ in range(self.gas)]))
+        self._poll_preemption()
+        return loss
 
     def train_batch_from_stacked(self, batch):
         """As train_batch, but the caller supplies the [gas, ...] stacked batch."""
-        return self._run_step(batch)
+        self._poll_preemption()
+        with self._step_in_flight():
+            self._engine_owned_stream = False  # caller owns the data stream
+            loss = self._run_step(batch)
+        self._poll_preemption()
+        return loss
+
+    @contextlib.contextmanager
+    def _step_in_flight(self):
+        """Marks the span in which the state is mid-update (the batches
+        pulled, parameters and moments updated leaf by leaf in place, a
+        rewind's reload): a preemption notice that lands there is deferred
+        to the poll after it, whatever the handler's ``defer``."""
+        self._in_step = True
+        try:
+            yield
+        finally:
+            self._in_step = False
+
+    def _poll_preemption(self) -> None:
+        if self._preemption_handler is not None:
+            self._preemption_handler.poll()
 
     def _timer(self, name: str, start: bool) -> None:
         """Start or stop a wall-clock-breakdown timer (no-op when off)."""
@@ -489,28 +650,20 @@ class DeepSpeedEngine:
             kwargs["pld_theta"] = self.progressive_layer_drop.get_theta()
         scale = self.state.scaler.cur_scale
         batch = self._to_device(batch)
-        loss_sum = None
-        for i in range(self.gas):
-            mb = tree_map(lambda x: x[i], batch) if isinstance(batch, dict) else batch[i]
-            self._timer(FORWARD_GLOBAL_TIMER, True)
-            loss, scaled, leaves = self._micro_loss(mb, **kwargs)
-            self._timer(FORWARD_GLOBAL_TIMER, False)
-            self._timer(BACKWARD_GLOBAL_TIMER, True)
-            scaled.backward()
-            self._accumulate(leaves)
-            self._timer(BACKWARD_GLOBAL_TIMER, False)
-            loss = loss.detach()
-            loss_sum = loss if loss_sum is None else loss_sum + loss
-        self._timer(STEP_GLOBAL_TIMER, True)
         if self._host_opt is not None:
-            self._host_apply(lr)
+            loss, self._grad_acc = self._micro_grads(self.state, batch,
+                                                     kwargs, timed=True)
+            self._timer(STEP_GLOBAL_TIMER, True)
+            metrics = self._host_apply(lr)
+            self._timer(STEP_GLOBAL_TIMER, False)
         else:
-            grads = tree_map(lambda g: g.float() / self.gas, self._take_grads())
-            self._apply_grads(grads, lr)
-        self._timer(STEP_GLOBAL_TIMER, False)
+            self.state, metrics = self._train_step(self.state, batch, lr,
+                                                   kwargs, timed=True)
+            self.skipped_steps += int(metrics["skipped"])
+            self._global_grad_norm = metrics["grad_norm"]
+            loss = metrics["loss"]
         self.micro_steps += self.gas
         self._finish_step()
-        loss = loss_sum / self.gas
         self._after_step(loss, scale)
         self._timer(TRAIN_BATCH_TIMER, False)
         if self.telemetry is not None:
@@ -518,6 +671,8 @@ class DeepSpeedEngine:
                                         time.perf_counter() - t_start,
                                         ltd_keep=ltd_keep)
         self._log_step(loss)
+        if self.sentinel is not None:
+            self._resilience_step(loss, metrics, batch)
         return loss
 
     def _apply_curriculum(self, batch):
@@ -725,16 +880,332 @@ class DeepSpeedEngine:
                                        "scope": "train", "programs": table})
         return table
 
+    # ----------------------------------------------------------- resilience
+    def _resilience_step(self, loss, metrics, batch) -> None:
+        """Per-step sentinel bookkeeping (the reference's). The step's
+        loss, grad norm and overflow flag queue as one small device tensor;
+        classification happens at the check fence (one device-to-host copy
+        for every queued step). Auto-checkpoints are screened: the sentinel
+        drains BEFORE a save so a detected-late anomaly can never be
+        published as a rewind target."""
+        rcfg = self.resilience_config
+        flag = metrics["overflow"]
+        self._pending_anomaly_reads.append((self.global_steps, torch.stack(
+            [loss.float(), metrics["grad_norm"].float(),
+             (flag if flag is not None else self._no_overflow).float()])))
+        save_due = bool(rcfg.checkpoint_dir is not None
+                        and rcfg.checkpoint_interval
+                        and self.global_steps % rcfg.checkpoint_interval == 0)
+        # an SDC-armed run audits BEFORE every save too: a bit flipped
+        # between audits must never be published into a rewind target
+        audit_due = bool(rcfg.sdc_audit_interval) and (
+            save_due or self.global_steps % rcfg.sdc_audit_interval == 0)
+        replay_due = bool(rcfg.step_replay_interval
+                          and self.global_steps % rcfg.step_replay_interval == 0)
+        if not (save_due or audit_due or replay_due
+                or self.global_steps % self._sentinel_interval == 0):
+            return
+        anomaly = self._sentinel_drain()
+        if anomaly is None and audit_due:
+            anomaly = self._sdc_audit_check()
+        if anomaly is None and replay_due:
+            anomaly = self._sdc_step_replay_check(batch)
+        if self.slo is not None:
+            # SLO judgment at the sentinel's fence: the training SLIs read
+            # gauges / counters the fence just refreshed (host only)
+            self.slo.maybe_evaluate()
+        if anomaly is not None:
+            self._recover_or_raise(anomaly)
+            return
+        # de-escalate the skip width only once training has cleanly passed
+        # the last anomaly's region — a clean check while still replaying
+        # toward it must not shrink the next escalation
+        if self.global_steps > self._last_anomaly_step:
+            self._rewinds_since_clean = 0
+        if save_due:
+            self.save_checkpoint(rcfg.checkpoint_dir)
+
+    def _sentinel_drain(self):
+        """Classify every queued step; returns the first *actionable*
+        anomaly (overflows are counted but the loss scaler already handled
+        them). Entries after an actionable anomaly are dropped — they ran
+        on suspect params and the rewind re-executes them anyway."""
+        from deepspeed_tpu_torch.runtime.sentinel import AnomalyClass
+
+        if not self._pending_anomaly_reads:
+            return None
+        t0 = time.perf_counter() if self.tracer is not None else 0.0
+        pending, self._pending_anomaly_reads = \
+            self._pending_anomaly_reads, []
+        # the sentinel's fence: ONE copy of every queued step's scalars
+        vals = torch.stack([v for _, v in pending]).tolist()
+        reg = self.telemetry
+        found = None
+        for (step, _), (loss, norm, ovf) in zip(pending, vals):
+            a = self.sentinel.observe(step, loss, norm, bool(ovf))
+            if a is None:
+                continue
+            if reg is not None:
+                reg.counter(f"resilience/anomalies_{a.cls}").inc()
+            if a.cls != AnomalyClass.OVERFLOW:
+                found = a
+                break
+        if self.tracer is not None:
+            self.tracer.record(
+                "sentinel_check", t0, time.perf_counter(),
+                trace_id=self._train_trace, observations=len(pending),
+                step=self.global_steps,
+                anomaly=(found.cls if found is not None else None))
+        return found
+
+    def _sdc_audit_check(self):
+        """Cross-replica checksum agreement over params + optimizer state
+        (runtime/sentinel.py ``sdc_audit``). A mismatch quarantines the
+        suspect device — counted, evented, and surfaced to the elastic
+        agent via ``set_sdc_quarantine_callback`` — and returns an SDC
+        anomaly so recovery rewinds. On the port's one device every leaf
+        has one copy: the audit compares no group and reads ok."""
+        from deepspeed_tpu_torch.runtime.sentinel import (AnomalyClass,
+                                                          TrainingAnomaly,
+                                                          sdc_audit)
+
+        res = sdc_audit({"params": self.state.params,
+                         "opt_state": self.state.opt_state})
+        reg = self.telemetry
+        if reg is not None:
+            reg.counter("resilience/sdc_audits").inc()
+        if res.ok:
+            self.sdc_suspect_devices = ()  # healed / transient: un-flag
+            return None
+        self.sdc_suspect_devices = res.suspects
+        if reg is not None:
+            reg.counter("resilience/sdc_mismatches").inc()
+        record_event("resilience/sdc_quarantine", step=self.global_steps,
+                     suspect_devices=list(res.suspects),
+                     mismatched_groups=res.mismatched_groups)
+        logger.error(
+            "SDC audit: %d/%d replica groups disagree; suspect device(s) "
+            "%s quarantined", res.mismatched_groups, res.n_groups,
+            list(res.suspects))
+        if self._sdc_quarantine_cb is not None:
+            try:
+                self._sdc_quarantine_cb(res)
+            except Exception as e:
+                logger.warning("sdc quarantine callback failed: %s", e)
+        detail = (f"{res.mismatched_groups}/{res.n_groups} replica groups "
+                  f"disagree; suspects {list(res.suspects)}")
+        return TrainingAnomaly(AnomalyClass.SDC, self.global_steps,
+                               float(res.mismatched_groups), 0.0, detail)
+
+    def set_sdc_quarantine_callback(self, cb) -> None:
+        """Hook for the elastic agent / launcher: called with the
+        :class:`~deepspeed_tpu_torch.runtime.sentinel.SDCAuditResult` when
+        an audit finds a deviating replica, so the supervisor can exclude
+        the host from the next worker group."""
+        self._sdc_quarantine_cb = cb
+
     def set_slo(self, slo) -> None:
-        """Attach an SLO engine, evaluated at the resilience sentinel's
-        check fence. The sentinel is not ported, so any engine raises, as
-        the reference does without a sentinel."""
+        """Attach an :class:`~deepspeed_tpu_torch.telemetry.slo.SLOEngine`:
+        the training SLIs (``train_mfu`` floor, ``train_anomaly_rate``) are
+        evaluated at the sentinel's check fence, where the gauges and
+        counters they read were just refreshed. Requires the resilience
+        sentinel to be armed (the fence is the evaluation site); raises
+        otherwise so a misconfigured job fails loudly instead of silently
+        never judging."""
         if slo is not None and self.sentinel is None:
             raise ValueError(
                 "set_slo needs the resilience sentinel armed "
                 "(resilience.enabled): SLO evaluation rides the "
                 "sentinel's check fence")
         self.slo = slo
+
+    def _sdc_step_replay_check(self, batch):
+        """Single-device determinism probe (runtime/sentinel.py
+        ``step_replay_probe``): :meth:`_train_step` on the current state and
+        the step's batch, run twice on clones of the state, each replay
+        with the dropout generator at the same state, must agree bit for
+        bit; a mismatch is flaky hardware (counted + evented, recovered
+        like SDC). The live state and the generator are as they were
+        after. Skipped under the host optimizer, PLD and random-LTD, as
+        the reference skips it."""
+        from deepspeed_tpu_torch.runtime.sentinel import (AnomalyClass,
+                                                          TrainingAnomaly,
+                                                          step_replay_probe)
+
+        if self._host_opt is not None or self._use_pld or self._use_random_ltd:
+            return None
+        lr = self.get_lr()[0]
+        gen_state = self._dropout_rng.get_state()
+
+        def replay(state):
+            self._dropout_rng.set_state(gen_state)
+            return self._train_step(state, batch, lr)
+
+        try:
+            ok, detail = step_replay_probe(replay, self.state)
+        finally:
+            self._dropout_rng.set_state(gen_state)
+        reg = self.telemetry
+        if reg is not None:
+            reg.counter("resilience/step_replays").inc()
+        if ok:
+            return None
+        if reg is not None:
+            reg.counter("resilience/step_replay_mismatches").inc()
+        record_event("resilience/step_replay_mismatch",
+                     step=self.global_steps, detail=detail)
+        logger.error("step-replay probe: %s", detail)
+        return TrainingAnomaly(AnomalyClass.REPLAY, self.global_steps,
+                               0.0, 0.0, detail)
+
+    def _recover_or_raise(self, anomaly) -> None:
+        """PaLM-style rewind-and-skip: reload the newest *valid* checkpoint
+        (the checkpoint engine's walk-back survives a tag corrupted
+        mid-recovery), restore the dataloader position from its
+        ``__meta__``, then fast-forward past the offending batch window —
+        the batches between the rewind target and the anomaly, plus an
+        extra width that escalates across back-to-back rewinds. SDC/replay
+        anomalies skip nothing (the data was fine): they rewind and
+        deterministically replay. Bounded by the rolling rewind budget so
+        a poisoned shard cannot livelock."""
+        from deepspeed_tpu_torch.runtime.sentinel import (AnomalyClass,
+                                                          RewindBudgetExceededError,
+                                                          TrainingAnomalyError)
+
+        rcfg = self.resilience_config
+        record_event("resilience/anomaly", cls=anomaly.cls,
+                     step=anomaly.step, value=anomaly.value,
+                     zscore=round(anomaly.zscore, 2), detail=anomaly.detail)
+        if self.flight_recorder is not None:
+            # freeze the pre-incident window BEFORE recovery rewinds
+            # state — the dump is the postmortem of what training saw
+            # at detection, not of the already-healed timeline
+            self.flight_recorder.trigger(
+                "training_anomaly", cls=anomaly.cls, step=anomaly.step,
+                value=anomaly.value, zscore=round(anomaly.zscore, 2),
+                detail=anomaly.detail)
+        logger.warning("training anomaly: %s at step %d (%s)",
+                       anomaly.cls, anomaly.step, anomaly.detail)
+        dl = self.training_dataloader
+        recoverable = (rcfg.on_anomaly == "recover"
+                       and rcfg.checkpoint_dir is not None
+                       # the engine-owned loader must be the LIVE source:
+                       # rewinding it while a caller-supplied iterator
+                       # keeps advancing would silently desync data from
+                       # params — raise instead
+                       and self._engine_owned_stream
+                       and dl is not None
+                       and hasattr(dl, "load_state_dict")
+                       and getattr(dl, "supports_deterministic_resume",
+                                   lambda: True)())
+        if not recoverable:
+            raise TrainingAnomalyError(anomaly)
+        t0 = time.perf_counter()
+        spent = self._rewind_budget.record()
+        if spent > rcfg.max_rewinds:
+            record_event("resilience/rewind_budget_exhausted",
+                         spent=spent, budget=rcfg.max_rewinds)
+            raise RewindBudgetExceededError(
+                anomaly, f"rewind budget exhausted: {spent} rewinds "
+                         f"(budget {rcfg.max_rewinds}"
+                         + (f" in {rcfg.rewind_window_s}s"
+                            if rcfg.rewind_window_s else "")
+                         + f"); last anomaly: {anomaly.cls} at step "
+                           f"{anomaly.step}")
+        # rewind: the walk-back to the newest valid tag; raises the typed
+        # CheckpointCorruptionError loudly if every tag is invalid
+        it_before = self._train_iter
+        path, _ = self.load_checkpoint(rcfg.checkpoint_dir)
+        if path is None:
+            raise TrainingAnomalyError(
+                anomaly, f"anomaly at step {anomaly.step} but no checkpoint "
+                         f"under {rcfg.checkpoint_dir} to rewind to")
+        if it_before is not None and self._train_iter is it_before:
+            # the loaded tag carried no restorable dataloader state (saved
+            # before the loader was attached, or by another writer): params
+            # are rewound but the data stream is NOT — fast-forwarding the
+            # stale iterator would silently desync data from params
+            raise TrainingAnomalyError(
+                anomaly, f"rewound params to {path}, but that checkpoint "
+                         f"has no dataloader state — cannot rewind the "
+                         f"data stream deterministically; re-save "
+                         f"checkpoints with this engine to enable "
+                         f"auto-recovery")
+        rewound_to = self.global_steps
+        self._rewinds_since_clean += 1
+        self._last_anomaly_step = anomaly.step
+        if anomaly.cls in AnomalyClass.DATA_CLASSES:
+            extra = min(rcfg.skip_width_base * rcfg.skip_width_factor
+                        ** (self._rewinds_since_clean - 1),
+                        rcfg.skip_width_max)
+            skip_steps = max(anomaly.step - rewound_to, 0) + extra
+        else:  # sdc/replay: the data was fine — replay it
+            skip_steps = 0
+        n_batches = skip_steps * self.gas
+        it = self._ensure_train_iter()  # load invalidated the old iterator
+        for _ in range(n_batches):
+            next(it)
+        # sentinel history is kept: the rewind RESTORES the pre-anomaly
+        # regime, so that history is the correct baseline for the replayed
+        # steps. (The anomalous value itself was never pushed.)
+        self._pending_anomaly_reads.clear()
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        rec = {"class": anomaly.cls, "anomaly_step": anomaly.step,
+               "rewound_to": rewound_to, "skipped_steps": skip_steps,
+               "skipped_batches": n_batches, "checkpoint": path,
+               "recovery_ms": round(dt_ms, 2)}
+        self.rewind_log.append(rec)
+        reg = self.telemetry
+        if reg is not None:
+            reg.counter("resilience/rewinds").inc()
+            if n_batches:
+                reg.counter("resilience/skipped_batches").inc(n_batches)
+            reg.histogram("resilience/recovery_latency_ms").observe(dt_ms)
+        if self.tracer is not None:
+            self.tracer.record(
+                "recovery", t0, time.perf_counter(),
+                trace_id=self._train_trace, anomaly=anomaly.cls,
+                anomaly_step=anomaly.step, rewound_to=rewound_to,
+                skipped_batches=n_batches)
+        record_event("resilience/rewind", **rec)
+        log_dist(
+            f"anomaly recovery: {anomaly.cls} at step {anomaly.step} -> "
+            f"rewound to step {rewound_to} ({path}), skipping "
+            f"{n_batches} batch(es) ({skip_steps} step(s)), "
+            f"{dt_ms:.0f} ms", ranks=[0])
+
+    def install_preemption_handler(self, save_dir, tag=None, defer=None,
+                                   **handler_kw):
+        """SIGTERM (a maintenance / preemption notice) -> final synchronous
+        checkpoint to ``save_dir`` -> exit with the restartable preemption
+        code, which the elastic agent restarts without burning budget.
+        Returns the installed handler (also usable as a maintenance-event
+        callback via ``handler.trigger()``); with ``defer=True`` the notice
+        only flags and the engine performs the save at the next step
+        boundary.
+
+        The port runs one process, so ``defer`` defaults to False (the
+        reference's single-host default): a notice between steps saves at
+        once. A notice that lands inside a step (after ``train_batch``
+        pulled its batches, or while the optimizer updates the state in
+        place, leaf by leaf) is deferred all the same, to the poll at the
+        end of that step, so the tag never pairs half-updated state or a
+        loader ahead of its parameters. The reference's multi-host
+        ``consensus_fn`` (a per-step vote across processes, so every host
+        starts the save at one step boundary) waits for the port's
+        ``comm/``; a caller may pass its own."""
+        from deepspeed_tpu_torch.elasticity.preemption import PreemptionHandler
+
+        def final_save():
+            self.save_checkpoint(save_dir, tag=tag)
+            ck = self._checkpoint_engine()
+            if ck is not None and hasattr(ck, "wait"):
+                ck.wait()  # async engine: durable before the process dies
+
+        self._preemption_handler = PreemptionHandler(
+            final_save, defer=bool(defer), busy_fn=lambda: self._in_step,
+            **handler_kw).install()
+        return self._preemption_handler
 
     def destroy(self) -> None:
         """Flush telemetry and close and detach the sinks this engine
@@ -761,7 +1232,8 @@ class DeepSpeedEngine:
         tokens, self._path_seq = self._batch_token_count(batch)
         self._path_tokens += tokens
         self._timer(FORWARD_GLOBAL_TIMER, True)
-        loss, scaled, leaves = self._micro_loss(self._to_device(batch))
+        loss, scaled, leaves = self._micro_loss(self.state,
+                                                self._to_device(batch))
         self._timer(FORWARD_GLOBAL_TIMER, False)
         self._pending = (scaled, leaves, loss.detach())
         return loss.detach()
@@ -775,7 +1247,7 @@ class DeepSpeedEngine:
         self._pending = None
         self._timer(BACKWARD_GLOBAL_TIMER, True)
         scaled.backward()
-        self._accumulate(leaves)
+        self._grad_acc = self._accumulate(leaves, self._grad_acc)
         self._timer(BACKWARD_GLOBAL_TIMER, False)
         self._acc_count += 1
         return loss
@@ -784,32 +1256,45 @@ class DeepSpeedEngine:
         return (self.micro_steps + 1) % self.gas == 0
 
     def step(self):
-        """Apply the optimizer at the gas boundary (reference step)."""
-        if self.is_gradient_accumulation_boundary():
-            assert self._acc_count == self.gas, (
-                f"step() at boundary needs {self.gas} backward() calls, "
-                f"got {self._acc_count}")
-            self._timer(STEP_GLOBAL_TIMER, True)
-            if self._host_opt is not None:
-                self._host_apply(self.get_lr()[0])
-            else:
-                # / gas in the accumulation dtype, as the reference's step()
-                grads = tree_map(lambda g: g / self.gas, self._take_grads())
-                self._apply_grads(grads, self.get_lr()[0])
-            self._timer(STEP_GLOBAL_TIMER, False)
-            self._acc_count = 0
-            self._finish_step()
-            if self.progressive_layer_drop is not None:
-                self.progressive_layer_drop.update_state(self.global_steps)
-            if self.telemetry is not None:
-                # the reference's forward/backward/step path records none;
-                # here it counts like a train_batch step (the last
-                # micro-batch's loss stands for the step's)
-                self._record_step_telemetry(
-                    self._path_loss, self._path_tokens, self._path_seq,
-                    time.perf_counter() - self._path_t0)
-            self._path_tokens, self._path_t0 = 0, None
-        self.micro_steps += 1
+        """Apply the optimizer at the gas boundary (reference step). A
+        preemption notice that lands inside the update is served at the
+        poll after it."""
+        boundary = self.is_gradient_accumulation_boundary()
+        with self._step_in_flight():
+            if boundary:
+                self._boundary_step()
+            self.micro_steps += 1
+        if boundary:
+            self._poll_preemption()
+
+    def _boundary_step(self) -> None:
+        """step()'s update at the gas boundary."""
+        assert self._acc_count == self.gas, (
+            f"step() at boundary needs {self.gas} backward() calls, "
+            f"got {self._acc_count}")
+        self._timer(STEP_GLOBAL_TIMER, True)
+        if self._host_opt is not None:
+            self._host_apply(self.get_lr()[0])
+        else:
+            # / gas in the accumulation dtype, as the reference's step()
+            grads = tree_map(lambda g: g / self.gas, self._take_grads())
+            self.state, metrics = self._apply_grads(self.state, grads,
+                                                    self.get_lr()[0])
+            self.skipped_steps += int(metrics["skipped"])
+            self._global_grad_norm = metrics["grad_norm"]
+        self._timer(STEP_GLOBAL_TIMER, False)
+        self._acc_count = 0
+        self._finish_step()
+        if self.progressive_layer_drop is not None:
+            self.progressive_layer_drop.update_state(self.global_steps)
+        if self.telemetry is not None:
+            # the reference's forward/backward/step path records none;
+            # here it counts like a train_batch step (the last
+            # micro-batch's loss stands for the step's)
+            self._record_step_telemetry(
+                self._path_loss, self._path_tokens, self._path_seq,
+                time.perf_counter() - self._path_t0)
+        self._path_tokens, self._path_t0 = 0, None
 
     # -------------------------------------------------------------- eval path
     def eval_batch(self, batch):

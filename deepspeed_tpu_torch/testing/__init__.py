@@ -1,0 +1,17 @@
+"""Fault-injection seams for robustness tests (port of
+deepspeed_tpu/testing/)."""
+
+from deepspeed_tpu_torch.testing.fault_injection import (
+    FakeClock,
+    FaultInjector,
+    PoisonedDataset,
+    ScriptedWorkerGroup,
+    SimulatedCrash,
+    corrupt_file,
+    flip_param_bit,
+    poison_sample,
+)
+
+__all__ = ["FakeClock", "FaultInjector", "PoisonedDataset",
+           "ScriptedWorkerGroup", "SimulatedCrash", "corrupt_file",
+           "flip_param_bit", "poison_sample"]

@@ -4,12 +4,14 @@
   the JAX package or ``ml_dtypes`` (an AST scan of every import
   statement), and importing the port leaves them out of ``sys.modules``
   (a fresh interpreter). bf16 arrays cross numpy as uint16 bits.
-* The model, op, serving and inference layers import nothing of the
-  training engine (their shared errors live in ``errors.py``). Four
-  runtime modules that the reference's models and inference engine import
-  too are open to them — activation checkpointing, the chunked loss and
-  random-LTD's token routing (models) and the checkpoint format
-  (inference) — and those import nothing else of the runtime.
+* The model, op, serving, inference, elasticity and testing layers import
+  nothing of the training engine (their shared errors live in
+  ``errors.py``). Five
+  runtime modules that the reference's models, inference engine and
+  elasticity import too are open to them — activation checkpointing, the
+  chunked loss and random-LTD's token routing (models), the checkpoint
+  format (inference) and the config base class (elasticity) — and those
+  import nothing else of the runtime.
 * Entry points default to the CUDA card: with no card, ``init_inference()``
   and ``initialize()`` without a device raise instead of carrying on on the
   CPU.
@@ -35,6 +37,9 @@ OPEN_TO = {
                "deepspeed_tpu_torch.runtime.zero.tiling",
                "deepspeed_tpu_torch.runtime.data_pipeline.random_ltd"),
     "inference": ("deepspeed_tpu_torch.runtime.checkpoint_engine",),
+    # the elasticity config builds on the config base class, as the
+    # reference's does; the fault seams take an engine and import none
+    "elasticity": ("deepspeed_tpu_torch.runtime.config_utils",),
 }
 
 
@@ -61,7 +66,8 @@ def test_no_jax_or_reference_package_imports(path):
         assert root not in FORBIDDEN, f"{path.name} imports {name}"
 
 
-@pytest.mark.parametrize("layer", ["models", "ops", "serving", "inference"])
+@pytest.mark.parametrize("layer", ["models", "ops", "serving", "inference",
+                                   "elasticity", "testing"])
 def test_lower_layers_do_not_import_the_training_runtime(layer):
     open_to = OPEN_TO.get(layer, ())
     for path in sorted((ROOT / "deepspeed_tpu_torch" / layer).rglob("*.py")):
@@ -96,7 +102,9 @@ def test_importing_the_port_loads_no_jax():
             "deepspeed_tpu_torch.models.gpt2, deepspeed_tpu_torch.ops.adam, "
             "deepspeed_tpu_torch.ops.flash_attention, "
             "deepspeed_tpu_torch.ops.sparse_attention, "
-            "deepspeed_tpu_torch.ops.registry; "
+            "deepspeed_tpu_torch.ops.registry, "
+            "deepspeed_tpu_torch.runtime.sentinel, "
+            "deepspeed_tpu_torch.elasticity, deepspeed_tpu_torch.testing; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,

@@ -474,8 +474,13 @@ DATA_EFFICIENCY = [(e, i) for e, i in zip(OPTIONS, OPTION_IDS)
                        "progressive_layer_drop", "data_efficiency",
                        "curriculum_learning", "tensorboard", "wandb",
                        "csv_monitor", "jsonl_monitor", "flops_profiler")]
+# resilience runs (runtime/sentinel.py, the engine's recovery;
+# tests/test_torch_resilience.py); the elasticity section is parsed and, as
+# in the reference, not read by the engine (tests/test_torch_elasticity.py)
+RESILIENCE = [(e, i) for e, i in zip(OPTIONS, OPTION_IDS)
+              if next(iter(e)) in ("resilience", "elasticity")]
 NOT_PORTED = [(e, i) for e, i in zip(OPTIONS, OPTION_IDS)
-              if (e, i) not in ACCEPTED + ZERO + DATA_EFFICIENCY]
+              if (e, i) not in ACCEPTED + ZERO + DATA_EFFICIENCY + RESILIENCE]
 
 
 @pytest.mark.parametrize("extra", [e for e, _ in NOT_PORTED],
@@ -519,6 +524,22 @@ def test_zero_offload_and_cpu_adam_options_are_accepted(extra):
         offload is not None and offload.device != "none")
     assert engine.optimizer.name == jadam.build_optimizer(
         ref.optimizer_name, ref.optimizer_params).name
+
+
+@pytest.mark.parametrize("extra", [e for e, _ in RESILIENCE],
+                         ids=[i for _, i in RESILIENCE])
+def test_resilience_and_elasticity_options_are_accepted(extra):
+    cfg = _config("fp32", **extra)
+    assert TConfig(cfg).not_ported() == []
+    model = GPT2Model(GPT2Config.tiny(max_seq_len=64))
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
+                                                device="cpu")
+    ref = JConfig(cfg, world_size=1)
+    assert engine.config.elasticity_enabled == ref.elasticity_enabled
+    assert engine.config.resilience_config.enabled == \
+        ref.resilience_config.enabled
+    assert (engine.sentinel is not None) == ref.resilience_config.enabled
+    engine.destroy()
 
 
 @pytest.mark.parametrize("extra", [e for e, _ in DATA_EFFICIENCY],
