@@ -101,6 +101,23 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                roof. Reported: every row (analytic FLOPs and bytes over
                host wall, telemetry/attribution.py), the tenants' totals.
                JSONL and dumps under build/telemetry/.
+   serve_fabric — the serving fabric on phase 4's bf16 engine, through
+               run_twin: 3 slot-paged replicas (8 slots, max_len 384,
+               buckets 128 / 384) over the one engine, the autoscaler
+               armed (2-4 replicas), 48 seeded requests of 3 tenants
+               (prompts 24-300, 32-64 new tokens) on the twin's virtual
+               clock, a crash of r1, three flaky steps that trip r0's
+               breaker, a straggle of r2 that the per-attempt timeout
+               cuts; twice. Held: nothing failed; every stream equals its
+               tokens; one fingerprint over both runs; each resumed
+               request's tokens are the tokens committed before its last
+               attempt followed by a fault-free engine's run of that
+               attempt (bf16); no recompile; the decode kernel launched
+               32 x (decode steps + warm-up captures) over every replica
+               built; card bytes after the fabric is dropped within 1 GiB
+               of those before. Reported: each replica's warm-up (graph
+               capture) ms, host ms per replica step, the counters, the
+               alert and scale timelines.
    serve_spec — speculative decoding on phase 4's bf16 engine (runs a-c2)
                and phase 5's int8 engine (runs d, d2), 8 slots, max_len
                1024, adaptive k: (a) self-drafting (120-token window,
@@ -127,7 +144,7 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                reference phase, n-gram and draft-model speculation on the
                small fp32 LLaMA, slot- and block-paged, whose tokens equal
                the plain engine's and the CPU's.
-6. probe_fp32 — LLaMA-7B at full width and 8 of its 32 layers in fp32: the
+6. probe_fp32 — LLaMA-7B at full width and 4 of its 32 layers in fp32: the
                trace's longest request served alone,
                its kernel-cached replay held to the no-cache forward within
                1e-3 of max |logit|, and its served tokens to the replay.
@@ -137,7 +154,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                serve_spec's self-drafting on this engine (runs e, e2:
                slot-paged and over an fp32 block pool), each accepting at
                least 0.9 of its drafts: in fp32 the draft computes the
-               target's own function.
+               target's own function. Last, a twin run of 2 replicas with
+               a crash serves the tokens of a fault-free pool of 2.
 
 Training (phases added after ``reference``, before the serving phases):
 
@@ -227,7 +245,7 @@ Training (phases added after ``reference``, before the serving phases):
                DSTPU_FLASH_F32_PRECISE=1: only the precise kernels launch
                (22 x gas x 2 each), the first batch's loss within 1e-3 of
                the default mode's.
-   checkpoint_roundtrip — TinyLlama width at 2 of its 22 layers (0.22 B
+   checkpoint_roundtrip — TinyLlama width at 1 of its 22 layers (0.18 B
                parameters), trained as above: a 3-step stretch replayed
                from a copy of the same state (bit-identical, or the spread
                held below), save_checkpoint at step 3 and 3 more steps; a
@@ -239,8 +257,8 @@ Training (phases added after ``reference``, before the serving phases):
                Save and load seconds, bytes written; the directory is
                temporary.
    train_774m_resilience — training resilience (after
-               checkpoint_roundtrip): GPT-2 774M width at 4 of its 36
-               layers (a tag ~1.7 GB), bf16, micro-batch 8 x gas 2 x T
+               checkpoint_roundtrip): GPT-2 774M width at 2 of its 36
+               layers (a tag ~1.3 GB), bf16, micro-batch 8 x gas 2 x T
                1024, the data through initialize(training_data=...) and
                train_batch(). (a) resilience armed, checkpoint_interval 4:
                flip_param_bit flips the top exponent bit of an f32 master
@@ -263,7 +281,7 @@ Training (phases added after ``reference``, before the serving phases):
    train_llama7b_offload — ZeRO-Offload and ZeRO-Infinity (after
                train_774m_resilience). The host's nproc, MemTotal and the
                free space where the swap files go; the host kernels' build
-               flags. (a) LLaMA-7B width at 2 layers (0.67 B parameters),
+               flags. (a) LLaMA-7B width at 1 layer (0.47 B parameters),
                one seeded init and 2 batches (micro-batch 1 x gas 2 x T
                2048, bf16, AdamW, clipping 1.0, flash) through three
                engines: device-state ZeRO 0, offload_optimizer cpu at
@@ -274,10 +292,11 @@ Training (phases added after ``reference``, before the serving phases):
                within 1e-2 row by row (kernel_check.rel_err); nvme against
                cpu: losses, grad norms and images bit-identical; each
                flash kernel launches layers x gas x 2 times a run. NVMe
-               bytes read and written a step. (b) LLaMA-7B as published
-               (32 layers; fewer only if the host's MemAvailable cannot
-               hold 12 bytes a parameter of f32 state plus a margin, the
-               cut recorded), offload_optimizer cpu, stage 2, remat
+               bytes read and written a step. (b) LLaMA-7B's widths at 24
+               of its 32 layers (5.1 B parameters; fewer only if the
+               host's MemAvailable cannot hold 12 bytes a parameter of f32
+               state plus a margin, the cut recorded), offload_optimizer
+               cpu, stage 2, remat
                "nothing", the same batch shape: one warm-up and one
                measured step on a fixed batch. Held: the loss falls; the engine
                adds only the bf16 images to the card's allocation, after
@@ -471,7 +490,9 @@ from deepspeed_tpu_torch.ops.sparse_attention.block_sparse import (
 from deepspeed_tpu_torch.runtime.zero.offload import param_names
 from deepspeed_tpu_torch.utils.tree import tree_leaves, tree_map
 from deepspeed_tpu_torch.serving import (BlockKVPool, Request, ServingEngine,
-                                         poisson_trace, shared_prefix_trace,
+                                         poisson_trace, run_twin,
+                                         shared_prefix_trace,
+                                         synthetic_tenant_trace,
                                          templated_trace)
 from deepspeed_tpu_torch.serving.speculative import DraftModelDrafter
 from deepspeed_tpu_torch.telemetry import (FlightRecorder, JsonlSink,
@@ -3283,9 +3304,9 @@ def phase_serve_spec(eng, smi: str, runs) -> dict:
     return info
 
 
-# probe_fp32's depth: 8 of LLaMA-7B's 32 layers (the checks are per layer
+# probe_fp32's depth: 4 of LLaMA-7B's 32 layers (the checks are per layer
 # and per token; the bf16 serving phases run all 32)
-PROBE_FP32_LAYERS = 8
+PROBE_FP32_LAYERS = 4
 
 
 def phase_probe_fp32(smi: str) -> dict:
@@ -3296,7 +3317,8 @@ def phase_probe_fp32(smi: str) -> dict:
     serve_spec's self-drafting runs on this engine, slot-paged and over an
     fp32 block pool (runs e, e2): with rounding too small to flip an
     argmax, the draft computes the target's own function, and each run
-    accepts at least 0.9 of its drafts."""
+    accepts at least 0.9 of its drafts. Last, :func:`fabric_fp32_check`:
+    a twin run with a crash serves a fault-free fixed pool's tokens."""
     cfg = dataclasses.replace(LlamaConfig.llama_7b(),
                               num_layers=PROBE_FP32_LAYERS)
     eng = deepspeed_tpu_torch.init_inference(LlamaModel(cfg), dtype="fp32",
@@ -3334,6 +3356,8 @@ def phase_probe_fp32(smi: str) -> dict:
     del srv
     for run in ("e_self_draft_fp32", "e2_self_draft_fp32_block"):
         info[run] = _spec_run(eng, run, smi, eng)
+    gc.collect()
+    info["fabric_fp32"] = fabric_fp32_check(eng)
     emit(info)
     return info
 
@@ -4076,16 +4100,17 @@ def _dir_bytes(path: Path) -> int:
     return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
 
 
-# checkpoint_roundtrip's depth: 2 of TinyLlama's 22 layers (0.22 B
-# parameters, 2.6 GB a tag); train_774m_resilience covers save, load,
+# checkpoint_roundtrip's depth: 1 of TinyLlama's 22 layers (0.18 B
+# parameters, ~2.1 GB a tag); train_774m_resilience covers save, load,
 # walk-back and resume at the 774M width
-CKPT_LAYERS = 2
+CKPT_LAYERS = 1
 
 
 def phase_checkpoint_roundtrip(smi: str) -> dict:
-    """TinyLlama width at 2 of its 22 layers, trained as train_tinyllama
-    (remat off): one 3-step stretch replayed from the same state (is the
-    step bit-identical run to run?); save at step 3, 3 more steps; a fresh
+    """TinyLlama width at CKPT_LAYERS of its 22 layers, trained as
+    train_tinyllama (remat off): one 3-step stretch replayed from the same
+    state (is the step bit-identical run to run?); save at step 3, 3 more
+    steps; a fresh
     engine loads the tag and takes the same 3 steps (losses held to the
     uninterrupted run's: bit-identical, or within the replay's spread);
     its own tag at step 6, corrupted, makes the next load walk back to
@@ -4202,9 +4227,9 @@ def phase_checkpoint_roundtrip(smi: str) -> dict:
 
 
 # -------------------------------------------------------------- resilience
-# GPT-2 774M at full width and 4 of its 36 layers: a tag (f32 masters and
-# two moments) is ~1.7 GB, so the phase's saves and loads fit its time
-RES_LAYERS = 4
+# GPT-2 774M at full width and 2 of its 36 layers: a tag (f32 masters and
+# two moments) is ~1.3 GB, so the phase's saves and loads fit its time
+RES_LAYERS = 2
 RES_SAMPLES = 512
 RES_FLIP_AFTER = (6, 13)     # flip a master's top exponent bit after these
 RES_CKPT_INTERVAL = 4
@@ -4287,8 +4312,9 @@ def _res_timed(calls: list, fn):
 
 def phase_train_774m_resilience(smi: str, dev: str = "cuda") -> dict:
     """Training resilience on GPT-2 774M at full width (d 1280, 20 heads,
-    T 1024, vocab 50257) and a cut depth of 4 of its 36 layers (a tag of
-    f32 masters and two moments is ~1.7 GB, ~9 GB at full depth), bf16,
+    T 1024, vocab 50257) and a cut depth of RES_LAYERS of its 36 layers (a
+    tag of f32 masters and two moments is ~1.3 GB at 2, ~9 GB at full
+    depth), bf16,
     micro-batch 8 x gas 2, the bench optimizer, attn flash, the data
     through initialize(training_data=...) and train_batch() (recovery
     rewinds only a stream the engine owns). Held:
@@ -4548,8 +4574,11 @@ OFFLOAD_GAS, OFFLOAD_MICRO, OFFLOAD_T = 2, 1, 2048
 OFFLOAD_RUNS = (("device", {"stage": 0}),
                 ("cpu", {"stage": 2, "offload_optimizer": {"device": "cpu"}}),
                 ("nvme", {"stage": 3, "offload_optimizer": {"device": "nvme"}}))
-OFFLOAD_PARITY_LAYERS = 2
+OFFLOAD_PARITY_LAYERS = 1
 OFFLOAD_PARITY_STEPS = 2
+# (b)'s depth: 24 of LLaMA-7B's 32 layers (the host Adam's sweep and the
+# card's images scale with it; 32 read 14.5-18.6 s a step, PRs 17-20)
+OFFLOAD_LAYERS = 24
 OFFLOAD_WARM, OFFLOAD_STEPS = 1, 1
 # losses and grad norms of step 2, host (cpu) against device-state Adam,
 # relative: the same f32 update in another order (the host kernel may fuse
@@ -4683,10 +4712,10 @@ def _offload_parity(params, batches, cfg, dev: str) -> dict:
 def phase_train_llama7b_offload(smi: str, dev: str = "cuda") -> dict:
     """(a) LLaMA-7B width at OFFLOAD_PARITY_LAYERS layers, one seeded init
     and batches through three engines: device-state (ZeRO 0),
-    offload_optimizer cpu (stage 2) and nvme (stage 3), 3 steps each. (b)
-    LLaMA-7B as published, offload_optimizer cpu, remat "nothing", at the
-    deepest depth whose f32 state the host holds (full depth unless its
-    memory forbids): one warm-up and one measured step on a fixed batch."""
+    offload_optimizer cpu (stage 2) and nvme (stage 3), 2 steps each. (b)
+    LLaMA-7B's widths at OFFLOAD_LAYERS of its 32 layers, offload_optimizer
+    cpu, remat "nothing", fewer layers only if the host cannot hold their
+    f32 state: one warm-up and one measured step on a fixed batch."""
     from deepspeed_tpu_torch.ops.native.builder import compiler
 
     gc.collect()
@@ -4702,7 +4731,7 @@ def phase_train_llama7b_offload(smi: str, dev: str = "cuda") -> dict:
     adam.load().load()
     get_op_builder("async_io")().load().load()
     build_s = time.perf_counter() - t0
-    # (a) parity at 7B width, two layers
+    # (a) parity at 7B width, OFFLOAD_PARITY_LAYERS layers
     cfg = _llama_7b(OFFLOAD_PARITY_LAYERS)
     params = LlamaModel(cfg).init(torch.Generator(device=dev).manual_seed(7),
                                   device=dev, dtype=torch.float32)
@@ -4711,12 +4740,13 @@ def phase_train_llama7b_offload(smi: str, dev: str = "cuda") -> dict:
                          start_span=1000)
     parity = _offload_parity(params, batches, cfg, dev)
     del params
-    # (b) LLaMA-7B as published, as deep as the host's memory allows
+    # (b) LLaMA-7B's widths at OFFLOAD_LAYERS, fewer if the host's memory
+    # forbids
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     avail = _meminfo("MemAvailable")
-    layers = LlamaConfig.llama_7b().num_layers
+    layers = OFFLOAD_LAYERS
     while layers > 1 and 12 * _llama_params(_llama_7b(layers)) \
             + OFFLOAD_HOST_MARGIN > avail:
         layers -= 1
@@ -4791,7 +4821,7 @@ def phase_train_llama7b_offload(smi: str, dev: str = "cuda") -> dict:
         "depth_rule": {"mem_available_bytes": avail,
                        "state_bytes": 12 * n_params,
                        "margin_bytes": OFFLOAD_HOST_MARGIN,
-                       "cut": layers < 32},
+                       "cut": layers < OFFLOAD_LAYERS},
         "zero": zero, "init_s": init_s, "losses": losses,
         "ms_per_step": 1e3 * step_s, "tokens_per_s": tokens / step_s,
         "mfu": tokens / step_s * flops_tok / BF16_FLOP_PER_S,
@@ -5039,6 +5069,274 @@ def phase_serve_telemetry(eng, smi: str) -> dict:
             "phase_wall_s": time.perf_counter() - t0}
     emit(info)
     return info
+
+
+# ---------------------------------------------------------- serving fabric
+# every replica: slot-paged, 8 slots, buckets up to max_len (a failed-over
+# request re-prefills prompt + committed tokens: at most prompt + max_new)
+FABRIC_SERVE = dict(num_slots=8, max_len=384, buckets=(128, 384))
+FABRIC_TENANTS = (
+    {"name": "chat", "kind": "bimodal", "n": 24, "rate": 60.0,
+     "short_lens": (24, 48, 96), "long_lens": (200, 300), "long_frac": 0.25,
+     "short_new": (32, 48), "long_new": (48, 64)},
+    {"name": "bots", "kind": "bursty", "n": 16, "rate": 200.0,
+     "burst_size": 8, "prompt_lens": (32, 64, 128), "max_new": (32, 64)},
+    {"name": "batch", "kind": "bimodal", "n": 8, "rate": 20.0,
+     "short_lens": (64,), "long_lens": (256,), "long_frac": 0.5,
+     "short_new": (48,), "long_new": (64,)},
+)
+# r1 dies mid-trace; three flaky steps on r0 trip its breaker (threshold
+# 3); r2 stalls the virtual clock past the per-attempt timeout
+FABRIC_FAULTS = ({"kind": "crash", "replica": "r1", "at_step": 30},
+                 {"kind": "flaky", "replica": "r0", "at_step": 12,
+                  "count": 3},
+                 {"kind": "straggle", "replica": "r2", "delay_s": 0.6,
+                  "from_step": 20, "until_step": 20})
+FABRIC_ROUTER = dict(max_dispatch_depth=8, request_timeout_s=0.5)
+FABRIC_SCALER = dict(min_replicas=2, max_replicas=4,
+                     scale_out_cooldown_s=0.3, scale_in_cooldown_s=1.5,
+                     idle_stable_s=0.5)
+FABRIC_MEM_SLACK = 1 << 30      # card bytes the dropped fabric may leave
+
+
+def _fabric_trace(seed: int, vocab: int, streamed=None, tenants=None):
+    """The seeded multi-tenant trace; with ``streamed`` (a dict) every
+    request streams its tokens into ``streamed[rid]``."""
+    reqs = synthetic_tenant_trace(seed, vocab,
+                                  tenants=tenants or FABRIC_TENANTS)
+    if streamed is not None:
+        for r in reqs:
+            streamed[r.rid] = []
+            r.on_token = streamed[r.rid].append
+    return reqs
+
+
+class _FabricProbe:
+    """``run_twin``'s replica hook: per replica built (initial, resurrected,
+    scaled out), its warm-up wall (the prefill warm-ups and the decode
+    step's first call), that first call's wall (the step run for real,
+    then captured into the replica's own graph), its captures, each step's
+    host wall and its decode steps, and every request it was sent
+    (prompt, max_new), in order. It keeps numbers, not the replicas: a
+    dropped fabric frees the card."""
+
+    def __init__(self, sync):
+        self.sync = sync
+        self.replicas = []               # per replica: a dict of numbers
+        self.sent = []                   # (rid, prompt, max_new) in order
+
+    def __call__(self, rep) -> None:
+        rec = {"name": rep.name, "warmup_ms": None, "capture_ms": None,
+               "captures": 0, "step_ms": [], "decode_steps": 0}
+        self.replicas.append(rec)
+        srv, probe = rep.serving, self
+        decode = srv._decode
+
+        def capture(sig, args, _inner=decode._capture):
+            probe.sync()
+            t0 = time.perf_counter()
+            out = _inner(sig, args)
+            probe.sync()
+            rec["capture_ms"] = 1e3 * (time.perf_counter() - t0)
+            return out
+
+        def warmup(_inner=srv.warmup):
+            if srv._warm:
+                return _inner()
+            probe.sync()
+            t0 = time.perf_counter()
+            _inner()
+            probe.sync()
+            rec["warmup_ms"] = 1e3 * (time.perf_counter() - t0)
+            rec["captures"] = srv._decode.captures
+
+        def submit(request, _inner=rep.submit):
+            _inner(request)
+            probe.sent.append((request.rid, list(request.prompt),
+                               request.max_new_tokens))
+
+        def step(now, _inner=rep.step):
+            t0 = time.perf_counter()
+            try:
+                return _inner(now)
+            finally:
+                rec["step_ms"].append(1e3 * (time.perf_counter() - t0))
+                rec["decode_steps"] = rep.decode_steps
+
+        decode._capture = capture
+        srv.warmup, rep.submit, rep.step = warmup, submit, step
+
+
+def _fabric_run(eng, seed: int, sync, **kw):
+    """One twin run of the chaos scenario; returns the report, the
+    streams and the probe."""
+    streamed = {}
+    reqs = _fabric_trace(seed, eng.module.config.vocab_size, streamed)
+    probe = _FabricProbe(sync)
+    rep = run_twin(eng, reqs, replica_hook=probe, **kw)
+    return rep, streamed, reqs, probe
+
+
+def _fabric_continuations(eng, reqs, probe, rep) -> dict:
+    """Each resumed request's last attempt (the prompt it was last sent:
+    its own + the tokens committed before) run on a fault-free engine: its
+    served tokens are those committed tokens followed by that run's, bit
+    for bit. Also reported: how many of them differ from the uninterrupted
+    run of their original request (bf16: a resume re-prefills what that
+    run decoded). Returns the counts."""
+    orig = {r.rid: r for r in reqs}
+    last = {}
+    sends = {}
+    for rid, prompt, max_new in probe.sent:
+        last[rid] = (prompt, max_new)
+        sends[rid] = sends.get(rid, 0) + 1
+    # one fault-free run: each resumed request's last attempt and (rids
+    # offset past the trace) its original request
+    resumed_rids = [rid for rid in sorted(rep.tokens)
+                    if len(last[rid][0]) > len(orig[rid].prompt)]
+    assert resumed_rids, "no request resumed with committed tokens"
+    off = len(orig)
+    srv = ServingEngine(eng, telemetry=False, time_fn=VirtualClock(),
+                        **FABRIC_SERVE)
+    out = {r.rid: r.tokens for r in srv.run(
+        [Request(rid, *last[rid]) for rid in resumed_rids]
+        + [Request(off + rid, orig[rid].prompt, orig[rid].max_new_tokens)
+           for rid in resumed_rids])}
+    for rid in resumed_rids:
+        committed = last[rid][0][len(orig[rid].prompt):]
+        assert rep.tokens[rid] == committed + out[rid], (
+            f"rid {rid}: served tokens differ from the fault-free run of "
+            f"its last attempt ({len(committed)} committed)")
+    whole = {rid: out[off + rid] for rid in resumed_rids}
+    return {"requests_checked": len(resumed_rids),
+            "redispatched": sum(n > 1 for n in sends.values()),
+            "resumed_with_committed_tokens": len(resumed_rids),
+            "resumed_differing_from_uninterrupted": sum(
+                whole[rid] != rep.tokens[rid] for rid in resumed_rids),
+            "sends": sum(sends.values())}
+
+
+def phase_serve_fabric(eng, smi: str, sync=None) -> dict:
+    """The serving fabric (serving/fabric/) on phase 4's bf16 engine
+    (LLaMA-7B) through ``run_twin``: 3 slot-paged replicas
+    (:data:`FABRIC_SERVE`) wrapping the one engine, the autoscaler armed
+    (:data:`FABRIC_SCALER`), 48 seeded requests of 3 tenants on the twin's
+    virtual clock, and :data:`FABRIC_FAULTS` (a crash, a breaker trip, a
+    straggle the per-attempt timeout cuts). Held: every request served or
+    shed and none failed; each stream equals its result's tokens; a second
+    chaos run gives the same fingerprint; each resumed request's tokens
+    equal its committed tokens followed by a fault-free engine's run of
+    its last attempt (bf16: a resumed request re-prefills what the
+    uninterrupted run decoded, so this is the exact form); no recompile;
+    the decode kernel launched 32 x (decode steps + warm-up captures) over
+    every replica built, dead, removed and added ones included; the card
+    bytes allocated after the fabric is dropped at most
+    :data:`FABRIC_MEM_SLACK` above those before. Reported: walls, each
+    replica's warm-up (capture) ms, host ms per replica step, the report's
+    counters and timelines."""
+    sync = sync or torch.cuda.synchronize
+    t0 = time.perf_counter()
+    layers = eng.module.config.num_layers
+    kw = dict(initial_replicas=3, serving_kw=FABRIC_SERVE,
+              router_kw=FABRIC_ROUTER, autoscaler_kw=FABRIC_SCALER,
+              faults=FABRIC_FAULTS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    runs = []
+    for i in range(2):
+        reset_counts()                   # the main path starts here
+        t_run = time.perf_counter()
+        rep, streamed, reqs, probe = _fabric_run(eng, 2020, sync, **kw)
+        wall = time.perf_counter() - t_run
+        launches = read_counts()
+        gc.collect()                     # the fabric is dropped
+        torch.cuda.empty_cache()
+        after = torch.cuda.memory_allocated()
+        assert rep.failed == 0 and rep.served + rep.shed == len(reqs), rep
+        for rid, tokens in rep.tokens.items():
+            assert streamed[rid] == tokens, f"rid {rid}: stream != tokens"
+        assert rep.recompiles == 0, rep.recompiles
+        steps = sum(r["decode_steps"] for r in probe.replicas)
+        captures = sum(r["captures"] for r in probe.replicas)
+        assert launches["fused_decode_step"] == layers * (steps + captures), \
+            (launches, steps, captures)
+        assert launches["fused_block_decode_step"] == 0, launches
+        assert after <= before + FABRIC_MEM_SLACK, (before, after)
+        runs.append({"report": rep, "probe": probe, "reqs": reqs,
+                     "wall_s": wall, "launches": launches,
+                     "decode_steps": steps, "captures": captures,
+                     "card_bytes_after": after})
+    a, b = runs
+    assert a["report"].fingerprint() == b["report"].fingerprint()
+    counters = a["report"].counters
+    assert counters["replica_crashes"] >= 1 and counters["failovers"] >= 1
+    assert counters["quarantines"] >= 1 and counters["timeouts"] >= 1
+    t_cont = time.perf_counter()
+    cont = _fabric_continuations(eng, a["reqs"], a["probe"], a["report"])
+    cont_s = time.perf_counter() - t_cont
+    step_ms = [ms for r in a["probe"].replicas for ms in r["step_ms"]]
+    rep = a["report"]
+    info = {"phase": "serve_fabric", "card": smi,
+            "model": "llama_7b, phase 4's engine (bf16, random weights "
+                     "seed 0)",
+            "config": {**kw, "tenants": FABRIC_TENANTS, "seed": 2020},
+            "requests": len(a["reqs"]), "served": rep.served,
+            "shed": rep.shed, "failed": rep.failed,
+            "per_tenant": rep.per_tenant, "counters": counters,
+            "alert_timeline": rep.alert_timeline,
+            "scale_timeline": rep.scale_timeline,
+            "pool_sizes": rep.pool_sizes,
+            "drain_durations_ms": rep.drain_durations_ms,
+            "slo_attainment": rep.slo_attainment,
+            "recompiles": rep.recompiles,
+            "fingerprint": rep.fingerprint(),
+            "fingerprint_equal_on_replay": True, "streams_equal_tokens": True,
+            "continuations": cont, "continuations_s": cont_s,
+            "replicas": [{"name": r["name"], "warmup_ms": r["warmup_ms"],
+                          "capture_ms": r["capture_ms"],
+                          "captures": r["captures"],
+                          "steps": len(r["step_ms"]),
+                          "decode_steps": r["decode_steps"]}
+                         for r in a["probe"].replicas],
+            "host_ms_per_replica_step": {
+                "steps": len(step_ms), "p50": _pct(step_ms, 50),
+                "p95": _pct(step_ms, 95),
+                "mean": float(np.mean(step_ms))},
+            "decode_steps": a["decode_steps"], "captures": a["captures"],
+            "run_wall_s": [r["wall_s"] for r in runs],
+            "card_bytes_before": before,
+            "card_bytes_after": [r["card_bytes_after"] for r in runs],
+            "launches": {k: sum(r["launches"][k] for r in runs)
+                         for k in WRAPPERS},
+            "phase_wall_s": time.perf_counter() - t0}
+    emit(info)
+    return info
+
+
+def fabric_fp32_check(eng) -> dict:
+    """On an fp32 engine: one twin run with a crash (2 replicas, no
+    autoscaler) against a fault-free fixed pool of 2: the served tokens
+    equal, every request served."""
+    tenants = ({"name": "chat", "kind": "bimodal", "n": 16, "rate": 60.0,
+                "short_lens": (24, 48), "long_lens": (200,),
+                "long_frac": 0.25, "short_new": (32,), "long_new": (32,)},)
+    vocab = eng.module.config.vocab_size
+    kw = dict(initial_replicas=2, serving_kw=FABRIC_SERVE,
+              router_kw=dict(max_dispatch_depth=8))
+    t0 = time.perf_counter()
+    rep = run_twin(eng, _fabric_trace(7, vocab, tenants=tenants),
+                   faults=({"kind": "crash", "replica": "r1",
+                            "at_step": 12},), **kw)
+    oracle = run_twin(eng, _fabric_trace(7, vocab, tenants=tenants), **kw)
+    assert rep.failed == 0 and rep.served == 16 == oracle.served, rep
+    assert rep.counters["replica_crashes"] == 1
+    assert rep.counters["failovers"] >= 1, rep.counters
+    assert rep.tokens == oracle.tokens, "fp32 failover changed tokens"
+    return {"served": rep.served, "failovers": rep.counters["failovers"],
+            "replica_restarts": rep.counters["replica_restarts"],
+            "tokens_equal_fault_free": True,
+            "wall_s": time.perf_counter() - t0}
 
 
 # ------------------------------------------------------- data efficiency
@@ -5334,6 +5632,7 @@ def main() -> int:
                                             baseline=bf16_tokens)[0],
                      phase_serve_preempt_chunked(eng, dev["nvidia_smi"]),
                      phase_serve_telemetry(eng, dev["nvidia_smi"]),
+                     phase_serve_fabric(eng, dev["nvidia_smi"]),
                      phase_serve_spec(eng, dev["nvidia_smi"],
                                       ("a_self_draft", "b_tinyllama_draft",
                                        "c_ngram_block_int8_pool",

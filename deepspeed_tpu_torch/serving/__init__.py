@@ -1,13 +1,23 @@
 """Continuous-batching serving runtime of the PyTorch port (slot-paged and
 block-paged with radix prefix sharing; chunked prefill, priority preemption
 with host KV swap, sampling, cancel, speculative decoding, span tracing):
-see serving/engine.py."""
+see serving/engine.py. The fault-tolerant multi-replica fabric — router,
+circuit breakers, replica supervisor, elastic autoscaler and the digital
+twin — lives in serving/fabric/, its typed errors in serving/errors.py."""
 
 from deepspeed_tpu_torch.serving.engine import ServingEngine  # noqa: F401
 from deepspeed_tpu_torch.serving.errors import (  # noqa: F401
     EmptyPromptError, EngineConfigError, EngineInvariantError, EngineTypeError,
-    InvalidMaxNewTokensError, InvalidRequestError, KVLifecycleError,
-    PromptTooLongError, ServingError, SlotCapacityError, SwapCapacityError)
+    FabricError, InvalidMaxNewTokensError, InvalidRequestError,
+    KVLifecycleError, LastReplicaError, NoHealthyReplicaError,
+    PromptTooLongError, ReplicaAdmissionError, ReplicaCrashedError,
+    RetriesExhaustedError, RouterOverloadedError, ServingError,
+    SlotCapacityError, SwapCapacityError, TransientReplicaError,
+    UnknownReplicaError)
+from deepspeed_tpu_torch.serving.fabric import (  # noqa: F401
+    CircuitBreaker, ElasticAutoscaler, FabricRouter, InProcessReplica, Replica,
+    ReplicaHealth, ReplicaSupervisor, ScaleDecision, TwinReport, run_twin,
+    synthetic_tenant_trace)
 from deepspeed_tpu_torch.serving.kv_blocks import BlockKVPool  # noqa: F401
 from deepspeed_tpu_torch.serving.kv_slots import SlotKVCache  # noqa: F401
 from deepspeed_tpu_torch.serving.radix import PrefixCache  # noqa: F401

@@ -73,6 +73,11 @@ class RequestResult:
     preemptions: int = 0
     preempted_wall: float = 0.0
     decode_preempted_wall: float = 0.0
+    # fabric accounting: times the request failed over to a surviving
+    # replica after a crash, and the replica that finished it. The
+    # fabric's terminal states add "shed_overload" | "rejected" | "failed"
+    failovers: int = 0
+    replica: str = ""
 
     @property
     def latency(self) -> float:

@@ -2,9 +2,11 @@
 deepspeed_tpu/testing/)."""
 
 from deepspeed_tpu_torch.testing.fault_injection import (
+    AlertStormPlan,
     FakeClock,
     FaultInjector,
     PoisonedDataset,
+    ReplicaFaultPlan,
     ScriptedWorkerGroup,
     SimulatedCrash,
     corrupt_file,
@@ -12,6 +14,6 @@ from deepspeed_tpu_torch.testing.fault_injection import (
     poison_sample,
 )
 
-__all__ = ["FakeClock", "FaultInjector", "PoisonedDataset",
-           "ScriptedWorkerGroup", "SimulatedCrash", "corrupt_file",
-           "flip_param_bit", "poison_sample"]
+__all__ = ["AlertStormPlan", "FakeClock", "FaultInjector", "PoisonedDataset",
+           "ReplicaFaultPlan", "ScriptedWorkerGroup", "SimulatedCrash",
+           "corrupt_file", "flip_param_bit", "poison_sample"]

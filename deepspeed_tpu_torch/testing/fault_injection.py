@@ -16,8 +16,15 @@ rot in a published checkpoint). For the elasticity layer,
 :class:`~deepspeed_tpu_torch.elasticity.elastic_agent.ElasticAgent`
 through arbitrary failure/preemption schedules in virtual time.
 
-The JAX package's serving-fabric seams (replica fault plans, alert
-storms) wait for the port's serving fabric.
+For the serving fabric, the injector grows replica seams:
+:meth:`FaultInjector.replica_plan` returns a per-replica
+:class:`ReplicaFaultPlan` that an
+:class:`~deepspeed_tpu_torch.serving.fabric.replica.InProcessReplica`
+consults on every step and probe — a scripted crash on the Nth step,
+slow-replica straggling (virtual-time stalls), flaky steps and failing
+health probes — and :meth:`FaultInjector.alert_storm` scripts synthetic
+SLO alert transitions (:class:`AlertStormPlan`), so a multi-replica chaos
+run stays in-process, in virtual time.
 
 Usage::
 
@@ -59,6 +66,14 @@ class FaultInjector:
         self.read_calls = 0
         self.replace_calls = 0
         self._saved = {}
+        # serving-fabric seams: replica name -> fault plan, consulted by
+        # InProcessReplica on every step/probe. Plans are plain scripted
+        # state, not monkey-patches, so restore() does not apply — they
+        # die with the injector.
+        self._replica_plans: Dict[str, "ReplicaFaultPlan"] = {}
+        # alert-storm seams: scripted synthetic SLO alert transitions,
+        # drained by the twin into SLOEngine.inject_alert
+        self._alert_storms: List["AlertStormPlan"] = []
 
     # ------------------------------------------------------------ lifecycle
     def __enter__(self) -> "FaultInjector":
@@ -172,6 +187,73 @@ class FaultInjector:
 
         self._patch("read_bytes", read_bytes)
 
+    # ----------------------------------------------------- serving seams
+    def replica_plan(self, name: str) -> "ReplicaFaultPlan":
+        """Fault plan for replica ``name`` (created on first access).
+        Hand it to ``InProcessReplica(chaos=...)``; the scripting
+        helpers below mutate the same plan by name."""
+        return self._replica_plans.setdefault(name, ReplicaFaultPlan(name))
+
+    def crash_replica_step(self, name: str, nth: int):
+        """Replica ``name`` dies entering its ``nth`` step (1-based,
+        counting from when the plan attaches): models a replica process
+        SIGKILLed mid-trace — the router must fail its in-flight
+        requests over to a survivor."""
+        self.replica_plan(name).crash_at_step = nth
+
+    def flaky_replica_step(self, name: str, nth: int, count: int = 1):
+        """Steps ``nth .. nth+count-1`` of replica ``name`` raise a
+        retryable transient error (the replica stays alive): repeated
+        transients should trip the router's circuit breaker."""
+        plan = self.replica_plan(name)
+        plan.flaky_steps.update(range(nth, nth + count))
+
+    def straggle_replica(self, name: str, delay_s: float, *,
+                         from_step: int = 1, until_step: Optional[int] = None):
+        """Replica ``name`` becomes a straggler: every step in
+        ``[from_step, until_step]`` stalls the (virtual) clock by
+        ``delay_s`` — the slow-host shape that blows per-request
+        deadlines without any crash."""
+        plan = self.replica_plan(name)
+        plan.slow_from, plan.slow_until = from_step, until_step
+        plan.slow_delay_s = delay_s
+
+    def fail_replica_probes(self, name: str, count: int = 1):
+        """The next ``count`` health probes of replica ``name`` raise a
+        transient error (probe timeout / connection refused) while
+        steps keep working — health-check flap the breaker must absorb
+        or act on."""
+        self.replica_plan(name).failing_probes += count
+
+    # ------------------------------------------------------- alert seams
+    def alert_storm(self, *, start_s: float, count: int = 10,
+                    period_s: float = 0.1, severity: str = "page",
+                    rule: str = "injected:storm", sli: str = "availability",
+                    flap: bool = True) -> "AlertStormPlan":
+        """Script a storm of SYNTHETIC SLO alert transitions: ``count``
+        fires starting at ``start_s``, one per ``period_s``; with
+        ``flap=True`` each fire resolves half a period later — the
+        pathological flapping shape an autoscaler's hysteresis and
+        cooldowns must absorb without thrashing the pool. The twin
+        drains :meth:`due_alerts` each iteration into
+        ``SLOEngine.inject_alert``, which fans the alerts to every
+        subscriber through the real emit path without perturbing the
+        burn-rate state machine."""
+        plan = AlertStormPlan(start_s=start_s, count=count,
+                              period_s=period_s, severity=severity,
+                              rule=rule, sli=sli, flap=flap)
+        self._alert_storms.append(plan)
+        return plan
+
+    def due_alerts(self, now: float) -> List:
+        """Pop every scripted alert transition due at/before ``now``
+        (across all storms), in time order."""
+        out = []
+        for plan in self._alert_storms:
+            out.extend(plan.pop_due(now))
+        out.sort(key=lambda a: a.t)
+        return out
+
     def crash_on_replace(self, nth: int = 1):
         """Process dies at the publish step: the tmp file is complete but
         the atomic rename never happens — the prior version must survive."""
@@ -273,12 +355,104 @@ def corrupt_file(path, keep_bytes: int = 64):
         f.write(raw[:keep_bytes])
 
 
+class ReplicaFaultPlan:
+    """Scripted fault schedule for one serving replica.
+
+    ``InProcessReplica`` calls :meth:`on_step` entering every engine
+    step and :meth:`on_probe` on every health probe; the plan raises
+    the typed serving errors the fabric's failure model is written
+    against — :class:`SimulatedCrash` for process death (the replica
+    wrapper converts it to a terminal ``ReplicaCrashedError``) and
+    ``TransientReplicaError`` for retryable flap. Slow-straggler steps
+    stall the caller's virtual clock (any object with ``advance``), so
+    "this replica is 100x slower" is expressible without wall time.
+    """
+
+    def __init__(self, name: str):
+        self.name = name
+        self.crash_at_step: Optional[int] = None
+        self.flaky_steps: set = set()
+        self.slow_from: int = 0
+        self.slow_until: Optional[int] = None
+        self.slow_delay_s: float = 0.0
+        self.failing_probes: int = 0
+        self.step_calls = 0
+        self.probe_calls = 0
+
+    def on_step(self, clock=None) -> None:
+        from deepspeed_tpu_torch.serving.errors import TransientReplicaError
+
+        self.step_calls += 1
+        n = self.step_calls
+        if self.crash_at_step is not None and n >= self.crash_at_step:
+            # one-shot: a crash kills ONE process; a resurrected replica
+            # re-attaching the same plan starts clean (script another
+            # crash with crash_replica_step again if the schedule says so)
+            self.crash_at_step = None
+            raise SimulatedCrash(
+                f"replica {self.name}: scripted crash at step {n}")
+        if (self.slow_delay_s and n >= self.slow_from
+                and (self.slow_until is None or n <= self.slow_until)):
+            advance = getattr(clock, "advance", None)
+            if advance is not None:
+                advance(self.slow_delay_s)
+        if n in self.flaky_steps:
+            raise TransientReplicaError(
+                f"replica {self.name}: scripted flaky step {n}")
+
+    def on_probe(self) -> None:
+        from deepspeed_tpu_torch.serving.errors import TransientReplicaError
+
+        self.probe_calls += 1
+        if self.failing_probes > 0:
+            self.failing_probes -= 1
+            raise TransientReplicaError(
+                f"replica {self.name}: scripted probe failure "
+                f"#{self.probe_calls}")
+
+
+class AlertStormPlan:
+    """Scripted synthetic-alert schedule: a deterministic sequence of
+    ``(t, "fired"/"resolved")`` transitions for one rule name. Builds
+    real :class:`~deepspeed_tpu_torch.telemetry.slo.SLOAlert` objects
+    lazily (keeps this module import-light)."""
+
+    def __init__(self, *, start_s: float, count: int, period_s: float,
+                 severity: str, rule: str, sli: str, flap: bool):
+        self.rule = rule
+        self.sli = sli
+        self.severity = severity
+        self.delivered = 0
+        self._schedule: List = []   # (t, transition) pending, time-ordered
+        for i in range(count):
+            t = start_s + i * period_s
+            self._schedule.append((t, "fired"))
+            if flap:
+                self._schedule.append((t + period_s / 2.0, "resolved"))
+        self._schedule.sort(key=lambda x: x[0])
+
+    def pop_due(self, now: float) -> List:
+        from deepspeed_tpu_torch.telemetry.slo import SLOAlert
+
+        out = []
+        while self._schedule and self._schedule[0][0] <= now:
+            t, transition = self._schedule.pop(0)
+            self.delivered += 1
+            out.append(SLOAlert(
+                rule=self.rule, sli=self.sli, severity=self.severity,
+                kind=transition, t=t, burn_short=99.0, burn_long=99.0,
+                budget_consumed=1.0))
+        return out
+
+
 class FakeClock:
-    """Deterministic virtual clock for ElasticAgent tests: pass ``.time``
-    as ``time_fn`` and ``.sleep`` as ``sleep_fn``. ``auto_dt`` > 0
-    advances the clock by that much per ``time()`` READ, so a loop that
-    polls the clock once per iteration replays deterministically without
-    anyone calling ``advance``."""
+    """Deterministic virtual clock for ElasticAgent / serving-fabric
+    tests: pass ``.time`` as ``time_fn`` and ``.sleep`` as ``sleep_fn``.
+    ``auto_dt`` > 0 advances the clock by that much per ``time()`` READ
+    — the serving engines poll the clock once per iteration, so an
+    auto-advancing clock replays arrival traces deterministically
+    without anyone calling ``advance`` (the fabric chaos suite's
+    mode)."""
 
     def __init__(self, start: float = 0.0, auto_dt: float = 0.0):
         self.now = start

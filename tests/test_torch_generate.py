@@ -59,6 +59,18 @@ LLAMA_REP8 = dict(vocab_size=256, max_seq_len=128, num_layers=2,
 MAX_NEW = 8
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _module_one_intra_op_thread():
+    """torch's intra-op team cut to one thread for the module (its models
+    are tiny: every op is a few hundred rows at most; on a host loaded by
+    parallel test workers each op's thread barrier cost more than the op),
+    restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _llama(quant=False):
     groups.reset()
     jeng = deepspeed_tpu.init_inference(

@@ -74,6 +74,18 @@ BS = 16
 VOCAB = 512
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _module_one_intra_op_thread():
+    """torch's intra-op team cut to one thread for the module (its models
+    are tiny: every op is a few hundred rows at most; on a host loaded by
+    parallel test workers each op's thread barrier cost more than the op),
+    restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class VirtualClock:
     def __init__(self, dt=0.001):
         self.t, self.dt = 0.0, dt

@@ -68,6 +68,19 @@ import deepspeed_tpu_torch.ops.sparse_attention as tsa
 
 H, BLK, T = 2, 8, 64  # 8 blocks
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _module_one_intra_op_thread():
+    """torch's intra-op team cut to one thread for the module (its plain
+    versions walk block tables in small per-block products; on a host
+    loaded by parallel test workers each op's thread barrier cost more
+    than the op), restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # (class name, constructor kwargs): every class, BigBird's and Variable's
 # seeds, per-head layouts and different global patterns
 LAYOUT_CASES = [
